@@ -1,0 +1,59 @@
+"""sparsebase_tpu_torch — the PyTorch + CUDA port of ``sparsebase_tpu``.
+
+It mirrors the JAX package's module paths and names, holds its data in
+torch tensors, and runs the hand-written Hopper kernels of ``csrc/`` on
+CUDA tensors (their plain PyTorch versions on CPU tensors). It imports
+neither ``jax`` nor ``sparsebase_tpu``.
+
+Layer map:
+
+    models       preprocess_pipeline, spmv (format-polymorphic)
+    ops          reorder (DegreeReorder) / permute / kernels (K1 DIA SpMV, K2 CSR SpMV)
+    dispatch     Operation (auto-converting multi-format dispatch)
+    convert      conversion graph + torch conversion functions
+    formats      COO / CSR / DIA frozen dataclasses of tensors
+    context      Host / Device placement, read from tensor.device
+    utils        exceptions, logger, checked dtype casts
+    _build       nvcc build + ctypes binding of csrc/*.cu
+    interop      carry reference formats across (numpy arrays)
+"""
+
+__version__ = "0.1.0"
+
+from . import context, convert, dispatch, formats, models, ops, utils
+from .context import CPU_CONTEXT, Context, DeviceContext, HostContext, context_for, context_of
+from .convert import can_convert, convert_cached, register_conversion
+from .convert import convert as convert_format
+from .dispatch import ClassMatcher, Operation
+from .formats import COO, CSR, DIA, Format
+from .models import preprocess_pipeline, spmv, spmv_csr
+
+__all__ = [
+    "__version__",
+    "context",
+    "convert",
+    "dispatch",
+    "formats",
+    "models",
+    "ops",
+    "utils",
+    "Format",
+    "COO",
+    "CSR",
+    "DIA",
+    "Context",
+    "HostContext",
+    "DeviceContext",
+    "CPU_CONTEXT",
+    "context_for",
+    "context_of",
+    "can_convert",
+    "convert_format",
+    "convert_cached",
+    "register_conversion",
+    "Operation",
+    "ClassMatcher",
+    "preprocess_pipeline",
+    "spmv",
+    "spmv_csr",
+]

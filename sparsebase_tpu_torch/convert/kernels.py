@@ -1,0 +1,100 @@
+"""Format-conversion functions, as torch ops on the tensors' own device.
+
+Counterpart of ``sparsebase_tpu/convert/kernels.py`` (reference
+src/sparsebase/converter/converter_order_two.cc — COO→CSR :163-214,
+CSR→COO :72-118). One formulation serves CPU and CUDA tensors alike:
+
+* ``indptr`` from row-sorted COO is one ``searchsorted`` of the row
+  boundaries (int64 offsets);
+* row expansion is ``repeat_interleave`` with a known output size;
+* a (major, minor) sort packs both int32 ids into one int64 key and runs a
+  single stable ``torch.sort``.
+
+None of them forms an out-of-range index, so nothing relies on JAX's
+``mode="drop"`` dropping one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..formats.coo import COO
+from ..formats.csr import CSR
+from ..formats.dia import DIA
+
+
+def indptr_from_sorted_rows(row: torch.Tensor, nrows: int) -> torch.Tensor:
+    """CSR ``indptr`` (int64) from a row-sorted COO row array:
+    ``indptr[r]`` = first position whose row is ``>= r``."""
+    bounds = torch.arange(nrows + 1, dtype=row.dtype, device=row.device)
+    return torch.searchsorted(row, bounds)
+
+
+def expand_row_table(table: torch.Tensor, indptr: torch.Tensor, nnz: int) -> torch.Tensor:
+    """``out[k] = table[r(k)]`` over the CSR row blocks (empty rows emit
+    nothing)."""
+    return torch.repeat_interleave(table, indptr[1:] - indptr[:-1], output_size=nnz)
+
+
+def sort_by_pairs(major: torch.Tensor, minor: torch.Tensor, *payload):
+    """Stable sort of entries by (major, minor), carrying payload tensors.
+
+    Both keys are non-negative int32 ids, packed as ``major << 32 | minor``
+    into one int64 key. Returns ``(major_sorted, minor_sorted,
+    *payload_sorted)``; ``None`` payloads pass through as ``None``."""
+    key = (major.to(torch.int64) << 32) | minor.to(torch.int64)
+    key, order = torch.sort(key, stable=True)
+    out = [(key >> 32).to(major.dtype), (key & 0xFFFFFFFF).to(minor.dtype)]
+    out += [None if p is None else p[order] for p in payload]
+    return tuple(out)
+
+
+def coo_to_csr(coo: COO) -> CSR:
+    """COO→CSR relying on the row-major sort invariant
+    (CooCsrFunctionConditional, converter_order_two.cc:163-214)."""
+    indptr = indptr_from_sorted_rows(coo.row, coo.nrows)
+    return CSR(indptr, coo.col, coo.vals, coo.shape)
+
+
+def csr_to_coo(csr: CSR) -> COO:
+    """Row expansion (CsrCooFunctionConditional, converter_order_two.cc:72-118)."""
+    return COO(csr.row_of_nnz(), csr.indices, csr.vals, csr.shape)
+
+
+def csr_to_dia(csr: CSR) -> DIA:
+    """CSR → DIA. The present offsets (col - row) are found with one
+    ``unique`` (a host sync: they size the band); the band fills with one
+    accumulating scatter. Storage is O(diagonals · n): use on banded
+    matrices."""
+    n, m = csr.shape
+    row = csr.row_of_nnz()
+    off = csr.indices.to(torch.int32) - row.to(torch.int32)
+    offsets = torch.unique(off)
+    d_idx = torch.searchsorted(offsets, off)
+    vals = csr.vals
+    if vals is None:
+        vals = torch.ones((csr.nnz,), dtype=torch.float32, device=off.device)
+    data = torch.zeros((offsets.shape[0], n), dtype=vals.dtype, device=off.device)
+    data.index_put_((d_idx, row.long()), vals, accumulate=True)
+    return DIA(offsets, data, (n, m))
+
+
+def dia_to_csr(dia: DIA) -> CSR:
+    """DIA → CSR on the band's device. The stored band is scanned densely;
+    explicit zeros are dropped. Offsets ascend, so a row-major walk of the
+    (row, diagonal) mask yields sorted columns without a sort."""
+    n, m = dia.shape
+    offs = dia.offsets.to(torch.int64)
+    i = torch.arange(n, device=offs.device)
+    j = i[None, :] + offs[:, None]
+    ok = ((j >= 0) & (j < m) & (dia.data != 0)).T
+    r, d = ok.nonzero(as_tuple=True)
+    col = (r + offs[d]).to(torch.int32)
+    vals = dia.data[d, r]
+    return CSR(indptr_from_counts(ok.sum(dim=1)), col, vals, (n, m))
+
+
+def indptr_from_counts(counts: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum of per-row counts, as int64 offsets."""
+    zero = torch.zeros((1,), dtype=torch.int64, device=counts.device)
+    return torch.cat([zero, torch.cumsum(counts, dim=0, dtype=torch.int64)])

@@ -1,0 +1,64 @@
+"""CSR row SpMV: the wrapper over kernel K2 and its plain version.
+
+K2 (``csrc/csr_spmv.cu``) takes over the main path's SpMV, which the JAX
+package wrote as an XLA cumsum boundary difference
+(``sparsebase_tpu/models/pipelines.py:59-61,189-198``). CPU tensors take
+the plain version; CUDA tensors launch the kernel, or the wrapper raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..._build import Kernel
+from ...formats.csr import CSR
+from ...utils.exceptions import TypeMismatchError
+
+_K2 = Kernel(
+    "csr_spmv",
+    "sb_csr_spmv",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p],
+)
+
+
+def csr_spmv_plain(csr: CSR, x: torch.Tensor) -> torch.Tensor:
+    """Per-row sums by ``index_add_`` in ``x.dtype`` (the oracle of K2;
+    on a CUDA device its additions land in no fixed order)."""
+    prod = x[csr.indices]
+    if csr.vals is not None:
+        prod = csr.vals.to(x.dtype) * prod
+    y = torch.zeros((csr.nrows,), dtype=x.dtype, device=x.device)
+    return y.index_add_(0, csr.row_of_nnz(), prod)
+
+
+def csr_spmv(csr: CSR, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x, one exact-order sum per row."""
+    if x.shape != (csr.ncols,):
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected ({csr.ncols},)")
+    tensors = [t for t in (csr.indptr, csr.indices, csr.vals, x) if t is not None]
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        return csr_spmv_plain(csr, x)
+    if len(devices) != 1 or x.device.type != "cuda":
+        raise TypeMismatchError(f"csr_spmv: tensors on {sorted(map(str, devices))}; need one CUDA device")
+    if csr.indptr.dtype != torch.int64 or csr.indices.dtype != torch.int32:
+        raise TypeMismatchError("csr_spmv: needs int64 indptr and int32 column ids")
+    if x.dtype != torch.float32 or (csr.vals is not None and csr.vals.dtype != torch.float32):
+        raise TypeMismatchError("csr_spmv: needs float32 x and values")
+    if csr.indptr.shape != (csr.nrows + 1,):
+        raise ValueError("csr_spmv: indptr length is not nrows + 1")
+    indptr, indices, x = csr.indptr.contiguous(), csr.indices.contiguous(), x.contiguous()
+    vals = None if csr.vals is None else csr.vals.contiguous()
+    y = torch.empty((csr.nrows,), dtype=torch.float32, device=x.device)
+    if csr.nrows == 0:
+        return y
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _K2.launch(
+            indptr.data_ptr(), indices.data_ptr(),
+            None if vals is None else vals.data_ptr(),
+            x.data_ptr(), y.data_ptr(), csr.nrows, stream,
+        )
+    return y
