@@ -9,23 +9,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    limit (``nvidia-smi``);
 1. builds the kernels from ``sparsebase_tpu_torch/csrc`` (nvcc, sm_90a);
 2. kernel vs plain version on the card, at edge shapes: K1 (DIA SpMV; f32
-   and bf16 band, strided and tiled layout, a rectangular band) and K2
-   (CSR SpMV; empty rows, a pattern matrix, one row of 262,144 entries);
-3. the main path, once, with every launch count set to 0 just before:
-   path A, ``preprocess_pipeline`` on a ``--nnz`` COO made on the device
-   (uniform rows, columns 20% from [0, n/100), row-major sorted, duplicates
-   kept; n = nnz/16); path B, a banded COO (33 diagonals, ``--band-nnz``
-   stored entries) through ``convert(CSR)``, ``convert(DIA)`` and
-   ``spmv(dia, x)``. Both kernels must have launched;
-4. checks of path A (indptr, per-row column order, degree order, ``y``
-   against the plain SpMV of the permuted matrix) and of path B (K1 against
-   K2 and against its plain version);
-5. times: path A end to end (median of 5 after one warm-up), and each
-   kernel beside its plain version at the main path's shapes.
+   and bf16 band, strided and tiled layout, a rectangular band), K2 (CSR
+   SpMV; empty rows, a pattern matrix, one row of 262,144 entries), K3
+   (indptr; leading, interior and trailing empty rows, no entries, a gap of
+   1M rows), K5 (radix rank and argsort; ties, descending, all equal,
+   three passes, 64-bit keys) and K4 (relocation; rows, columns, both,
+   neither, a pattern matrix, float64 values, 20 duplicates, rows of 5,000
+   and 262,144 entries);
+3. the slice's paths, each once, with every launch count set to 0 just
+   before it and read just after: path A, ``preprocess_pipeline`` on a
+   ``--nnz`` COO made on the device (uniform rows, columns 20% from
+   [0, n/100), row-major sorted, duplicates kept; n = nnz/16); path B, a
+   banded COO (33 diagonals, ``--band-nnz`` stored entries) through
+   ``convert(CSR)``, ``convert(DIA)`` and ``spmv(dia, x)``; path C, the op
+   API on path A's COO: ``convert(CSR)``, ``DegreeReorder(ascending=False)``,
+   ``permute_2d`` with a seeded random column order and with rows only,
+   ``spmv``. Every kernel of each path must have launched;
+4. checks of path A (indptr, per-row column order, degree order, the
+   permuted CSR equal bit for bit to the plain relocation, ``y`` against
+   the plain SpMV of the permuted matrix), of path B (K1 against K2 and
+   against its plain version) and of path C (``ro`` and both permuted CSRs
+   equal to their plain versions, ``y`` against the plain SpMV);
+5. times: paths A and C end to end (median of 5 after one warm-up), and
+   each kernel beside its plain version at the main path's shapes.
 
-The agreement of a kernel with its plain version is held per row to
+The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
-sums of the same terms taken in different orders.
+sums of the same terms taken in different orders. K3, K4 and K5 compute
+exact results and must equal their plain versions (``torch.equal``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -227,9 +238,100 @@ def phase_kernels_vs_plain(g, dev) -> None:
         check_rows(f"K2 {name}", y, csr_spmv_plain(csr, x), csr.degrees(), absdot)
 
 
+def check_equal(name: str, got, want) -> None:
+    """Exact agreement of an integer-result kernel with its plain version."""
+    same = got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)
+    print(f"  {name}: n={want.numel()} equal={same}")
+    check(same, f"{name}: kernel and plain version differ")
+
+
+def check_csr_equal(name: str, got, want) -> None:
+    for field in ("indptr", "indices", "vals"):
+        a, b = getattr(got, field), getattr(want, field)
+        if b is None:
+            check(a is None, f"{name}: {field} should be None")
+        else:
+            check_equal(f"{name} {field}", a, b)
+
+
+def sorted_rows(g, dev, nrows, nnz, lo=0, hi=None):
+    row = torch.randint(lo, nrows if hi is None else hi, (nnz,), generator=g, device=dev, dtype=torch.int32)
+    return torch.sort(row).values
+
+
+def phase_exact_kernels_vs_plain(g, dev) -> None:
+    """K3, K5 and K4 against their plain versions at edge shapes."""
+    from sparsebase_tpu_torch.ops.kernels import (
+        indptr_from_sorted_rows, indptr_plain, radix_argsort, radix_argsort_plain, radix_rank,
+        radix_rank_plain, relocate_csr, relocate_csr_plain,
+    )
+
+    gap = torch.cat([sorted_rows(g, dev, 3, 100), torch.full((50,), 1_000_003, dtype=torch.int32, device=dev)])
+    for name, row, nrows in (
+        ("leading empty rows", sorted_rows(g, dev, 50_000, 400_000, lo=1_000), 50_000),
+        ("trailing empty rows", sorted_rows(g, dev, 50_000, 400_000, hi=40_000), 50_000),
+        ("interior empty rows", sorted_rows(g, dev, 300_000, 200_000), 300_000),
+        ("no entries", torch.zeros((0,), dtype=torch.int32, device=dev), 1_000),
+        ("gap of 1M rows", gap, 1_000_010),
+    ):
+        check_equal(f"K3 {name}", indptr_from_sorted_rows(row, nrows), indptr_plain(row, nrows))
+
+    for name, keys in (
+        ("ties 0..39", torch.randint(0, 40, (1_000_003,), generator=g, device=dev)),
+        ("descending", -torch.randint(0, 40, (1_000_003,), generator=g, device=dev)),
+        ("all equal", torch.full((70_001,), 9, dtype=torch.int64, device=dev)),
+        ("three passes", torch.randint(0, 1 << 20, (2_000_000,), generator=g, device=dev, dtype=torch.int32) * 11),
+        ("64-bit keys", torch.randint(-(1 << 40), 1 << 40, (300_000,), generator=g, device=dev) // 1000),
+    ):
+        check_equal(f"K5 rank {name}", radix_rank(keys), radix_rank_plain(keys))
+        check_equal(f"K5 argsort {name}", radix_argsort(keys), radix_argsort_plain(keys))
+
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
+
+    n, ncols = 50_000, 30_000
+    for name, long_row, rows, cols, pattern, dtype in (
+        ("rows only", None, True, False, False, torch.float32),
+        ("columns only", None, False, True, False, torch.float32),
+        ("both", None, True, True, False, torch.float32),
+        ("neither (sort_rows)", None, False, False, False, torch.float32),
+        ("pattern", None, True, True, True, torch.float32),
+        ("float64 values", None, True, True, False, torch.float64),
+        ("one row of 5000", 5_000, True, True, False, torch.float32),
+        ("one row of 262144", 262_144, True, True, False, torch.float32),
+    ):
+        # degrees over the warp tier (<= 32), the block tier (<= 4096) and
+        # empty rows; columns unsorted inside rows
+        deg = torch.randint(0, 40, (n,), generator=g, device=dev)
+        deg[::7] = 0
+        deg[5::97] = torch.randint(33, 4097, (deg[5::97].numel(),), generator=g, device=dev)
+        if long_row is not None:
+            deg[n // 2] = long_row
+        indptr = indptr_from_counts(deg)
+        cols_ = torch.randint(0, ncols, (int(indptr[-1]),), generator=g, device=dev, dtype=torch.int32)
+        first = int(indptr[int(torch.nonzero(deg >= 20)[0])])
+        cols_[first:first + 20] = cols_[first]  # 20 copies of one coordinate
+        vals = None if pattern else torch.randn((cols_.numel(),), generator=g, device=dev).to(dtype)
+        csr = CSR(indptr, cols_, vals, (n, ncols))
+        ro = torch.randperm(n, generator=g, device=dev).to(torch.int32) if rows else None
+        co = torch.randperm(ncols, generator=g, device=dev).to(torch.int32) if cols else None
+        check_csr_equal(f"K4 {name}", relocate_csr(csr, ro, co), relocate_csr_plain(csr, ro, co))
+
+
+def read_launches(path: str, required) -> dict:
+    from sparsebase_tpu_torch import _build
+
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"phase 3 path {path}: launches {counts}")
+    for name in required:
+        check(counts[name] > 0, f"path {path} did not launch {name}")
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--nnz", type=float, default=100e6, help="path A entries (default 100M)")
+    ap.add_argument("--nnz", type=float, default=100e6, help="path A and C entries (default 100M)")
     ap.add_argument("--band-nnz", type=float, default=64e6, help="path B stored band entries (default 64M)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -237,44 +339,68 @@ def main() -> None:
     dev = phase_device()
     import sparsebase_tpu_torch as sbt
     from sparsebase_tpu_torch import CSR, DIA, _build
-    from sparsebase_tpu_torch.ops.kernels import banded_spmv, csr_spmv, csr_spmv_plain, dia_spmv_plain
+    from sparsebase_tpu_torch.ops.kernels import (
+        banded_spmv, csr_spmv, csr_spmv_plain, dia_spmv_plain, indptr_from_sorted_rows, indptr_plain,
+        radix_rank, radix_rank_plain, relocate_csr, relocate_csr_plain,
+    )
+    from sparsebase_tpu_torch.ops.permute import permute_2d
     from sparsebase_tpu_torch.ops.reorder import DegreeReorder
 
     phase_build()
     g = torch.Generator(device=dev)
     g.manual_seed(args.seed)
     phase_kernels_vs_plain(g, dev)
+    phase_exact_kernels_vs_plain(g, dev)
 
-    # -- the main path, once ------------------------------------------------------
+    # -- the slice's paths, each once -------------------------------------------
     nnz = int(args.nnz)
     n = max(nnz // 16, 1)
     coo_a = power_law_coo(g, dev, n, nnz)
     x_a = torch.randn((n,), generator=g, device=dev)
     coo_b = banded_coo(g, dev, int(args.band_nnz))
     x_b = torch.randn((coo_b.ncols,), generator=g, device=dev)
+    co_c = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    x_c = torch.empty_like(x_a)
+    x_c[co_c] = x_a  # x in the permuted column space
     torch.cuda.synchronize()
 
+    def path_c():
+        csr = coo_a.convert(CSR)
+        ro = DegreeReorder(ascending=False).get_reorder(csr)
+        both = permute_2d(csr, ro, co_c)
+        rows = permute_2d(csr, ro, None)
+        return csr, ro, both, rows, sbt.spmv(both, x_c)
+
+    a_needs = ("indptr", "radix_rank", "relocate_csr", "csr_spmv")
     _build.reset_launch_counts()
     permuted, y_a = sbt.preprocess_pipeline(coo_a, x_a)
+    launches_a = read_launches("A", a_needs)
+    _build.reset_launch_counts()
     csr_b = coo_b.convert(CSR)
     dia_b = csr_b.convert(DIA)
     y_b = sbt.spmv(dia_b, x_b)
-    torch.cuda.synchronize()
-    launches = _build.launch_counts()
-    print(f"phase 3 main path: launches {launches}")
-    check(launches["csr_spmv"] > 0, "path A did not launch K2 (csr_spmv)")
-    check(launches["banded_spmv"] > 0, "path B did not launch K1 (banded_spmv)")
+    launches_b = read_launches("B", ("indptr", "banded_spmv"))
+    _build.reset_launch_counts()
+    csr_c, ro_c, both_c, rows_c, y_c = path_c()
+    launches_c = read_launches("C", a_needs)
+    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in launches_a}
 
     # -- checks ---------------------------------------------------------------------
     print(f"phase 4 path A checks: n={n} nnz={nnz}")
-    src = CSR(sbt.convert.kernels.indptr_from_sorted_rows(coo_a.row, n), coo_a.col, coo_a.vals, coo_a.shape)
+    src_indptr = indptr_plain(coo_a.row, n)
+    k3_out = indptr_from_sorted_rows(coo_a.row, n)
+    check_equal("path A K3 indptr vs plain", k3_out, src_indptr)
+    src = CSR(src_indptr, coo_a.col, coo_a.vals, coo_a.shape)
     ip = permuted.indptr
     check(ip.shape == (n + 1,) and int(ip[0]) == 0 and int(ip[-1]) == nnz, "permuted indptr ends")
     check(bool((ip[1:] >= ip[:-1]).all()), "permuted indptr is not monotone")
     check(permuted.is_sorted(), "permuted columns are not sorted within rows")
     check(bool((permuted.degrees()[1:] >= permuted.degrees()[:-1]).all()), "rows are not in ascending degree order")
-    ro = DegreeReorder().get_reorder(src)
+    ro = radix_rank_plain(src.degrees())
+    check_equal("path A K5 degree rank vs plain", DegreeReorder().get_reorder(src), ro)
     check(bool((torch.bincount(ro.long(), minlength=n) == 1).all()), "ro is not a permutation")
+    plain_perm = relocate_csr_plain(src, ro, ro)
+    check_csr_equal("path A permuted CSR vs plain _permute_csr", permuted, plain_perm)
     x_new = torch.empty_like(x_a)
     x_new[ro] = x_a
     check_rows("path A y vs plain SpMV of the permuted matrix", y_a, csr_spmv_plain(permuted, x_new),
@@ -282,6 +408,7 @@ def main() -> None:
 
     print(f"phase 4 path B checks: n={coo_b.nrows} band entries={coo_b.nnz} diagonals={dia_b.num_diagonals}")
     check(dia_b.num_diagonals == 2 * BAND_HALF_WIDTH + 1, "DIA has the wrong number of diagonals")
+    check_equal("path B K3 indptr vs plain", csr_b.indptr, indptr_plain(coo_b.row, coo_b.nrows))
     absdot_b = dia_spmv_plain(dia_b.offsets, dia_b.data.abs(), x_b.abs(), dia_b.shape)
     deg_b = dia_row_degrees(dia_b)
     y_b_csr = sbt.spmv(csr_b, x_b)
@@ -291,12 +418,50 @@ def main() -> None:
     err_k2 = check_rows("path A K2 vs plain (source CSR)", csr_spmv(src, x_a), csr_spmv_plain(src, x_a),
                         src.degrees(), csr_spmv_plain(abs_csr(src), x_a.abs()))
 
+    print("phase 4 path C checks")
+    check_equal("path C indptr vs plain", csr_c.indptr, src_indptr)
+    ro_c_plain = radix_rank_plain(-src.degrees())
+    check_equal("path C K5 descending degree rank vs plain", ro_c, ro_c_plain)
+    check(bool((rows_c.degrees()[1:] <= rows_c.degrees()[:-1]).all()), "path C rows are not in descending degree order")
+    check_csr_equal("path C permute_2d(csr, ro, co) vs plain", both_c, relocate_csr_plain(src, ro_c, co_c))
+    check_csr_equal("path C permute_2d(csr, ro, None) vs plain", rows_c, relocate_csr_plain(src, ro_c, None))
+    y_src, absdot_src = csr_spmv_plain(src, x_a), csr_spmv_plain(abs_csr(src), x_a.abs())
+    y_ref, absdot_c = torch.empty_like(y_src), torch.empty_like(absdot_src)
+    y_ref[ro_c] = y_src  # row ro[i] of the permuted product is row i of A @ x
+    absdot_c[ro_c] = absdot_src
+    check_rows("path C y vs plain SpMV of the source", y_c, y_ref, both_c.degrees(), absdot_c)
+
+    # the integer kernels' largest difference from their plain versions, at
+    # the main path's shapes (the checks above already require 0)
+    def max_diff(a, b):
+        return float((a.to(torch.float64) - b.to(torch.float64)).abs().max()) if a.numel() else 0.0
+
+    err_k3 = max_diff(k3_out, src_indptr)
+    err_k4 = max(max_diff(permuted.indices, plain_perm.indices), max_diff(permuted.vals, plain_perm.vals))
+    err_k5 = max_diff(ro_c, ro_c_plain)
+    del k3_out, plain_perm, csr_c, both_c, rows_c, y_c, y_src, absdot_src, y_ref, absdot_c, y_b_csr, absdot_b
+    torch.cuda.synchronize()
+
     # -- times ----------------------------------------------------------------------
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ms_a = host_ms(lambda: sbt.preprocess_pipeline(coo_a, x_a))
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 5 path A preprocess_pipeline: median {ms_a:.3f} ms, {nnz / (ms_a / 1e3):.4g} nnz/s, "
-          f"peak device memory {peak / 2**30:.3f} GiB (inputs included)")
+          f"peak device memory {peak / 2**30:.3f} GiB (all live tensors), "
+          f"{(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before")
+    ms_c = host_ms(path_c)
+    print(f"phase 5 path C convert/reorder/permute x2/spmv: median {ms_c:.3f} ms, {nnz / (ms_c / 1e3):.4g} nnz/s")
+    degrees = src.degrees()
+    k3_ms = cuda_ms(lambda: indptr_from_sorted_rows(coo_a.row, n))
+    k3_plain_ms = cuda_ms(lambda: indptr_plain(coo_a.row, n))
+    k5_ms = cuda_ms(lambda: radix_rank(degrees))
+    k5_plain_ms = cuda_ms(lambda: radix_rank_plain(degrees))
+    k4_ms = cuda_ms(lambda: relocate_csr(src, ro, ro))
+    k4_plain_ms = cuda_ms(lambda: relocate_csr_plain(src, ro, ro))
+    print(f"phase 5 path A K3 indptr: {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms")
+    print(f"phase 5 path A K5 radix_rank (degrees, n={n}): {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms")
+    print(f"phase 5 path A K4 relocate_csr (ro, ro): {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms")
     k2_ms = cuda_ms(lambda: csr_spmv(src, x_a))
     k2_plain_ms = cuda_ms(lambda: csr_spmv_plain(src, x_a))
     print(f"phase 5 path A K2 csr_spmv: {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms")
@@ -306,13 +471,18 @@ def main() -> None:
     print(f"phase 5 path B spmv: DIA (K1) {k1_ms:.4f} ms, CSR (K2) {b_csr_ms:.4f} ms, "
           f"K1 plain {k1_plain_ms:.4f} ms")
 
+    def entry(name, source, replaces, err, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": f"sparsebase_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms}
+
     record = {"kernels": [
-        {"name": "banded_spmv", "route": "cuda", "source": "sparsebase_tpu_torch/csrc/banded_spmv.cu",
-         "replaces": "sparsebase_tpu/ops/kernels/banded_spmv.py:67", "launches": launches["banded_spmv"],
-         "max_abs_err": err_k1, "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "csr_spmv", "route": "cuda", "source": "sparsebase_tpu_torch/csrc/csr_spmv.cu",
-         "replaces": "sparsebase_tpu/models/pipelines.py:189", "launches": launches["csr_spmv"],
-         "max_abs_err": err_k2, "ms": k2_ms, "plain_ms": k2_plain_ms},
+        entry("banded_spmv", "banded_spmv.cu", "sparsebase_tpu/ops/kernels/banded_spmv.py:67", err_k1, k1_ms,
+              k1_plain_ms),
+        entry("csr_spmv", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189", err_k2, k2_ms, k2_plain_ms),
+        entry("indptr", "indptr.cu", "tools/pallas_attempts.py:218", err_k3, k3_ms, k3_plain_ms),
+        entry("relocate_csr", "relocate.cu", "tools/pallas_attempts.py:83", err_k4, k4_ms, k4_plain_ms),
+        entry("radix_rank", "radix_sort.cu", "tools/pallas_attempts.py:109", err_k5, k5_ms, k5_plain_ms),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

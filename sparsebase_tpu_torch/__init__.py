@@ -8,7 +8,8 @@ neither ``jax`` nor ``sparsebase_tpu``.
 Layer map:
 
     models       preprocess_pipeline, spmv (format-polymorphic)
-    ops          reorder (DegreeReorder) / permute / kernels (K1 DIA SpMV, K2 CSR SpMV)
+    ops          reorder (DegreeReorder) / permute / kernels (K1 DIA SpMV, K2 CSR SpMV,
+                 K3 indptr, K4 CSR relocation, K5 stable radix sort)
     dispatch     Operation (auto-converting multi-format dispatch)
     convert      conversion graph + torch conversion functions
     formats      COO / CSR / DIA frozen dataclasses of tensors

@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("banded_spmv.cu", "csr_spmv.cu", "errors.cu")
+SOURCES = ("banded_spmv.cu", "csr_spmv.cu", "indptr.cu", "radix_sort.cu", "relocate.cu", "errors.cu")
 LIB_NAME = "libsbtorch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -2,10 +2,11 @@
 
 Counterpart of ``sparsebase_tpu/convert/kernels.py`` (reference
 src/sparsebase/converter/converter_order_two.cc — COO→CSR :163-214,
-CSR→COO :72-118). One formulation serves CPU and CUDA tensors alike:
+CSR→COO :72-118):
 
-* ``indptr`` from row-sorted COO is one ``searchsorted`` of the row
-  boundaries (int64 offsets);
+* ``indptr`` from row-sorted COO is kernel K3 on CUDA tensors
+  (``ops/kernels/indptr.py``; its plain version, one ``searchsorted`` of
+  the row boundaries, on CPU tensors);
 * row expansion is ``repeat_interleave`` with a known output size;
 * a (major, minor) sort packs both int32 ids into one int64 key and runs a
   single stable ``torch.sort``.
@@ -25,9 +26,10 @@ from ..formats.dia import DIA
 
 def indptr_from_sorted_rows(row: torch.Tensor, nrows: int) -> torch.Tensor:
     """CSR ``indptr`` (int64) from a row-sorted COO row array:
-    ``indptr[r]`` = first position whose row is ``>= r``."""
-    bounds = torch.arange(nrows + 1, dtype=row.dtype, device=row.device)
-    return torch.searchsorted(row, bounds)
+    ``indptr[r]`` = first position whose row is ``>= r`` (kernel K3)."""
+    from ..ops.kernels.indptr import indptr_from_sorted_rows as k3  # ops imports this module
+
+    return k3(row, nrows)
 
 
 def expand_row_table(table: torch.Tensor, indptr: torch.Tensor, nnz: int) -> torch.Tensor:

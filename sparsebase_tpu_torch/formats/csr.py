@@ -95,11 +95,11 @@ class CSR(Format):
         return not bool(torch.any(same_row & descending))
 
     def sort_rows(self) -> "CSR":
-        """Stable-sort column ids (and vals) within each row."""
-        from ..convert.kernels import sort_by_pairs
+        """Stable-sort column ids (and vals) within each row (kernel K4 with
+        no row or column order)."""
+        from ..ops.kernels.relocate import relocate_csr
 
-        _, indices, vals = sort_by_pairs(self.row_of_nnz(), self.indices, self.vals)
-        return dataclasses.replace(self, indices=indices, vals=vals)
+        return relocate_csr(self)
 
     def astype(self, id_dtype=None, nnz_dtype=None, value_dtype=None) -> "CSR":
         return dataclasses.replace(

@@ -2,20 +2,18 @@
 and the format-polymorphic ``spmv``.
 
 Counterpart of ``sparsebase_tpu/models/pipelines.py`` in its default
-formulation. Steps, on the device the COO lives on:
+formulation. Steps, on the device the COO lives on, each a hand-written
+kernel on CUDA tensors (its plain version on CPU tensors):
 
-* ``indptr``: one ``searchsorted`` of the row boundaries in the sorted rows;
-* degree rank: a **stable** argsort of the degrees, so ``ro`` matches the
-  reference order exactly;
+* ``indptr``: kernel K3, one pass over the sorted rows
+  (``convert.kernels.indptr_from_sorted_rows``);
+* degree rank: kernel K5, a **stable** radix rank of the degrees, so ``ro``
+  matches the reference order exactly (``ranks_from_sort_keys``);
 * SpMV: kernel K2 on the *source* CSR (it gathers ``x[col]`` itself), then
   ``y[ro[i]] = y_old[i]``;
-* relocation: the rows relabelled over their blocks, the columns through
-  ``ro[col]``, and one stable sort of the packed int64 (row, col) key
-  (``ops/permute.py``), so the permuted CSR equals
-  ``permute_2d(csr, ro, ro)`` by construction.
-
-The indptr build, the rank and the relocation are torch ops in this
-version; the SpMV is the hand-written kernel.
+* relocation: kernel K4 moves each row as one block, relabels its columns
+  through ``ro[col]`` and sorts them inside the row (``ops/permute.py``),
+  so the permuted CSR equals ``permute_2d(csr, ro, ro)`` by construction.
 """
 
 from __future__ import annotations

@@ -5,10 +5,10 @@ src/sparsebase/permute/permuter.h:22-52, permute_order_two.cc:30-95).
 Permutations follow the reference convention ``order[old_id] = new_id``
 (reorder/reorderer.h:49-52).
 
-A symmetric CSR permutation relabels each entry's row (expanded from the
-row table over the row blocks) and column (one gather), then re-sorts with
-one stable sort of the packed (row, col) key; the new ``indptr`` is the old
-degrees scattered through the row order.
+A CSR permutation is one relocation (kernel K4, ``ops/kernels/relocate.py``):
+each old row moves as one block to its new row, its columns relabelled and
+sorted inside the row; the new ``indptr`` is the old degrees scattered
+through the row order.
 """
 
 from __future__ import annotations
@@ -18,10 +18,10 @@ from typing import Optional
 
 import torch
 
-from ..convert.kernels import expand_row_table, indptr_from_counts, sort_by_pairs
 from ..dispatch import Operation
 from ..formats.coo import COO
 from ..formats.csr import CSR
+from .kernels.relocate import relocate_csr
 
 
 def inverse_permutation(order: torch.Tensor) -> torch.Tensor:
@@ -40,22 +40,7 @@ class PermuteOrderTwoParams:
 
 
 def _permute_csr(formats, params: PermuteOrderTwoParams) -> CSR:
-    csr: CSR = formats[0]
-    idt = csr.indices.dtype
-    degrees = csr.degrees()
-    if params.row_order is None:
-        new_row = csr.row_of_nnz()
-        counts = degrees
-    else:
-        ro = params.row_order
-        new_row = expand_row_table(ro.to(idt), csr.indptr, csr.nnz)
-        counts = torch.empty_like(degrees)
-        counts[ro] = degrees  # ro is a bijection: every slot is written once
-    new_col = csr.indices
-    if params.col_order is not None:
-        new_col = params.col_order.to(idt)[csr.indices]
-    _, col_s, vals_s = sort_by_pairs(new_row, new_col, csr.vals)
-    return CSR(indptr_from_counts(counts), col_s, vals_s, csr.shape)
+    return relocate_csr(formats[0], params.row_order, params.col_order)
 
 
 def _permute_coo(formats, params: PermuteOrderTwoParams) -> COO:

@@ -15,6 +15,7 @@ import torch
 from ...context import Context
 from ...dispatch import Operation
 from ...formats.base import Format
+from ..kernels.radix import radix_rank
 
 
 class Reorderer(Operation):
@@ -40,9 +41,6 @@ class Reorderer(Operation):
 
 def ranks_from_sort_keys(keys: torch.Tensor) -> torch.Tensor:
     """Inverse permutation placing items in ascending-key order:
-    ``rank[v]`` = position of ``v`` after a stable sort of ``keys`` (int32)."""
-    perm = torch.argsort(keys, stable=True)  # perm[new] = old
-    n = keys.shape[0]
-    rank = torch.empty((n,), dtype=torch.int32, device=keys.device)
-    rank[perm] = torch.arange(n, dtype=torch.int32, device=keys.device)
-    return rank
+    ``rank[v]`` = position of ``v`` after a stable sort of ``keys`` (int32;
+    kernel K5 on CUDA tensors)."""
+    return radix_rank(keys)

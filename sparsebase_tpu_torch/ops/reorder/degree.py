@@ -3,7 +3,9 @@
 Counterpart of ``sparsebase_tpu/ops/reorder/degree.py`` (reference
 ``reorder::DegreeReorder``, src/sparsebase/reorder/degree_reorder.cc:20-60).
 The reference runs a counting sort; one stable key sort gives the same
-tie order.
+tie order. On the card that sort is kernel K5, which shifts its keys by
+their minimum: the descending order's keys ``-degrees`` become
+``max_degree - degrees``, with the same stable tie order.
 """
 
 from __future__ import annotations

@@ -2,19 +2,33 @@
 card. Without one these tests skip (the condition is evaluated when each
 test runs, not at import).
 
-On the card: ``python -m pytest tests/test_torch_cuda.py -q``. The kernels
-are built from ``sparsebase_tpu_torch/csrc`` on first use.
+On the card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
+The kernels are built from ``sparsebase_tpu_torch/csrc`` on first use.
 
-Each kernel is held per row to ``|y_k - y_p| <= 4 * deg_i * eps_f32 *
-(|A| |x|)_i``, which bounds two f32 sums of the same terms taken in
-different orders.
+The SpMV kernels (K1, K2) are held per row to ``|y_k - y_p| <= 4 * deg_i *
+eps_f32 * (|A| |x|)_i``, which bounds two f32 sums of the same terms taken
+in different orders. K3 (indptr), K4 (relocation) and K5 (radix sort)
+compute exact integer results, and equal their plain versions bit for bit.
 """
 
 import pytest
 import torch
 
 from sparsebase_tpu_torch import COO, CSR, DIA, _build, preprocess_pipeline, spmv
-from sparsebase_tpu_torch.ops.kernels import banded_spmv, csr_spmv, csr_spmv_plain, dia_spmv_plain
+from sparsebase_tpu_torch.ops.kernels import (
+    banded_spmv,
+    csr_spmv,
+    csr_spmv_plain,
+    dia_spmv_plain,
+    indptr_from_sorted_rows,
+    indptr_plain,
+    radix_argsort,
+    radix_argsort_plain,
+    radix_rank,
+    radix_rank_plain,
+    relocate_csr,
+    relocate_csr_plain,
+)
 from sparsebase_tpu_torch.ops.reorder import DegreeReorder
 
 pytestmark = pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
@@ -108,3 +122,116 @@ def test_path_b_on_card(dev, gen):
     assert _build.launch_counts()["banded_spmv"] == before + 1
     absdot = dia_spmv_plain(dia.offsets, dia.data.abs(), x.abs(), dia.shape)
     assert_rows_within(y, spmv(csr, x), csr.degrees(), absdot)
+
+
+def sorted_rows(gen, dev, nrows, nnz, lo=0, hi=None):
+    row = torch.randint(lo, nrows if hi is None else hi, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    return torch.sort(row).values
+
+
+# name -> (row ids, nrows), made on the card
+INDPTR_CASES = {
+    "leading-empty": lambda g, d: (sorted_rows(g, d, 50_000, 400_000, lo=1_000), 50_000),
+    "trailing-empty": lambda g, d: (sorted_rows(g, d, 50_000, 400_000, hi=40_000), 50_000),
+    "interior-empty": lambda g, d: (sorted_rows(g, d, 300_000, 200_000), 300_000),
+    "no-entries": lambda g, d: (torch.zeros((0,), dtype=torch.int32, device=d), 1_000),
+    "gap-of-1M-rows": lambda g, d: (torch.cat([sorted_rows(g, d, 3, 100),
+                                               torch.full((50,), 1_000_003, dtype=torch.int32, device=d)]), 1_000_010),
+    "path-a-like": lambda g, d: (sorted_rows(g, d, 625_000, 10_000_000), 625_000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INDPTR_CASES))
+def test_indptr_kernel_matches_plain(dev, gen, case):
+    row, nrows = INDPTR_CASES[case](gen, dev)
+    before = _build.launch_counts()["indptr"]
+    got = indptr_from_sorted_rows(row, nrows)
+    assert _build.launch_counts()["indptr"] == before + 1
+    assert torch.equal(got, indptr_plain(row, nrows))
+
+
+# name -> keys, made on the card
+RANK_CASES = {
+    "ascending-ties": lambda g, d: torch.randint(0, 40, (1_000_003,), generator=g, device=d),
+    "descending": lambda g, d: -torch.randint(0, 40, (1_000_003,), generator=g, device=d),
+    "all-equal": lambda g, d: torch.full((70_001,), 9, dtype=torch.int64, device=d),
+    "three-passes-int32": lambda g, d: torch.randint(0, 1 << 20, (2_000_000,), generator=g, device=d,
+                                                     dtype=torch.int32) * 11,
+    "wide-int64": lambda g, d: torch.randint(-(1 << 40), 1 << 40, (300_000,), generator=g, device=d) // 1000,
+    "one-key": lambda g, d: torch.tensor([5], device=d),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RANK_CASES))
+def test_radix_kernel_matches_plain(dev, gen, case):
+    keys = RANK_CASES[case](gen, dev)
+    before = _build.launch_counts()["radix_rank"]
+    rank = radix_rank(keys)
+    perm = radix_argsort(keys)
+    assert _build.launch_counts()["radix_rank"] == before + 2
+    assert torch.equal(rank, radix_rank_plain(keys))
+    assert torch.equal(perm, radix_argsort_plain(keys))
+
+
+def device_csr(gen, dev, degrees, ncols, pattern=False, dtype=torch.float32):
+    """A CSR with the given row degrees, 20 copies of one coordinate in the
+    first row of at least 20 entries, and columns unsorted inside rows."""
+    degrees = degrees.to(dev)
+    indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), degrees.cumsum(0)])
+    nnz = int(indptr[-1])
+    cols = torch.randint(0, ncols, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    first = int(indptr[int(torch.nonzero(degrees >= 20)[0])])
+    cols[first:first + 20] = cols[first]
+    vals = None if pattern else torch.randn((nnz,), generator=gen, device=dev).to(dtype)
+    return CSR(indptr, cols, vals, (degrees.numel(), ncols))
+
+
+def degrees_mix(gen, dev, n, long_row=None):
+    """Degrees over the warp tier (<= 32) and the block tier (<= 4096),
+    empty rows, and optionally one row over the cap."""
+    deg = torch.randint(0, 40, (n,), generator=gen, device=dev)
+    deg[::7] = 0
+    deg[5::97] = torch.randint(33, 4097, (deg[5::97].numel(),), generator=gen, device=dev)
+    if long_row is not None:
+        deg[n // 2] = long_row
+    return deg
+
+
+# name -> (row count, long row, rows permuted, columns relabelled, pattern, value dtype)
+RELOCATE_CASES = {
+    "rows-only": (50_000, None, True, False, False, torch.float32),
+    "cols-only": (50_000, None, False, True, False, torch.float32),
+    "both-nonsymmetric": (50_000, None, True, True, False, torch.float32),
+    "sort-only": (50_000, None, False, False, False, torch.float32),
+    "pattern": (50_000, None, True, True, True, torch.float32),
+    "float64-values": (50_000, None, True, True, False, torch.float64),
+    "row-of-5000": (20_000, 5_000, True, True, False, torch.float32),
+    "row-of-262144": (20_000, 262_144, True, True, False, torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RELOCATE_CASES))
+def test_relocate_kernel_matches_plain(dev, gen, case):
+    n, long_row, rows, cols, pattern, dtype = RELOCATE_CASES[case]
+    ncols = 30_000
+    csr = device_csr(gen, dev, degrees_mix(gen, dev, n, long_row), ncols, pattern, dtype)
+    ro = torch.randperm(n, generator=gen, device=dev).to(torch.int32) if rows else None
+    co = torch.randperm(ncols, generator=gen, device=dev).to(torch.int32) if cols else None
+    before = _build.launch_counts()["relocate_csr"]
+    got = relocate_csr(csr, ro, co)
+    assert _build.launch_counts()["relocate_csr"] == before + 1
+    want = relocate_csr_plain(csr, ro, co)
+    assert torch.equal(got.indptr, want.indptr)
+    assert torch.equal(got.indices, want.indices)
+    if pattern:
+        assert got.vals is None
+    else:
+        assert got.vals.dtype == dtype and torch.equal(got.vals, want.vals)
+
+
+def test_relocate_rejects_orders_of_the_wrong_length(dev, gen):
+    csr = device_csr(gen, dev, degrees_mix(gen, dev, 1_000), 500)
+    with pytest.raises(ValueError):
+        relocate_csr(csr, torch.arange(999, dtype=torch.int32, device=dev), None)
+    with pytest.raises(ValueError):
+        relocate_csr(csr, None, torch.arange(400, dtype=torch.int32, device=dev))

@@ -1,10 +1,19 @@
 """Port parity for the modules that hold kernels, on the CPU.
 
-The wrappers of K1 (DIA SpMV) and K2 (CSR SpMV) take their plain versions
-for CPU tensors; those are held against the JAX package on the same numpy
-inputs: the Pallas kernel in interpret mode (as tests/test_dia.py runs it),
-the XLA roll formulation, the pure-jnp oracle, and the segment-sum CSR
-SpMV. The CUDA kernels themselves run in tests/test_torch_cuda.py.
+The wrappers of K1 (DIA SpMV), K2 (CSR SpMV), K3 (indptr), K4 (CSR
+relocation) and K5 (stable radix sort) take their plain versions for CPU
+tensors; those are held against the JAX package on the same numpy inputs:
+the Pallas kernel in interpret mode (as tests/test_dia.py runs it), the XLA
+roll formulation, the pure-jnp oracle, the segment-sum CSR SpMV, and for
+K3-K5 the JAX functions that do the same step.
+
+K3-K5 replace the Pallas kernels of ``tools/pallas_attempts.py``
+(``build_stream_indptr``, ``build_vector_gather``, ``build_radix_scalar``,
+``build_radix_matmul``). Those are nested inside that tool's ``main()`` and
+cannot be imported, so each port is held against the JAX package's function
+for its step instead: ``indptr_from_sorted_rows`` (and ``_blocked``),
+``ranks_from_sort_keys``, and ``permute_2d`` / ``CSR.new``. The CUDA
+kernels themselves run in tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -16,21 +25,31 @@ pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import sparsebase_tpu as ref  # noqa: E402
 from sparsebase_tpu.convert.kernels import csr_to_dia as ref_csr_to_dia  # noqa: E402
+from sparsebase_tpu.convert.kernels import indptr_from_sorted_rows as ref_indptr  # noqa: E402
+from sparsebase_tpu.convert.kernels import indptr_from_sorted_rows_blocked as ref_indptr_blocked  # noqa: E402
 from sparsebase_tpu.models.pipelines import spmv_csr as ref_spmv_csr  # noqa: E402
 from sparsebase_tpu.ops.kernels import (  # noqa: E402
     banded_spmv as ref_banded_spmv,
     banded_spmv_pallas,
     dia_spmv_reference,
 )
+from sparsebase_tpu.ops.permute import permute_2d as ref_permute_2d  # noqa: E402
+from sparsebase_tpu.ops.reorder.base import ranks_from_sort_keys as ref_ranks  # noqa: E402
 
-from sparsebase_tpu_torch import _build  # noqa: E402
-from sparsebase_tpu_torch.interop import from_reference  # noqa: E402
+from sparsebase_tpu_torch import CSR, _build  # noqa: E402
+from sparsebase_tpu_torch.convert.kernels import indptr_from_sorted_rows  # noqa: E402
+from sparsebase_tpu_torch.interop import from_reference, to_numpy  # noqa: E402
 from sparsebase_tpu_torch.ops.kernels import (  # noqa: E402
     banded_spmv,
     csr_spmv,
+    radix_argsort,
+    radix_rank,
+    relocate_csr,
     tile_band,
     untile_band,
 )
+from sparsebase_tpu_torch.ops.permute import permute_2d  # noqa: E402
+from sparsebase_tpu_torch.ops.reorder import ranks_from_sort_keys  # noqa: E402
 from sparsebase_tpu_torch.utils.exceptions import TypeMismatchError  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -135,14 +154,168 @@ def test_csr_spmv_matches_segment_sum(case):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def sorted_rows(seed, nrows, nnz, live):
+    """``nnz`` row ids drawn from the ``live`` rows, sorted (int32)."""
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(np.asarray(live), nnz)).astype(np.int32)
+
+
+_GAP = 1_000_000
+# name -> (row ids, nrows)
+INDPTR_CASES = {
+    "leading-empty": lambda: (sorted_rows(20, 60, 400, range(7, 60)), 60),
+    "trailing-empty": lambda: (sorted_rows(21, 60, 400, range(0, 45)), 60),
+    "interior-empty": lambda: (sorted_rows(22, 90, 500, [r for r in range(90) if r % 3 and not 40 <= r < 55]), 90),
+    "no-entries": lambda: (np.zeros((0,), np.int32), 25),
+    "gap-of-1M-rows": lambda: (np.r_[sorted_rows(23, 3, 30, range(3)), np.full(40, _GAP + 3, np.int32)], _GAP + 9),
+}
+INDPTR_REFERENCES = {
+    "global-sort": lambda row, nrows: ref_indptr(jnp.asarray(row), nrows, row.size),
+    "blocked": lambda row, nrows: ref_indptr_blocked(jnp.asarray(row), nrows, row.size, block=16),
+}
+
+
+@pytest.mark.parametrize("reference", sorted(INDPTR_REFERENCES))
+@pytest.mark.parametrize("case", sorted(INDPTR_CASES))
+def test_indptr_matches_reference(case, reference):
+    """K3's plain version against the JAX boundary-sort and blocked indptr
+    functions (JAX on the CPU), exactly."""
+    row, nrows = INDPTR_CASES[case]()
+    want = np.asarray(INDPTR_REFERENCES[reference](row, nrows))
+    launches = _build.launch_counts()["indptr"]
+    got = indptr_from_sorted_rows(torch.from_numpy(row), nrows)
+    assert _build.launch_counts()["indptr"] == launches  # CPU: plain version, no launch
+    assert got.dtype == torch.int64 and got.shape == (nrows + 1,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# name -> integer keys (int32: the JAX package runs without x64)
+RANK_CASES = {
+    "ascending": lambda rng: rng.integers(0, 40, 700),
+    "descending": lambda rng: -rng.integers(0, 40, 700),
+    "all-equal": lambda rng: np.full(300, 7),
+    "three-digit-passes": lambda rng: rng.choice(rng.integers(1 << 16, 1 << 24, 200), 3000),
+    "signed": lambda rng: rng.integers(-5000, 5000, 1500),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RANK_CASES))
+def test_radix_rank_matches_reference(case):
+    """K5's plain versions against the JAX ``ranks_from_sort_keys`` (JAX on
+    the CPU) and numpy's stable argsort, exactly: equal keys keep their
+    input order."""
+    keys = RANK_CASES[case](np.random.default_rng(30)).astype(np.int32)
+    want_rank = np.asarray(ref_ranks(jnp, jnp.asarray(keys)))
+    launches = _build.launch_counts()["radix_rank"]
+    got = ranks_from_sort_keys(torch.from_numpy(keys))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want_rank)
+    np.testing.assert_array_equal(radix_rank(torch.from_numpy(keys)).numpy(), want_rank)
+    perm = radix_argsort(torch.from_numpy(keys))
+    assert perm.dtype == torch.int32
+    np.testing.assert_array_equal(perm.numpy(), np.argsort(keys, kind="stable"))
+    assert _build.launch_counts()["radix_rank"] == launches
+
+
+def coo_graph(seed, n, m, nnz, long_row=None, pattern=False, dtype=np.float32):
+    """Row-major-sorted triplets with 20 copies of one coordinate and
+    optionally one row of ``long_row`` entries (duplicates likely)."""
+    rng = np.random.default_rng(seed)
+    row = rng.integers(0, n, nnz)
+    col = rng.integers(0, m, nnz)
+    row[:20], col[:20] = row[0], col[0]
+    if long_row is not None:
+        row = np.r_[row, np.full(long_row, n // 2)]
+        col = np.r_[col, rng.integers(0, m, long_row)]
+    order = np.lexsort((col, row))
+    row, col = row[order].astype(np.int32), col[order].astype(np.int32)
+    vals = None if pattern else rng.standard_normal(row.size).astype(dtype)
+    return row, col, vals
+
+
+# name -> (graph kwargs, which orders: rows / cols)
+RELOCATE_CASES = {
+    "rows-only": (dict(n=300, m=300, nnz=3000), True, False),
+    "cols-only": (dict(n=300, m=300, nnz=3000), False, True),
+    "both-nonsymmetric": (dict(n=300, m=300, nnz=3000), True, True),
+    "sort-only": (dict(n=300, m=300, nnz=3000), False, False),
+    "rectangular": (dict(n=200, m=450, nnz=2500), True, True),
+    "pattern": (dict(n=300, m=300, nnz=3000, pattern=True), True, True),
+    "float64-values": (dict(n=300, m=300, nnz=3000, dtype=np.float64), True, True),
+    "row-of-5000": (dict(n=400, m=700, nnz=2000, long_row=5000), True, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RELOCATE_CASES))
+def test_relocate_matches_permute_2d(case):
+    """K4's plain version (and ``permute_2d`` through it) against the JAX
+    ``permute_2d`` on host arrays, whose pair sort is stable: ``indptr``,
+    ``indices`` and ``vals`` equal exactly, duplicate coordinates included."""
+    kwargs, rows, cols = RELOCATE_CASES[case]
+    n, m = kwargs["n"], kwargs["m"]
+    row, col, vals = coo_graph(40, **kwargs)
+    rng = np.random.default_rng(41)
+    ro = rng.permutation(n).astype(np.int32) if rows else None
+    co = rng.permutation(m).astype(np.int32) if cols else None
+    ref_csr = ref.COO.new(row, col, vals, (n, m)).convert(ref.CSR)
+    want = ref_permute_2d(ref_csr, ro, co)
+    csr = from_reference(ref_csr, CPU)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    launches = _build.launch_counts()["relocate_csr"]
+    for got in (relocate_csr(csr, t(ro), t(co)), permute_2d(csr, t(ro), t(co))):
+        assert isinstance(got, CSR) and got.shape == (n, m)
+        got_np = to_numpy(got)
+        for key in ("indptr", "indices", "vals"):
+            w = getattr(want, key)
+            if w is None:
+                assert got_np[key] is None
+            else:
+                np.testing.assert_array_equal(got_np[key], np.asarray(w), err_msg=key)
+    assert _build.launch_counts()["relocate_csr"] == launches
+
+
+@pytest.mark.parametrize("pattern", [False, True], ids=["valued", "pattern"])
+def test_csr_new_repairs_rows_like_reference(pattern):
+    """``CSR.new`` on unsorted rows sorts them through K4's plain version
+    (no row or column order), as the JAX ``CSR.new`` does."""
+    rng = np.random.default_rng(50)
+    degrees = rng.integers(0, 30, 200)
+    degrees[::6] = 0
+    indptr = np.r_[0, np.cumsum(degrees)].astype(np.int64)
+    nnz = int(indptr[-1])
+    indices = rng.integers(0, 60, nnz).astype(np.int32)  # unsorted, with duplicates
+    vals = None if pattern else rng.standard_normal(nnz).astype(np.float32)
+    want = ref.CSR.new(indptr, indices, vals, (200, 60))
+    got = CSR.new(torch.from_numpy(indptr), torch.from_numpy(indices),
+                  None if pattern else torch.from_numpy(vals), (200, 60))
+    assert got.is_sorted()
+    got_np = to_numpy(got)
+    np.testing.assert_array_equal(got_np["indptr"], np.asarray(want.indptr))
+    np.testing.assert_array_equal(got_np["indices"], np.asarray(want.indices))
+    if not pattern:
+        np.testing.assert_array_equal(got_np["vals"], np.asarray(want.vals))
+
+
 def test_wrappers_never_fall_back_off_cpu():
     """A tensor that is not on the CPU never takes the plain version: on a
     device without a kernel the wrapper raises."""
     csr = from_reference(CSR_CASES["empty-rows"](), CPU)
     dia = from_reference(ref_csr_to_dia(DIA_CASES["tridiag"][0]()), CPU)
     meta = torch.device("meta")
+    meta_csr = csr.to_device(meta)
+    order = torch.arange(csr.nrows, dtype=torch.int32)
     with pytest.raises(TypeMismatchError):
-        csr_spmv(csr.to_device(meta), torch.empty(csr.ncols, device=meta))
+        indptr_from_sorted_rows(torch.zeros(5, dtype=torch.int32, device=meta), 3)
+    with pytest.raises(TypeMismatchError):
+        radix_rank(torch.zeros(5, dtype=torch.int64, device=meta))
+    with pytest.raises(TypeMismatchError):
+        radix_argsort(torch.zeros(5, dtype=torch.int32, device=meta))
+    with pytest.raises(TypeMismatchError):
+        relocate_csr(meta_csr, order.to(meta), None)
+    with pytest.raises(TypeMismatchError):
+        relocate_csr(csr, order.to(meta), None)  # mixed devices
+    with pytest.raises(TypeMismatchError):
+        csr_spmv(meta_csr, torch.empty(csr.ncols, device=meta))
     with pytest.raises(TypeMismatchError):
         csr_spmv(csr, torch.empty(csr.ncols, device=meta))
     with pytest.raises(TypeMismatchError):
@@ -156,6 +329,8 @@ def test_wrappers_never_fall_back_off_cpu():
 def test_build_is_keyed_on_sources_and_fails_loudly(tmp_path, monkeypatch):
     cmd = _build.nvcc_command("nvcc", tmp_path / "lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    assert {"indptr.cu", "radix_sort.cu", "relocate.cu"} <= set(_build.SOURCES)
+    assert {"indptr", "radix_rank", "relocate_csr"} <= set(_build.KERNELS)
     assert [c for c in cmd if c.endswith(".cu")] == [str(_build.CSRC / s) for s in _build.SOURCES]
     key = _build.source_hash()
     for name in _build.SOURCES:

@@ -3,8 +3,10 @@
 Path A: ``preprocess_pipeline`` (COO → CSR → degree reorder → symmetric
 permutation → SpMV) against ``jax.jit(preprocess_pipeline)`` of the JAX
 package. Path B: banded COO → CSR → DIA → ``spmv(dia, x)`` against the
-JAX ``spmv`` and the port's ``spmv(csr, x)``. Also the reorder and permute
-ops on their own.
+JAX ``spmv`` and the port's ``spmv(csr, x)``. Path C: the op-level chain
+``convert(CSR)`` → ``DegreeReorder(ascending=False)`` → ``permute_2d`` →
+``spmv`` against the same JAX ops. Also the reorder and permute ops on
+their own.
 
 Tolerances: the permuted structure (``indptr``, ``indices``) and ``ro``
 must match exactly. ``vals`` are compared after a canonical (row, col,
@@ -109,6 +111,44 @@ def test_preprocess_pipeline_matches_reference(name):
     x_new = torch.empty(n)
     x_new[ro] = torch.from_numpy(x)
     np.testing.assert_allclose(sbt.spmv(got_csr, x_new).numpy(), got_y.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_path_c_matches_reference(name):
+    """Path C, the op-level entry point: ``convert(CSR)`` →
+    ``DegreeReorder(ascending=False)`` → ``permute_2d`` with a random column
+    order and with rows only → ``spmv``, against the same chain of JAX ops
+    on device arrays (JAX on the CPU)."""
+    row, col, vals, x = GRAPHS[name]()
+    n = x.size
+    co = np.random.default_rng(6).permutation(n).astype(np.int32)
+    x_perm = np.empty_like(x)
+    x_perm[co] = x  # the vector in the permuted column space
+
+    ref_csr = ref.COO(jnp.asarray(row), jnp.asarray(col), jnp.asarray(vals), (n, n)).convert(ref.CSR)
+    want_ro = np.asarray(RefDegreeReorder(ascending=False).get_reorder(ref_csr))
+    want_both = ref_permute_2d(ref_csr, jnp.asarray(want_ro), jnp.asarray(co))
+    want_rows = ref_permute_2d(ref_csr, jnp.asarray(want_ro), None)
+    want_y = np.asarray(ref_spmv(want_both, jnp.asarray(x_perm)))
+
+    csr = port_coo(row, col, vals, n).convert(CSR)
+    ro = DegreeReorder(ascending=False).get_reorder(csr)
+    np.testing.assert_array_equal(ro.numpy(), want_ro)
+    both = permute_2d(csr, ro, torch.from_numpy(co))
+    rows = permute_2d(csr, ro, None)
+    y = sbt.spmv(both, torch.from_numpy(x_perm))
+    for got_csr, want_csr in ((both, want_both), (rows, want_rows)):
+        got = to_numpy(got_csr)
+        want = {k: np.asarray(getattr(want_csr, k)) for k in ("indptr", "indices", "vals")}
+        np.testing.assert_array_equal(got["indptr"], want["indptr"])
+        np.testing.assert_array_equal(got["indices"], want["indices"])
+        for a, b in zip(canonical(got), canonical(want)):
+            np.testing.assert_array_equal(a, b)
+    assert bool((rows.degrees()[1:] <= rows.degrees()[:-1]).all())  # descending degrees
+    np.testing.assert_allclose(y.numpy(), want_y, rtol=1e-4, atol=1e-4)
+    # y = P·(A@x): row ro[i] of the permuted product is row i of A@x
+    y_src = sbt.spmv(csr, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(y.numpy()[ro.numpy()], y_src, rtol=1e-5, atol=1e-5)
 
 
 def test_preprocess_pipeline_rejects_rectangular():
