@@ -10,12 +10,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. builds the kernels from ``sparsebase_tpu_torch/csrc`` (nvcc, sm_90a);
 2. kernel vs plain version on the card, at edge shapes: K1 (DIA SpMV; f32
    and bf16 band, strided and tiled layout, a rectangular band), K2 (CSR
-   SpMV; empty rows, a pattern matrix, one row of 262,144 entries), K3
-   (indptr; leading, interior and trailing empty rows, no entries, a gap of
-   1M rows), K5 (radix rank and argsort; ties, descending, all equal,
-   three passes, 64-bit keys) and K4 (relocation; rows, columns, both,
-   neither, a pattern matrix, float64 values, 20 duplicates, rows of 5,000
-   and 262,144 entries);
+   SpMV; empty rows, a pattern matrix, one row of 262,144 entries, rows of
+   exactly one tile, one tile and one entry and three tiles, rows starting
+   on tile edges, no entries, one row, id and value arrays one element off
+   16-byte alignment; two runs must agree bit for bit), K3 (indptr;
+   leading, interior and trailing empty rows, no entries, a gap of 1M rows,
+   a row array one element off alignment, 1, 3, 15 and 17 entries, run
+   heads on every chunk seam), K5 (radix rank and argsort; ties,
+   descending, all equal, three passes, 64-bit keys) and K4 (relocation;
+   rows, columns, both, neither, a pattern matrix, float64 values, 20
+   duplicates, rows of 5,000 and 262,144 entries);
 3. the slice's paths, each once, with every launch count set to 0 just
    before it and read just after: path A, ``preprocess_pipeline`` on a
    ``--nnz`` COO made on the device (uniform rows, columns 20% from
@@ -31,12 +35,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    against its plain version) and of path C (``ro`` and both permuted CSRs
    equal to their plain versions, ``y`` against the plain SpMV);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
-   each kernel beside its plain version at the main path's shapes.
+   each kernel beside its plain version, its bound and, where one PyTorch
+   call computes the same function, that call (``library_ms``), at the
+   main path's shapes. The library calls (cuSPARSE through ``torch.mv`` on
+   a ``sparse_csr_tensor`` for K2, ``torch.searchsorted`` for K3, a stable
+   ``torch.argsort`` for K5) are made here only, never by the package;
+   K2's is first held to the same per-row bound as the kernel;
+   K2 and K3 and their library calls are timed twice: one call per event
+   pair (the record's ``ms``, the wrapper's host time included), and ten
+   calls back to back per event pair (the host's time hidden);
+6. ``torch.profiler`` over 3 runs of path A (device
+   time per kernel, the device's idle share, the largest idle gaps), the
+   device time of K2 and of cuSPARSE on path A's source CSR and of K1 on
+   path B's band in both layouts (the tiled one's ``tile_band`` copy shows
+   as its own kernels), and a gather probe: ``torch.index_select`` of path
+   A's column ids from x cut to 16 KiB, 1 MiB and in full, which shows
+   where random gathers are served.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
 sums of the same terms taken in different orders. K3, K4 and K5 compute
 exact results and must equal their plain versions (``torch.equal``).
+
+A kernel's bound (``bound_ms``) is the larger of two times: the bytes its
+function must move (each input read once, each output written once) over
+the H100's 3.35 TB/s, and its floating-point operations over the 67 TFLOP/s
+f32 rate outside the tensor cores (data sheet, SXM, 700 W).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -56,10 +80,52 @@ import torch
 EPS_F32 = torch.finfo(torch.float32).eps
 WIDE_OFFSETS = (-150, -7, 0, 2, 133)
 BAND_HALF_WIDTH = 16  # 33 diagonals
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, data sheet
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, data sheet
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def bound_bytes(kernel: str, **s) -> int:
+    """Bytes the kernel's function must move at the given shapes: each input
+    read once, each output written once (f32 values and vectors, int32 ids,
+    int64 offsets).
+
+    banded_spmv: ndiag, n, m, band_bytes; csr_spmv: n, ncols, nnz, pattern;
+    indptr: nnz, nrows; relocate_csr: n, nnz, order_entries (entries of the
+    distinct order tensors), value_bytes; radix_rank: n, key_bytes."""
+    if kernel == "banded_spmv":  # band, offsets, x in; y out
+        return s["ndiag"] * s["n"] * s["band_bytes"] + 4 * s["ndiag"] + 4 * s["m"] + 4 * s["n"]
+    if kernel == "csr_spmv":  # indptr, ids, values, x in; y out
+        values = 0 if s.get("pattern") else 4 * s["nnz"]
+        return 8 * (s["n"] + 1) + 4 * s["nnz"] + values + 4 * s["ncols"] + 4 * s["n"]
+    if kernel == "indptr":  # row ids in; indptr out
+        return 4 * s["nnz"] + 8 * (s["nrows"] + 1)
+    if kernel == "relocate_csr":  # indptr, ids, values, orders in; indptr, ids, values out
+        csr = 8 * (s["n"] + 1) + (4 + s["value_bytes"]) * s["nnz"]
+        return 2 * csr + 4 * s["order_entries"]
+    if kernel == "radix_rank":  # keys in; int32 ranks out
+        return s["n"] * (s["key_bytes"] + 4)
+    raise KeyError(kernel)
+
+
+def bound_ops(kernel: str, **s) -> int:
+    """Floating-point operations of the kernel's function (a multiply and an
+    add per stored entry of the SpMVs); the integer kernels do none."""
+    if kernel == "banded_spmv":
+        return 2 * s["ndiag"] * s["n"]
+    if kernel == "csr_spmv":
+        return 2 * s["nnz"]
+    return 0
+
+
+def bound(kernel: str, **s):
+    """``(bound_ms, bound_by)``: the least time the card could take."""
+    by_bytes = bound_bytes(kernel, **s) / HBM_BYTES_PER_S * 1e3
+    by_ops = bound_ops(kernel, **s) / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -80,8 +146,12 @@ def check_rows(name: str, y, y_ref, deg, absdot) -> float:
     return max_err
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` in ms (CUDA events), after one warm-up."""
+def cuda_ms(fn, batch: int = 1, reps: int = 5) -> float:
+    """Median time in ms of one call of ``fn`` between two CUDA events, after
+    one warm-up: the host's time in the call is included where the device
+    waits for it. With ``batch`` calls back to back per event pair (the time
+    per call), the host's time is hidden behind the previous call's device
+    work."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -89,10 +159,11 @@ def cuda_ms(fn, reps: int = 5) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -179,6 +250,18 @@ def abs_csr(csr):
     return CSR(csr.indptr, csr.indices, None if csr.vals is None else csr.vals.abs(), csr.shape)
 
 
+def off_alignment(t):
+    """A contiguous copy of ``t`` (a tensor or a CSR's ids and values) that
+    starts one element past a 16-byte boundary."""
+    from sparsebase_tpu_torch import CSR
+
+    if isinstance(t, CSR):
+        return CSR(t.indptr, off_alignment(t.indices), None if t.vals is None else off_alignment(t.vals), t.shape)
+    buf = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
 # -- phases ------------------------------------------------------------------
 def phase_device() -> torch.device:
     if not torch.cuda.is_available():
@@ -221,21 +304,39 @@ def phase_kernels_vs_plain(g, dev) -> None:
     check_rows(f"K1 f32 rectangular {dia.shape}", y, dia_spmv_plain(dia.offsets, dia.data, x, dia.shape),
                dia_row_degrees(dia), absdot)
 
+    from sparsebase_tpu_torch.ops.kernels.csr_spmv import TILE
+
     rows = 100_000
     deg = torch.randint(0, 40, (rows,), generator=g, device=dev)
     deg[::7] = 0  # empty rows
     long_row = deg.clone()
     long_row[rows // 2] = 262_144
-    for name, degrees, pattern in (
-        ("empty rows", deg, False),
-        ("pattern", deg, True),
-        ("one row of 262144", long_row, False),
+    # rows of exactly one tile, one tile and one entry, and over three
+    # tiles; rows 2, 3, 4 and 8 start on tile edges, row 2 empty
+    t = TILE
+    edges = torch.cat([torch.tensor([5, t - 5, 0, t, t + 1, 0, 0, t - 1, 3 * t + 7, 0, t, 1], device=dev), deg])
+    for name, degrees, pattern, offset in (
+        ("empty rows", deg, False, False),
+        ("pattern", deg, True, False),
+        ("one row of 262144", long_row, False, False),
+        ("tile edges", edges, False, False),
+        ("tile edges, pattern", edges, True, False),
+        ("rows of 0-3 entries", torch.randint(0, 4, (300_000,), generator=g, device=dev), False, False),
+        ("no entries", torch.zeros((1_000,), dtype=torch.int64, device=dev), False, False),
+        ("one row over five tiles", torch.tensor([5 * t + 3], device=dev), False, False),
+        ("one row of 7", torch.tensor([7], device=dev), False, False),
+        ("ids and values off alignment", edges, False, True),
+        ("ids off alignment, pattern", edges, True, True),
     ):
         csr, x = csr_case(g, dev, degrees, 50_000, pattern)
+        if offset:
+            csr = off_alignment(csr)
         y = csr_spmv(csr, x)
+        again = csr_spmv(csr, x)
         torch.cuda.synchronize()
         absdot = csr_spmv_plain(abs_csr(csr), x.abs())
         check_rows(f"K2 {name}", y, csr_spmv_plain(csr, x), csr.degrees(), absdot)
+        check(torch.equal(y, again), f"K2 {name}: two runs differ")
 
 
 def check_equal(name: str, got, want) -> None:
@@ -267,13 +368,20 @@ def phase_exact_kernels_vs_plain(g, dev) -> None:
     )
 
     gap = torch.cat([sorted_rows(g, dev, 3, 100), torch.full((50,), 1_000_003, dtype=torch.int32, device=dev)])
-    for name, row, nrows in (
+    seams = torch.arange(1_000_000, dtype=torch.int32, device=dev) // 512  # a run head on every chunk seam
+    cases = [
         ("leading empty rows", sorted_rows(g, dev, 50_000, 400_000, lo=1_000), 50_000),
         ("trailing empty rows", sorted_rows(g, dev, 50_000, 400_000, hi=40_000), 50_000),
         ("interior empty rows", sorted_rows(g, dev, 300_000, 200_000), 300_000),
         ("no entries", torch.zeros((0,), dtype=torch.int32, device=dev), 1_000),
         ("gap of 1M rows", gap, 1_000_010),
-    ):
+        ("row[1:], off alignment", sorted_rows(g, dev, 50_000, 400_001)[1:], 50_000),
+        ("heads on chunk seams", seams, 1_960),
+        ("heads on chunk seams, empty rows between", seams * 3, 5_870),
+        ("heads on chunk seams, off alignment", off_alignment(seams), 1_960),
+    ]
+    cases += [(f"{k} entries", sorted_rows(g, dev, 10, k), 10) for k in (1, 3, 15, 17)]
+    for name, row, nrows in cases:
         check_equal(f"K3 {name}", indptr_from_sorted_rows(row, nrows), indptr_plain(row, nrows))
 
     for name, keys in (
@@ -318,6 +426,75 @@ def phase_exact_kernels_vs_plain(g, dev) -> None:
         check_csr_equal(f"K4 {name}", relocate_csr(csr, ro, co), relocate_csr_plain(csr, ro, co))
 
 
+def library_spmv(csr, x):
+    """``(name, fn)``: cuSPARSE's CSR SpMV through one PyTorch call on the
+    same matrix (int32 offsets and ids), built here, outside any timing."""
+    a = torch.sparse_csr_tensor(csr.indptr.to(torch.int32), csr.indices, csr.vals, csr.shape,
+                                check_invariants=False)
+    try:
+        torch.mv(a, x)
+        return "torch.mv(sparse_csr_tensor)", lambda: torch.mv(a, x)
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"  torch.mv refused the sparse CSR tensor ({exc}); timing a @ x[:, None]")
+        return "sparse_csr_tensor @ x[:, None]", lambda: (a @ x[:, None]).squeeze(1)
+
+
+def device_profile(fn, runs: int = 3):
+    """``(per_kernel, spans, wall_ms)`` over ``runs`` calls of ``fn`` under
+    torch.profiler: device ms per kernel name per run, the device intervals
+    (µs, sorted) and the profiled wall time per run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+    per_kernel, spans = {}, []
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + ev.device_time_total / 1e3 / runs
+            spans.append((ev.time_range.start, ev.time_range.end, ev.name))
+    return per_kernel, sorted(spans), wall_ms
+
+
+def phase_profile(path_a, wall_a_ms: float, spmv_calls, gather_probe) -> None:
+    """Path A's device time per kernel and idle gaps; the device time per
+    kernel of each of ``spmv_calls``; random gathers of x from ranges of
+    growing size, which shows where SpMV's gathers are served."""
+    runs = 3
+    per_kernel, spans, wall_ms = device_profile(path_a, runs)
+    check(bool(spans), "the profiler recorded no device activity")
+    busy_us, gaps = 0.0, []  # the union of the device intervals, and the holes in it
+    reach, last = spans[0][0], spans[0][2]
+    for start, end, name in spans:
+        if start > reach:
+            gaps.append((start - reach, last, name))
+        busy_us += max(0.0, end - max(start, reach))
+        if end > reach:
+            reach, last = end, name
+    busy_ms = busy_us / 1e3 / runs
+    print(f"phase 6 profile of path A, {runs} runs: device busy {busy_ms:.4f} ms per run; wall under the "
+          f"profiler {wall_ms:.4f} ms, idle {1 - busy_ms / wall_ms:.1%}; against the unprofiled median "
+          f"{wall_a_ms:.4f} ms, idle {1 - busy_ms / wall_a_ms:.1%}")
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:9.4f} ms {ms / busy_ms:6.1%}  {name[:110]}")
+    print("  largest device idle gaps under the profiler (µs, kernel before -> after):")
+    for gap, before, after in sorted(gaps, reverse=True)[:6]:
+        print(f"    {gap:8.1f}  {before[:55]} -> {after[:55]}")
+    for label, fn in spmv_calls:
+        per_kernel, _, _ = device_profile(fn, runs)
+        names = ", ".join(f"{name[:60]} {ms:.4f}" for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1]))
+        print(f"phase 6 {label}: device {sum(per_kernel.values()):.4f} ms per call ({names})")
+    for entries, fn in gather_probe:
+        print(f"phase 6 gather probe: torch.index_select of path A's column ids from the first {entries} "
+              f"entries of x ({entries * 4 / 2**20:.3g} MiB): {cuda_ms(fn, batch=10):.4f} ms")
+
+
 def read_launches(path: str, required) -> dict:
     from sparsebase_tpu_torch import _build
 
@@ -341,7 +518,7 @@ def main() -> None:
     from sparsebase_tpu_torch import CSR, DIA, _build
     from sparsebase_tpu_torch.ops.kernels import (
         banded_spmv, csr_spmv, csr_spmv_plain, dia_spmv_plain, indptr_from_sorted_rows, indptr_plain,
-        radix_rank, radix_rank_plain, relocate_csr, relocate_csr_plain,
+        radix_argsort, radix_rank, radix_rank_plain, relocate_csr, relocate_csr_plain,
     )
     from sparsebase_tpu_torch.ops.permute import permute_2d
     from sparsebase_tpu_torch.ops.reorder import DegreeReorder
@@ -415,8 +592,11 @@ def main() -> None:
     check_rows("path B K1 vs K2", y_b, y_b_csr, deg_b, absdot_b)
     err_k1 = check_rows("path B K1 vs plain", y_b, dia_spmv_plain(dia_b.offsets, dia_b.data, x_b, dia_b.shape),
                         deg_b, absdot_b)
-    err_k2 = check_rows("path A K2 vs plain (source CSR)", csr_spmv(src, x_a), csr_spmv_plain(src, x_a),
-                        src.degrees(), csr_spmv_plain(abs_csr(src), x_a.abs()))
+    check_rows("path B K2 vs plain", y_b_csr, csr_spmv_plain(csr_b, x_b), deg_b, absdot_b)
+    y_src, absdot_src = csr_spmv_plain(src, x_a), csr_spmv_plain(abs_csr(src), x_a.abs())
+    y_k2 = csr_spmv(src, x_a)
+    err_k2 = check_rows("path A K2 vs plain (source CSR)", y_k2, y_src, src.degrees(), absdot_src)
+    check(torch.equal(y_k2, csr_spmv(src, x_a)), "path A K2: two runs differ")
 
     print("phase 4 path C checks")
     check_equal("path C indptr vs plain", csr_c.indptr, src_indptr)
@@ -425,7 +605,6 @@ def main() -> None:
     check(bool((rows_c.degrees()[1:] <= rows_c.degrees()[:-1]).all()), "path C rows are not in descending degree order")
     check_csr_equal("path C permute_2d(csr, ro, co) vs plain", both_c, relocate_csr_plain(src, ro_c, co_c))
     check_csr_equal("path C permute_2d(csr, ro, None) vs plain", rows_c, relocate_csr_plain(src, ro_c, None))
-    y_src, absdot_src = csr_spmv_plain(src, x_a), csr_spmv_plain(abs_csr(src), x_a.abs())
     y_ref, absdot_c = torch.empty_like(y_src), torch.empty_like(absdot_src)
     y_ref[ro_c] = y_src  # row ro[i] of the permuted product is row i of A @ x
     absdot_c[ro_c] = absdot_src
@@ -439,7 +618,7 @@ def main() -> None:
     err_k3 = max_diff(k3_out, src_indptr)
     err_k4 = max(max_diff(permuted.indices, plain_perm.indices), max_diff(permuted.vals, plain_perm.vals))
     err_k5 = max_diff(ro_c, ro_c_plain)
-    del k3_out, plain_perm, csr_c, both_c, rows_c, y_c, y_src, absdot_src, y_ref, absdot_c, y_b_csr, absdot_b
+    del k3_out, plain_perm, csr_c, both_c, rows_c, y_c, y_ref, absdot_c, y_b_csr, absdot_b, y_k2
     torch.cuda.synchronize()
 
     # -- times ----------------------------------------------------------------------
@@ -453,36 +632,74 @@ def main() -> None:
     ms_c = host_ms(path_c)
     print(f"phase 5 path C convert/reorder/permute x2/spmv: median {ms_c:.3f} ms, {nnz / (ms_c / 1e3):.4g} nnz/s")
     degrees = src.degrees()
+    # the library calls' inputs, made outside the timed region
+    bounds = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    lib_name, lib_spmv = library_spmv(src, x_a)
+    check_rows(f"path A {lib_name} vs plain", lib_spmv(), y_src, src.degrees(), absdot_src)
+    del y_src, absdot_src
     k3_ms = cuda_ms(lambda: indptr_from_sorted_rows(coo_a.row, n))
     k3_plain_ms = cuda_ms(lambda: indptr_plain(coo_a.row, n))
+    k3_lib_ms = cuda_ms(lambda: torch.searchsorted(coo_a.row, bounds))
     k5_ms = cuda_ms(lambda: radix_rank(degrees))
     k5_plain_ms = cuda_ms(lambda: radix_rank_plain(degrees))
+    k5_argsort_ms = cuda_ms(lambda: radix_argsort(degrees))
+    k5_lib_ms = cuda_ms(lambda: torch.argsort(degrees, stable=True))
     k4_ms = cuda_ms(lambda: relocate_csr(src, ro, ro))
     k4_plain_ms = cuda_ms(lambda: relocate_csr_plain(src, ro, ro))
-    print(f"phase 5 path A K3 indptr: {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms")
-    print(f"phase 5 path A K5 radix_rank (degrees, n={n}): {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms")
+    print(f"phase 5 path A K3 indptr: {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, "
+          f"torch.searchsorted {k3_lib_ms:.4f} ms")
+    print(f"phase 5 path A K5 radix_rank (degrees, n={n}): {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms; "
+          f"radix_argsort {k5_argsort_ms:.4f} ms, torch.argsort(stable=True) {k5_lib_ms:.4f} ms")
     print(f"phase 5 path A K4 relocate_csr (ro, ro): {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms")
     k2_ms = cuda_ms(lambda: csr_spmv(src, x_a))
     k2_plain_ms = cuda_ms(lambda: csr_spmv_plain(src, x_a))
-    print(f"phase 5 path A K2 csr_spmv: {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms")
+    k2_lib_ms = cuda_ms(lib_spmv)
+    print(f"phase 5 path A K2 csr_spmv: {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, {lib_name} {k2_lib_ms:.4f} ms")
+    print(f"phase 5 path A back to back, 10 calls per event pair: K2 {cuda_ms(lambda: csr_spmv(src, x_a), batch=10):.4f} ms, "
+          f"{lib_name} {cuda_ms(lib_spmv, batch=10):.4f} ms; K3 {cuda_ms(lambda: indptr_from_sorted_rows(coo_a.row, n), batch=10):.4f} "
+          f"ms, torch.searchsorted {cuda_ms(lambda: torch.searchsorted(coo_a.row, bounds), batch=10):.4f} ms")
+    probe = [(k, coo_a.col.remainder(k)) for k in (4_096, 262_144)] + [(n, coo_a.col)]
+    phase_profile(
+        lambda: sbt.preprocess_pipeline(coo_a, x_a), ms_a,
+        [("K2 csr_spmv on path A's source CSR", lambda: csr_spmv(src, x_a)), (lib_name, lib_spmv),
+         ("K1 banded_spmv on path B's band, strided", lambda: banded_spmv(dia_b, x_b)),
+         ("K1 banded_spmv on path B's band, tiled", lambda: banded_spmv(dia_b, x_b, layout="tiled"))],
+        [(k, lambda k=k, ids=ids: torch.index_select(x_a[:k], 0, ids)) for k, ids in probe],
+    )
+    del probe
+    del lib_spmv, bounds
     k1_ms = cuda_ms(lambda: banded_spmv(dia_b, x_b))
     k1_plain_ms = cuda_ms(lambda: dia_spmv_plain(dia_b.offsets, dia_b.data, x_b, dia_b.shape))
     b_csr_ms = cuda_ms(lambda: csr_spmv(csr_b, x_b))
     print(f"phase 5 path B spmv: DIA (K1) {k1_ms:.4f} ms, CSR (K2) {b_csr_ms:.4f} ms, "
           f"K1 plain {k1_plain_ms:.4f} ms")
 
-    def entry(name, source, replaces, err, ms, plain_ms):
+    shapes = {
+        "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],
+                            band_bytes=dia_b.data.element_size()),
+        "csr_spmv": dict(n=n, ncols=n, nnz=nnz),
+        "indptr": dict(nnz=nnz, nrows=n),
+        "relocate_csr": dict(n=n, nnz=nnz, order_entries=n, value_bytes=4),  # ro is both orders
+        "radix_rank": dict(n=n, key_bytes=degrees.element_size()),
+    }
+
+    def entry(name, source, replaces, err, ms, plain_ms, library_ms):
+        bound_ms, bound_by = bound(name, **shapes[name])
+        print(f"phase 5 {name}: {ms:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / ms:.1%} of it")
         return {"name": name, "route": "cuda", "source": f"sparsebase_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms}
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
     record = {"kernels": [
         entry("banded_spmv", "banded_spmv.cu", "sparsebase_tpu/ops/kernels/banded_spmv.py:67", err_k1, k1_ms,
-              k1_plain_ms),
-        entry("csr_spmv", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189", err_k2, k2_ms, k2_plain_ms),
-        entry("indptr", "indptr.cu", "tools/pallas_attempts.py:218", err_k3, k3_ms, k3_plain_ms),
-        entry("relocate_csr", "relocate.cu", "tools/pallas_attempts.py:83", err_k4, k4_ms, k4_plain_ms),
-        entry("radix_rank", "radix_sort.cu", "tools/pallas_attempts.py:109", err_k5, k5_ms, k5_plain_ms),
+              k1_plain_ms, None),
+        entry("csr_spmv", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189", err_k2, k2_ms, k2_plain_ms,
+              k2_lib_ms),
+        entry("indptr", "indptr.cu", "tools/pallas_attempts.py:218", err_k3, k3_ms, k3_plain_ms, k3_lib_ms),
+        entry("relocate_csr", "relocate.cu", "tools/pallas_attempts.py:83", err_k4, k4_ms, k4_plain_ms, None),
+        entry("radix_rank", "radix_sort.cu", "tools/pallas_attempts.py:109", err_k5, k5_ms, k5_plain_ms,
+              k5_lib_ms),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Builds the hand-written CUDA kernels in ``csrc/`` and binds them.
 
 The kernels are compiled at first use, from this package's sources only,
-by ``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+by ``nvcc`` for Hopper (``sm_90a``): one ``nvcc -c`` per source, all
+started together, then one link into a shared library with a plain C
 interface, loaded with ``ctypes``. The library lands in ``_build/<hash>/``,
 where the hash covers the sources and the flags: an edited source
 rebuilds, an unchanged one loads what is there. A failed build raises
@@ -21,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -30,7 +31,7 @@ SOURCES = ("banded_spmv.cu", "csr_spmv.cu", "indptr.cu", "radix_sort.cu", "reloc
 LIB_NAME = "libsbtorch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / spills per kernel, kept in build.log
 )
 BUILD_TIMEOUT_S = 900
@@ -59,8 +60,28 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def nvcc_command(nvcc: str, out: Path) -> List[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *(str(CSRC / s) for s in SOURCES)]
+def nvcc_commands(nvcc: str, out: Path) -> Tuple[List[List[str]], List[str]]:
+    """One compile per source, to an object file beside ``out``, and the
+    link of those objects into the shared library ``out``."""
+    objs = [out.with_name(f"{out.name}.{Path(s).stem}.o") for s in SOURCES]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)] for s, o in zip(SOURCES, objs)]
+    return compiles, [nvcc, "-shared", "-o", str(out), *map(str, objs)]
+
+
+def _run_all(cmds: List[List[str]]) -> List[Tuple[List[str], int, str]]:
+    """Runs the commands at once; ``(cmd, returncode, output)`` for each.
+    Every process started is waited for, or killed on the way out."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=BUILD_TIMEOUT_S)[0] for p in procs]
+        return [(cmd, p.returncode, out) for cmd, p, out in zip(cmds, procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def build() -> Path:
@@ -72,12 +93,19 @@ def build() -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = nvcc_command(find_nvcc(), tmp)
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    compiles, link = nvcc_commands(find_nvcc(), tmp)
+    try:
+        runs = _run_all(compiles)
+        if all(rc == 0 for _, rc, _ in runs):
+            runs += _run_all([link])
+    finally:
+        for obj in out_dir.glob(f"{tmp.name}.*.o"):
+            obj.unlink()
+    log = "".join(" ".join(cmd) + "\n" + out for cmd, _, out in runs)
     (out_dir / "build.log").write_text(log)
-    if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc exited with {proc.returncode}:\n{log}")
+    failed = [rc for _, rc, _ in runs if rc != 0]
+    if failed:
+        raise KernelBuildError(f"nvcc exited with {failed[0]}:\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 

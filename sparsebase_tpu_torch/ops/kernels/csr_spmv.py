@@ -2,8 +2,12 @@
 
 K2 (``csrc/csr_spmv.cu``) takes over the main path's SpMV, which the JAX
 package wrote as an XLA cumsum boundary difference
-(``sparsebase_tpu/models/pipelines.py:59-61,189-198``). CPU tensors take
-the plain version; CUDA tensors launch the kernel, or the wrapper raises.
+(``sparsebase_tpu/models/pipelines.py:59-61,189-198``). It splits the
+entries into tiles of ``TILE``; a row that crosses a tile edge leaves its
+parts in a scratch buffer that this wrapper allocates, and the same C call
+adds them in tile order, so ``y`` is the same bit for bit on every run.
+CPU tensors take the plain version; CUDA tensors launch the kernel, or the
+wrapper raises.
 """
 
 from __future__ import annotations
@@ -16,11 +20,19 @@ from ..._build import Kernel
 from ...formats.csr import CSR
 from ...utils.exceptions import TypeMismatchError
 
+TILE = 2048  # entries per block (kTile in csrc/csr_spmv.cu)
+
 _K2 = Kernel(
     "csr_spmv",
     "sb_csr_spmv",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3 + [ctypes.c_void_p] * 3,
 )
+
+
+def tile_count(nnz: int) -> int:
+    """Tiles of K2 over ``nnz`` entries; one when there are none, which
+    still writes the zero rows."""
+    return max(1, -(-nnz // TILE))
 
 
 def csr_spmv_plain(csr: CSR, x: torch.Tensor) -> torch.Tensor:
@@ -54,11 +66,15 @@ def csr_spmv(csr: CSR, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((csr.nrows,), dtype=torch.float32, device=x.device)
     if csr.nrows == 0:
         return y
+    ntiles = tile_count(csr.nnz)
+    first = torch.empty((ntiles + 1,), dtype=torch.int64, device=x.device)  # each tile's first row
+    partial = torch.empty((2 * ntiles,), dtype=torch.float32, device=x.device)  # crossing rows' parts
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _K2.launch(
             indptr.data_ptr(), indices.data_ptr(),
             None if vals is None else vals.data_ptr(),
-            x.data_ptr(), y.data_ptr(), csr.nrows, stream,
+            x.data_ptr(), y.data_ptr(), csr.nrows, csr.nnz, ntiles,
+            first.data_ptr(), partial.data_ptr(), stream,
         )
     return y

@@ -29,6 +29,7 @@ from sparsebase_tpu_torch.ops.kernels import (
     relocate_csr,
     relocate_csr_plain,
 )
+from sparsebase_tpu_torch.ops.kernels.csr_spmv import TILE
 from sparsebase_tpu_torch.ops.reorder import DegreeReorder
 
 pytestmark = pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
@@ -86,6 +87,52 @@ def test_csr_kernel_matches_plain(dev, gen, pattern):
     assert _build.launch_counts()["csr_spmv"] == before + 1
     abs_csr = CSR(indptr, csr.indices, None if pattern else csr.vals.abs(), csr.shape)
     assert_rows_within(y, csr_spmv_plain(csr, x), deg, csr_spmv_plain(abs_csr, x.abs()))
+    assert torch.equal(y, csr_spmv(csr, x))  # the same y bit for bit on every run
+
+
+def off_alignment(t):
+    """A contiguous copy of ``t`` starting one element past a 16-byte boundary."""
+    buf = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+# name -> row degrees (K2 splits the entries into tiles of TILE)
+CSR_EDGE_CASES = {
+    # rows of exactly one tile, one tile and one entry, over three tiles;
+    # rows 2, 3, 4 and 8 start on tile edges, row 2 empty
+    "tile-edges": lambda g, d: torch.cat([
+        torch.tensor([5, TILE - 5, 0, TILE, TILE + 1, 0, 0, TILE - 1, 3 * TILE + 7, 0, TILE, 1], device=d),
+        torch.randint(0, 40, (5_000,), generator=g, device=d)]),
+    "rows-of-0-to-3": lambda g, d: torch.randint(0, 4, (50_000,), generator=g, device=d),
+    "no-entries": lambda g, d: torch.zeros((1_000,), dtype=torch.int64, device=d),
+    "one-row-over-five-tiles": lambda g, d: torch.tensor([5 * TILE + 3], device=d),
+    "one-row-of-7": lambda g, d: torch.tensor([7], device=d),
+    "trailing-empty-rows": lambda g, d: torch.cat([torch.full((40,), TILE // 8, device=d),
+                                                   torch.zeros((30,), dtype=torch.int64, device=d)]),
+}
+
+
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "off-alignment"])
+@pytest.mark.parametrize("pattern", [False, True], ids=["valued", "pattern"])
+@pytest.mark.parametrize("case", sorted(CSR_EDGE_CASES))
+def test_csr_kernel_tile_edges(dev, gen, case, pattern, misaligned):
+    deg = CSR_EDGE_CASES[case](gen, dev)
+    indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), deg.cumsum(0)])
+    nnz, ncols = int(indptr[-1]), 3_000
+    cols = torch.randint(0, ncols, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    vals = None if pattern else torch.randn((nnz,), generator=gen, device=dev)
+    if misaligned:  # the kernel's scalar loads
+        cols = off_alignment(cols)
+        vals = None if pattern else off_alignment(vals)
+    csr = CSR(indptr, cols, vals, (deg.numel(), ncols))
+    x = torch.randn((ncols,), generator=gen, device=dev)
+    before = _build.launch_counts()["csr_spmv"]
+    y = csr_spmv(csr, x)
+    assert _build.launch_counts()["csr_spmv"] == before + 1
+    abs_csr = CSR(indptr, cols, None if pattern else vals.abs(), csr.shape)
+    assert_rows_within(y, csr_spmv_plain(csr, x), deg, csr_spmv_plain(abs_csr, x.abs()))
+    assert torch.equal(y, csr_spmv(csr, x))
 
 
 def test_pipeline_on_card_matches_cpu(dev, gen):
@@ -138,6 +185,16 @@ INDPTR_CASES = {
     "gap-of-1M-rows": lambda g, d: (torch.cat([sorted_rows(g, d, 3, 100),
                                                torch.full((50,), 1_000_003, dtype=torch.int32, device=d)]), 1_000_010),
     "path-a-like": lambda g, d: (sorted_rows(g, d, 625_000, 10_000_000), 625_000),
+    # K3 loads 16-byte groups: an array one element off alignment, fewer
+    # entries than a thread's run, and run heads on every 512-id chunk seam
+    "off-alignment": lambda g, d: (sorted_rows(g, d, 50_000, 400_001)[1:], 50_000),
+    "1-entry": lambda g, d: (sorted_rows(g, d, 10, 1), 10),
+    "3-entries": lambda g, d: (sorted_rows(g, d, 10, 3), 10),
+    "15-entries": lambda g, d: (sorted_rows(g, d, 10, 15), 10),
+    "17-entries": lambda g, d: (sorted_rows(g, d, 10, 17), 10),
+    "heads-on-chunk-seams": lambda g, d: (torch.arange(1_000_000, dtype=torch.int32, device=d) // 512, 1_960),
+    "heads-on-seams-off-alignment": lambda g, d: (
+        off_alignment(torch.arange(1_000_000, dtype=torch.int32, device=d) // 512), 1_960),
 }
 
 

@@ -16,6 +16,10 @@ for its step instead: ``indptr_from_sorted_rows`` (and ``_blocked``),
 kernels themselves run in tests/test_torch_cuda.py.
 """
 
+import ast
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -48,6 +52,7 @@ from sparsebase_tpu_torch.ops.kernels import (  # noqa: E402
     tile_band,
     untile_band,
 )
+from sparsebase_tpu_torch.ops.kernels.csr_spmv import TILE, tile_count  # noqa: E402
 from sparsebase_tpu_torch.ops.permute import permute_2d  # noqa: E402
 from sparsebase_tpu_torch.ops.reorder import ranks_from_sort_keys  # noqa: E402
 from sparsebase_tpu_torch.utils.exceptions import TypeMismatchError  # noqa: E402
@@ -326,12 +331,97 @@ def test_wrappers_never_fall_back_off_cpu():
         banded_spmv(dia, torch.zeros(dia.shape[1]), layout="diagonal")
 
 
+def _chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module (it imports only the
+    standard library and torch at the top)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# kernel -> (shapes, bytes worked by hand: each input read once, each output
+# written once), at path A (100M entries, 6.25M rows) and path B (33
+# diagonals, 1,939,393 rows, 63,999,697 stored entries)
+BOUND_CASES = {
+    # 33 * 1,939,393 * 4 band + 33 * 4 offsets + 2 * 1,939,393 * 4 for x and y
+    "path-B-banded_spmv": ("banded_spmv", dict(ndiag=33, n=1_939_393, m=1_939_393, band_bytes=4), 271_515_152),
+    # 6,250,001 * 8 indptr + 1e8 * (4 + 4) ids and values + 2 * 6.25M * 4 for x and y
+    "path-A-csr_spmv": ("csr_spmv", dict(n=6_250_000, ncols=6_250_000, nnz=100_000_000), 900_000_008),
+    "path-A-csr_spmv-pattern": ("csr_spmv", dict(n=6_250_000, ncols=6_250_000, nnz=100_000_000, pattern=True),
+                                500_000_008),
+    # 1,939,394 * 8 indptr + 63,999,697 * 8 ids and values + 2 * 1,939,393 * 4
+    "path-B-csr_spmv": ("csr_spmv", dict(n=1_939_393, ncols=1_939_393, nnz=63_999_697), 543_027_872),
+    # 1e8 * 4 row ids + 6,250,001 * 8 indptr
+    "path-A-indptr": ("indptr", dict(nnz=100_000_000, nrows=6_250_000), 450_000_008),
+    # 63,999,697 * 4 + 1,939,394 * 8
+    "path-B-indptr": ("indptr", dict(nnz=63_999_697, nrows=1_939_393), 271_513_940),
+    # in and out: 6,250,001 * 8 indptr + 1e8 * 8 ids and values; ro once: 6.25M * 4
+    "path-A-relocate_csr": ("relocate_csr", dict(n=6_250_000, nnz=100_000_000, order_entries=6_250_000,
+                                                 value_bytes=4), 1_725_000_016),
+    # 6.25M int64 degrees in, 6.25M int32 ranks out
+    "path-A-radix_rank": ("radix_rank", dict(n=6_250_000, key_bytes=8), 75_000_000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOUND_CASES))
+def test_chip_smoke_bound_bytes(case):
+    kernel, shapes, want = BOUND_CASES[case]
+    smoke = _chip_smoke()
+    assert smoke.bound_bytes(kernel, **shapes) == want
+    bound_ms, bound_by = smoke.bound(kernel, **shapes)
+    assert bound_by == "bytes"  # at most 2 flops per 8 bytes: far under the f32 rate
+    assert bound_ms == pytest.approx(want / 3.35e12 * 1e3)
+
+
+# calls that compute K2's or K3's function in one library call: chip_smoke.py
+# times them as yardsticks, the package must not make them
+_LIBRARY_CALLS = {"sparse_csr_tensor", "mv", "searchsorted"}
+# (file, enclosing function) allowed one: K3's plain version, and csr_to_dia,
+# whose searchsorted maps each entry to its diagonal among the band's offsets
+_ALLOWED = {("ops/kernels/indptr.py", "indptr_plain"), ("convert/kernels.py", "csr_to_dia")}
+
+
+def test_package_makes_no_library_spmv_or_indptr_call():
+    import sparsebase_tpu_torch
+
+    root = Path(sparsebase_tpu_torch.__file__).resolve().parent
+    found = set()
+
+    def scan(node, rel, where):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            where = node.name  # calls belong to their innermost function
+        if isinstance(node, ast.Call) and isinstance(node.func, (ast.Attribute, ast.Name)):
+            name = node.func.attr if isinstance(node.func, ast.Attribute) else node.func.id
+            if name in _LIBRARY_CALLS:
+                found.add((rel, where, name))
+        for child in ast.iter_child_nodes(node):
+            scan(child, rel, where)
+
+    for path in sorted(root.rglob("*.py")):
+        scan(ast.parse(path.read_text()), path.relative_to(root).as_posix(), "<module>")
+    outside = {f for f in found if f[:2] not in _ALLOWED}
+    assert not outside, f"library calls in the package: {sorted(outside)}"
+    assert ("ops/kernels/indptr.py", "indptr_plain", "searchsorted") in found  # the scan sees calls
+
+
+@pytest.mark.parametrize("nnz,want", [(0, 1), (1, 1), (TILE, 1), (TILE + 1, 2), (100_000_000, 48_829)])
+def test_csr_spmv_tile_count(nnz, want):
+    """K2's scratch is sized per tile; a matrix with no entries still has one
+    tile, which writes its zero rows."""
+    assert tile_count(nnz) == want
+
+
 def test_build_is_keyed_on_sources_and_fails_loudly(tmp_path, monkeypatch):
-    cmd = _build.nvcc_command("nvcc", tmp_path / "lib.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    compiles, link = _build.nvcc_commands("nvcc", tmp_path / "lib.so")
+    assert all("arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd for cmd in compiles)
+    assert "-shared" in link and str(tmp_path / "lib.so") in link
     assert {"indptr.cu", "radix_sort.cu", "relocate.cu"} <= set(_build.SOURCES)
     assert {"indptr", "radix_rank", "relocate_csr"} <= set(_build.KERNELS)
-    assert [c for c in cmd if c.endswith(".cu")] == [str(_build.CSRC / s) for s in _build.SOURCES]
+    # one compile per source, each object linked once
+    assert [c for cmd in compiles for c in cmd if c.endswith(".cu")] == [str(_build.CSRC / s) for s in _build.SOURCES]
+    assert [cmd[-1] for cmd in compiles] == [c for c in link if c.endswith(".o")]
     key = _build.source_hash()
     for name in _build.SOURCES:
         (tmp_path / name).write_text((_build.CSRC / name).read_text())
