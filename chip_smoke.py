@@ -19,7 +19,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    heads on every chunk seam), K5 (radix rank and argsort; ties,
    descending, all equal, three passes, 64-bit keys) and K4 (relocation;
    rows, columns, both, neither, a pattern matrix, float64 values, 20
-   duplicates, rows of 5,000 and 262,144 entries);
+   duplicates, rows of 5,000 and 262,144 entries; at the edges of its
+   groups of 32 rows: rows of exactly 32 and 33 entries, a group of empty
+   rows, a group of block-tier rows, one row, n not a multiple of 32, id
+   and value arrays one element off 16-byte alignment, a column table of
+   2^24 entries);
 3. the slice's paths, each once, with every launch count set to 0 just
    before it and read just after: path A, ``preprocess_pipeline`` on a
    ``--nnz`` COO made on the device (uniform rows, columns 20% from
@@ -40,7 +44,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    main path's shapes. The library calls (cuSPARSE through ``torch.mv`` on
    a ``sparse_csr_tensor`` for K2, ``torch.searchsorted`` for K3, a stable
    ``torch.argsort`` for K5) are made here only, never by the package;
-   K2's is first held to the same per-row bound as the kernel;
+   K2's is first held to the same per-row bound as the kernel; K4 is
+   timed in path A's form ``(ro, ro)`` and, one call and back to back, in
+   path C's two, ``(ro, co)`` and ``(ro, None)``, each beside its bound;
    K2 and K3 and their library calls are timed twice: one call per event
    pair (the record's ``ms``, the wrapper's host time included), and ten
    calls back to back per event pair (the host's time hidden);
@@ -397,31 +403,55 @@ def phase_exact_kernels_vs_plain(g, dev) -> None:
     from sparsebase_tpu_torch import CSR
     from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
 
-    n, ncols = 50_000, 30_000
-    for name, long_row, rows, cols, pattern, dtype in (
-        ("rows only", None, True, False, False, torch.float32),
-        ("columns only", None, False, True, False, torch.float32),
-        ("both", None, True, True, False, torch.float32),
-        ("neither (sort_rows)", None, False, False, False, torch.float32),
-        ("pattern", None, True, True, True, torch.float32),
-        ("float64 values", None, True, True, False, torch.float64),
-        ("one row of 5000", 5_000, True, True, False, torch.float32),
-        ("one row of 262144", 262_144, True, True, False, torch.float32),
-    ):
+    def mix(n, long_row=None):
         # degrees over the warp tier (<= 32), the block tier (<= 4096) and
-        # empty rows; columns unsorted inside rows
+        # empty rows
         deg = torch.randint(0, 40, (n,), generator=g, device=dev)
         deg[::7] = 0
         deg[5::97] = torch.randint(33, 4097, (deg[5::97].numel(),), generator=g, device=dev)
         if long_row is not None:
             deg[n // 2] = long_row
+        return deg
+
+    def mix_with(at, lo, hi=None):
+        deg = mix(50_000)
+        deg[at] = lo if hi is None else torch.randint(lo, hi + 1, (deg[at].numel(),), generator=g, device=dev)
+        return deg
+
+    def poisson16(n):  # path A's degrees
+        return torch.poisson(torch.full((n,), 16.0, device=dev), generator=g).to(torch.int64)
+
+    for name, deg, ncols, rows, cols, pattern, dtype, offset in (
+        ("rows only", mix(50_000), 30_000, True, False, False, torch.float32, False),
+        ("columns only", mix(50_000), 30_000, False, True, False, torch.float32, False),
+        ("both", mix(50_000), 30_000, True, True, False, torch.float32, False),
+        ("neither (sort_rows)", mix(50_000), 30_000, False, False, False, torch.float32, False),
+        ("pattern", mix(50_000), 30_000, True, True, True, torch.float32, False),
+        ("float64 values", mix(50_000), 30_000, True, True, False, torch.float64, False),
+        ("one row of 5000", mix(50_000, 5_000), 30_000, True, True, False, torch.float32, False),
+        ("one row of 262144", mix(50_000, 262_144), 30_000, True, True, False, torch.float32, False),
+        ("rows of 32 and 33", mix_with(slice(0, None, 2), 32, 33), 30_000, True, True, False, torch.float32, False),
+        ("a group of empty rows", mix_with(slice(64, 96), 0), 30_000, True, True, False, torch.float32, False),
+        ("a group of block-tier rows", mix_with(slice(96, 128), 33, 4_096), 30_000, True, True, False,
+         torch.float32, False),
+        ("n = 1", torch.tensor([25], device=dev), 30_000, True, True, False, torch.float32, False),
+        ("n = 1,000,003 (not a multiple of 32)", poisson16(1_000_003), 1_000_003, True, True, False,
+         torch.float32, False),
+        ("ids and values off alignment", poisson16(200_000), 200_000, True, True, False, torch.float32, True),
+        ("ids off alignment, pattern", mix(50_000), 30_000, True, True, True, torch.float32, True),
+        ("a column table of 2^24", poisson16(200_000), 1 << 24, True, True, False, torch.float32, False),
+    ):
         indptr = indptr_from_counts(deg)
         cols_ = torch.randint(0, ncols, (int(indptr[-1]),), generator=g, device=dev, dtype=torch.int32)
-        first = int(indptr[int(torch.nonzero(deg >= 20)[0])])
-        cols_[first:first + 20] = cols_[first]  # 20 copies of one coordinate
+        big = torch.nonzero(deg >= 20)
+        if big.numel():
+            first = int(indptr[int(big[0])])
+            cols_[first:first + 20] = cols_[first]  # 20 copies of one coordinate
         vals = None if pattern else torch.randn((cols_.numel(),), generator=g, device=dev).to(dtype)
-        csr = CSR(indptr, cols_, vals, (n, ncols))
-        ro = torch.randperm(n, generator=g, device=dev).to(torch.int32) if rows else None
+        csr = CSR(indptr, cols_, vals, (deg.numel(), ncols))
+        if offset:
+            csr = off_alignment(csr)
+        ro = torch.randperm(csr.nrows, generator=g, device=dev).to(torch.int32) if rows else None
         co = torch.randperm(ncols, generator=g, device=dev).to(torch.int32) if cols else None
         check_csr_equal(f"K4 {name}", relocate_csr(csr, ro, co), relocate_csr_plain(csr, ro, co))
 
@@ -646,11 +676,18 @@ def main() -> None:
     k5_lib_ms = cuda_ms(lambda: torch.argsort(degrees, stable=True))
     k4_ms = cuda_ms(lambda: relocate_csr(src, ro, ro))
     k4_plain_ms = cuda_ms(lambda: relocate_csr_plain(src, ro, ro))
+    k4_forms = [("path C (ro, co)", lambda: relocate_csr(src, ro_c, co_c), 2 * n),  # (label, call, order entries)
+                ("path C (ro, None)", lambda: relocate_csr(src, ro_c, None), n)]
     print(f"phase 5 path A K3 indptr: {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, "
           f"torch.searchsorted {k3_lib_ms:.4f} ms")
     print(f"phase 5 path A K5 radix_rank (degrees, n={n}): {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms; "
           f"radix_argsort {k5_argsort_ms:.4f} ms, torch.argsort(stable=True) {k5_lib_ms:.4f} ms")
     print(f"phase 5 path A K4 relocate_csr (ro, ro): {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms")
+    for label, fn, order_entries in k4_forms:
+        k4_bound, _ = bound("relocate_csr", n=n, nnz=nnz, order_entries=order_entries, value_bytes=4)
+        one, back = cuda_ms(fn), cuda_ms(fn, batch=10)
+        print(f"phase 5 K4 relocate_csr {label}: one call {one:.4f} ms, back to back {back:.4f} ms; bound "
+              f"{k4_bound:.4f} ms (bytes), {k4_bound / one:.1%} / {k4_bound / back:.1%} of it")
     k2_ms = cuda_ms(lambda: csr_spmv(src, x_a))
     k2_plain_ms = cuda_ms(lambda: csr_spmv_plain(src, x_a))
     k2_lib_ms = cuda_ms(lib_spmv)

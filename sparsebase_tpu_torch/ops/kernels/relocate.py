@@ -11,14 +11,19 @@ row the entries are ordered by (new column, old in-row position). That key
 is unique, so the kernel's result equals the plain version's stable sort
 bit for bit, duplicate coordinates included.
 
-On the card rows of up to 32 entries are sorted by a warp each, rows of up
-to ``BLOCK_MAX`` entries by a block each in shared memory, and longer rows
-by K5 (``radix_argsort``) on a (row, new column) key. float32 values and
-pattern matrices ride in the kernel; for any other value dtype the kernel
-writes each entry's source position and the wrapper gathers ``vals[src]``.
-The new ``indptr`` stays a torch op: ``counts[row_order] = degrees`` and a
-cumsum, both n-sized. CPU tensors take the plain version; CUDA tensors
-launch the kernel, or the wrapper raises.
+On the card a warp takes 32 rows at a time and sorts those of up to 32
+entries in shared memory; the same pass lists the longer rows on the
+device. A block each sorts the listed rows of up to ``BLOCK_MAX`` entries,
+reading the list's length from device memory, and K5 (``radix_argsort``)
+the rows over ``BLOCK_MAX`` on a (row, new column) key. A call syncs with
+the host once, to read how many rows are over ``BLOCK_MAX`` (only when the
+matrix has enough entries to hold one); where there are such rows, K5's
+route adds its own syncs. float32 values and pattern matrices
+ride in the kernel; for any other value dtype the kernel writes each
+entry's source position and the wrapper gathers ``vals[src]``. The new
+``indptr`` stays a torch op: ``counts[row_order] = degrees`` and a cumsum,
+both n-sized. CPU tensors take the plain version; CUDA tensors launch the
+kernel, or the wrapper raises.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from ...formats.csr import CSR
 from ...utils.exceptions import TypeMismatchError
 from .radix import radix_argsort
 
-WARP_MAX = 32  # rows up to this degree: one warp each (kWarpMax in csrc/relocate.cu)
+WARP_MAX = 32  # rows up to this degree: sorted by the warp tier (kWarpMax in csrc/relocate.cu)
 BLOCK_MAX = 4096  # rows up to this degree: one block each (kBlockMax)
 _PATTERN, _FLOAT, _SOURCE = 0, 1, 2  # value routes (Payload in csrc/relocate.cu)
 
@@ -42,9 +47,15 @@ _K4 = Kernel(
     "relocate_csr",
     "sb_relocate_csr",
     [ctypes.c_void_p] * 6
-    + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
-    + [ctypes.c_void_p] * 4,
+    + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64]
+    + [ctypes.c_void_p] * 5,
 )
+
+
+def long_row_capacity(nrows: int, nnz: int):
+    """Slots the kernel's two device lists need at most: rows of
+    ``WARP_MAX + 1`` to ``BLOCK_MAX`` entries, and rows of more."""
+    return min(nrows, nnz // (WARP_MAX + 1)), min(nrows, nnz // (BLOCK_MAX + 1))
 
 
 def _new_indptr(csr: CSR, row_order: Optional[torch.Tensor]) -> torch.Tensor:
@@ -106,20 +117,22 @@ def relocate_csr(
         route, out_vals = _FLOAT, torch.empty_like(vals)
     else:
         route, out_src = _SOURCE, torch.empty((nnz,), dtype=torch.int64, device=dev)
-    degrees = csr.degrees()
-    long_rows = torch.nonzero(degrees > WARP_MAX).flatten().to(torch.int32)  # host sync: grid size
+    block_cap, over_cap = long_row_capacity(csr.nrows, nnz)
+    rows = torch.empty((block_cap + over_cap,), dtype=torch.int32, device=dev)
+    counts = torch.empty((2,), dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _K4.launch(
             indptr.data_ptr(), indices.data_ptr(), ptr(vals if route == _FLOAT else None), ptr(ro), ptr(co),
-            new_indptr.data_ptr(), csr.nrows, long_rows.data_ptr(), long_rows.numel(), route,
+            new_indptr.data_ptr(), csr.nrows, route, rows.data_ptr(), block_cap, counts.data_ptr(),
             out_indices.data_ptr(), ptr(out_vals), ptr(out_src), stream,
         )
-    if long_rows.numel():
-        over = long_rows[degrees[long_rows] > BLOCK_MAX]
-        if over.numel():
-            _sort_rows_over_cap(over, indptr, indices, vals, ro, co, new_indptr, out_indices, out_vals, out_src)
+    if over_cap:
+        over = int(counts[1])  # the one host sync: rows over BLOCK_MAX
+        if over:
+            _sort_rows_over_cap(rows[block_cap:block_cap + over], indptr, indices, vals, ro, co, new_indptr,
+                                out_indices, out_vals, out_src)
     if route == _SOURCE:
         out_vals = vals[out_src]
     return CSR(new_indptr, out_indices, out_vals, csr.shape)

@@ -11,6 +11,8 @@ in different orders. K3 (indptr), K4 (relocation) and K5 (radix sort)
 compute exact integer results, and equal their plain versions bit for bit.
 """
 
+import warnings
+
 import pytest
 import torch
 
@@ -230,16 +232,23 @@ def test_radix_kernel_matches_plain(dev, gen, case):
     assert torch.equal(perm, radix_argsort_plain(keys))
 
 
-def device_csr(gen, dev, degrees, ncols, pattern=False, dtype=torch.float32):
+def device_csr(gen, dev, degrees, ncols, pattern=False, dtype=torch.float32, misaligned=False):
     """A CSR with the given row degrees, 20 copies of one coordinate in the
-    first row of at least 20 entries, and columns unsorted inside rows."""
+    first row of at least 20 entries (if any), and columns unsorted inside
+    rows; with ``misaligned``, ids and values start one element past a
+    16-byte boundary."""
     degrees = degrees.to(dev)
     indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), degrees.cumsum(0)])
     nnz = int(indptr[-1])
     cols = torch.randint(0, ncols, (nnz,), generator=gen, device=dev, dtype=torch.int32)
-    first = int(indptr[int(torch.nonzero(degrees >= 20)[0])])
-    cols[first:first + 20] = cols[first]
+    big = torch.nonzero(degrees >= 20)
+    if big.numel():
+        first = int(indptr[int(big[0])])
+        cols[first:first + 20] = cols[first]
     vals = None if pattern else torch.randn((nnz,), generator=gen, device=dev).to(dtype)
+    if misaligned:  # K4's scalar loads
+        cols = off_alignment(cols)
+        vals = None if pattern else off_alignment(vals)
     return CSR(indptr, cols, vals, (degrees.numel(), ncols))
 
 
@@ -254,24 +263,50 @@ def degrees_mix(gen, dev, n, long_row=None):
     return deg
 
 
-# name -> (row count, long row, rows permuted, columns relabelled, pattern, value dtype)
+def degrees_set(gen, dev, n, at, lo, hi=None):
+    """``degrees_mix`` with the rows ``at`` (a slice) set to ``lo`` entries,
+    or drawn from [lo, hi]."""
+    deg = degrees_mix(gen, dev, n)
+    k = deg[at].numel()
+    deg[at] = lo if hi is None else torch.randint(lo, hi + 1, (k,), generator=gen, device=dev)
+    return deg
+
+
+def path_a_degrees(gen, dev, n):
+    return torch.poisson(torch.full((n,), 16.0, device=dev), generator=gen).to(torch.int64)
+
+
+# name -> (row degrees, rows permuted, columns relabelled, pattern, value dtype,
+# ids and values off 16-byte alignment). K4's warp tier takes groups of 32
+# rows and stages the rows of up to 32 entries.
 RELOCATE_CASES = {
-    "rows-only": (50_000, None, True, False, False, torch.float32),
-    "cols-only": (50_000, None, False, True, False, torch.float32),
-    "both-nonsymmetric": (50_000, None, True, True, False, torch.float32),
-    "sort-only": (50_000, None, False, False, False, torch.float32),
-    "pattern": (50_000, None, True, True, True, torch.float32),
-    "float64-values": (50_000, None, True, True, False, torch.float64),
-    "row-of-5000": (20_000, 5_000, True, True, False, torch.float32),
-    "row-of-262144": (20_000, 262_144, True, True, False, torch.float32),
+    "rows-only": (lambda g, d: degrees_mix(g, d, 50_000), True, False, False, torch.float32, False),
+    "cols-only": (lambda g, d: degrees_mix(g, d, 50_000), False, True, False, torch.float32, False),
+    "both-nonsymmetric": (lambda g, d: degrees_mix(g, d, 50_000), True, True, False, torch.float32, False),
+    "sort-only": (lambda g, d: degrees_mix(g, d, 50_000), False, False, False, torch.float32, False),
+    "pattern": (lambda g, d: degrees_mix(g, d, 50_000), True, True, True, torch.float32, False),
+    "float64-values": (lambda g, d: degrees_mix(g, d, 50_000), True, True, False, torch.float64, False),
+    "row-of-5000": (lambda g, d: degrees_mix(g, d, 20_000, 5_000), True, True, False, torch.float32, False),
+    "row-of-262144": (lambda g, d: degrees_mix(g, d, 20_000, 262_144), True, True, False, torch.float32, False),
+    "rows-of-32-and-33": (lambda g, d: degrees_set(g, d, 20_000, slice(0, None, 2), 32, 33), True, True, False,
+                          torch.float32, False),
+    "group-of-empty-rows": (lambda g, d: degrees_set(g, d, 20_000, slice(64, 96), 0), True, True, False,
+                            torch.float32, False),
+    "group-in-block-tier": (lambda g, d: degrees_set(g, d, 20_000, slice(96, 128), 33, 4_096), True, True, False,
+                            torch.float32, False),
+    "one-row": (lambda g, d: torch.tensor([25], device=d), True, True, False, torch.float32, False),
+    "n-not-multiple-of-32": (lambda g, d: path_a_degrees(g, d, 100_003), True, True, False, torch.float32, False),
+    "ids-off-alignment": (lambda g, d: path_a_degrees(g, d, 50_000), True, True, False, torch.float32, True),
+    "ids-off-alignment-pattern": (lambda g, d: degrees_mix(g, d, 50_000), True, True, True, torch.float32, True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(RELOCATE_CASES))
 def test_relocate_kernel_matches_plain(dev, gen, case):
-    n, long_row, rows, cols, pattern, dtype = RELOCATE_CASES[case]
+    degrees, rows, cols, pattern, dtype, misaligned = RELOCATE_CASES[case]
     ncols = 30_000
-    csr = device_csr(gen, dev, degrees_mix(gen, dev, n, long_row), ncols, pattern, dtype)
+    csr = device_csr(gen, dev, degrees(gen, dev), ncols, pattern, dtype, misaligned)
+    n = csr.nrows
     ro = torch.randperm(n, generator=gen, device=dev).to(torch.int32) if rows else None
     co = torch.randperm(ncols, generator=gen, device=dev).to(torch.int32) if cols else None
     before = _build.launch_counts()["relocate_csr"]
@@ -292,3 +327,24 @@ def test_relocate_rejects_orders_of_the_wrong_length(dev, gen):
         relocate_csr(csr, torch.arange(999, dtype=torch.int32, device=dev), None)
     with pytest.raises(ValueError):
         relocate_csr(csr, None, torch.arange(400, dtype=torch.int32, device=dev))
+
+
+def test_relocate_syncs_the_host_once(dev, gen):
+    """On path A's degrees (none over BLOCK_MAX) a call reads one number
+    back: how many rows are over BLOCK_MAX."""
+    n = 200_000
+    csr = device_csr(gen, dev, path_a_degrees(gen, dev, n), n)
+    ro = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    co = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    relocate_csr(csr, ro, co)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = relocate_csr(csr, ro, co)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert torch.equal(got.indices, relocate_csr_plain(csr, ro, co).indices)

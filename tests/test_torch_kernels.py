@@ -53,6 +53,7 @@ from sparsebase_tpu_torch.ops.kernels import (  # noqa: E402
     untile_band,
 )
 from sparsebase_tpu_torch.ops.kernels.csr_spmv import TILE, tile_count  # noqa: E402
+from sparsebase_tpu_torch.ops.kernels.relocate import BLOCK_MAX, WARP_MAX, long_row_capacity  # noqa: E402
 from sparsebase_tpu_torch.ops.permute import permute_2d  # noqa: E402
 from sparsebase_tpu_torch.ops.reorder import ranks_from_sort_keys  # noqa: E402
 from sparsebase_tpu_torch.utils.exceptions import TypeMismatchError  # noqa: E402
@@ -277,6 +278,32 @@ def test_relocate_matches_permute_2d(case):
             else:
                 np.testing.assert_array_equal(got_np[key], np.asarray(w), err_msg=key)
     assert _build.launch_counts()["relocate_csr"] == launches
+
+
+# name -> row degrees; K4 lists the rows of WARP_MAX + 1 to BLOCK_MAX entries,
+# and those over BLOCK_MAX, on the device, into slots sized from n and nnz
+LONG_ROW_CASES = {
+    "path-a-like": lambda rng: rng.poisson(16, 20_000),
+    "all-33": lambda rng: np.full(3_000, WARP_MAX + 1),
+    "all-over-cap": lambda rng: np.full(40, BLOCK_MAX + 1),
+    "mixed": lambda rng: np.r_[rng.integers(0, 40, 5_000), rng.integers(33, 4_097, 300), [5_000, 262_144]],
+    "no-entries": lambda rng: np.zeros(100, np.int64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LONG_ROW_CASES))
+def test_relocate_long_row_capacity(case):
+    """``long_row_capacity`` holds every row that ``torch.nonzero`` finds in
+    each tier, and is tight where every row is just over a tier's edge."""
+    deg = torch.from_numpy(LONG_ROW_CASES[case](np.random.default_rng(60)).astype(np.int64))
+    block_cap, over_cap = long_row_capacity(deg.numel(), int(deg.sum()))
+    n_block = torch.nonzero((deg > WARP_MAX) & (deg <= BLOCK_MAX)).numel()
+    n_over = torch.nonzero(deg > BLOCK_MAX).numel()
+    assert n_block <= block_cap and n_over <= over_cap
+    if case == "all-33":
+        assert n_block == block_cap
+    if case == "all-over-cap":
+        assert n_over == over_cap
 
 
 @pytest.mark.parametrize("pattern", [False, True], ids=["valued", "pattern"])
