@@ -17,7 +17,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    leading, interior and trailing empty rows, no entries, a gap of 1M rows,
    a row array one element off alignment, 1, 3, 15 and 17 entries, run
    heads on every chunk seam), K5 (radix rank and argsort; ties,
-   descending, all equal, three passes, 64-bit keys) and K4 (relocation;
+   descending, all equal, three passes, 64-bit keys; stated key bits wider
+   than the data, so that passes are skipped on the device, no statement
+   with int64 keys, a single 0 among negatives, 1, 4,096 and 4,097 keys
+   (the tile's edges), 3,000 tiles (the chain of look-backs), keys off
+   16-byte alignment, packed 64-bit pair keys with the sorted keys
+   returned) and K4 (relocation;
    rows, columns, both, neither, a pattern matrix, float64 values, 20
    duplicates, rows of 5,000 and 262,144 entries; at the edges of its
    groups of 32 rows: rows of exactly 32 and 33 entries, a group of empty
@@ -47,12 +52,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    K2's is first held to the same per-row bound as the kernel; K4 is
    timed in path A's form ``(ro, ro)`` and, one call and back to back, in
    path C's two, ``(ro, co)`` and ``(ro, None)``, each beside its bound;
-   K2 and K3 and their library calls are timed twice: one call per event
-   pair (the record's ``ms``, the wrapper's host time included), and ten
-   calls back to back per event pair (the host's time hidden);
+   K2, K3 and K5 and their library calls are timed twice: one call per
+   event pair (the record's ``ms``, the wrapper's host time included), and
+   ten calls back to back per event pair (the host's time hidden); the
+   host syncs of one K5 call are counted; the (row, column) sort of path
+   A's entries, shuffled, is timed as K5 on the packed 64-bit keys, sorted
+   keys returned, beside ``torch.sort(stable=True)`` of the same keys, and
+   as ``sort_by_pairs`` beside its plain version; K4's route for rows over
+   4,096 entries (through K5) is timed on a graph with power-law row
+   degrees;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
-   device time of K2 and of cuSPARSE on path A's source CSR and of K1 on
+   device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
+   source CSR and of K1 on
    path B's band in both layouts (the tiled one's ``tile_band`` copy shows
    as its own kernels), and a gather probe: ``torch.index_select`` of path
    A's column ids from x cut to 16 KiB, 1 MiB and in full, which shows
@@ -101,7 +113,8 @@ def bound_bytes(kernel: str, **s) -> int:
 
     banded_spmv: ndiag, n, m, band_bytes; csr_spmv: n, ncols, nnz, pattern;
     indptr: nnz, nrows; relocate_csr: n, nnz, order_entries (entries of the
-    distinct order tensors), value_bytes; radix_rank: n, key_bytes."""
+    distinct order tensors), value_bytes; radix_rank: n, key_bytes, sorted_keys
+    (the sorted keys are written as well)."""
     if kernel == "banded_spmv":  # band, offsets, x in; y out
         return s["ndiag"] * s["n"] * s["band_bytes"] + 4 * s["ndiag"] + 4 * s["m"] + 4 * s["n"]
     if kernel == "csr_spmv":  # indptr, ids, values, x in; y out
@@ -112,8 +125,8 @@ def bound_bytes(kernel: str, **s) -> int:
     if kernel == "relocate_csr":  # indptr, ids, values, orders in; indptr, ids, values out
         csr = 8 * (s["n"] + 1) + (4 + s["value_bytes"]) * s["nnz"]
         return 2 * csr + 4 * s["order_entries"]
-    if kernel == "radix_rank":  # keys in; int32 ranks out
-        return s["n"] * (s["key_bytes"] + 4)
+    if kernel == "radix_rank":  # keys in; int32 ranks (or permutation) out, and the sorted keys on request
+        return s["n"] * (s["key_bytes"] + 4 + (s["key_bytes"] if s.get("sorted_keys") else 0))
     raise KeyError(kernel)
 
 
@@ -221,7 +234,7 @@ def power_law_coo(g, dev, n, nnz):
     """Rows uniform, columns 20% from a clump [0, n/100), row-major sorted,
     duplicates kept (the benchmark graph of bench.py)."""
     from sparsebase_tpu_torch import COO
-    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs
+    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs_plain
 
     row = torch.randint(0, n, (nnz,), generator=g, device=dev, dtype=torch.int32)
     clump = torch.randint(0, max(n // 100, 1), (nnz,), generator=g, device=dev, dtype=torch.int32)
@@ -229,8 +242,33 @@ def power_law_coo(g, dev, n, nnz):
     col = torch.where(torch.rand((nnz,), generator=g, device=dev) < 0.2, clump, col)
     del clump
     vals = torch.randn((nnz,), generator=g, device=dev)
-    row, col, vals = sort_by_pairs(row, col, vals)
+    row, col, vals = sort_by_pairs_plain(row, col, vals)
     return COO(row, col, vals, (n, n))
+
+
+def power_law_degrees(g, dev, n, nnz):
+    """Row degrees proportional to 1 / (1 + rank), scaled to about ``nnz``
+    entries in all and shuffled over the rows: a few rows hold a large share
+    of the entries."""
+    weight = 1.0 / torch.arange(1, n + 1, device=dev, dtype=torch.float64)
+    deg = torch.floor(weight * (nnz / float(weight.sum()))).to(torch.int64)
+    return deg[torch.randperm(n, generator=g, device=dev)]
+
+
+def count_host_syncs(fn) -> int:
+    """Synchronising CUDA operations that one call of ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
 def banded_coo(g, dev, band_nnz):
@@ -390,15 +428,54 @@ def phase_exact_kernels_vs_plain(g, dev) -> None:
     for name, row, nrows in cases:
         check_equal(f"K3 {name}", indptr_from_sorted_rows(row, nrows), indptr_plain(row, nrows))
 
-    for name, keys in (
-        ("ties 0..39", torch.randint(0, 40, (1_000_003,), generator=g, device=dev)),
-        ("descending", -torch.randint(0, 40, (1_000_003,), generator=g, device=dev)),
-        ("all equal", torch.full((70_001,), 9, dtype=torch.int64, device=dev)),
-        ("three passes", torch.randint(0, 1 << 20, (2_000_000,), generator=g, device=dev, dtype=torch.int32) * 11),
-        ("64-bit keys", torch.randint(-(1 << 40), 1 << 40, (300_000,), generator=g, device=dev) // 1000),
+    negatives = -torch.randint(1, 40, (100_000,), generator=g, device=dev)
+    negatives[77_777] = 0
+    pairs = (torch.randint(0, 5_000, (3_000_000,), generator=g, device=dev) << 32) | torch.randint(
+        0, 70_000, (3_000_000,), generator=g, device=dev)
+    pair_bits = [(0, 17), (32, 45)]
+    # name -> (keys, what the caller states of their bits)
+    for name, keys, key_bits in (
+        ("ties 0..39", torch.randint(0, 40, (1_000_003,), generator=g, device=dev), None),
+        ("descending", -torch.randint(0, 40, (1_000_003,), generator=g, device=dev), None),
+        ("all equal", torch.full((70_001,), 9, dtype=torch.int64, device=dev), None),
+        ("three passes", torch.randint(0, 1 << 20, (2_000_000,), generator=g, device=dev, dtype=torch.int32) * 11,
+         None),
+        ("64-bit keys", torch.randint(-(1 << 40), 1 << 40, (300_000,), generator=g, device=dev) // 1000, None),
+        ("27 bits stated, 6 used (passes skipped on the device)",
+         torch.randint(0, 40, (1_000_003,), generator=g, device=dev), 27),
+        ("all equal, 27 bits stated", torch.full((70_001,), 9, dtype=torch.int64, device=dev), 27),
+        ("nothing stated, int64", torch.randint(0, 1 << 20, (500_000,), generator=g, device=dev), None),
+        ("a single 0 among negatives", negatives, None),
+        ("a single 0 among negatives, int32", negatives.to(torch.int32), None),
+        ("int16 keys", torch.randint(-300, 300, (100_000,), generator=g, device=dev).to(torch.int16), None),
+        ("n = 1", torch.tensor([5], device=dev), None),
+        ("n = 4096", torch.randint(0, 1 << 12, (4_096,), generator=g, device=dev), 12),
+        ("n = 4097", torch.randint(0, 1 << 12, (4_097,), generator=g, device=dev), 12),
+        ("3,000 tiles and 5 keys", torch.randint(0, 1 << 24, (3_000 * 4_096 + 5,), generator=g, device=dev,
+                                                 dtype=torch.int32), 24),
+        ("off 16-byte alignment", off_alignment(torch.randint(0, 1 << 16, (100_001,), generator=g, device=dev,
+                                                              dtype=torch.int32)), 16),
+        ("packed pairs, 17 + 13 bits", pairs, pair_bits),
     ):
-        check_equal(f"K5 rank {name}", radix_rank(keys), radix_rank_plain(keys))
-        check_equal(f"K5 argsort {name}", radix_argsort(keys), radix_argsort_plain(keys))
+        check_equal(f"K5 rank {name}", radix_rank(keys, key_bits), radix_rank_plain(keys))
+        check_equal(f"K5 argsort {name}", radix_argsort(keys, key_bits), radix_argsort_plain(keys))
+    perm, sorted_keys = radix_argsort(pairs, pair_bits, return_keys=True)
+    want_keys, want_perm = torch.sort(pairs, stable=True)
+    check_equal("K5 argsort packed pairs, with the sorted keys: permutation", perm, want_perm.to(torch.int32))
+    check_equal("K5 argsort packed pairs, with the sorted keys: keys", sorted_keys, want_keys)
+    del negatives, pairs, perm, sorted_keys, want_keys, want_perm
+
+    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs, sort_by_pairs_plain
+
+    major = torch.randint(0, 3_000, (1_000_000,), generator=g, device=dev, dtype=torch.int32)
+    minor = torch.randint(0, 500, (1_000_000,), generator=g, device=dev, dtype=torch.int32)  # duplicates likely
+    payload = torch.randn((1_000_000,), generator=g, device=dev)
+    for name, bounds in (("bounds stated", dict(major_bound=3_000, minor_bound=500)), ("no bounds", {})):
+        got = sort_by_pairs(major, minor, payload, None, **bounds)
+        want = sort_by_pairs_plain(major, minor, payload, None)
+        check(got[3] is None and want[3] is None, "sort_by_pairs: a None payload did not pass through")
+        for what, a, b in zip(("major", "minor", "payload"), got, want):
+            check_equal(f"sort_by_pairs, {name}: {what} vs torch.sort", a, b)
 
     from sparsebase_tpu_torch import CSR
     from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
@@ -523,6 +600,71 @@ def phase_profile(path_a, wall_a_ms: float, spmv_calls, gather_probe) -> None:
     for entries, fn in gather_probe:
         print(f"phase 6 gather probe: torch.index_select of path A's column ids from the first {entries} "
               f"entries of x ({entries * 4 / 2**20:.3g} MiB): {cuda_ms(fn, batch=10):.4f} ms")
+
+
+def phase_pair_sort(g, coo) -> None:
+    """The (row, column) sort of a COO's entries, shuffled: K5 on the packed
+    64-bit keys with the sorted keys returned, beside the library call it
+    stands in for, and ``sort_by_pairs`` (packing, sort, unpacking and the
+    gather of the values) beside its plain version."""
+    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs, sort_by_pairs_plain
+    from sparsebase_tpu_torch.ops.kernels import plan_passes, radix_argsort
+    from sparsebase_tpu_torch.ops.kernels.radix import bits_below
+
+    nnz = coo.nnz
+    shuffle = torch.randperm(nnz, generator=g, device=coo.row.device)
+    row, col, vals = coo.row[shuffle], coo.col[shuffle], coo.vals[shuffle]
+    del shuffle
+    key = (row.to(torch.int64) << 32) | col.to(torch.int64)
+    key_bits = [(0, bits_below(coo.ncols)), (32, 32 + bits_below(coo.nrows))]
+    passes = len(plan_passes(64, key_bits))
+    perm, sorted_keys = radix_argsort(key, key_bits, return_keys=True)
+    want_keys, want_perm = torch.sort(key, stable=True)
+    check_equal("pair sort K5 vs torch.sort: permutation", perm, want_perm.to(torch.int32))
+    check_equal("pair sort K5 vs torch.sort: keys", sorted_keys, want_keys)
+    del perm, sorted_keys, want_keys, want_perm
+    k5 = cuda_ms(lambda: radix_argsort(key, key_bits, return_keys=True), reps=3)
+    lib = cuda_ms(lambda: torch.sort(key, stable=True), reps=3)
+    k5_again = cuda_ms(lambda: radix_argsort(key, key_bits, return_keys=True), reps=3)
+    lib_again = cuda_ms(lambda: torch.sort(key, stable=True), reps=3)
+    unstated = cuda_ms(lambda: radix_argsort(key, return_keys=True), reps=3)
+    del key
+    whole = cuda_ms(lambda: sort_by_pairs(row, col, vals, major_bound=coo.nrows, minor_bound=coo.ncols), reps=3)
+    whole_plain = cuda_ms(lambda: sort_by_pairs_plain(row, col, vals), reps=3)
+    bound_ms, _ = bound("radix_rank", n=nnz, key_bytes=8, sorted_keys=True)
+    print(f"phase 5 pair sort of {nnz} shuffled (row, column) pairs, 64-bit keys, {passes} passes planned: K5 "
+          f"radix_argsort with the sorted keys {k5:.4f} / {k5_again:.4f} ms, torch.sort(stable=True) {lib:.4f} / "
+          f"{lib_again:.4f} ms; K5 with nothing stated {unstated:.4f} ms; bound {bound_ms:.4f} ms (bytes), "
+          f"{bound_ms / k5:.1%} of it; sort_by_pairs {whole:.4f} ms, its plain version {whole_plain:.4f} ms")
+
+
+def phase_long_rows(g, dev, n: int = 1_000_000, nnz: int = 16_000_000) -> None:
+    """K4's route for rows of more than 4,096 entries, which sorts them with
+    K5 on a (row, new column) key: checked and timed on a graph whose row
+    degrees follow a power law."""
+    from sparsebase_tpu_torch import CSR, _build
+    from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
+    from sparsebase_tpu_torch.ops.kernels import relocate_csr, relocate_csr_plain
+
+    deg = power_law_degrees(g, dev, n, nnz)
+    indptr = indptr_from_counts(deg)
+    total = int(indptr[-1])
+    cols = torch.randint(0, n, (total,), generator=g, device=dev, dtype=torch.int32)
+    csr = CSR(indptr, cols, torch.randn((total,), generator=g, device=dev), (n, n))
+    ro = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    over = deg > 4_096
+    before = _build.launch_counts()["radix_rank"]
+    got = relocate_csr(csr, ro, ro)
+    k5_launches = _build.launch_counts()["radix_rank"] - before
+    check(k5_launches == 1, f"rows over 4,096 entries launched K5 {k5_launches} times, expected once")
+    check_csr_equal("K4 power-law rows (ro, ro)", got, relocate_csr_plain(csr, ro, ro))
+    del got
+    ms = cuda_ms(lambda: relocate_csr(csr, ro, ro))
+    plain_ms = cuda_ms(lambda: relocate_csr_plain(csr, ro, ro))
+    syncs = count_host_syncs(lambda: relocate_csr(csr, ro, ro))
+    print(f"phase 5 K4 on power-law rows (n={n}, {total} entries, {int(over.sum())} rows over 4,096 holding "
+          f"{int(deg[over].sum())} entries, through K5): one call {ms:.4f} ms, plain {plain_ms:.4f} ms; host syncs "
+          f"in one call {syncs}")
 
 
 def read_launches(path: str, required) -> dict:
@@ -670,18 +812,28 @@ def main() -> None:
     k3_ms = cuda_ms(lambda: indptr_from_sorted_rows(coo_a.row, n))
     k3_plain_ms = cuda_ms(lambda: indptr_plain(coo_a.row, n))
     k3_lib_ms = cuda_ms(lambda: torch.searchsorted(coo_a.row, bounds))
-    k5_ms = cuda_ms(lambda: radix_rank(degrees))
+    degree_bits = nnz.bit_length()  # what path A states of its keys: a degree is at most nnz
+    k5_ms = cuda_ms(lambda: radix_rank(degrees, degree_bits))
+    k5_back_ms = cuda_ms(lambda: radix_rank(degrees, degree_bits), batch=10)
     k5_plain_ms = cuda_ms(lambda: radix_rank_plain(degrees))
-    k5_argsort_ms = cuda_ms(lambda: radix_argsort(degrees))
+    k5_argsort_ms = cuda_ms(lambda: radix_argsort(degrees, degree_bits))
+    k5_unstated_ms = cuda_ms(lambda: radix_rank(degrees))
     k5_lib_ms = cuda_ms(lambda: torch.argsort(degrees, stable=True))
+    k5_lib_back_ms = cuda_ms(lambda: torch.argsort(degrees, stable=True), batch=10)
+    k5_syncs = count_host_syncs(lambda: radix_rank(degrees, degree_bits))
+    k5_argsort_syncs = count_host_syncs(lambda: radix_argsort(degrees, return_keys=True))
+    check(k5_syncs == 0 and k5_argsort_syncs == 0,
+          f"K5 synced the host: radix_rank {k5_syncs} times, radix_argsort {k5_argsort_syncs} times")
     k4_ms = cuda_ms(lambda: relocate_csr(src, ro, ro))
     k4_plain_ms = cuda_ms(lambda: relocate_csr_plain(src, ro, ro))
     k4_forms = [("path C (ro, co)", lambda: relocate_csr(src, ro_c, co_c), 2 * n),  # (label, call, order entries)
                 ("path C (ro, None)", lambda: relocate_csr(src, ro_c, None), n)]
     print(f"phase 5 path A K3 indptr: {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, "
           f"torch.searchsorted {k3_lib_ms:.4f} ms")
-    print(f"phase 5 path A K5 radix_rank (degrees, n={n}): {k5_ms:.4f} ms, plain {k5_plain_ms:.4f} ms; "
-          f"radix_argsort {k5_argsort_ms:.4f} ms, torch.argsort(stable=True) {k5_lib_ms:.4f} ms")
+    print(f"phase 5 path A K5 radix_rank (degrees, n={n}, {degree_bits} bits stated): one call {k5_ms:.4f} ms, "
+          f"back to back {k5_back_ms:.4f} ms, plain {k5_plain_ms:.4f} ms; radix_argsort {k5_argsort_ms:.4f} ms; "
+          f"nothing stated {k5_unstated_ms:.4f} ms; torch.argsort(stable=True) {k5_lib_ms:.4f} ms, back to back "
+          f"{k5_lib_back_ms:.4f} ms; host syncs in one call: radix_rank {k5_syncs}, radix_argsort {k5_argsort_syncs}")
     print(f"phase 5 path A K4 relocate_csr (ro, ro): {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms")
     for label, fn, order_entries in k4_forms:
         k4_bound, _ = bound("relocate_csr", n=n, nnz=nnz, order_entries=order_entries, value_bytes=4)
@@ -695,10 +847,13 @@ def main() -> None:
     print(f"phase 5 path A back to back, 10 calls per event pair: K2 {cuda_ms(lambda: csr_spmv(src, x_a), batch=10):.4f} ms, "
           f"{lib_name} {cuda_ms(lib_spmv, batch=10):.4f} ms; K3 {cuda_ms(lambda: indptr_from_sorted_rows(coo_a.row, n), batch=10):.4f} "
           f"ms, torch.searchsorted {cuda_ms(lambda: torch.searchsorted(coo_a.row, bounds), batch=10):.4f} ms")
+    phase_pair_sort(g, coo_a)
+    phase_long_rows(g, dev)
     probe = [(k, coo_a.col.remainder(k)) for k in (4_096, 262_144)] + [(n, coo_a.col)]
     phase_profile(
         lambda: sbt.preprocess_pipeline(coo_a, x_a), ms_a,
-        [("K2 csr_spmv on path A's source CSR", lambda: csr_spmv(src, x_a)), (lib_name, lib_spmv),
+        [("K5 radix_rank on path A's degrees", lambda: radix_rank(degrees, degree_bits)),
+         ("K2 csr_spmv on path A's source CSR", lambda: csr_spmv(src, x_a)), (lib_name, lib_spmv),
          ("K1 banded_spmv on path B's band, strided", lambda: banded_spmv(dia_b, x_b)),
          ("K1 banded_spmv on path B's band, tiled", lambda: banded_spmv(dia_b, x_b, layout="tiled"))],
         [(k, lambda k=k, ids=ids: torch.index_select(x_a[:k], 0, ids)) for k, ids in probe],

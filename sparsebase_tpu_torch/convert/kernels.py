@@ -8,8 +8,9 @@ CSR→COO :72-118):
   (``ops/kernels/indptr.py``; its plain version, one ``searchsorted`` of
   the row boundaries, on CPU tensors);
 * row expansion is ``repeat_interleave`` with a known output size;
-* a (major, minor) sort packs both int32 ids into one int64 key and runs a
-  single stable ``torch.sort``.
+* a (major, minor) sort packs both int32 ids into one int64 key and sorts
+  it once, stably: kernel K5 on CUDA tensors (``ops/kernels/radix.py``),
+  ``torch.sort`` on CPU tensors.
 
 None of them forms an out-of-range index, so nothing relies on JAX's
 ``mode="drop"`` dropping one.
@@ -38,17 +39,41 @@ def expand_row_table(table: torch.Tensor, indptr: torch.Tensor, nnz: int) -> tor
     return torch.repeat_interleave(table, indptr[1:] - indptr[:-1], output_size=nnz)
 
 
-def sort_by_pairs(major: torch.Tensor, minor: torch.Tensor, *payload):
-    """Stable sort of entries by (major, minor), carrying payload tensors.
+def _pack_pairs(major: torch.Tensor, minor: torch.Tensor) -> torch.Tensor:
+    return (major.to(torch.int64) << 32) | minor.to(torch.int64)
 
-    Both keys are non-negative int32 ids, packed as ``major << 32 | minor``
-    into one int64 key. Returns ``(major_sorted, minor_sorted,
-    *payload_sorted)``; ``None`` payloads pass through as ``None``."""
-    key = (major.to(torch.int64) << 32) | minor.to(torch.int64)
-    key, order = torch.sort(key, stable=True)
+
+def _unpack_sorted(key, order, major, minor, payload):
     out = [(key >> 32).to(major.dtype), (key & 0xFFFFFFFF).to(minor.dtype)]
     out += [None if p is None else p[order] for p in payload]
     return tuple(out)
+
+
+def sort_by_pairs_plain(major: torch.Tensor, minor: torch.Tensor, *payload):
+    """:func:`sort_by_pairs` as one stable ``torch.sort`` of the packed key
+    (the CPU route, and the oracle of the card's)."""
+    key, order = torch.sort(_pack_pairs(major, minor), stable=True)
+    return _unpack_sorted(key, order, major, minor, payload)
+
+
+def sort_by_pairs(major: torch.Tensor, minor: torch.Tensor, *payload, major_bound=None, minor_bound=None):
+    """Stable sort of entries by (major, minor), carrying payload tensors.
+
+    Both keys are non-negative int32 ids, packed as ``major << 32 | minor``
+    into one int64 key. ``major_bound`` / ``minor_bound`` are exclusive
+    bounds of the ids where the caller knows them (``nrows``, ``ncols``):
+    on CUDA tensors kernel K5 then runs only the digits those ids can fill.
+    Returns ``(major_sorted, minor_sorted, *payload_sorted)``; ``None``
+    payloads pass through as ``None``."""
+    if major.device.type == "cpu":
+        return sort_by_pairs_plain(major, minor, *payload)
+    from ..ops.kernels.radix import bits_below, radix_argsort  # ops imports this module
+
+    minor_bits = 31 if minor_bound is None else bits_below(minor_bound)
+    major_bits = 31 if major_bound is None else bits_below(major_bound)
+    order, key = radix_argsort(_pack_pairs(major, minor), key_bits=[(0, minor_bits), (32, 32 + major_bits)],
+                               return_keys=True)
+    return _unpack_sorted(key, order, major, minor, payload)
 
 
 def coo_to_csr(coo: COO) -> CSR:

@@ -81,7 +81,8 @@ class COO(Format):
         """Stable sort by (row, col): duplicates keep their input order."""
         from ..convert.kernels import sort_by_pairs
 
-        row, col, vals = sort_by_pairs(self.row, self.col, self.vals)
+        row, col, vals = sort_by_pairs(self.row, self.col, self.vals, major_bound=self.nrows,
+                                       minor_bound=self.ncols)
         return dataclasses.replace(self, row=row, col=col, vals=vals)
 
     def astype(self, id_dtype=None, nnz_dtype=None, value_dtype=None) -> "COO":

@@ -58,7 +58,8 @@ def preprocess_pipeline(coo: COO, x: torch.Tensor):
     if n != m:
         raise ValueError(f"preprocess_pipeline permutes rows and columns alike; shape {coo.shape} is not square")
     indptr = indptr_from_sorted_rows(coo.row, n)
-    ro = ranks_from_sort_keys(indptr[1:] - indptr[:-1])  # ro[old] = new
+    # ro[old] = new. A degree is at most nnz: K5 plans only the bytes nnz has.
+    ro = ranks_from_sort_keys(indptr[1:] - indptr[:-1], key_bits=coo.nnz.bit_length())
     return _permute_and_spmv(coo, indptr, ro, x)
 
 

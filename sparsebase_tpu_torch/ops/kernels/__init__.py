@@ -3,7 +3,7 @@
 from .banded_spmv import banded_spmv, dia_spmv_plain, tile_band, untile_band
 from .csr_spmv import csr_spmv, csr_spmv_plain
 from .indptr import indptr_from_sorted_rows, indptr_plain
-from .radix import radix_argsort, radix_argsort_plain, radix_rank, radix_rank_plain
+from .radix import plan_passes, radix_argsort, radix_argsort_plain, radix_passes_plain, radix_rank, radix_rank_plain
 from .relocate import relocate_csr, relocate_csr_plain
 
 __all__ = [
@@ -15,8 +15,10 @@ __all__ = [
     "csr_spmv_plain",
     "indptr_from_sorted_rows",
     "indptr_plain",
+    "plan_passes",
     "radix_argsort",
     "radix_argsort_plain",
+    "radix_passes_plain",
     "radix_rank",
     "radix_rank_plain",
     "relocate_csr",

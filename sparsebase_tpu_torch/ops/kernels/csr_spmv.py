@@ -8,6 +8,13 @@ parts in a scratch buffer that this wrapper allocates, and the same C call
 adds them in tile order, so ``y`` is the same bit for bit on every run.
 CPU tensors take the plain version; CUDA tensors launch the kernel, or the
 wrapper raises.
+
+The kernel computes in float32 on int64 offsets and int32 ids. On the card
+the wrapper converts before the launch: values of any other type (bf16,
+f16, f64, integers) are cast to float32, as the plain version casts them to
+``x.dtype``; offsets are widened and ids narrowed by a checked cast. ``x``
+itself must be float32 there: the result has ``x``'s type, and the card
+path has no other.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 from ..._build import Kernel
 from ...formats.csr import CSR
 from ...utils.exceptions import TypeMismatchError
+from ._args import kernel_ids, kernel_offsets
 
 TILE = 2048  # entries per block (kTile in csrc/csr_spmv.cu)
 
@@ -55,14 +63,15 @@ def csr_spmv(csr: CSR, x: torch.Tensor) -> torch.Tensor:
         return csr_spmv_plain(csr, x)
     if len(devices) != 1 or x.device.type != "cuda":
         raise TypeMismatchError(f"csr_spmv: tensors on {sorted(map(str, devices))}; need one CUDA device")
-    if csr.indptr.dtype != torch.int64 or csr.indices.dtype != torch.int32:
-        raise TypeMismatchError("csr_spmv: needs int64 indptr and int32 column ids")
-    if x.dtype != torch.float32 or (csr.vals is not None and csr.vals.dtype != torch.float32):
-        raise TypeMismatchError("csr_spmv: needs float32 x and values")
+    if x.dtype != torch.float32:
+        raise TypeMismatchError(f"csr_spmv: x is {x.dtype}; the card path computes in float32 and takes a "
+                                "float32 x (values of any type are cast to it)")
     if csr.indptr.shape != (csr.nrows + 1,):
         raise ValueError("csr_spmv: indptr length is not nrows + 1")
-    indptr, indices, x = csr.indptr.contiguous(), csr.indices.contiguous(), x.contiguous()
-    vals = None if csr.vals is None else csr.vals.contiguous()
+    indptr = kernel_offsets(csr.indptr, "csr_spmv indptr")
+    indices = kernel_ids(csr.indices, "csr_spmv column ids")
+    x = x.contiguous()
+    vals = None if csr.vals is None else csr.vals.to(torch.float32).contiguous()
     y = torch.empty((csr.nrows,), dtype=torch.float32, device=x.device)
     if csr.nrows == 0:
         return y

@@ -6,7 +6,9 @@ K3 (``csrc/indptr.cu``) replaces the streaming-indptr Pallas kernel
 port's ``torch.searchsorted`` formulation, the counterpart of the JAX
 ``indptr_from_sorted_rows`` / ``indptr_from_sorted_rows_blocked``
 (``sparsebase_tpu/convert/kernels.py:44-148``). CPU tensors take the plain
-version; CUDA tensors launch the kernel, or the wrapper raises.
+version; CUDA tensors launch the kernel, or the wrapper raises. The kernel
+reads int32 row ids: any other integer type is narrowed before the launch
+by a checked cast, which raises on an id past int32.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from ..._build import Kernel
 from ...utils.exceptions import TypeMismatchError
+from ._args import kernel_ids
 
 _K3 = Kernel(
     "indptr",
@@ -39,9 +42,9 @@ def indptr_from_sorted_rows(row: torch.Tensor, nrows: int) -> torch.Tensor:
         return indptr_plain(row, nrows)
     if row.device.type != "cuda":
         raise TypeMismatchError(f"indptr: rows on {row.device}; need the CPU or a CUDA device")
-    if row.dtype != torch.int32 or row.dim() != 1:
-        raise TypeMismatchError("indptr: needs a 1-D int32 row array")
-    row = row.contiguous()
+    if row.dim() != 1:
+        raise TypeMismatchError(f"indptr: needs a 1-D row array, got {row.dim()} dims")
+    row = kernel_ids(row, "indptr rows")
     indptr = torch.empty((nrows + 1,), dtype=torch.int64, device=row.device)
     with torch.cuda.device(row.device):
         stream = torch.cuda.current_stream(row.device).cuda_stream

@@ -17,13 +17,17 @@ device. A block each sorts the listed rows of up to ``BLOCK_MAX`` entries,
 reading the list's length from device memory, and K5 (``radix_argsort``)
 the rows over ``BLOCK_MAX`` on a (row, new column) key. A call syncs with
 the host once, to read how many rows are over ``BLOCK_MAX`` (only when the
-matrix has enough entries to hold one); where there are such rows, K5's
-route adds its own syncs. float32 values and pattern matrices
-ride in the kernel; for any other value dtype the kernel writes each
-entry's source position and the wrapper gathers ``vals[src]``. The new
-``indptr`` stays a torch op: ``counts[row_order] = degrees`` and a cumsum,
-both n-sized. CPU tensors take the plain version; CUDA tensors launch the
-kernel, or the wrapper raises.
+matrix has enough entries to hold one); where there are such rows, their
+route reads their total length as well (K5 itself reads nothing back).
+float32 values and pattern matrices ride in the kernel; for any other
+value dtype the kernel writes each entry's source position and the wrapper
+gathers ``vals[src]``. The kernel takes int64 offsets and int32 ids: other
+integer types are converted before the launch (offsets widened, ids
+narrowed by a checked cast, which reads their range back to the host) and
+the new ids come back in the caller's type. The new ``indptr`` stays a
+torch op: ``counts[row_order] = degrees`` and a cumsum, both n-sized. CPU
+tensors take the plain version; CUDA tensors launch the kernel, or the
+wrapper raises.
 """
 
 from __future__ import annotations
@@ -34,10 +38,11 @@ from typing import Optional
 import torch
 
 from ..._build import Kernel
-from ...convert.kernels import expand_row_table, indptr_from_counts, sort_by_pairs
+from ...convert.kernels import expand_row_table, indptr_from_counts, sort_by_pairs_plain
 from ...formats.csr import CSR
 from ...utils.exceptions import TypeMismatchError
-from .radix import radix_argsort
+from ._args import kernel_ids, kernel_offsets
+from .radix import bits_below, radix_argsort
 
 WARP_MAX = 32  # rows up to this degree: sorted by the warp tier (kWarpMax in csrc/relocate.cu)
 BLOCK_MAX = 4096  # rows up to this degree: one block each (kBlockMax)
@@ -77,7 +82,7 @@ def relocate_csr_plain(
     else:
         new_row = expand_row_table(row_order.to(idt), csr.indptr, csr.nnz)
     new_col = csr.indices if col_order is None else col_order.to(idt)[csr.indices]
-    _, col_s, vals_s = sort_by_pairs(new_row, new_col, csr.vals)
+    _, col_s, vals_s = sort_by_pairs_plain(new_row, new_col, csr.vals)
     return CSR(_new_indptr(csr, row_order), col_s, vals_s, csr.shape)
 
 
@@ -94,20 +99,21 @@ def relocate_csr(
         return relocate_csr_plain(csr, row_order, col_order)
     if len(devices) != 1 or csr.indptr.device.type != "cuda":
         raise TypeMismatchError(f"relocate_csr: tensors on {sorted(map(str, devices))}; need one CUDA device")
-    if csr.indptr.dtype != torch.int64 or csr.indices.dtype != torch.int32:
-        raise TypeMismatchError("relocate_csr: needs int64 indptr and int32 column ids")
     if csr.indptr.shape != (csr.nrows + 1,):
         raise ValueError("relocate_csr: indptr length is not nrows + 1")
     for order, size, what in ((row_order, csr.nrows, "row_order"), (col_order, csr.ncols, "col_order")):
         if order is not None and order.shape != (size,):
             raise ValueError(f"relocate_csr: {what} has shape {tuple(order.shape)}, expected ({size},)")
     dev, nnz = csr.indices.device, csr.nnz
+    id_dtype = csr.indices.dtype
     ro = None if row_order is None else row_order.to(torch.int32).contiguous()
     co = None if col_order is None else col_order.to(torch.int32).contiguous()
-    new_indptr = _new_indptr(csr, ro).contiguous()
+    given_indptr = _new_indptr(csr, ro)  # what the plain version gives back, in its type
+    new_indptr = kernel_offsets(given_indptr, "relocate_csr indptr")
     if nnz == 0:
-        return CSR(new_indptr, csr.indices.clone(), None if csr.vals is None else csr.vals.clone(), csr.shape)
-    indptr, indices = csr.indptr.contiguous(), csr.indices.contiguous()
+        return CSR(given_indptr, csr.indices.clone(), None if csr.vals is None else csr.vals.clone(), csr.shape)
+    indptr = kernel_offsets(csr.indptr, "relocate_csr indptr")
+    indices = kernel_ids(csr.indices, "relocate_csr column ids")
     out_indices = torch.empty((nnz,), dtype=torch.int32, device=dev)
     vals = None if csr.vals is None else csr.vals.contiguous()
     out_vals = out_src = None
@@ -132,16 +138,17 @@ def relocate_csr(
         over = int(counts[1])  # the one host sync: rows over BLOCK_MAX
         if over:
             _sort_rows_over_cap(rows[block_cap:block_cap + over], indptr, indices, vals, ro, co, new_indptr,
-                                out_indices, out_vals, out_src)
+                                out_indices, out_vals, out_src, csr.ncols)
     if route == _SOURCE:
         out_vals = vals[out_src]
-    return CSR(new_indptr, out_indices, out_vals, csr.shape)
+    return CSR(given_indptr, out_indices.to(id_dtype), out_vals, csr.shape)
 
 
-def _sort_rows_over_cap(rows, indptr, indices, vals, ro, co, new_indptr, out_indices, out_vals, out_src):
+def _sort_rows_over_cap(rows, indptr, indices, vals, ro, co, new_indptr, out_indices, out_vals, out_src, ncols):
     """Rows of more than ``BLOCK_MAX`` entries: gather them, sort by the key
-    (row, new column) with K5 (stable: ties keep the in-row order), and write
-    each row's block where K4 would have."""
+    (row, new column) with K5 (stable: ties keep the in-row order; it runs
+    only the digits that ``ncols`` columns and this many rows can fill), and
+    write each row's block where K4 would have."""
     starts = indptr[rows]
     degs = indptr[rows.long() + 1] - starts
     seg_start = indptr_from_counts(degs)
@@ -152,7 +159,8 @@ def _sort_rows_over_cap(rows, indptr, indices, vals, ro, co, new_indptr, out_ind
     col = indices[src]
     if co is not None:
         col = co[col]
-    perm = radix_argsort((seg << 32) | col.to(torch.int64)).long()
+    live_bits = [(0, bits_below(ncols)), (32, 32 + bits_below(rows.numel()))]
+    perm = radix_argsort((seg << 32) | col.to(torch.int64), key_bits=live_bits)
     dst = new_indptr[rows.long() if ro is None else ro[rows.long()].long()][seg] + local
     out_indices[dst] = col[perm]
     if out_vals is not None:

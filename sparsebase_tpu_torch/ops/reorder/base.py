@@ -39,8 +39,9 @@ class Reorderer(Operation):
         )
 
 
-def ranks_from_sort_keys(keys: torch.Tensor) -> torch.Tensor:
+def ranks_from_sort_keys(keys: torch.Tensor, key_bits=None) -> torch.Tensor:
     """Inverse permutation placing items in ascending-key order:
     ``rank[v]`` = position of ``v`` after a stable sort of ``keys`` (int32;
-    kernel K5 on CUDA tensors)."""
-    return radix_rank(keys)
+    kernel K5 on CUDA tensors). ``key_bits`` states which bits of the keys
+    can be set, where the caller knows (``ops/kernels/radix.py``)."""
+    return radix_rank(keys, key_bits)

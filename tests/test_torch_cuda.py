@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from sparsebase_tpu_torch import COO, CSR, DIA, _build, preprocess_pipeline, spmv
+from sparsebase_tpu_torch.convert.kernels import sort_by_pairs, sort_by_pairs_plain
 from sparsebase_tpu_torch.ops.kernels import (
     banded_spmv,
     csr_spmv,
@@ -32,7 +33,9 @@ from sparsebase_tpu_torch.ops.kernels import (
     relocate_csr_plain,
 )
 from sparsebase_tpu_torch.ops.kernels.csr_spmv import TILE
+from sparsebase_tpu_torch.ops.permute import permute_2d
 from sparsebase_tpu_torch.ops.reorder import DegreeReorder
+from sparsebase_tpu_torch.utils.exceptions import TypeMismatchError
 
 pytestmark = pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
 
@@ -232,6 +235,97 @@ def test_radix_kernel_matches_plain(dev, gen, case):
     assert torch.equal(perm, radix_argsort_plain(keys))
 
 
+def single_zero_among_negatives(g, d, dtype):
+    keys = -torch.randint(1, 40, (100_000,), generator=g, device=d)
+    keys[77_777] = 0
+    return keys.to(dtype)
+
+
+def packed_pairs(g, d, n, nseg, ncols):
+    return (torch.randint(0, nseg, (n,), generator=g, device=d) << 32) | torch.randint(0, ncols, (n,), generator=g,
+                                                                                        device=d)
+
+
+# name -> (keys made on the card, what the caller states of their bits)
+RANK_EDGE_CASES = {
+    "stated-wider-than-the-data": lambda g, d: (torch.randint(0, 40, (1_000_003,), generator=g, device=d), 27),
+    "all-equal-stated": lambda g, d: (torch.full((70_001,), 9, dtype=torch.int64, device=d), 27),
+    "all-zero-no-bits": lambda g, d: (torch.zeros((5_000,), dtype=torch.int32, device=d), 0),
+    "nothing-stated-int64": lambda g, d: (torch.randint(0, 1 << 20, (500_000,), generator=g, device=d), None),
+    "single-zero-among-negatives": lambda g, d: (single_zero_among_negatives(g, d, torch.int64), None),
+    "single-zero-among-negatives-int32": lambda g, d: (single_zero_among_negatives(g, d, torch.int32), None),
+    "int16-keys": lambda g, d: (torch.randint(-300, 300, (100_000,), generator=g, device=d).to(torch.int16), None),
+    "uint8-keys": lambda g, d: (torch.randint(0, 256, (100_000,), generator=g, device=d).to(torch.uint8), None),
+    "tile-exactly": lambda g, d: (torch.randint(0, 1 << 12, (4_096,), generator=g, device=d), 12),
+    "tile-and-one": lambda g, d: (torch.randint(0, 1 << 12, (4_097,), generator=g, device=d), 12),
+    "3000-tiles": lambda g, d: (torch.randint(0, 1 << 24, (3_000 * 4_096 + 5,), generator=g, device=d,
+                                              dtype=torch.int32), 24),
+    "off-alignment": lambda g, d: (off_alignment(torch.randint(0, 1 << 16, (100_001,), generator=g, device=d,
+                                                               dtype=torch.int32)), 16),
+    "packed-pairs": lambda g, d: (packed_pairs(g, d, 3_000_000, 5_000, 70_000), [(0, 17), (32, 45)]),
+    "packed-pairs-wide-statement": lambda g, d: (packed_pairs(g, d, 300_000, 37, 200), [(0, 23), (32, 55)]),
+    "mask-minus-degrees": lambda g, d: ((1 << 27) - 1 - path_a_degrees(g, d, 500_000), 27),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RANK_EDGE_CASES))
+def test_radix_kernel_edges_match_plain(dev, gen, case):
+    keys, key_bits = RANK_EDGE_CASES[case](gen, dev)
+    before = _build.launch_counts()["radix_rank"]
+    rank = radix_rank(keys, key_bits)
+    perm, sorted_keys = radix_argsort(keys, key_bits, return_keys=True)
+    assert _build.launch_counts()["radix_rank"] == before + 2
+    assert torch.equal(rank, radix_rank_plain(keys))
+    assert torch.equal(perm, radix_argsort_plain(keys))
+    assert sorted_keys.dtype == keys.dtype and torch.equal(sorted_keys, torch.sort(keys, stable=True).values)
+
+
+def count_syncs(fn):
+    """Synchronising CUDA operations in one call of ``fn``."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)], result
+
+
+@pytest.mark.parametrize("stated", [False, True], ids=["nothing-stated", "bits-stated"])
+def test_radix_makes_no_host_sync(dev, gen, stated):
+    """One call of ``radix_rank`` or ``radix_argsort`` reads nothing back."""
+    keys = path_a_degrees(gen, dev, 200_000)
+    key_bits = 27 if stated else None
+    radix_rank(keys, key_bits)  # builds and loads the kernels
+    for call in (lambda: radix_rank(keys, key_bits), lambda: radix_argsort(keys, key_bits),
+                 lambda: radix_argsort(keys, key_bits, return_keys=True)):
+        syncs, _ = count_syncs(call)
+        assert not syncs, [str(w.message) for w in syncs]
+    assert torch.equal(radix_rank(keys, key_bits), radix_rank_plain(keys))
+
+
+@pytest.mark.parametrize("bounds", [False, True], ids=["no-bounds", "bounds-stated"])
+def test_sort_by_pairs_on_card_is_the_stable_sort(dev, gen, bounds):
+    """The (major, minor) sort through K5 equals one stable ``torch.sort``
+    of the packed key bit for bit: duplicates keep their input order."""
+    n = 1_000_000
+    major = torch.randint(0, 3_000, (n,), generator=gen, device=dev, dtype=torch.int32)
+    minor = torch.randint(0, 500, (n,), generator=gen, device=dev, dtype=torch.int32)
+    payload = torch.randn((n,), generator=gen, device=dev)
+    before = _build.launch_counts()["radix_rank"]
+    kwargs = dict(major_bound=3_000, minor_bound=500) if bounds else {}
+    got = sort_by_pairs(major, minor, payload, None, **kwargs)
+    assert _build.launch_counts()["radix_rank"] == before + 1
+    want = sort_by_pairs_plain(major, minor, payload, None)
+    assert got[3] is None
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    coo = COO.new(major, minor, payload, (3_000, 500))
+    assert coo.is_sorted() and torch.equal(coo.vals, want[2])
+
+
 def device_csr(gen, dev, degrees, ncols, pattern=False, dtype=torch.float32, misaligned=False):
     """A CSR with the given row degrees, 20 copies of one coordinate in the
     first row of at least 20 entries (if any), and columns unsorted inside
@@ -348,3 +442,95 @@ def test_relocate_syncs_the_host_once(dev, gen):
     syncs = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
     assert len(syncs) == 1, [str(w.message) for w in syncs]
     assert torch.equal(got.indices, relocate_csr_plain(csr, ro, co).indices)
+
+
+def small_graph(gen, dev, n=20_000, nnz=300_000):
+    row = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    col = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    vals = torch.randint(-5, 6, (nnz,), generator=gen, device=dev).to(torch.float32)  # exact in every value type
+    return sort_by_pairs_plain(row, col, vals)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float64, torch.int32, torch.int8],
+                         ids=["bf16", "f16", "f64", "int32", "int8"])
+def test_spmv_and_pipeline_take_any_value_dtype(dev, gen, dtype):
+    """K2 casts values of any type to float32 and launches; the pipeline
+    runs on them, the permuted matrix keeping the caller's value type."""
+    n = 20_000
+    row, col, vals = small_graph(gen, dev, n)
+    x = torch.randn((n,), generator=gen, device=dev)
+    coo = COO(row, col, vals.to(dtype), (n, n))
+    want_permuted, want_y = preprocess_pipeline(COO(row, col, vals, (n, n)), x)
+    before = _build.launch_counts()
+    y = spmv(coo.convert(CSR), x)
+    permuted, y_p = preprocess_pipeline(coo, x)
+    after = _build.launch_counts()
+    assert after["csr_spmv"] == before["csr_spmv"] + 2
+    assert after["relocate_csr"] == before["relocate_csr"] + 1
+    assert y.dtype == torch.float32 and torch.equal(y_p, want_y)
+    assert permuted.vals.dtype == dtype
+    assert torch.equal(permuted.indices, want_permuted.indices)
+    assert torch.equal(permuted.vals.to(torch.float32), want_permuted.vals)
+
+
+def test_spmv_on_card_needs_float32_x(dev, gen):
+    n = 2_000
+    row, col, vals = small_graph(gen, dev, n, 30_000)
+    csr = COO(row, col, vals, (n, n)).convert(CSR)
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(TypeMismatchError, match="float32"):
+            csr_spmv(csr, torch.zeros((n,), dtype=dtype, device=dev))
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int16, torch.int32, torch.int64], ids=["int16", "int32", "int64"])
+@pytest.mark.parametrize("offset_dtype", [torch.int32, torch.int64], ids=["offsets32", "offsets64"])
+def test_wrappers_take_any_index_dtype_on_card(dev, gen, id_dtype, offset_dtype):
+    """``convert(CSR)`` (K3), ``spmv`` (K2) and ``permute_2d`` (K4) on ids
+    and offsets of other integer types: each launches its kernel, gives what
+    int32 ids and int64 offsets give, and hands ids back in the caller's type."""
+    n = 20_000
+    row, col, vals = small_graph(gen, dev, n)
+    x = torch.randn((n,), generator=gen, device=dev)
+    ro = torch.randperm(n, generator=gen, device=dev)
+    co = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    base = COO(row, col, vals, (n, n)).convert(CSR)
+    want_y, want = csr_spmv(base, x), relocate_csr(base, ro, co)
+    before = _build.launch_counts()
+    csr = COO(row.to(id_dtype), col.to(id_dtype), vals, (n, n)).convert(CSR)
+    assert csr.indptr.dtype == torch.int64 and torch.equal(csr.indptr, base.indptr)
+    csr = CSR(csr.indptr.to(offset_dtype), csr.indices, csr.vals, csr.shape)
+    y = spmv(csr, x)
+    got = permute_2d(csr, ro, co)
+    after = _build.launch_counts()
+    for kernel in ("indptr", "csr_spmv", "relocate_csr"):
+        assert after[kernel] == before[kernel] + 1, kernel
+    assert torch.equal(y, want_y)
+    assert got.indices.dtype == id_dtype and torch.equal(got.indices.to(torch.int32), want.indices)
+    assert torch.equal(got.indptr, want.indptr) and torch.equal(got.vals, want.vals)
+    sorted_only = CSR.new(csr.indptr, torch.flip(csr.indices, (0,)), csr.vals, csr.shape)  # repaired through K4
+    assert sorted_only.indices.dtype == id_dtype and sorted_only.is_sorted()
+
+
+def test_wrappers_raise_on_ids_past_int32(dev):
+    big = torch.tensor([0, 2**31], dtype=torch.int64, device=dev)
+    with pytest.raises(TypeMismatchError):
+        indptr_from_sorted_rows(big, 5)
+    csr = CSR(torch.tensor([0, 2], dtype=torch.int64, device=dev), big, None, (1, 2**31 + 1))
+    with pytest.raises(TypeMismatchError):
+        relocate_csr(csr)
+
+
+def test_relocate_long_rows_add_one_sync_and_one_k5_launch(dev, gen):
+    """Rows over BLOCK_MAX go through K5 with their live bits stated: K5
+    launches once and reads nothing back; the route itself reads the rows'
+    total length, so the call syncs twice."""
+    csr = device_csr(gen, dev, degrees_mix(gen, dev, 20_000, 262_144), 30_000)
+    ro = torch.randperm(csr.nrows, generator=gen, device=dev).to(torch.int32)
+    co = torch.randperm(30_000, generator=gen, device=dev).to(torch.int32)
+    relocate_csr(csr, ro, co)
+    before = _build.launch_counts()["radix_rank"]
+    syncs, got = count_syncs(lambda: relocate_csr(csr, ro, co))
+    assert _build.launch_counts()["radix_rank"] == before + 1
+    assert len(syncs) == 2, [str(w.message) for w in syncs]
+    want = relocate_csr_plain(csr, ro, co)
+    assert torch.equal(got.indices, want.indices) and torch.equal(got.vals, want.vals)

@@ -38,24 +38,40 @@ from sparsebase_tpu.ops.kernels import (  # noqa: E402
     dia_spmv_reference,
 )
 from sparsebase_tpu.ops.permute import permute_2d as ref_permute_2d  # noqa: E402
+from sparsebase_tpu.ops.reorder import DegreeReorder as RefDegreeReorder  # noqa: E402
 from sparsebase_tpu.ops.reorder.base import ranks_from_sort_keys as ref_ranks  # noqa: E402
 
-from sparsebase_tpu_torch import CSR, _build  # noqa: E402
-from sparsebase_tpu_torch.convert.kernels import indptr_from_sorted_rows  # noqa: E402
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+from sparsebase_tpu_torch import COO, CSR, _build  # noqa: E402
+from sparsebase_tpu_torch.convert.kernels import (  # noqa: E402
+    indptr_from_sorted_rows,
+    sort_by_pairs,
+    sort_by_pairs_plain,
+)
 from sparsebase_tpu_torch.interop import from_reference, to_numpy  # noqa: E402
 from sparsebase_tpu_torch.ops.kernels import (  # noqa: E402
     banded_spmv,
     csr_spmv,
+    indptr_plain,
+    plan_passes,
     radix_argsort,
+    radix_argsort_plain,
+    radix_passes_plain,
     radix_rank,
+    radix_rank_plain,
     relocate_csr,
     tile_band,
     untile_band,
 )
+from sparsebase_tpu_torch.ops.kernels import radix as radix_module  # noqa: E402
+from sparsebase_tpu_torch.ops.kernels._args import kernel_ids, kernel_offsets  # noqa: E402
 from sparsebase_tpu_torch.ops.kernels.csr_spmv import TILE, tile_count  # noqa: E402
+from sparsebase_tpu_torch.ops.kernels.radix import bits_below, scratch_bytes  # noqa: E402
 from sparsebase_tpu_torch.ops.kernels.relocate import BLOCK_MAX, WARP_MAX, long_row_capacity  # noqa: E402
 from sparsebase_tpu_torch.ops.permute import permute_2d  # noqa: E402
-from sparsebase_tpu_torch.ops.reorder import ranks_from_sort_keys  # noqa: E402
+from sparsebase_tpu_torch.ops.reorder import DegreeReorder, ranks_from_sort_keys  # noqa: E402
 from sparsebase_tpu_torch.utils.exceptions import TypeMismatchError  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -389,6 +405,8 @@ BOUND_CASES = {
                                                  value_bytes=4), 1_725_000_016),
     # 6.25M int64 degrees in, 6.25M int32 ranks out
     "path-A-radix_rank": ("radix_rank", dict(n=6_250_000, key_bytes=8), 75_000_000),
+    # 1e8 packed int64 pairs in; the int32 permutation and the sorted int64 keys out
+    "pair-sort-radix_rank": ("radix_rank", dict(n=100_000_000, key_bytes=8, sorted_keys=True), 2_000_000_000),
 }
 
 
@@ -463,3 +481,312 @@ def test_build_is_keyed_on_sources_and_fails_loudly(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "find_nvcc", lambda: "false")  # a compiler that always fails
     with pytest.raises(_build.KernelBuildError):
         _build.build()
+
+
+# -- K5's pass logic: the host's plan, the device's thinning, as torch ops -----------
+# name -> (key bits in all, what the caller states, the plan: (shift, bits, flip))
+PLAN_CASES = {
+    # path A: degrees in [0, nnz] with nnz = 100M, 27 bits
+    "path-A-degrees": (64, 100_000_000 .bit_length(), [(0, 8, 0), (8, 8, 0), (16, 8, 0), (24, 3, 0)]),
+    # (row, column) pairs of path A: n = 6.25M, 23 bits each
+    "pairs-of-6.25M": (64, [(0, bits_below(6_250_000)), (32, 32 + bits_below(6_250_000))],
+                       [(0, 8, 0), (8, 8, 0), (16, 7, 0), (32, 8, 0), (40, 8, 0), (48, 7, 0)]),
+    "pairs-200-by-3": (64, [(0, bits_below(3)), (32, 32 + bits_below(200))], [(0, 2, 0), (32, 8, 0)]),
+    "pairs-of-one-row": (64, [(0, bits_below(70_000)), (32, 32 + bits_below(1))], [(0, 8, 0), (8, 8, 0), (16, 1, 0)]),
+    "pairs-unbounded": (64, [(0, 31), (32, 63)],
+                        [(0, 8, 0), (8, 8, 0), (16, 8, 0), (24, 7, 0), (32, 8, 0), (40, 8, 0), (48, 8, 0), (56, 7, 0)]),
+    "nothing-stated-int32": (32, None, [(0, 8, 0), (8, 8, 0), (16, 8, 0), (24, 8, 1)]),
+    "nothing-stated-int64": (64, None, [(s, 8, int(s == 56)) for s in range(0, 64, 8)]),
+    "all-zero": (32, 0, [(0, 1, 0)]),
+    "nine-bits": (32, 9, [(0, 8, 0), (8, 1, 0)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_radix_plan_passes(case):
+    total, key_bits, want = PLAN_CASES[case]
+    assert plan_passes(total, key_bits) == want
+
+
+@pytest.mark.parametrize("total,key_bits", [(32, 32), (64, 64), (64, [(0, 40), (32, 50)]), (64, [(8, 4)]),
+                                            (64, [(0, 9), (10, 19), (20, 29), (30, 39), (40, 49)])])
+def test_radix_plan_rejects(total, key_bits):
+    """Stated bits must stay below the sign bit, ascend without overlap and
+    fit the kernel's eight passes."""
+    with pytest.raises(ValueError):
+        plan_passes(total, key_bits)
+
+
+def test_radix_scratch_is_sized_per_tile():
+    assert scratch_bytes(1) == scratch_bytes(radix_module.TILE) == radix_module.HEADER_BYTES + 2048
+    assert scratch_bytes(radix_module.TILE + 1) == radix_module.HEADER_BYTES + 2 * 2048
+    assert scratch_bytes(6_250_000) == radix_module.HEADER_BYTES + 2048 * 1526
+
+
+def _packed(rng, n, nseg, ncols):
+    return (rng.integers(0, nseg, n).astype(np.int64) << 32) | rng.integers(0, ncols, n)
+
+
+# name -> (keys, what is stated of them, the passes that run)
+PASS_CASES = {
+    "path-A-like-degrees": (lambda rng: rng.poisson(16, 5000).astype(np.int64), 27, [0]),
+    "all-equal": (lambda rng: np.full(300, 9, np.int64), None, [0]),
+    "all-equal-stated": (lambda rng: np.full(300, 9, np.int64), 27, [0]),
+    "negative-int64": (lambda rng: -rng.integers(1, 40, 2000), None, [0]),
+    "a-single-zero-among-negatives": (lambda rng: np.r_[-rng.integers(1, 40, 2000), 0, -rng.integers(1, 40, 500)],
+                                      None, list(range(8))),
+    "a-single-zero-among-negatives-int32": (
+        lambda rng: np.r_[-rng.integers(1, 40, 2000), 0].astype(np.int32), None, [0, 1, 2, 3]),
+    "signed-int32": (lambda rng: rng.integers(-5000, 5000, 3000).astype(np.int32), None, [0, 1, 2, 3]),
+    "int16-keys": (lambda rng: rng.integers(-300, 300, 3000).astype(np.int16), None, [0, 1, 2, 3]),
+    "uint8-keys": (lambda rng: rng.integers(0, 256, 3000).astype(np.uint8), None, [0]),
+    "mask-minus-degrees": (lambda rng: (1 << 27) - 1 - rng.poisson(16, 5000).astype(np.int64), 27, [0]),
+    "nnz-minus-degrees-borrows": (lambda rng: 100_000_000 - rng.integers(0, 40, 5000), 27, [0, 1]),
+    "packed-seg-col": (lambda rng: _packed(rng, 4000, 37, 1000), [(0, 10), (32, 38)], [0, 1, 2]),
+    "packed-one-segment": (lambda rng: _packed(rng, 4000, 1, 70_000), [(0, 17), (32, 32)], [0, 1, 2]),
+    "packed-wide-statement": (lambda rng: _packed(rng, 4000, 37, 200), [(0, 23), (32, 55)], [0, 3]),
+    "one-key": (lambda rng: np.array([5], np.int64), None, [0]),
+    "no-keys": (lambda rng: np.zeros(0, np.int64), None, [0]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PASS_CASES))
+def test_radix_pass_logic_matches_stable_argsort(case):
+    """The kernel's pass logic as torch ops (sign flip, planned digits, a
+    digit with one bucket skipped, the last pass that runs writing the rank
+    or the permutation) equals a stable argsort exactly, and runs the passes
+    expected."""
+    make, key_bits, want_ran = PASS_CASES[case]
+    keys = torch.from_numpy(make(np.random.default_rng(70)))
+    perm, ran = radix_passes_plain(keys, key_bits)
+    assert ran == want_ran
+    assert perm.dtype == torch.int32 and torch.equal(perm, radix_argsort_plain(keys))
+    rank, _ = radix_passes_plain(keys, key_bits, inverse=True)
+    assert torch.equal(rank, radix_rank_plain(keys))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64], ids=["int32", "int64"])
+@settings(max_examples=60, deadline=None)
+@given(data=st.data())
+def test_radix_pass_logic_on_drawn_keys(dtype, data):
+    """Keys drawn from the whole range of the type, from a narrow one and
+    from a few values (ties), with nothing stated: equal to the stable sort."""
+    info = np.iinfo(dtype)
+    lo, hi = data.draw(st.sampled_from([(info.min, info.max), (-300, 300), (0, 3), (info.min, info.min + 2)]))
+    keys = np.array(data.draw(st.lists(st.integers(lo, hi), min_size=0, max_size=200)), dtype=dtype)
+    t = torch.from_numpy(keys)
+    perm, _ = radix_passes_plain(t)
+    np.testing.assert_array_equal(perm.numpy(), np.argsort(keys, kind="stable"))
+    rank, _ = radix_passes_plain(t, inverse=True)
+    assert torch.equal(rank, radix_rank_plain(t))
+
+
+@settings(max_examples=60, deadline=None)
+@given(pairs=st.lists(st.tuples(st.integers(0, 40), st.integers(0, 999)), max_size=200))
+def test_radix_pass_logic_on_drawn_packed_pairs(pairs):
+    """Packed ``(seg << 32) | col`` keys with their live bits stated."""
+    seg = np.array([p[0] for p in pairs], dtype=np.int64)
+    col = np.array([p[1] for p in pairs], dtype=np.int64)
+    keys = torch.from_numpy((seg << 32) | col)
+    perm, ran = radix_passes_plain(keys, [(0, bits_below(1000)), (32, 32 + bits_below(41))])
+    assert set(ran) <= {0, 1, 2}
+    np.testing.assert_array_equal(perm.numpy(), np.lexsort((np.arange(len(pairs)), col, seg)))
+
+
+def test_radix_argsort_returns_sorted_keys_on_cpu():
+    keys = torch.from_numpy(np.random.default_rng(71).integers(-50, 50, 500))
+    perm, sorted_keys = radix_argsort(keys, return_keys=True)
+    assert torch.equal(sorted_keys, torch.sort(keys, stable=True).values)
+    assert torch.equal(perm, radix_argsort(keys, key_bits=None))
+
+
+def _calls_in(func):
+    """Names of everything ``func`` calls: ``f(...)`` and ``x.f(...)``."""
+    names = set()
+    for node in ast.walk(func):
+        if isinstance(node, ast.Call) and isinstance(node.func, (ast.Attribute, ast.Name)):
+            names.add(node.func.attr if isinstance(node.func, ast.Attribute) else node.func.id)
+    return names
+
+
+def test_radix_cuda_route_reads_nothing_back():
+    """The functions on K5's CUDA route make no call that reads a tensor
+    back to the host (``aminmax``, ``.item()``, ``int(...)`` and their like)
+    and none that sorts (``torch.sort``, ``torch.argsort``); the plain
+    versions, for CPU tensors, are where the library sort lives."""
+    tree = ast.parse(Path(radix_module.__file__).read_text())
+    funcs = {node.name: node for node in tree.body if isinstance(node, ast.FunctionDef)}
+    host_reads = {"aminmax", "item", "int", "float", "bool", "tolist", "cpu", "numpy", "min", "max", "amin", "amax",
+                  "nonzero", "unique", "synchronize"}
+    sorts = {"sort", "argsort", "msort", "topk"}
+    assert not _calls_in(funcs["_radix_sort"]) & (host_reads | sorts)
+    for name in ("radix_rank", "radix_argsort"):
+        assert not _calls_in(funcs[name]) & (host_reads | sorts), name
+        assert "_radix_sort" in _calls_in(funcs[name])
+    assert "argsort" in _calls_in(funcs["radix_rank_plain"])  # the scan sees calls
+    source = (Path(radix_module.__file__).parents[2] / "csrc" / "radix_sort.cu").read_text()
+    for library in ("cub::", "thrust::", "#include <cub", "#include <thrust"):
+        assert library not in source
+
+
+# -- DegreeReorder, descending, with empty rows ---------------------------------------
+DESCENDING_CASES = {
+    "one-empty-row": lambda rng: np.r_[rng.integers(1, 30, 200), 0, rng.integers(1, 30, 99)],
+    "many-empty-rows": lambda rng: np.where(rng.random(400) < 0.3, 0, rng.integers(1, 30, 400)),
+    "a-long-row": lambda rng: np.r_[rng.integers(0, 20, 300), 700],
+    "all-empty": lambda rng: np.zeros(50, np.int64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DESCENDING_CASES))
+def test_degree_reorder_descending_matches_reference(case):
+    """``DegreeReorder(ascending=False)`` sorts ``mask - degrees`` with its
+    bits stated; the order and its ties equal the JAX package's, which
+    sorts ``-degrees``. The kernel's pass logic gives the same on those keys."""
+    degrees = DESCENDING_CASES[case](np.random.default_rng(80))
+    ref_csr = csr_with(81, degrees, 300)
+    want = np.asarray(RefDegreeReorder(ascending=False).get_reorder(ref_csr))
+    csr = from_reference(ref_csr, CPU)
+    got = DegreeReorder(ascending=False).get_reorder(csr)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    bits = csr.nnz.bit_length()
+    model, ran = radix_passes_plain((1 << bits) - 1 - csr.degrees(), bits, inverse=True)
+    np.testing.assert_array_equal(model.numpy(), want)
+    if degrees.max(initial=0) < 256:
+        assert ran == [0]  # one empty row does not wake the high bytes
+    np.testing.assert_array_equal(DegreeReorder().get_reorder(csr).numpy(),
+                                  np.asarray(RefDegreeReorder().get_reorder(ref_csr)))
+
+
+# -- the (row, column) sort of a COO -----------------------------------------------------
+def canonical(row, col, vals):
+    """Entries in (row, column, value) order: duplicates of one coordinate
+    in one order, whatever the sort that placed them."""
+    order = np.lexsort((np.zeros_like(row) if vals is None else vals, col, row))
+    return row[order], col[order], None if vals is None else vals[order]
+
+
+PAIR_SORT_CASES = {
+    "square": dict(n=300, m=300, nnz=4000),
+    "rectangular": dict(n=200, m=450, nnz=2500),
+    "pattern": dict(n=300, m=300, nnz=3000, pattern=True),
+    "one-row": dict(n=1, m=500, nnz=800),
+    "no-entries": dict(n=20, m=20, nnz=0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAIR_SORT_CASES))
+def test_coo_pair_sort_matches_reference(case):
+    """``sort_by_pairs``, ``COO.sort_rowmajor`` and ``permute_2d`` of a COO
+    against the JAX package after canonical ordering of duplicates (its
+    device sort leaves their order open): ids exactly, values exactly (they
+    are moved, not computed). Against its own plain version the port's sort
+    is exact as it stands, duplicates in input order."""
+    kw = dict(PAIR_SORT_CASES[case])
+    n, m, nnz, pattern = kw["n"], kw["m"], kw["nnz"], kw.get("pattern", False)
+    rng = np.random.default_rng(90)
+    row = rng.integers(0, n, nnz).astype(np.int32)
+    col = rng.integers(0, m, nnz).astype(np.int32)
+    if nnz:
+        row[:20], col[:20] = row[0], col[0]  # 20 copies of one coordinate
+    vals = None if pattern else rng.standard_normal(nnz).astype(np.float32)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+
+    got = sort_by_pairs(t(row), t(col), t(vals), major_bound=n, minor_bound=m)
+    plain = sort_by_pairs_plain(t(row), t(col), t(vals))
+    order = np.lexsort((np.arange(nnz), col, row))  # the stable sort
+    for g, p, w in zip(got, plain, (row[order], col[order], None if pattern else vals[order])):
+        if w is None:
+            assert g is None and p is None
+        else:
+            np.testing.assert_array_equal(g.numpy(), w)
+            np.testing.assert_array_equal(p.numpy(), w)
+
+    want = ref.COO.new(row, col, vals, (n, m))
+    want_np = canonical(np.asarray(want.row), np.asarray(want.col), None if pattern else np.asarray(want.vals))
+    coo = COO(t(row), t(col), t(vals), (n, m)).sort_rowmajor()
+    assert coo.is_sorted()
+    got_np = canonical(coo.row.numpy(), coo.col.numpy(), None if pattern else coo.vals.numpy())
+    for g, w in zip(got_np, want_np):
+        assert (g is None and w is None) or np.array_equal(g, w)
+
+    ro, co = rng.permutation(n).astype(np.int32), rng.permutation(m).astype(np.int32)
+    want_p = ref_permute_2d(want, ro, co)
+    got_p = permute_2d(coo, t(ro), t(co))
+    assert isinstance(got_p, COO) and got_p.is_sorted()
+    want_np = canonical(np.asarray(want_p.row), np.asarray(want_p.col), None if pattern else np.asarray(want_p.vals))
+    got_np = canonical(got_p.row.numpy(), got_p.col.numpy(), None if pattern else got_p.vals.numpy())
+    for g, w in zip(got_np, want_np):
+        assert (g is None and w is None) or np.array_equal(g, w)
+
+
+# -- what the card wrappers do to ids, offsets and values before a launch -----------
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64])
+def test_kernel_ids_and_offsets_convert(dtype):
+    ids = torch.tensor([0, 3, 3, 100], dtype=dtype)
+    narrow = kernel_ids(ids, "ids")
+    assert narrow.dtype == torch.int32 and narrow.is_contiguous() and narrow.tolist() == [0, 3, 3, 100]
+    wide = kernel_offsets(ids, "offsets")
+    assert wide.dtype == torch.int64 and wide.is_contiguous() and wide.tolist() == [0, 3, 3, 100]
+    if dtype == torch.int32:
+        assert narrow.data_ptr() == ids.data_ptr()  # already the kernel's type: no copy
+    if dtype == torch.int64:
+        assert wide.data_ptr() == ids.data_ptr()
+    strided = torch.arange(10, dtype=dtype)[::2]
+    assert kernel_ids(strided, "ids").is_contiguous() and kernel_offsets(strided, "offsets").is_contiguous()
+
+
+def test_kernel_ids_overflow_and_types_raise():
+    with pytest.raises(TypeMismatchError):
+        kernel_ids(torch.tensor([0, 2**31], dtype=torch.int64), "ids")
+    with pytest.raises(TypeMismatchError):
+        kernel_ids(torch.tensor([-(2**31) - 1], dtype=torch.int64), "ids")
+    assert kernel_ids(torch.tensor([2**31 - 1], dtype=torch.int64), "ids").item() == 2**31 - 1
+    for bad in (torch.tensor([1.0]), torch.tensor([True])):
+        with pytest.raises(TypeMismatchError):
+            kernel_ids(bad, "ids")
+        with pytest.raises(TypeMismatchError):
+            kernel_offsets(bad, "offsets")
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("offset_dtype", [torch.int32, torch.int64], ids=["offsets32", "offsets64"])
+def test_wrappers_take_any_index_dtype(id_dtype, offset_dtype):
+    """``convert(CSR)`` (K3), ``spmv`` (K2) and ``relocate_csr`` (K4) on
+    ids and offsets of other integer types give what int32 ids and int64
+    offsets give, and the ids come back in the caller's type."""
+    row, col, vals = coo_graph(100, n=300, m=300, nnz=3000)
+    rng = np.random.default_rng(101)
+    ro, co = rng.permutation(300).astype(np.int32), rng.permutation(300).astype(np.int32)
+    x = torch.from_numpy(rng.standard_normal(300).astype(np.float32))
+    base = CSR(indptr_plain(torch.from_numpy(row), 300), torch.from_numpy(col), torch.from_numpy(vals), (300, 300))
+    indptr = indptr_from_sorted_rows(torch.from_numpy(row).to(id_dtype), 300)
+    assert indptr.dtype == torch.int64 and torch.equal(indptr, base.indptr)
+    csr = CSR(base.indptr.to(offset_dtype), base.indices.to(id_dtype), base.vals, base.shape)
+    assert torch.equal(csr_spmv(csr, x), csr_spmv(base, x))
+    for orders in ((torch.from_numpy(ro), torch.from_numpy(co)), (torch.from_numpy(ro).long(), None), (None, None)):
+        got = relocate_csr(csr, *orders)
+        want = relocate_csr(base, *orders)
+        assert got.indices.dtype == id_dtype
+        assert torch.equal(got.indices.to(torch.int32), want.indices)
+        assert torch.equal(got.indptr.to(torch.int64), want.indptr) and torch.equal(got.vals, want.vals)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float64, torch.int32, torch.int8],
+                         ids=["bf16", "f16", "f64", "int32", "int8"])
+def test_csr_spmv_casts_values_to_x(dtype):
+    """Values of any type are cast to ``x``'s float32, as the reference's
+    ``spmv_csr`` casts them: the same ``y`` as float32 values of the same
+    magnitudes."""
+    ref_csr = CSR_CASES["empty-rows"]()
+    csr = from_reference(ref_csr, CPU)
+    vals = torch.from_numpy(np.random.default_rng(110).integers(-5, 6, csr.nnz).astype(np.float32))
+    x = torch.from_numpy(np.random.default_rng(111).standard_normal(csr.ncols).astype(np.float32))
+    typed = CSR(csr.indptr, csr.indices, vals.to(dtype), csr.shape)
+    y = csr_spmv(typed, x)
+    assert y.dtype == torch.float32
+    assert torch.equal(y, csr_spmv(CSR(csr.indptr, csr.indices, vals, csr.shape), x))
+    want = np.asarray(ref_spmv_csr(ref.CSR.new(np.asarray(ref_csr.indptr), np.asarray(ref_csr.indices),
+                                               vals.numpy(), ref_csr.shape), x.numpy(), method="segment"))
+    np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-5)
