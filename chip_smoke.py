@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch + CUDA port (``sparsebase_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--nnz 100e6] [--band-nnz 64e6] [--seed 0]
+    python3 chip_smoke.py [--nnz 100e6] [--band-nnz 64e6] [--rcm-n 131072] [--seed 0]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -37,12 +37,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``convert(CSR)``, ``convert(DIA)`` and ``spmv(dia, x)``; path C, the op
    API on path A's COO: ``convert(CSR)``, ``DegreeReorder(ascending=False)``,
    ``permute_2d`` with a seeded random column order and with rows only,
-   ``spmv``. Every kernel of each path must have launched;
+   ``spmv``; path D, path B's band at ``--rcm-n`` rows under a seeded
+   random symmetric permutation (``COO.new`` sorts it again) through
+   ``convert(CSR)``, ``RCMReorder``, ``permute_2d(csr, order, order)``,
+   ``convert(DIA)`` and ``spmv(dia, x)``, then ``rcm_pipeline`` on the same
+   COO. Every kernel of each path must have launched;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
    the plain SpMV of the permuted matrix), of path B (K1 against K2 and
    against its plain version) and of path C (``ro`` and both permuted CSRs
-   equal to their plain versions, ``y`` against the plain SpMV);
+   equal to their plain versions, ``y`` against the plain SpMV) and of path
+   D, every reference built from the plain ``indptr`` of path D's COO (the
+   CSR's K3 ``indptr`` equal to it; ``_symmetrized_square``, K5 and K3,
+   equal to the CPU route's at full size; the order is a permutation; at
+   16,384 rows the card's order equals the device route run on CPU copies;
+   the RCM'd band has at most 65 diagonals; K4's ``permute_2d`` equal to
+   the plain relocation; K1 on the band against its plain version and,
+   mapped back, against K2 on the scrambled CSR; K2 against the plain
+   SpMV; ``rcm_pipeline`` against the plain relocation and SpMV; CSR → CSC
+   → CSR equal to the source; ELL SpMV against the plain SpMV;
+   ``permute_2d`` of the ELL equal to the plain relocation);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -60,7 +74,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    keys returned, beside ``torch.sort(stable=True)`` of the same keys, and
    as ``sort_by_pairs`` beside its plain version; K4's route for rows over
    4,096 entries (through K5) is timed on a graph with power-law row
-   degrees;
+   degrees; path D: the main path's one ``RCMReorder`` call and its one
+   ``rcm_pipeline`` call, timed as they run in phase 3; the count of BFS
+   level steps and the host syncs (at most one per level step) of one more
+   call of what ``RCMReorder`` runs on a square CUDA CSR, whose order must
+   equal the main path's; K1 on the recovered band beside K2 on the
+   scrambled CSR, and ELL SpMV beside K2;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -68,7 +87,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    path B's band in both layouts (the tiled one's ``tile_band`` copy shows
    as its own kernels), and a gather probe: ``torch.index_select`` of path
    A's column ids from x cut to 16 KiB, 1 MiB and in full, which shows
-   where random gathers are served.
+   where random gathers are served; and one run of the RCM device route on
+   path D's band at 16,384 rows (device time and operations per level step,
+   the device's idle share).
+
+Path D runs its phases 3, 4 and 5 (and its profile) last, after phase 6
+of the other paths.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -286,6 +310,16 @@ def banded_coo(g, dev, band_nnz):
     del i, j, ok
     vals = torch.randn((row.numel(),), generator=g, device=dev)
     return COO(row, col, vals, (n, n))
+
+
+def scrambled_band(g, dev, n):
+    """``banded_coo``'s band of ``n`` rows under a seeded random symmetric
+    permutation, row-major sorted again by ``COO.new`` (K5 on the card)."""
+    from sparsebase_tpu_torch import COO
+
+    band = banded_coo(g, dev, n * (2 * BAND_HALF_WIDTH + 1))
+    perm = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    return COO.new(perm[band.row], perm[band.col], band.vals, band.shape)
 
 
 def abs_csr(csr):
@@ -569,14 +603,10 @@ def device_profile(fn, runs: int = 3):
     return per_kernel, sorted(spans), wall_ms
 
 
-def phase_profile(path_a, wall_a_ms: float, spmv_calls, gather_probe) -> None:
-    """Path A's device time per kernel and idle gaps; the device time per
-    kernel of each of ``spmv_calls``; random gathers of x from ranges of
-    growing size, which shows where SpMV's gathers are served."""
-    runs = 3
-    per_kernel, spans, wall_ms = device_profile(path_a, runs)
-    check(bool(spans), "the profiler recorded no device activity")
-    busy_us, gaps = 0.0, []  # the union of the device intervals, and the holes in it
+def device_busy(spans):
+    """The union of the device intervals (µs), and the holes in it as
+    ``(µs, kernel before, kernel after)``."""
+    busy_us, gaps = 0.0, []
     reach, last = spans[0][0], spans[0][2]
     for start, end, name in spans:
         if start > reach:
@@ -584,6 +614,17 @@ def phase_profile(path_a, wall_a_ms: float, spmv_calls, gather_probe) -> None:
         busy_us += max(0.0, end - max(start, reach))
         if end > reach:
             reach, last = end, name
+    return busy_us, gaps
+
+
+def phase_profile(path_a, wall_a_ms: float, spmv_calls, gather_probe) -> None:
+    """Path A's device time per kernel and idle gaps; the device time per
+    kernel of each of ``spmv_calls``; random gathers of x from ranges of
+    growing size, which shows where SpMV's gathers are served."""
+    runs = 3
+    per_kernel, spans, wall_ms = device_profile(path_a, runs)
+    check(bool(spans), "the profiler recorded no device activity")
+    busy_us, gaps = device_busy(spans)
     busy_ms = busy_us / 1e3 / runs
     print(f"phase 6 profile of path A, {runs} runs: device busy {busy_ms:.4f} ms per run; wall under the "
           f"profiler {wall_ms:.4f} ms, idle {1 - busy_ms / wall_ms:.1%}; against the unprofiled median "
@@ -667,6 +708,169 @@ def phase_long_rows(g, dev, n: int = 1_000_000, nnz: int = 16_000_000) -> None:
           f"in one call {syncs}")
 
 
+class PathD:
+    """Path D: a scrambled band through ``convert(CSR)``, ``RCMReorder``,
+    ``permute_2d(csr, order, order)``, ``convert(DIA)`` and ``spmv(dia, x)``;
+    then ``rcm_pipeline`` on the same COO."""
+
+    SMALL_N = 16_384  # rows of the band whose order is also computed on the CPU
+
+    def __init__(self, g, dev, n, seed):
+        from sparsebase_tpu_torch import CSR
+        from sparsebase_tpu_torch.ops.reorder import RCMReorder
+
+        self.coo = scrambled_band(g, dev, n)
+        self.x = torch.randn((n,), generator=g, device=dev)
+        self.co = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+        self.small = scrambled_band(torch.Generator(device=dev).manual_seed(seed), dev, self.SMALL_N).convert(CSR)
+        self.small_order = RCMReorder().get_reorder(self.small)  # also warms the route's operations up
+        self.rcm_ms = self.pipeline_ms = None
+
+    def run(self):
+        """The main path; ``RCMReorder``'s one call is timed on its own."""
+        from sparsebase_tpu_torch import CSR, DIA, spmv
+        from sparsebase_tpu_torch.ops.permute import permute_2d
+        from sparsebase_tpu_torch.ops.reorder import RCMReorder
+
+        csr = self.coo.convert(CSR)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        order = RCMReorder().get_reorder(csr)
+        torch.cuda.synchronize()
+        self.rcm_ms = (time.perf_counter() - t0) * 1e3
+        banded = permute_2d(csr, order, order)
+        dia = banded.convert(DIA)
+        x_band = torch.empty_like(self.x)
+        x_band[order] = self.x  # x in the reordered space
+        return csr, order, banded, dia, x_band, spmv(dia, x_band)
+
+    def pipeline(self):
+        """``rcm_pipeline``, one call, timed."""
+        from sparsebase_tpu_torch import rcm_pipeline
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rcm_pipeline(self.coo, self.x)
+        torch.cuda.synchronize()
+        self.pipeline_ms = (time.perf_counter() - t0) * 1e3
+        return out
+
+
+def phase_path_d_checks(d: PathD, csr, order, banded, dia, x_band, y_band, pipe) -> float:
+    """Every kernel of path D against its plain version on path D's own
+    tensors, with references built from the plain ``indptr``, not from K3's;
+    returns K1's largest difference from its plain version."""
+    from sparsebase_tpu_torch import CSC, CSR, ELL, spmv
+    from sparsebase_tpu_torch.ops.kernels import csr_spmv, csr_spmv_plain, dia_spmv_plain, indptr_plain
+    from sparsebase_tpu_torch.ops.kernels import relocate_csr_plain
+    from sparsebase_tpu_torch.ops.permute import permute_2d
+    from sparsebase_tpu_torch.ops.reorder.rcm import _rcm_device, _symmetrized_square
+
+    n = d.coo.nrows
+    print(f"phase 4 path D checks: n={n} stored entries={d.coo.nnz}; the RCM'd band has {dia.num_diagonals} "
+          f"diagonals (bandwidth {dia.bandwidth}; 33 expected, at most 65 allowed)")
+    src = CSR(indptr_plain(d.coo.row, n), d.coo.col, d.coo.vals, d.coo.shape)
+    check_csr_equal("path D convert(CSR) (K3 indptr) vs plain", csr, src)
+    sym = _symmetrized_square(csr)
+    sym_host = _symmetrized_square(src.to_host())  # torch.sort and the plain indptr on the CPU
+    check_csr_equal("path D _symmetrized_square (K5 pair sort, K3) vs the CPU route", sym.to_host(), sym_host)
+    del sym, sym_host
+    check(bool((torch.bincount(order.long(), minlength=n) == 1).all()), "path D: the RCM order is not a permutation")
+    check(dia.num_diagonals <= 65, f"path D: {dia.num_diagonals} diagonals after RCM, more than 65")
+    on_cpu = _rcm_device(_symmetrized_square(d.small.to_host()))
+    check_equal("path D RCM order at 16,384 rows, card vs the device route on CPU copies", d.small_order.cpu(), on_cpu)
+    check_csr_equal("path D permute_2d(csr, order, order) (K4) vs plain relocation", banded,
+                    relocate_csr_plain(src, order, order))
+    band_deg = dia_row_degrees(dia)
+    band_absdot = dia_spmv_plain(dia.offsets, dia.data.abs(), x_band.abs(), dia.shape)
+    err_k1 = check_rows("path D K1 on the RCM'd band vs plain", y_band,
+                        dia_spmv_plain(dia.offsets, dia.data, x_band, dia.shape), band_deg, band_absdot)
+    y_src = csr_spmv_plain(src, d.x)
+    absdot = csr_spmv_plain(abs_csr(src), d.x.abs())
+    y_k2 = csr_spmv(csr, d.x)
+    check_rows("path D K2 on the scrambled CSR vs plain", y_k2, y_src, src.degrees(), absdot)
+    check_rows("path D K1 on the RCM'd band (mapped back) vs K2 on the scrambled CSR", y_band[order.long()], y_k2,
+               src.degrees(), absdot)
+    permuted, y_pipe = pipe
+    # the band's pattern is symmetric: its out-edges and A ∪ Aᵀ (each edge
+    # twice, every degree doubled) give the device route the same order
+    ro = order
+    check_csr_equal("path D rcm_pipeline permuted CSR vs plain relocation", permuted, relocate_csr_plain(src, ro, ro))
+    y_ref = torch.empty_like(y_src)
+    y_ref[ro] = y_src
+    absdot_ro = torch.empty_like(absdot)
+    absdot_ro[ro] = absdot
+    deg_ro = torch.empty_like(src.degrees())
+    deg_ro[ro] = src.degrees()
+    check_rows("path D rcm_pipeline y vs plain SpMV", y_pipe, y_ref, deg_ro, absdot_ro)
+    back = csr.convert(CSC).convert(CSR)
+    check_csr_equal("path D CSR -> CSC -> CSR vs the source", back, src)
+    ell = csr.convert(ELL)
+    check_rows("path D spmv(ELL) vs plain", spmv(ell, d.x), y_src, src.degrees(), absdot)
+    check_csr_equal("path D permute_2d(ell, ro, co) -> CSR vs plain relocation",
+                    permute_2d(ell, order, d.co).convert(CSR), relocate_csr_plain(src, order, d.co))
+    return err_k1
+
+
+def phase_path_d_times(d: PathD, csr, order, dia, x_band) -> None:
+    from sparsebase_tpu_torch import ELL
+    from sparsebase_tpu_torch.models.pipelines import spmv_ell
+    from sparsebase_tpu_torch.ops.kernels import banded_spmv, csr_spmv
+    from sparsebase_tpu_torch.ops.reorder.rcm import _rcm_device, _symmetrized_square
+
+    # the level steps and host syncs of what RCMReorder runs on a square
+    # CUDA CSR, in one call whose order must be the main path's
+    stats, out = {}, []
+    syncs = count_host_syncs(lambda: out.append(_rcm_device(_symmetrized_square(csr), stats=stats)))
+    check_equal("path D RCM order, a second call vs the main path's", out[0], order)
+    steps = stats["level_steps"]
+    print(f"phase 5 path D RCMReorder (n={csr.nrows}, {csr.nnz} entries, {2 * csr.nnz} symmetrized): one call "
+          f"{d.rcm_ms:.4f} ms over {steps} BFS level steps, {d.rcm_ms / steps:.4f} ms per level step; host syncs in "
+          f"one call of _symmetrized_square and _rcm_device {syncs} ({syncs / steps:.4f} per level step)")
+    check(syncs <= steps, f"path D: the RCM device route synced the host {syncs} times in {steps} level steps")
+    print(f"phase 5 path D rcm_pipeline end to end: one call {d.pipeline_ms:.4f} ms")
+    k1_ms = cuda_ms(lambda: banded_spmv(dia, x_band))
+    k2_ms = cuda_ms(lambda: csr_spmv(csr, d.x))
+    print(f"phase 5 path D payoff: K1 on the recovered band ({dia.num_diagonals} diagonals) {k1_ms:.4f} ms, "
+          f"K2 on the scrambled CSR {k2_ms:.4f} ms, {k2_ms / k1_ms:.2f}x")
+    ell = csr.convert(ELL)
+    ell_ms = cuda_ms(lambda: spmv_ell(ell, d.x))
+    k2_again = cuda_ms(lambda: csr_spmv(csr, d.x))
+    print(f"phase 5 path D ELL SpMV (width {ell.width}): {ell_ms:.4f} ms, K2 on the same matrix {k2_again:.4f} ms")
+    # where a level step's time goes: the device route under the profiler
+    sym_small = _symmetrized_square(d.small)
+    stats = {}
+    _, spans, wall_ms = device_profile(lambda: _rcm_device(sym_small, stats=stats), runs=1)
+    check(bool(spans), "the profiler recorded no device activity in the RCM device route")
+    busy_us, _ = device_busy(spans)
+    steps = stats["level_steps"]
+    print(f"phase 6 profile of the RCM device route at {d.SMALL_N} rows, {steps} level steps: device busy "
+          f"{busy_us / 1e3:.4f} ms, wall under the profiler {wall_ms:.4f} ms, idle {1 - busy_us / 1e3 / wall_ms:.1%}; "
+          f"a level step {busy_us / steps:.2f} µs of device time in {len(spans) / steps:.1f} device operations, "
+          f"{wall_ms * 1e3 / steps:.1f} µs of wall")
+
+
+def path_d(g, dev, n: int, seed: int):
+    """Path D's phases 3, 4 and 5, run after every other phase, so that
+    paths A–C run and are timed as they were before path D. Returns its two
+    runs' launch counts, summed, and K1's largest difference from its plain
+    version on the recovered band."""
+    from sparsebase_tpu_torch import _build
+
+    d = PathD(g, dev, n, seed)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    csr, order, banded, dia, x_band, y_band = d.run()
+    launches = read_launches("D", ("indptr", "radix_rank", "relocate_csr", "banded_spmv"))
+    _build.reset_launch_counts()
+    pipe = d.pipeline()
+    launches_pipe = read_launches("D rcm_pipeline", ("indptr", "relocate_csr", "csr_spmv"))
+    err_k1 = phase_path_d_checks(d, csr, order, banded, dia, x_band, y_band, pipe)
+    del pipe, y_band, banded
+    phase_path_d_times(d, csr, order, dia, x_band)
+    return {k: launches[k] + launches_pipe[k] for k in launches}, err_k1
+
+
 def read_launches(path: str, required) -> dict:
     from sparsebase_tpu_torch import _build
 
@@ -682,6 +886,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nnz", type=float, default=100e6, help="path A and C entries (default 100M)")
     ap.add_argument("--band-nnz", type=float, default=64e6, help="path B stored band entries (default 64M)")
+    ap.add_argument("--rcm-n", type=int, default=131_072, help="path D rows of the scrambled band (default 131,072)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -732,7 +937,6 @@ def main() -> None:
     _build.reset_launch_counts()
     csr_c, ro_c, both_c, rows_c, y_c = path_c()
     launches_c = read_launches("C", a_needs)
-    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in launches_a}
 
     # -- checks ---------------------------------------------------------------------
     print(f"phase 4 path A checks: n={n} nnz={nnz}")
@@ -865,6 +1069,8 @@ def main() -> None:
     b_csr_ms = cuda_ms(lambda: csr_spmv(csr_b, x_b))
     print(f"phase 5 path B spmv: DIA (K1) {k1_ms:.4f} ms, CSR (K2) {b_csr_ms:.4f} ms, "
           f"K1 plain {k1_plain_ms:.4f} ms")
+    launches_d, err_k1_d = path_d(g, dev, args.rcm_n, args.seed)
+    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] for k in launches_a}
 
     shapes = {
         "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],
@@ -884,8 +1090,8 @@ def main() -> None:
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
     record = {"kernels": [
-        entry("banded_spmv", "banded_spmv.cu", "sparsebase_tpu/ops/kernels/banded_spmv.py:67", err_k1, k1_ms,
-              k1_plain_ms, None),
+        entry("banded_spmv", "banded_spmv.cu", "sparsebase_tpu/ops/kernels/banded_spmv.py:67",
+              max(err_k1, err_k1_d), k1_ms, k1_plain_ms, None),
         entry("csr_spmv", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189", err_k2, k2_ms, k2_plain_ms,
               k2_lib_ms),
         entry("indptr", "indptr.cu", "tools/pallas_attempts.py:218", err_k3, k3_ms, k3_plain_ms, k3_lib_ms),

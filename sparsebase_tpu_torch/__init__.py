@@ -7,12 +7,12 @@ neither ``jax`` nor ``sparsebase_tpu``.
 
 Layer map:
 
-    models       preprocess_pipeline, spmv (format-polymorphic)
-    ops          reorder (DegreeReorder) / permute / kernels (K1 DIA SpMV, K2 CSR SpMV,
-                 K3 indptr, K4 CSR relocation, K5 stable radix sort)
+    models       preprocess_pipeline, rcm_pipeline, spmv (format-polymorphic), spmv_ell
+    ops          reorder (DegreeReorder, RCMReorder) / permute (2-D, 1-D) / kernels
+                 (K1 DIA SpMV, K2 CSR SpMV, K3 indptr, K4 CSR relocation, K5 stable radix sort)
     dispatch     Operation (auto-converting multi-format dispatch)
     convert      conversion graph + torch conversion functions
-    formats      COO / CSR / DIA frozen dataclasses of tensors
+    formats      COO / CSR / CSC / DIA / ELL / DenseArray / PaddedCSR frozen dataclasses
     context      Host / Device placement, read from tensor.device
     utils        exceptions, logger, checked dtype casts
     _build       nvcc build + ctypes binding of csrc/*.cu
@@ -26,8 +26,8 @@ from .context import CPU_CONTEXT, Context, DeviceContext, HostContext, context_f
 from .convert import can_convert, convert_cached, register_conversion
 from .convert import convert as convert_format
 from .dispatch import ClassMatcher, Operation
-from .formats import COO, CSR, DIA, Format
-from .models import preprocess_pipeline, spmv, spmv_csr
+from .formats import COO, CSC, CSR, DIA, ELL, Array, DenseArray, Format, PaddedCSR, pad_csr
+from .models import preprocess_pipeline, rcm_pipeline, spmv, spmv_csr, spmv_ell
 
 __all__ = [
     "__version__",
@@ -42,6 +42,12 @@ __all__ = [
     "COO",
     "CSR",
     "DIA",
+    "CSC",
+    "ELL",
+    "DenseArray",
+    "Array",
+    "PaddedCSR",
+    "pad_csr",
     "Context",
     "HostContext",
     "DeviceContext",
@@ -57,4 +63,6 @@ __all__ = [
     "preprocess_pipeline",
     "spmv",
     "spmv_csr",
+    "spmv_ell",
+    "rcm_pipeline",
 ]

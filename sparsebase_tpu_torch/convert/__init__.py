@@ -11,7 +11,18 @@ from .graph import (
     default_graph,
     register_conversion,
 )
-from .kernels import coo_to_csr, csr_to_coo, csr_to_dia, dia_to_csr
+from .kernels import (
+    coo_to_csc,
+    coo_to_csr,
+    csc_to_coo,
+    csc_to_csr,
+    csr_to_coo,
+    csr_to_csc,
+    csr_to_dia,
+    csr_to_ell,
+    dia_to_csr,
+    ell_to_csr,
+)
 
 __all__ = [
     "ConversionGraph",
@@ -22,6 +33,12 @@ __all__ = [
     "register_conversion",
     "coo_to_csr",
     "csr_to_coo",
+    "coo_to_csc",
+    "csc_to_coo",
+    "csr_to_csc",
+    "csc_to_csr",
     "csr_to_dia",
     "dia_to_csr",
+    "csr_to_ell",
+    "ell_to_csr",
 ]

@@ -137,14 +137,22 @@ def convert_cached(fmt, to_cls, context=None, graph: Optional[ConversionGraph] =
 
 def _register_builtin_edges():
     from ..formats.coo import COO
+    from ..formats.csc import CSC
     from ..formats.csr import CSR
     from ..formats.dia import DIA
+    from ..formats.ell import ELL
     from . import kernels as k
 
     register_conversion(COO, CSR, k.coo_to_csr)
     register_conversion(CSR, COO, k.csr_to_coo)
+    register_conversion(COO, CSC, k.coo_to_csc)
+    register_conversion(CSC, COO, k.csc_to_coo)
+    register_conversion(CSR, CSC, k.csr_to_csc)
+    register_conversion(CSC, CSR, k.csc_to_csr)
     register_conversion(CSR, DIA, k.csr_to_dia)
     register_conversion(DIA, CSR, k.dia_to_csr)
+    register_conversion(CSR, ELL, k.csr_to_ell)
+    register_conversion(ELL, CSR, k.ell_to_csr)
 
 
 _register_builtin_edges()

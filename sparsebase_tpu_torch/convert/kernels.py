@@ -2,7 +2,7 @@
 
 Counterpart of ``sparsebase_tpu/convert/kernels.py`` (reference
 src/sparsebase/converter/converter_order_two.cc — COO→CSR :163-214,
-CSR→COO :72-118):
+CSR→COO :72-118, COO→CSC :21-70, CSR→CSC :120-128):
 
 * ``indptr`` from row-sorted COO is kernel K3 on CUDA tensors
   (``ops/kernels/indptr.py``; its plain version, one ``searchsorted`` of
@@ -10,10 +10,12 @@ CSR→COO :72-118):
 * row expansion is ``repeat_interleave`` with a known output size;
 * a (major, minor) sort packs both int32 ids into one int64 key and sorts
   it once, stably: kernel K5 on CUDA tensors (``ops/kernels/radix.py``),
-  ``torch.sort`` on CPU tensors.
+  ``torch.sort`` on CPU tensors. The CSC transposes are such a sort, by
+  (column, row) or (row, column), followed by K3 on the sorted major ids.
 
 None of them forms an out-of-range index, so nothing relies on JAX's
-``mode="drop"`` dropping one.
+``mode="drop"`` dropping one: ``csr_to_ell`` checks the width against the
+largest degree before it scatters.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from __future__ import annotations
 import torch
 
 from ..formats.coo import COO
+from ..formats.csc import CSC
 from ..formats.csr import CSR
 from ..formats.dia import DIA
+from ..formats.ell import ELL
 
 
 def indptr_from_sorted_rows(row: torch.Tensor, nrows: int) -> torch.Tensor:
@@ -86,6 +90,77 @@ def coo_to_csr(coo: COO) -> CSR:
 def csr_to_coo(csr: CSR) -> COO:
     """Row expansion (CsrCooFunctionConditional, converter_order_two.cc:72-118)."""
     return COO(csr.row_of_nnz(), csr.indices, csr.vals, csr.shape)
+
+
+def _order2_transpose_sort(major, minor, vals, n_major: int, minor_extent: int):
+    """Stable sort of the entries by (major, minor); returns ``(indptr over
+    the major ids, minor ids, vals)`` in that order (K5, then K3, on CUDA
+    tensors)."""
+    major_s, minor_s, vals_s = sort_by_pairs(major, minor, vals, major_bound=n_major, minor_bound=minor_extent)
+    return indptr_from_sorted_rows(major_s, n_major), minor_s, vals_s
+
+
+def coo_to_csc(coo: COO) -> CSC:
+    """Sort by (column, row), then the column offsets
+    (CooCscFunctionConditional, converter_order_two.cc:21-70)."""
+    indptr, rows, vals = _order2_transpose_sort(coo.col, coo.row, coo.vals, coo.ncols, coo.nrows)
+    return CSC(indptr, rows, vals, coo.shape)
+
+
+def csc_to_coo(csc: CSC) -> COO:
+    """CSC → row-major-sorted COO (the reference leaves CSC a sink)."""
+    row, col, vals = sort_by_pairs(csc.indices, csc.col_of_nnz(), csc.vals, major_bound=csc.nrows,
+                                   minor_bound=csc.ncols)
+    return COO(row, col, vals, csc.shape)
+
+
+def csr_to_csc(csr: CSR) -> CSC:
+    """CSR → CSC by one transpose sort (the reference routes CSR → COO →
+    CSC, converter_order_two.cc:120-128)."""
+    indptr, rows, vals = _order2_transpose_sort(csr.indices, csr.row_of_nnz(), csr.vals, csr.ncols, csr.nrows)
+    return CSC(indptr, rows, vals, csr.shape)
+
+
+def csc_to_csr(csc: CSC) -> CSR:
+    """CSC → CSR by one transpose sort."""
+    indptr, cols, vals = _order2_transpose_sort(csc.indices, csc.col_of_nnz(), csc.vals, csc.nrows, csc.ncols)
+    return CSR(indptr, cols, vals, csc.shape)
+
+
+def csr_to_ell(csr: CSR, width=None) -> ELL:
+    """CSR → ELL (row-padded). The largest degree is read back to the host
+    once: it is the default width, and a given width below it raises
+    ``ValueError``, so every slot the scatter writes is in range. Entry k of
+    row r goes to slot ``r * width + (k - indptr[r])``."""
+    n, m = csr.shape
+    deg = csr.degrees()
+    max_deg = int(deg.max()) if n > 0 else 0
+    width = max_deg if width is None else int(width)
+    if max_deg > width:
+        raise ValueError(f"csr_to_ell: width {width} < max degree {max_deg}")
+    width = max(width, 1)
+    dev = csr.indices.device
+    nnz = csr.nnz
+    start = expand_row_table(csr.indptr[:-1], csr.indptr, nnz)
+    flat = expand_row_table(torch.arange(n, device=dev) * width, csr.indptr, nnz)
+    flat += torch.arange(nnz, device=dev) - start
+    cols = torch.zeros((n * width,), dtype=torch.int32, device=dev)
+    cols[flat] = csr.indices.to(torch.int32)
+    vals = None
+    if csr.vals is not None:
+        vals = torch.zeros((n * width,), dtype=csr.vals.dtype, device=dev)
+        vals[flat] = csr.vals
+        vals = vals.view(n, width)
+    return ELL(cols.view(n, width), vals, deg.to(torch.int32), (n, m))
+
+
+def ell_to_csr(ell: ELL) -> CSR:
+    """ELL → CSR: the valid slots in row-major order (the order within each
+    row is kept); int32 ids and int64 offsets."""
+    mask = ell.valid_mask()
+    indices = ell.cols[mask].to(torch.int32)
+    vals = None if ell.vals is None else ell.vals[mask]
+    return CSR(indptr_from_counts(ell.lens), indices, vals, ell.shape)
 
 
 def csr_to_dia(csr: CSR) -> DIA:

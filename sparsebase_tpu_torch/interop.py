@@ -1,10 +1,11 @@
 """Carry formats across from the JAX reference package, and back to numpy.
 
-The reference formats are read by their field names (``COO.row/col/vals``,
-``CSR.indptr/indices/vals``, ``DIA.offsets/data``, each with ``_shape``),
-with every array taken through ``np.asarray``, so this module never
-imports ``jax`` or ``sparsebase_tpu``. Ids become int32 (checked), CSR
-offsets int64; values keep their dtype, bf16 included.
+A reference format is recognised by its class name (``COO``, ``CSR``,
+``CSC``, ``DIA``, ``ELL``, ``DenseArray``, ``PaddedCSR``): a CSC has the same
+field names as a CSR and is its transpose. Its fields are read by name and
+every array is taken through ``np.asarray``, so this module never imports
+``jax`` or ``sparsebase_tpu``. Ids become int32 (checked), offsets int64;
+values keep their dtype, bf16 included.
 """
 
 from __future__ import annotations
@@ -12,10 +13,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .formats.array import DenseArray
 from .formats.base import Format
 from .formats.coo import COO
+from .formats.csc import CSC
 from .formats.csr import CSR
 from .formats.dia import DIA
+from .formats.ell import ELL
+from .formats.padded import PaddedCSR
 from .utils.exceptions import TypeMismatchError
 from .utils.typing import convert_array_dtype
 
@@ -36,19 +41,30 @@ def _vals(a, device):
     return None if a is None else _tensor(a).to(device)
 
 
+def _offsets(a, device) -> torch.Tensor:
+    return _tensor(a).to(device=device, dtype=torch.int64)
+
+
 def from_reference(fmt, device) -> Format:
-    """The port's counterpart of a reference COO, CSR or DIA, on ``device``."""
-    if not hasattr(fmt, "_shape"):
-        raise TypeMismatchError(f"no port counterpart for {type(fmt).__name__}")
+    """The port's counterpart of a reference COO, CSR, CSC, DIA, ELL,
+    DenseArray or PaddedCSR, on ``device``."""
+    kind = type(fmt).__name__
+    if kind == "DenseArray":
+        return DenseArray(_vals(fmt.vals, device))
+    if kind == "PaddedCSR":
+        shape = tuple(int(s) for s in fmt._orig_shape)
+        return PaddedCSR(from_reference(fmt.csr, device), shape, int(fmt._orig_nnz))
+    if kind not in ("COO", "CSR", "CSC", "DIA", "ELL"):
+        raise TypeMismatchError(f"no port counterpart for {kind}")
     shape = tuple(int(s) for s in fmt._shape)
-    if hasattr(fmt, "row") and hasattr(fmt, "col"):
+    if kind == "COO":
         return COO(_ids(fmt.row, device), _ids(fmt.col, device), _vals(fmt.vals, device), shape)
-    if hasattr(fmt, "indptr") and hasattr(fmt, "indices"):
-        indptr = _tensor(fmt.indptr).to(device=device, dtype=torch.int64)
-        return CSR(indptr, _ids(fmt.indices, device), _vals(fmt.vals, device), shape)
-    if hasattr(fmt, "offsets") and hasattr(fmt, "data"):
+    if kind in ("CSR", "CSC"):
+        cls = CSR if kind == "CSR" else CSC
+        return cls(_offsets(fmt.indptr, device), _ids(fmt.indices, device), _vals(fmt.vals, device), shape)
+    if kind == "DIA":
         return DIA(_ids(fmt.offsets, device), _vals(fmt.data, device), shape)
-    raise TypeMismatchError(f"no port counterpart for {type(fmt).__name__}")
+    return ELL(_ids(fmt.cols, device), _vals(fmt.vals, device), _ids(fmt.lens, device), shape)
 
 
 def _numpy(t):
@@ -62,9 +78,12 @@ def _numpy(t):
 
 def to_numpy(fmt: Format) -> dict:
     """The format's arrays as numpy (bf16 widened to f32), keyed by field
-    name, plus ``shape``."""
+    name, plus ``shape``; a PaddedCSR gives its padded CSR's arrays, and
+    ``nnz`` (the true count) beside its true ``shape``."""
+    if isinstance(fmt, PaddedCSR):
+        return {**to_numpy(fmt.csr), "shape": fmt.shape, "nnz": fmt.nnz}
     out = {"shape": fmt.shape}
-    for name in ("row", "col", "indptr", "indices", "offsets", "data", "vals"):
+    for name in ("row", "col", "indptr", "indices", "cols", "lens", "offsets", "data", "vals"):
         if hasattr(fmt, name):
             out[name] = _numpy(getattr(fmt, name))
     return out

@@ -1,5 +1,5 @@
 """End-to-end pipelines."""
 
-from .pipelines import preprocess_pipeline, spmv, spmv_csr
+from .pipelines import preprocess_pipeline, rcm_pipeline, spmv, spmv_csr, spmv_ell
 
-__all__ = ["preprocess_pipeline", "spmv", "spmv_csr"]
+__all__ = ["preprocess_pipeline", "rcm_pipeline", "spmv", "spmv_csr", "spmv_ell"]

@@ -534,3 +534,156 @@ def test_relocate_long_rows_add_one_sync_and_one_k5_launch(dev, gen):
     assert len(syncs) == 2, [str(w.message) for w in syncs]
     want = relocate_csr_plain(csr, ro, co)
     assert torch.equal(got.indices, want.indices) and torch.equal(got.vals, want.vals)
+
+
+# -- RCM and the formats of slice 7 ------------------------------------------------
+
+
+def pattern_csr(row, col, n, dev):
+    """The row-major-sorted pattern CSR of the (row, col) pairs, on ``dev``."""
+    row, col, _ = sort_by_pairs_plain(row.to(torch.int32), col.to(torch.int32), None)
+    return COO(row, col, None, (n, n)).to_device(dev).convert(CSR)
+
+
+def scrambled(row, col, n, gen):
+    perm = torch.randperm(n, generator=gen)
+    return perm[row], perm[col]
+
+
+def rcm_graph(name, gen):
+    """Symmetric test graphs, made on the CPU from a seed: (row, col, n)."""
+    both = lambda r, c: (torch.cat([r, c]), torch.cat([c, r]))  # noqa: E731
+    if name == "scrambled-tridiagonal-64":
+        i = torch.arange(63)
+        return (*scrambled(*both(i, i + 1), 64, gen), 64)
+    if name == "random-48":
+        return (*both(torch.randint(0, 48, (240,), generator=gen), torch.randint(0, 48, (240,), generator=gen)), 48)
+    if name == "path-1024":
+        i = torch.arange(1023)
+        return (*both(i, i + 1), 1024)
+    if name == "vertex-0-isolated":
+        r, c = torch.randint(5, 60, (90,), generator=gen), torch.randint(5, 60, (90,), generator=gen)
+        return (*both(r, c), 60)
+    # several components and six isolated vertices, scrambled
+    rows, cols, base = [], [], 0
+    for size, edges in ((30, 50), (12, 15), (20, 25)):
+        r, c = both(torch.randint(0, size, (edges,), generator=gen), torch.randint(0, size, (edges,), generator=gen))
+        rows.append(r + base)
+        cols.append(c + base)
+        base += size
+    return (*scrambled(torch.cat(rows), torch.cat(cols), base + 6, gen), base + 6)
+
+
+RCM_GRAPHS = ["scrambled-tridiagonal-64", "random-48", "path-1024", "vertex-0-isolated", "components"]
+
+
+@pytest.mark.parametrize("symmetrize", [True, False], ids=["symmetrized", "out-edges"])
+@pytest.mark.parametrize("name", RCM_GRAPHS)
+def test_rcm_device_route_on_card_equals_cpu(dev, name, symmetrize):
+    from sparsebase_tpu_torch.ops.reorder.rcm import _rcm_device, _symmetrized_square
+
+    row, col, n = rcm_graph(name, torch.Generator().manual_seed(0))
+    csr = pattern_csr(row, col, n, dev)
+    if symmetrize:
+        csr = _symmetrized_square(csr)
+    got = _rcm_device(csr)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), _rcm_device(csr.to_host()))
+
+
+@pytest.mark.parametrize("name", ["components", "path-1024"])
+def test_rcm_device_route_by_two_sorts_on_card_equals_cpu(dev, name, monkeypatch):
+    """Where (run, degree, id) do not fit one key, the two stable argsorts
+    rank each level on the card, with the packed key's order."""
+    from sparsebase_tpu_torch.ops.reorder import rcm
+
+    row, col, n = rcm_graph(name, torch.Generator().manual_seed(0))
+    csr = rcm._symmetrized_square(pattern_csr(row, col, n, dev))
+    packed = rcm._rcm_device(csr.to_host())
+    monkeypatch.setattr(rcm, "_KEY_BITS", 8)
+    got = rcm._rcm_device(csr)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), packed)
+
+
+@pytest.mark.parametrize("shape", [(20_000, 20_000), (8_000, 30_000), (30_000, 8_000)], ids=["square", "wide", "tall"])
+def test_symmetrized_square_and_csc_transposes_on_card(dev, gen, shape):
+    """K5 sorts and K3 offsets give the CPU route's arrays bit for bit."""
+    from sparsebase_tpu_torch import CSC
+    from sparsebase_tpu_torch.ops.reorder import RCMReorder
+    from sparsebase_tpu_torch.ops.reorder.rcm import _symmetrized_square
+
+    n, m = shape
+    row = torch.randint(0, n, (200_000,), generator=gen, device=dev, dtype=torch.int32)
+    col = torch.randint(0, m, (200_000,), generator=gen, device=dev, dtype=torch.int32)
+    coo = COO.new(row, col, torch.randn((200_000,), generator=gen, device=dev), shape)
+    csr = coo.convert(CSR)
+    before = _build.launch_counts()["radix_rank"]
+    sym = _symmetrized_square(csr)
+    assert _build.launch_counts()["radix_rank"] == before + 1
+    cpu_sym = _symmetrized_square(csr.to_host())
+    assert torch.equal(sym.indptr.cpu(), cpu_sym.indptr) and torch.equal(sym.indices.cpu(), cpu_sym.indices)
+    for got, want in ((csr.convert(CSC), csr.to_host().convert(CSC)), (coo.convert(CSC), coo.to_host().convert(CSC)),
+                      (csr.convert(CSC).convert(CSR), csr.to_host()),
+                      (coo.convert(CSC).convert(COO), coo.to_host())):
+        for a, b in zip(got._tensors(), want._tensors()):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    order = RCMReorder().get_reorder(csr)
+    assert order.device.type == "cuda" and order.shape == (n,)
+    assert torch.equal(torch.sort(order.long()).values.cpu(), torch.arange(n))
+
+
+def test_ell_round_trip_and_spmv_on_card(dev, gen):
+    from sparsebase_tpu_torch import ELL
+    from sparsebase_tpu_torch.ops.permute import permute_2d
+
+    n = 50_000
+    csr = device_csr(gen, dev, path_a_degrees(gen, dev, n), n)
+    ell = csr.convert(ELL)
+    assert ell.cols.device.type == "cuda" and ell.width == int(csr.degrees().max())
+    back = ell.convert(CSR)
+    for field in ("indptr", "indices", "vals"):
+        assert torch.equal(getattr(back, field), getattr(csr, field)), field
+    x = torch.randn((n,), generator=gen, device=dev)
+    absdot = csr_spmv_plain(CSR(csr.indptr, csr.indices, csr.vals.abs(), csr.shape), x.abs())
+    assert_rows_within(spmv(ell, x), csr_spmv(csr, x), csr.degrees(), absdot)
+    ro = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    co = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    got = permute_2d(ell, ro, co).convert(CSR)
+    want = relocate_csr_plain(csr, ro, co)
+    for field in ("indptr", "indices", "vals"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+
+
+def test_rcm_syncs_the_host_at_most_once_per_level_step(dev):
+    """On a path graph of 1,024 vertices (about 1,024 levels per sweep)."""
+    from sparsebase_tpu_torch.ops.reorder import RCMReorder
+    from sparsebase_tpu_torch.ops.reorder.rcm import _rcm_device, _symmetrized_square
+
+    row, col, n = rcm_graph("path-1024", None)
+    csr = pattern_csr(row, col, n, dev)
+    stats = {}
+    _rcm_device(_symmetrized_square(csr), stats=stats)
+    assert stats["level_steps"] >= 3 * 1_000
+    RCMReorder().get_reorder(csr)  # builds and loads the kernels
+    syncs, order = count_syncs(lambda: RCMReorder().get_reorder(csr))
+    assert 0 < len(syncs) <= stats["level_steps"]
+    assert torch.equal(order.cpu(), _rcm_device(_symmetrized_square(csr.to_host())))
+
+
+def test_rcm_pipeline_on_card_matches_cpu(dev, gen):
+    from sparsebase_tpu_torch import rcm_pipeline
+
+    n, nnz = 5_000, 60_000
+    row = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    col = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    coo = COO.new(row, col, torch.randn((nnz,), generator=gen, device=dev), (n, n))
+    x = torch.randn((n,), generator=gen, device=dev)
+    before = _build.launch_counts()
+    permuted, y = rcm_pipeline(coo, x)
+    after = _build.launch_counts()
+    assert all(after[k] > before[k] for k in ("indptr", "relocate_csr", "csr_spmv"))
+    cpu_permuted, cpu_y = rcm_pipeline(coo.to_host(), x.cpu())
+    for field in ("indptr", "indices", "vals"):
+        assert torch.equal(getattr(permuted, field).cpu(), getattr(cpu_permuted, field)), field
+    torch.testing.assert_close(y.cpu(), cpu_y, rtol=1e-5, atol=1e-5)

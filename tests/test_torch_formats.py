@@ -18,9 +18,10 @@ pytest.importorskip("jax")
 import sparsebase_tpu as ref  # noqa: E402
 from sparsebase_tpu.convert import convert as ref_convert  # noqa: E402
 from sparsebase_tpu.formats.dia import DIA as RefDIA  # noqa: E402
+from sparsebase_tpu.formats.ell import ELL as RefELL  # noqa: E402
 
 import sparsebase_tpu_torch as sbt  # noqa: E402
-from sparsebase_tpu_torch import COO, CSR, DIA  # noqa: E402
+from sparsebase_tpu_torch import COO, CSC, CSR, DIA, ELL  # noqa: E402
 from sparsebase_tpu_torch.context import DeviceContext, HostContext, context_for  # noqa: E402
 from sparsebase_tpu_torch.convert import ConversionGraph, convert, convert_cached  # noqa: E402
 from sparsebase_tpu_torch.interop import from_reference, to_numpy  # noqa: E402
@@ -255,3 +256,201 @@ def test_port_imports_no_jax():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 assert words[1].split(".")[0] not in ("jax", "sparsebase_tpu"), f"{path}: {line}"
+
+
+# -- CSC, ELL, DenseArray, PaddedCSR ---------------------------------------------
+
+GOLDEN = REPO / "tests" / "golden"
+
+
+def golden_port_csr(name):
+    indptr = np.loadtxt(GOLDEN / name / "csr_indptr.txt", dtype=np.int64)
+    indices = np.loadtxt(GOLDEN / name / "csr_indices.txt", dtype=np.int32)
+    n = indptr.size - 1
+    return CSR(t(indptr), t(indices), None, (n, n))
+
+
+@pytest.mark.parametrize("name", ["ash958_sym", "g960"])
+def test_csc_equals_reference_library(name):
+    csc = golden_port_csr(name).convert(CSC)
+    assert isinstance(csc, CSC) and csc.indptr.dtype == torch.int64 and csc.indices.dtype == torch.int32
+    np.testing.assert_array_equal(csc.indptr.numpy(), np.loadtxt(GOLDEN / name / "csc_indptr.txt", dtype=np.int64))
+    np.testing.assert_array_equal(csc.indices.numpy(), np.loadtxt(GOLDEN / name / "csc_indices.txt", dtype=np.int64))
+    back = csc.convert(CSR)  # the stable transpose gives the source back
+    src = golden_port_csr(name)
+    assert torch.equal(back.indptr, src.indptr) and torch.equal(back.indices, src.indices)
+
+
+def canonical_entries(fmt_np):
+    """(row, col, val) of a CSR/CSC/COO's numpy arrays, sorted."""
+    if "row" in fmt_np:
+        row, col = fmt_np["row"], fmt_np["col"]
+    else:
+        major = np.repeat(np.arange(fmt_np["indptr"].size - 1), np.diff(fmt_np["indptr"]))
+        row, col = fmt_np["indices"], major
+    vals = fmt_np["vals"] if fmt_np["vals"] is not None else np.zeros(row.size)
+    order = np.lexsort((vals, col, row))
+    return row[order], col[order], vals[order]
+
+
+# edge -> (port source from a COO, reference source from a COO, target class names)
+EDGES = {
+    "COO->CSC": (lambda c: c, lambda c: c, "CSC"),
+    "CSC->COO": (lambda c: c.convert(CSC), lambda c: c.convert(ref.CSC), "COO"),
+    "CSR->CSC": (lambda c: c.convert(CSR), lambda c: c.convert(ref.CSR), "CSC"),
+    "CSC->CSR": (lambda c: c.convert(CSC), lambda c: c.convert(ref.CSC), "CSR"),
+    "CSR->ELL": (lambda c: c.convert(CSR), lambda c: c.convert(ref.CSR), "ELL"),
+    "ELL->CSR": (lambda c: c.convert(CSR).convert(ELL), lambda c: c.convert(ref.CSR).convert(RefELL), "CSR"),
+}
+
+
+@pytest.mark.parametrize("pattern", [False, True], ids=["valued", "pattern"])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+@pytest.mark.parametrize("edge", sorted(EDGES))
+def test_new_edges_match_reference(edge, name, pattern):
+    port_src, ref_src, target = EDGES[edge]
+    row, col, vals = MATRICES[name](pattern)
+    shape = (int(row.max()) + 1, int(col.max()) + 1)
+    port_from = port_src(COO.new(t(row), t(col), t(vals), shape))
+    ref_from = ref_src(ref.COO.new(row, col, vals, shape))
+    port_cls = {"CSC": CSC, "COO": COO, "CSR": CSR, "ELL": ELL}[target]
+    got = port_from.convert(port_cls)
+    want = ref_convert(ref_from, getattr(ref, target) if target != "ELL" else RefELL)
+    assert type(got) is port_cls
+    assert_same(got, want)  # both sorts are stable: values equal in place
+    if target != "ELL":
+        got_np, want_np = to_numpy(got), to_numpy(from_reference(want, CPU))
+        for a, b in zip(canonical_entries(got_np), canonical_entries(want_np)):
+            np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(got.to_dense().numpy(), np.asarray(want.to_dense()))
+
+
+def test_ell_width_below_max_degree_raises_like_reference():
+    from sparsebase_tpu.convert.kernels import csr_to_ell as ref_csr_to_ell
+
+    from sparsebase_tpu_torch.convert.kernels import csr_to_ell
+
+    row, col, vals = MATRICES["square"](False)
+    csr = COO.new(t(row), t(col), t(vals)).convert(CSR)
+    want = ref.COO.new(row, col, vals).convert(ref.CSR)
+    max_deg = int(csr.degrees().max())
+    with pytest.raises(ValueError):
+        csr_to_ell(csr, width=max_deg - 1)
+    with pytest.raises(ValueError):
+        ref_csr_to_ell(want, width=max_deg - 1)
+    wide = csr_to_ell(csr, width=max_deg + 3)
+    assert wide.width == max_deg + 3
+    assert_same(wide, ref_csr_to_ell(want, width=max_deg + 3))
+    assert wide.nnz == csr.nnz
+    np.testing.assert_array_equal(wide.convert(CSR).to_dense().numpy(), csr.to_dense().numpy())
+
+
+@pytest.mark.parametrize("which", ["rows", "cols", "both"])
+def test_permute_2d_on_ell_matches_reference(which):
+    from sparsebase_tpu.ops.permute import permute_2d as ref_permute_2d
+
+    from sparsebase_tpu_torch.ops.permute import permute_2d
+
+    row, col, vals = MATRICES["square"](False)
+    n = 60
+    perm = np.random.default_rng(9).permutation(n).astype(np.int32)
+    ro = perm if which in ("rows", "both") else None
+    co = perm[::-1].copy() if which in ("cols", "both") else None
+    ell = COO.new(t(row), t(col), t(vals), (n, n)).convert(CSR).convert(ELL)
+    want = ref_permute_2d(ref.COO.new(row, col, vals, (n, n)).convert(ref.CSR).convert(RefELL), ro, co)
+    got = permute_2d(ell, t(ro), t(co))
+    assert isinstance(got, ELL)
+    assert_same(got, want)
+    # the same matrix as the permuted CSR
+    csr = permute_2d(ell.convert(CSR), t(ro), t(co))
+    for key in ("indptr", "indices", "vals"):
+        np.testing.assert_array_equal(to_numpy(got.convert(CSR))[key], to_numpy(csr)[key], err_msg=key)
+
+
+@pytest.mark.parametrize("pattern", [False, True], ids=["valued", "pattern"])
+def test_spmv_ell_matches_reference(pattern):
+    from sparsebase_tpu.models.pipelines import spmv_ell as ref_spmv_ell
+
+    row, col, vals = MATRICES["wide"](pattern)
+    shape = (40, 90)
+    x = np.random.default_rng(10).standard_normal(90).astype(np.float32)
+    ell = COO.new(t(row), t(col), t(vals), shape).convert(CSR).convert(ELL)
+    want = ref_spmv_ell(ref.COO.new(row, col, vals, shape).convert(ref.CSR).convert(RefELL), x)
+    got = sbt.spmv(ell, t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), sbt.spmv(ell.convert(CSR), t(x)).numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["pow2", "pow2_half", "exact-buckets", "rows-full", "pattern"])
+def test_pad_csr_matches_reference_and_unpads(case):
+    from sparsebase_tpu.formats.padded import next_bucket as ref_next_bucket
+    from sparsebase_tpu.formats.padded import pad_csr as ref_pad_csr
+
+    from sparsebase_tpu_torch.formats import next_bucket, pad_csr
+
+    row, col, vals = MATRICES["tall"](case == "pattern")
+    shape = (90, 30)
+    csr = COO.new(t(row), t(col), t(vals), shape).convert(CSR)
+    want_csr = ref.COO.new(row, col, vals, shape).convert(ref.CSR)
+    kwargs = {"pow2_half": dict(policy="pow2_half"), "exact-buckets": dict(row_bucket=90, nnz_bucket=300),
+              "rows-full": dict(row_bucket=90, nnz_bucket=512)}.get(case, {})
+    got, want = pad_csr(csr, **kwargs), ref_pad_csr(want_csr, **kwargs)
+    assert got.padded_shape == want.padded_shape and got.nnz == want.nnz and got.shape == want.shape
+    assert_same(got, want)
+    if case == "rows-full":
+        assert got.padded_shape == (91, 30)  # one row added to hold the pad entries
+    back = got.unpad()
+    np.testing.assert_array_equal(back.indptr.numpy(), csr.indptr.numpy())
+    np.testing.assert_array_equal(back.indices.numpy(), csr.indices.numpy())
+    np.testing.assert_allclose(sbt.spmv(got.csr, torch.ones(30))[:90].numpy(), sbt.spmv(csr, torch.ones(30)).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    assert got.context == HostContext()
+    for x in (0, 1, 5, 96, 97, 1000):
+        for policy in ("pow2", "pow2_half"):
+            assert next_bucket(x, policy) == ref_next_bucket(x, policy)
+    with pytest.raises(ValueError):
+        pad_csr(csr, row_bucket=10)
+
+
+@pytest.mark.parametrize("name", ["ash958_sym", "g960"])
+def test_permute_1d_equals_reference_library(name):
+    from sparsebase_tpu_torch.formats import DenseArray
+    from sparsebase_tpu_torch.ops.permute import PermuteOrderOne, permute_1d
+
+    order = np.loadtxt(GOLDEN / name / "degree_order.txt", dtype=np.int32)
+    degs = np.loadtxt(GOLDEN / name / "degrees.txt", dtype=np.int32)
+    got = permute_1d(DenseArray.new(t(degs)), t(order))
+    assert isinstance(got, DenseArray) and got.shape == (degs.size,)
+    np.testing.assert_array_equal(got.vals.numpy(), np.loadtxt(GOLDEN / name / "permute1d_degrees.txt", dtype=np.int64))
+    assert PermuteOrderOne(t(order)).get_permutation(got.astype(value_dtype=torch.int64)).vals.dtype == torch.int64
+
+
+def test_from_reference_tells_csc_from_csr():
+    row, col, vals = MATRICES["wide"](False)
+    want = ref.COO.new(row, col, vals, (40, 90)).convert(ref.CSC)
+    got = from_reference(want, CPU)
+    assert isinstance(got, CSC) and not isinstance(got, CSR)
+    np.testing.assert_array_equal(got.to_dense().numpy(), np.asarray(want.to_dense()))
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("kind", ["CSC", "ELL", "DenseArray", "PaddedCSR"])
+def test_new_formats_round_trip_through_interop(kind):
+    from sparsebase_tpu.formats.array import DenseArray as RefDenseArray
+    from sparsebase_tpu.formats.padded import pad_csr as ref_pad_csr
+
+    row, col, vals = MATRICES["square"](False)
+    csr = ref.COO.new(row, col, vals, (60, 60)).convert(ref.CSR)
+    want = {"CSC": lambda: csr.convert(ref.CSC), "ELL": lambda: csr.convert(RefELL),
+            "DenseArray": lambda: RefDenseArray.new(vals), "PaddedCSR": lambda: ref_pad_csr(csr)}[kind]()
+    got = from_reference(want, CPU)
+    assert type(got).__name__ == kind
+    for key, value in to_numpy(got).items():
+        if key in ("shape", "nnz"):
+            assert value == (want.shape if key == "shape" else want.nnz)
+            continue
+        ref_arr = getattr(want.csr if kind == "PaddedCSR" else want, key)
+        np.testing.assert_array_equal(value, np.asarray(ref_arr), err_msg=key)
+    assert got.context == HostContext()
+    if kind != "DenseArray":
+        assert got.to_host().shape == want.shape
