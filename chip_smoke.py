@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch + CUDA port (``sparsebase_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--nnz 100e6] [--band-nnz 64e6] [--rcm-n 131072] [--seed 0]
+    python3 chip_smoke.py [--nnz 100e6] [--band-nnz 64e6] [--rcm-n 131072] [--ingest-nnz 32e6] [--seed 0]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 0. needs ``torch.cuda.is_available()``; prints the card's name and power
    limit (``nvidia-smi``);
-1. builds the kernels from ``sparsebase_tpu_torch/csrc`` (nvcc, sm_90a);
+1. builds the kernels from ``sparsebase_tpu_torch/csrc`` (nvcc, sm_90a)
+   and, at the same time, the fastio and graphkit host libraries (g++);
+   either host library failing to build stops the run here;
 2. kernel vs plain version on the card, at edge shapes: K1 (DIA SpMV; f32
    and bf16 band, strided and tiled layout, a rectangular band), K2 (CSR
    SpMV; empty rows, a pattern matrix, one row of 262,144 entries, rows of
@@ -41,7 +43,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    random symmetric permutation (``COO.new`` sorts it again) through
    ``convert(CSR)``, ``RCMReorder``, ``permute_2d(csr, order, order)``,
    ``convert(DIA)`` and ``spmv(dia, x)``, then ``rcm_pipeline`` on the same
-   COO. Every kernel of each path must have launched;
+   COO; path E, a ``--ingest-nnz`` COO made as path A's (n = nnz/16),
+   written by ``IOBase.write_coo_to_mtx(coo, path, symmetry="symmetric")``
+   (its lower triangle) to a temporary directory, read back onto the card by
+   ``IOBase.read_pigo_mtx_to_coo`` (fastio's parse on the host; the
+   mirror and ``COO.new``'s sort, K5, on the card), through
+   ``preprocess_pipeline`` and, on a clone, ``preprocess_pipeline_donating``,
+   then ``IOBase.write_csr_to_binary`` and ``IOBase.read_binary_to_csr``.
+   Every kernel of each path must have launched;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
    the plain SpMV of the permuted matrix), of path B (K1 against K2 and
@@ -56,7 +65,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    mapped back, against K2 on the scrambled CSR; K2 against the plain
    SpMV; ``rcm_pipeline`` against the plain relocation and SpMV; CSR → CSC
    → CSR equal to the source; ELL SpMV against the plain SpMV;
-   ``permute_2d`` of the ELL equal to the plain relocation);
+   ``permute_2d`` of the ELL equal to the plain relocation); of path E (the
+   COO read back equal, in canonical order, to the source's lower triangle
+   mirrored by plain torch ops, values exactly; K5's sort in ``COO.new``
+   equal to the plain sort; the pipeline's outputs passing path A's checks;
+   the donating variant's equal to the plain pipeline's; the SBFF round trip
+   ``torch.equal`` on every array; at about 100,000 lines the numpy reader,
+   the Pigo reader and ``Graph.read_connectivity_from_mtx_to_coo`` agreeing
+   on the card; ``ReorderBase.reorder("degree")`` equal to ``DegreeReorder``
+   on the card and ``ReorderBase.reorder("rcm")`` on the host (graphkit)
+   equal to ``_rcm_host``);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -79,7 +97,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    level steps and the host syncs (at most one per level step) of one more
    call of what ``RCMReorder`` runs on a square CUDA CSR, whose order must
    equal the main path's; K1 on the recovered band beside K2 on the
-   scrambled CSR, and ELL SpMV beside K2;
+   scrambled CSR, and ELL SpMV beside K2; path E: the MTX write, the read
+   end to end and staged (the host parse, the host-to-device copy, the
+   device steps), the pipeline with and without donation (time and peak
+   memory above what was held before), the SBFF write and read and bytes;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -91,8 +112,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    path D's band at 16,384 rows (device time and operations per level step,
    the device's idle share).
 
-Path D runs its phases 3, 4 and 5 (and its profile) last, after phase 6
-of the other paths.
+Path D runs its phases 3, 4 and 5 (and its profile) after phase 6 of the
+other paths, and path E its phases 3, 4 and 5 after path D.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -355,11 +376,26 @@ def phase_device() -> torch.device:
 
 
 def phase_build() -> None:
-    from sparsebase_tpu_torch import _build
+    """The kernels (nvcc) and the two host libraries (g++) built at once, so
+    that path E's timed steps run with every library loaded; a host library
+    that does not build stops the run before any work."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"phase 1 build and load: {time.perf_counter() - t0:.2f} s -> {_build.build()}")
+    from sparsebase_tpu_torch import _build, native
+    from sparsebase_tpu_torch.io import fastio
+
+    def seconds(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(2) as pool:
+        host = {name: pool.submit(seconds, lib.available) for name, lib in (("fastio", fastio), ("graphkit", native))}
+        _, cuda_s = seconds(_build.library)
+        host = {name: job.result() for name, job in host.items()}
+    print(f"phase 1 build and load: {cuda_s:.2f} s -> {_build.build()}")
+    for name, (ok, s) in host.items():
+        check(ok, f"the {name} library did not build (g++; its output is logged above)")
+        print(f"phase 1 host library {name} (g++) build and load: {s:.2f} s")
 
 
 def phase_kernels_vs_plain(g, dev) -> None:
@@ -871,6 +907,201 @@ def path_d(g, dev, n: int, seed: int):
     return {k: launches[k] + launches_pipe[k] for k in launches}, err_k1
 
 
+def canonical_entries(row, col, vals):
+    """The entries sorted by (row, column, value): duplicates' payloads in
+    one order, whatever order a sort left them in."""
+    order = torch.argsort(vals, stable=True)
+    key = (row.to(torch.int64) << 32) | col.to(torch.int64)
+    order = order[torch.argsort(key[order], stable=True)]
+    return row[order], col[order], vals[order]
+
+
+def check_pipeline_outputs(label: str, coo, x, permuted, y) -> None:
+    """Path A's checks of ``preprocess_pipeline``'s outputs on ``coo``."""
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.ops.kernels import csr_spmv_plain, indptr_plain, radix_rank_plain, relocate_csr_plain
+
+    n, nnz = coo.nrows, coo.nnz
+    src = CSR(indptr_plain(coo.row, n), coo.col, coo.vals, coo.shape)
+    ip = permuted.indptr
+    check(ip.shape == (n + 1,) and int(ip[0]) == 0 and int(ip[-1]) == nnz, f"{label}: permuted indptr ends")
+    check(bool((ip[1:] >= ip[:-1]).all()), f"{label}: permuted indptr is not monotone")
+    check(permuted.is_sorted(), f"{label}: permuted columns are not sorted within rows")
+    check(bool((permuted.degrees()[1:] >= permuted.degrees()[:-1]).all()), f"{label}: rows not in ascending degree order")
+    ro = radix_rank_plain(src.degrees())
+    check_csr_equal(f"{label} permuted CSR vs plain relocation", permuted, relocate_csr_plain(src, ro, ro))
+    x_new = torch.empty_like(x)
+    x_new[ro] = x
+    check_rows(f"{label} y vs plain SpMV of the permuted matrix", y, csr_spmv_plain(permuted, x_new),
+               permuted.degrees(), csr_spmv_plain(abs_csr(permuted), x_new.abs()))
+
+
+def timed(fn):
+    """``(result, ms)`` of one call of ``fn``, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class PathE:
+    """Path E: a COO written as a symmetric MTX file, read back onto the card
+    by the Pigo reader, taken through ``preprocess_pipeline`` (and its
+    donating variant on a clone), written as SBFF and read back."""
+
+    SMALL_NNZ = 166_000  # source entries of the file read three ways: about 100,000 lines
+
+    def __init__(self, g, dev, nnz: int, workdir: str):
+        self.n = max(nnz // 16, 1)
+        self.src = power_law_coo(g, dev, self.n, nnz)
+        self.x = torch.randn((self.n,), generator=g, device=dev)
+        self.small = power_law_coo(g, dev, max(self.SMALL_NNZ // 16, 1), self.SMALL_NNZ)
+        self.mtx = f"{workdir}/path_e.mtx"
+        self.sbff = f"{workdir}/path_e.sbff"
+        self.small_mtx = f"{workdir}/small.mtx"
+        self.times = {}
+
+    def run(self):
+        """The main path, each step timed once."""
+        from sparsebase_tpu_torch import COO, IOBase, preprocess_pipeline, preprocess_pipeline_donating
+
+        _, self.times["write"] = timed(lambda: IOBase.write_coo_to_mtx(self.src, self.mtx, symmetry="symmetric"))
+        coo, self.times["read"] = timed(lambda: IOBase.read_pigo_mtx_to_coo(self.mtx))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (permuted, y), self.times["pipeline"] = timed(lambda: preprocess_pipeline(coo, self.x))
+        self.peak = torch.cuda.max_memory_allocated() - base
+        del permuted, y
+        clone = COO(coo.row.clone(), coo.col.clone(), coo.vals.clone(), coo.shape)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        donated, self.times["donating"] = timed(lambda: preprocess_pipeline_donating(clone, self.x))
+        self.peak_donating = torch.cuda.max_memory_allocated() - base
+        del clone  # consumed
+        _, self.times["sbff_write"] = timed(lambda: IOBase.write_csr_to_binary(donated[0], self.sbff))
+        back, self.times["sbff_read"] = timed(lambda: IOBase.read_binary_to_csr(self.sbff))
+        return coo, donated, back
+
+
+def phase_path_e_checks(e: PathE, coo, donated, back) -> None:
+    """Path E's checks: the read-back COO against the source's lower triangle
+    mirrored by plain torch ops; K5's sort in ``COO.new`` against the plain
+    sort; both pipelines against path A's checks and each other; the SBFF
+    round trip; three readers at 100,000 lines; ``ReorderBase`` against the
+    direct calls."""
+    import os
+
+    from sparsebase_tpu_torch import CSR, Graph, IOBase, ReorderBase, preprocess_pipeline
+    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs, sort_by_pairs_plain
+    from sparsebase_tpu_torch.ops.reorder import DegreeReorder
+    from sparsebase_tpu_torch.ops.reorder.rcm import _rcm_host, _symmetrized_square
+
+    print(f"phase 4 path E checks: n={e.n}, source entries {e.src.nnz}, read back {coo.nnz}")
+    src = e.src
+    low = src.row >= src.col
+    lr, lc, lv = src.row[low], src.col[low], src.vals[low]
+    off = lr != lc
+    mr, mc, mv = torch.cat([lr, lc[off]]), torch.cat([lc, lr[off]]), torch.cat([lv, lv[off]])
+    del low, lr, lc, lv, off
+    check(coo.nnz == mr.numel() and coo.row.dtype == torch.int32 and coo.vals.dtype == torch.float32,
+          f"path E read back {coo.nnz} entries of {coo.row.dtype}/{coo.vals.dtype}, expected {mr.numel()} int32/float32")
+    got = canonical_entries(coo.row, coo.col, coo.vals)
+    want = canonical_entries(*sort_by_pairs_plain(mr, mc, mv))
+    for name, a, b in zip(("row", "col", "vals"), got, want):
+        check_equal(f"path E read-back COO {name} vs the source's mirrored lower triangle", a, b)
+    del got, want
+    k5 = sort_by_pairs(mr, mc, mv, major_bound=coo.nrows, minor_bound=coo.ncols)
+    plain = sort_by_pairs_plain(mr, mc, mv)
+    for name, a, b in zip(("row", "col", "vals"), k5, plain):
+        check_equal(f"path E COO.new's sort (K5) vs the plain sort: {name}", a, b)
+    del k5, plain, mr, mc, mv
+    permuted, y = preprocess_pipeline(coo, e.x)
+    check_pipeline_outputs("path E pipeline", coo, e.x, permuted, y)
+    d_perm, d_y = donated
+    for name in ("indptr", "indices", "vals"):
+        check_equal(f"path E donating vs plain pipeline: {name}", getattr(d_perm, name), getattr(permuted, name))
+    check_equal("path E donating vs plain pipeline: y", d_y, y)
+    for name in ("indptr", "indices", "vals"):
+        check_equal(f"path E SBFF round trip: {name}", getattr(back, name), getattr(d_perm, name))
+    on_card = e.src.row.device.type
+    check(back.shape == d_perm.shape and back.indptr.device.type == on_card, "path E SBFF round trip: shape or device")
+    del permuted, y
+    # three readers at about 100,000 lines
+    IOBase.write_coo_to_mtx(e.small, e.small_mtx, symmetry="symmetric")
+    with open(e.small_mtx, "rb") as f:
+        lines = sum(1 for _ in f) - 2
+    routes = {"numpy": IOBase.read_mtx_to_coo(e.small_mtx), "pigo": IOBase.read_pigo_mtx_to_coo(e.small_mtx),
+              "Graph": Graph.read_connectivity_from_mtx_to_coo(e.small_mtx).connectivity}
+    for route, c in routes.items():
+        check(c.row.device.type == on_card, f"path E {route} reader did not read onto the card")
+        for name in ("row", "col", "vals"):
+            check_equal(f"path E {lines} lines: {route} vs numpy reader, {name}", getattr(c, name),
+                        getattr(routes["numpy"], name))
+    small = routes["numpy"].convert(CSR)
+    check_equal("path E ReorderBase.reorder('degree') vs DegreeReorder on the card",
+                ReorderBase.reorder("degree", small), DegreeReorder().get_reorder(small))
+    host = small.to_host()
+    check_equal("path E ReorderBase.reorder('rcm') on the host (graphkit) vs _rcm_host",
+                ReorderBase.reorder("rcm", host), _rcm_host(_symmetrized_square(host)))
+    print(f"  path E: {lines} lines read three ways agree; sizes: MTX {os.path.getsize(e.mtx)} bytes, "
+          f"SBFF {os.path.getsize(e.sbff)} bytes")
+
+
+def phase_path_e_times(e: PathE, coo) -> None:
+    """Path E's times: the main path's steps as run in phase 3, and the read
+    staged: the host parse, the host-to-device copy and the device steps,
+    each timed alone."""
+    import os
+
+    from sparsebase_tpu_torch.io import PigoMTXReader
+
+    reader = PigoMTXReader(e.mtx)
+    (row, col, vals, shape), parse_ms = timed(reader.parse)
+    lines = row.numel()
+    (row, col, vals), copy_ms = timed(lambda: [t.to(coo.row.device) for t in (row, col, vals)])
+    # the copy already made, the reader's steps on the card alone
+    again, device_ms = timed(lambda: reader._assemble(row, col, vals, shape, stable_payload=False))
+    _, to_host_ms = timed(e.src.to_host)
+    for name in ("row", "col", "vals"):
+        check_equal(f"path E staged read vs IOBase.read_pigo_mtx_to_coo: {name}", getattr(again, name),
+                    getattr(coo, name))
+    t = e.times
+    mtx_bytes, sbff_bytes = os.path.getsize(e.mtx), os.path.getsize(e.sbff)
+    print(f"phase 5 path E write_coo_to_mtx (symmetric, {lines} lines, {mtx_bytes} bytes): {t['write']:.1f} ms, "
+          f"{lines / t['write'] * 1e3:.4g} lines/s; of it the source's copy to the host about {to_host_ms:.1f} ms "
+          f"(timed alone)")
+    print(f"phase 5 path E read_pigo_mtx_to_coo: {t['read']:.1f} ms end to end ({coo.nnz} entries on the card, "
+          f"{coo.nnz / t['read'] * 1e3:.4g} entries/s); staged: host parse (fastio, ids narrowed) {parse_ms:.1f} ms, "
+          f"host-to-device copy {copy_ms:.1f} ms, device steps (shift, mirror, range check, COO.new's check and "
+          f"K5 sort) {device_ms:.1f} ms")
+    print(f"phase 5 path E preprocess_pipeline on the read matrix: {t['pipeline']:.3f} ms, peak "
+          f"{e.peak / 2**30:.3f} GiB above the memory held before; preprocess_pipeline_donating on a clone: "
+          f"{t['donating']:.3f} ms, peak {e.peak_donating / 2**30:.3f} GiB (lower by "
+          f"{(e.peak - e.peak_donating) / 2**20:.1f} MiB; coo.row is {4 * coo.nnz / 2**20:.1f} MiB)")
+    print(f"phase 5 path E SBFF: write_csr_to_binary {t['sbff_write']:.1f} ms, read_binary_to_csr onto the card "
+          f"{t['sbff_read']:.1f} ms, {sbff_bytes} bytes ({sbff_bytes / t['sbff_read'] / 1e6:.4g} GB/s read)")
+
+
+def path_e(g, dev, nnz: int):
+    """Path E's phases 3, 4 and 5, run last. Returns its launch counts."""
+    import tempfile
+
+    from sparsebase_tpu_torch import _build
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_path_e_") as workdir:
+        e = PathE(g, dev, nnz, workdir)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        coo, donated, back = e.run()
+        launches = read_launches("E", ("indptr", "radix_rank", "relocate_csr", "csr_spmv"))
+        phase_path_e_checks(e, coo, donated, back)
+        del donated, back
+        phase_path_e_times(e, coo)
+    return launches
+
+
 def read_launches(path: str, required) -> dict:
     from sparsebase_tpu_torch import _build
 
@@ -887,6 +1118,8 @@ def main() -> None:
     ap.add_argument("--nnz", type=float, default=100e6, help="path A and C entries (default 100M)")
     ap.add_argument("--band-nnz", type=float, default=64e6, help="path B stored band entries (default 64M)")
     ap.add_argument("--rcm-n", type=int, default=131_072, help="path D rows of the scrambled band (default 131,072)")
+    ap.add_argument("--ingest-nnz", type=float, default=32e6,
+                    help="path E source entries, written as a symmetric MTX file (default 32M, n = nnz/16)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1070,7 +1303,8 @@ def main() -> None:
     print(f"phase 5 path B spmv: DIA (K1) {k1_ms:.4f} ms, CSR (K2) {b_csr_ms:.4f} ms, "
           f"K1 plain {k1_plain_ms:.4f} ms")
     launches_d, err_k1_d = path_d(g, dev, args.rcm_n, args.seed)
-    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] for k in launches_a}
+    launches_e = path_e(g, dev, int(args.ingest_nnz))
+    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] for k in launches_a}
 
     shapes = {
         "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],

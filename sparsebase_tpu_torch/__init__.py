@@ -7,7 +7,12 @@ neither ``jax`` nor ``sparsebase_tpu``.
 
 Layer map:
 
-    models       preprocess_pipeline, rcm_pipeline, spmv (format-polymorphic), spmv_ell
+    bases        IOBase / ReorderBase façades (static one-liners)
+    models       preprocess_pipeline (and _donating), rcm_pipeline, spmv (format-polymorphic),
+                 spmv_csr (auto / segment / cumsum), spmv_ell
+    io           MTX, edge list, SBFF, METIS, PaToH readers and writers; Pigo readers (fastio)
+    objects      Graph / HyperGraph over a connectivity format
+    native       graphkit: host C++ graph algorithms (ctypes, g++ at first use)
     ops          reorder (DegreeReorder, RCMReorder) / permute (2-D, 1-D) / kernels
                  (K1 DIA SpMV, K2 CSR SpMV, K3 indptr, K4 CSR relocation, K5 stable radix sort)
     dispatch     Operation (auto-converting multi-format dispatch)
@@ -15,22 +20,40 @@ Layer map:
     formats      COO / CSR / CSC / DIA / ELL / DenseArray / PaddedCSR frozen dataclasses
     context      Host / Device placement, read from tensor.device
     utils        exceptions, logger, checked dtype casts
-    _build       nvcc build + ctypes binding of csrc/*.cu
-    interop      carry reference formats across (numpy arrays)
+    config       process-wide dtype defaults and feature toggles
+    _build       nvcc build + ctypes binding of csrc/*.cu; g++ build of the host libraries
+    interop      carry reference formats and objects across (numpy arrays)
 """
 
 __version__ = "0.1.0"
 
-from . import context, convert, dispatch, formats, models, ops, utils
+from . import bases, config, context, convert, dispatch, formats, io, models, native, objects, ops, utils
+from .bases import IOBase, ReorderBase
+from .config import Config, get_config, set_config
 from .context import CPU_CONTEXT, Context, DeviceContext, HostContext, context_for, context_of
 from .convert import can_convert, convert_cached, register_conversion
 from .convert import convert as convert_format
 from .dispatch import ClassMatcher, Operation
 from .formats import COO, CSC, CSR, DIA, ELL, Array, DenseArray, Format, PaddedCSR, pad_csr
-from .models import preprocess_pipeline, rcm_pipeline, spmv, spmv_csr, spmv_ell
+from .models import preprocess_pipeline, preprocess_pipeline_donating, rcm_pipeline, spmv, spmv_csr, spmv_ell
+from .objects import Graph, HyperGraph, Object
 
 __all__ = [
     "__version__",
+    "bases",
+    "config",
+    "io",
+    "native",
+    "objects",
+    "IOBase",
+    "ReorderBase",
+    "Config",
+    "get_config",
+    "set_config",
+    "Object",
+    "Graph",
+    "HyperGraph",
+    "preprocess_pipeline_donating",
     "context",
     "convert",
     "dispatch",

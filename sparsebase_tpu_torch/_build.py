@@ -1,4 +1,5 @@
-"""Builds the hand-written CUDA kernels in ``csrc/`` and binds them.
+"""Builds the hand-written CUDA kernels in ``csrc/`` and binds them; builds
+the host C++ libraries (``io/fastio``, ``native``) the same way with g++.
 
 The kernels are compiled at first use, from this package's sources only,
 by ``nvcc`` for Hopper (``sm_90a``): one ``nvcc -c`` per source, all
@@ -12,11 +13,17 @@ Each C entry point launches on the stream it is given, allocates nothing,
 does not synchronise, and returns ``cudaGetLastError()``. A :class:`Kernel`
 raises on a non-zero return and counts its successful launches, so a run
 can show that its path went through the kernel.
+
+The host libraries (:func:`build_host`) are one ``g++`` call each, keyed by
+the hash of their source and flags, built under a file lock to a temporary
+name and moved into place, so that concurrent processes build once and
+never load a half-written library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -107,6 +114,41 @@ def build() -> Path:
     if failed:
         raise KernelBuildError(f"nvcc exited with {failed[0]}:\n{log}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    return lib
+
+
+HOST_FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC", "-std=c++17")
+
+
+def build_host(source: Path, timeout_s: float = 300) -> Path:
+    """Path of the shared library built from the one C++ ``source`` with
+    ``g++`` (``HOST_FLAGS``), compiling it first if this source and these
+    flags have not been built yet. Raises :class:`KernelBuildError` with the
+    compiler's output when g++ is missing or refuses the source."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(source.read_bytes())
+    out_dir = BUILD_ROOT / f"{source.stem}-{h.hexdigest()[:16]}"
+    lib = out_dir / f"lib{source.stem}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the process ends, however it ends
+        if lib.exists():  # another process built it while this one waited
+            return lib
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise KernelBuildError("g++ not found on PATH")
+        tmp = out_dir / f"{lib.name}.{os.getpid()}.tmp"
+        cmd = [cxx, *HOST_FLAGS, str(source), "-o", str(tmp)]
+        try:
+            run = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout_s)
+        except subprocess.TimeoutExpired as e:
+            raise KernelBuildError(f"{' '.join(cmd)} took over {timeout_s} s") from e
+        if run.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(f"g++ exited with {run.returncode}:\n{' '.join(cmd)}\n{run.stderr}")
+        os.replace(tmp, lib)
     return lib
 
 

@@ -1,0 +1,240 @@
+"""Static façades: the "easy" API.
+
+Counterpart of ``sparsebase_tpu/bases.py`` (reference:
+src/sparsebase/bases/iobase.h:46-390, reorder_base.h:29-708). Each façade
+is a class of static one-liners over the readers, writers and ops.
+``ReorderBase`` knows the reorderers the port has ("degree", "rcm"); a name
+the JAX package knows and the port has not ported yet raises
+``NotImplementedError``, an unknown one ``KeyError``. Not here yet:
+``ReorderBase.heatmap`` and ``heatmap_with_stats``, which come with the
+heatmap reorderer, and ``GraphFeatureBase``, which comes with the feature
+ops (ROADMAP, queue 1).
+
+The readers behind ``IOBase`` put what they read on the card unless the
+caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+from .formats.array import DenseArray
+from .formats.base import Format
+from .formats.coo import COO
+from .formats.csr import CSR
+from .io.placement import DEFAULT_DEVICE
+
+# reorderers of the JAX package that wait for ROADMAP queue 1, item 7
+_NOT_PORTED = ("gray", "slashburn", "boba", "amd", "metis", "nested_dissection", "rabbit")
+
+
+class ReorderBase:
+    """Parity: ``bases::ReorderBase`` (bases/reorder_base.h:29-708): reorder,
+    permute and inverse-permutation one-liners."""
+
+    @staticmethod
+    def _resolve(reorderer_cls):
+        """A Reorderer class, or its short name ("degree", "rcm")."""
+        if not isinstance(reorderer_cls, str):
+            return reorderer_cls
+        from .ops import reorder as _r
+
+        key = reorderer_cls.lower()
+        aliases = {"degree": _r.DegreeReorder, "rcm": _r.RCMReorder}
+        if key in _NOT_PORTED:
+            raise NotImplementedError(
+                f"reorderer {reorderer_cls!r} is not ported yet (ROADMAP queue 1, item 7); ported: {sorted(aliases)}"
+            )
+        if key not in aliases:
+            raise KeyError(f"unknown reorderer {reorderer_cls!r}; one of {sorted([*aliases, *_NOT_PORTED])}")
+        return aliases[key]
+
+    @staticmethod
+    def _make(reorderer_cls, params):
+        reorderer_cls = ReorderBase._resolve(reorderer_cls)
+        if isinstance(params, dict):
+            return reorderer_cls(**params)
+        return reorderer_cls(params) if params is not None else reorderer_cls()
+
+    @staticmethod
+    def reorder(reorderer_cls, fmt: Format, params=None, context=None, convert_input=True):
+        """Run a reorderer class or short name (Reorder, reorder_base.h:50-85)."""
+        return ReorderBase._make(reorderer_cls, params).get_reorder(fmt, context=context,
+                                                                    convert_input=convert_input)
+
+    @staticmethod
+    def reorder_cached(reorderer_cls, fmt: Format, params=None, context=None):
+        return ReorderBase._make(reorderer_cls, params).get_reorder_cached(fmt, context=context)
+
+    @staticmethod
+    def permute2d(order, fmt, context=None, convert_input=True):
+        """One order for rows and columns (Permute2D, reorder_base.h:145-192)."""
+        from .ops.permute import PermuteOrderTwo
+
+        return PermuteOrderTwo(order, order).get_permutation(fmt, context=context, convert_input=convert_input)
+
+    @staticmethod
+    def permute2d_cached(order, fmt, context=None):
+        """(Permute2DCached): ``(intermediates, permuted)``, the conversions
+        actually run."""
+        from .ops.permute import PermuteOrderTwo
+
+        return PermuteOrderTwo(order, order).get_permutation_cached(fmt, context=context)
+
+    @staticmethod
+    def permute1d_cached(order, arr, context=None):
+        """(Permute1DCached, reorder_base.h:624-)."""
+        from .ops.permute import PermuteOrderOne
+
+        op = PermuteOrderOne(order)
+        return op.execute_cached(op.params, arr, context=context)
+
+    @staticmethod
+    def permute2d_rowwise(order, fmt, context=None, convert_input=True):
+        from .ops.permute import PermuteOrderTwo
+
+        return PermuteOrderTwo(order, None).get_permutation(fmt, context=context, convert_input=convert_input)
+
+    @staticmethod
+    def permute2d_colwise(order, fmt, context=None, convert_input=True):
+        from .ops.permute import PermuteOrderTwo
+
+        return PermuteOrderTwo(None, order).get_permutation(fmt, context=context, convert_input=convert_input)
+
+    @staticmethod
+    def permute2d_row_columnwise(row_order, col_order, fmt, context=None, convert_input=True):
+        from .ops.permute import PermuteOrderTwo
+
+        return PermuteOrderTwo(row_order, col_order).get_permutation(fmt, context=context,
+                                                                     convert_input=convert_input)
+
+    @staticmethod
+    def permute1d(order, arr, context=None, convert_input=True):
+        from .ops.permute import PermuteOrderOne
+
+        return PermuteOrderOne(order).get_permutation(arr, context=context, convert_input=convert_input)
+
+    @staticmethod
+    def inverse_permutation(perm):
+        """(InversePermutation, reorder_base.h:663-694)."""
+        from .ops.permute import inverse_permutation as inv
+
+        return inv(perm)
+
+
+class IOBase:
+    """Parity: ``bases::IOBase`` (bases/iobase.h:46-390): static read and
+    write helpers. ``**kw`` goes to the reader (``device=`` among them)."""
+
+    # -- MTX -----------------------------------------------------------------
+    @staticmethod
+    def read_mtx_to_csr(filename: str, convert_to_zero_index: bool = True, **kw) -> CSR:
+        from .io.mtx import MTXReader
+
+        return MTXReader(filename, convert_to_zero_index, **kw).read_csr()
+
+    @staticmethod
+    def read_mtx_to_coo(filename: str, convert_to_zero_index: bool = True, **kw) -> COO:
+        from .io.mtx import MTXReader
+
+        return MTXReader(filename, convert_to_zero_index, **kw).read_coo()
+
+    @staticmethod
+    def read_mtx_to_array(filename: str, **kw) -> DenseArray:
+        from .io.mtx import MTXReader
+
+        return MTXReader(filename, **kw).read_array()
+
+    # native mmap + OpenMP parse where the fastio library builds
+    @staticmethod
+    def read_pigo_mtx_to_csr(filename: str, convert_to_zero_index: bool = True, **kw) -> CSR:
+        from .io.pigo import PigoMTXReader
+
+        return PigoMTXReader(filename, convert_to_zero_index, **kw).read_csr()
+
+    @staticmethod
+    def read_pigo_mtx_to_coo(filename: str, convert_to_zero_index: bool = True, **kw) -> COO:
+        from .io.pigo import PigoMTXReader
+
+        return PigoMTXReader(filename, convert_to_zero_index, **kw).read_coo()
+
+    # -- edge list -----------------------------------------------------------
+    @staticmethod
+    def read_edge_list_to_csr(filename: str, **kw) -> CSR:
+        from .io.edge_list import EdgeListReader
+
+        return EdgeListReader(filename, **kw).read_csr()
+
+    @staticmethod
+    def read_edge_list_to_coo(filename: str, **kw) -> COO:
+        from .io.edge_list import EdgeListReader
+
+        return EdgeListReader(filename, **kw).read_coo()
+
+    @staticmethod
+    def read_pigo_edge_list_to_csr(filename: str, **kw) -> CSR:
+        from .io.pigo import PigoEdgeListReader
+
+        return PigoEdgeListReader(filename, **kw).read_csr()
+
+    @staticmethod
+    def read_pigo_edge_list_to_coo(filename: str, **kw) -> COO:
+        from .io.pigo import PigoEdgeListReader
+
+        return PigoEdgeListReader(filename, **kw).read_coo()
+
+    # -- SBFF binary ---------------------------------------------------------
+    @staticmethod
+    def read_binary_to_csr(filename: str, device=DEFAULT_DEVICE) -> CSR:
+        from .io.binary import BinaryReaderOrderTwo
+
+        return BinaryReaderOrderTwo(filename, device).read_csr()
+
+    @staticmethod
+    def read_binary_to_coo(filename: str, device=DEFAULT_DEVICE) -> COO:
+        from .io.binary import BinaryReaderOrderTwo
+
+        return BinaryReaderOrderTwo(filename, device).read_coo()
+
+    @staticmethod
+    def read_binary_to_array(filename: str, device=DEFAULT_DEVICE) -> DenseArray:
+        from .io.binary import BinaryReaderOrderOne
+
+        return BinaryReaderOrderOne(filename, device).read_array()
+
+    @staticmethod
+    def write_csr_to_binary(csr: CSR, filename: str) -> None:
+        from .io.binary import BinaryWriterOrderTwo
+
+        BinaryWriterOrderTwo(filename).write_csr(csr)
+
+    @staticmethod
+    def write_coo_to_binary(coo: COO, filename: str) -> None:
+        from .io.binary import BinaryWriterOrderTwo
+
+        BinaryWriterOrderTwo(filename).write_coo(coo)
+
+    @staticmethod
+    def write_array_to_binary(arr: DenseArray, filename: str) -> None:
+        from .io.binary import BinaryWriterOrderOne
+
+        BinaryWriterOrderOne(filename).write_array(arr)
+
+    # -- MTX writing ---------------------------------------------------------
+    @staticmethod
+    def write_coo_to_mtx(coo: COO, filename: str, **kw) -> None:
+        from .io.mtx import MTXWriter
+
+        kw.setdefault("field", "pattern" if coo.vals is None else "real")
+        MTXWriter(filename, **kw).write_coo(coo)
+
+    @staticmethod
+    def write_csr_to_mtx(csr: CSR, filename: str, **kw) -> None:
+        from .io.mtx import MTXWriter
+
+        kw.setdefault("field", "pattern" if csr.vals is None else "real")
+        MTXWriter(filename, **kw).write_csr(csr)
+
+    @staticmethod
+    def write_array_to_mtx(arr: DenseArray, filename: str, **kw) -> None:
+        from .io.mtx import MTXWriter
+
+        MTXWriter(filename, format="array", **kw).write_array(arr)

@@ -34,7 +34,11 @@ class COO(Format):
     order = 2
 
     @staticmethod
-    def new(row, col, vals=None, shape=None, *, sort: bool = True) -> "COO":
+    def new(row, col, vals=None, shape=None, *, sort: bool = True, stable_payload: bool = True) -> "COO":
+        """Build a COO, checking and repairing the row-major sort
+        (coo.cc:112-140). ``stable_payload=False`` allows any order of the
+        payloads of duplicate coordinates, as in the JAX package; the sort
+        here is stable either way."""
         if shape is None:
             shape = (
                 int(row.max()) + 1 if row.numel() else 0,
@@ -43,7 +47,7 @@ class COO(Format):
         coo = COO(row, col, vals, (int(shape[0]), int(shape[1])))
         if sort and not coo.is_sorted():
             _log.warning("COO arrays not sorted row-major; sorting.")
-            coo = coo.sort_rowmajor()
+            coo = coo.sort_rowmajor(stable_payload=stable_payload)
         return coo
 
     @property
@@ -77,8 +81,11 @@ class COO(Format):
         c0, c1 = self.col[:-1], self.col[1:]
         return bool(torch.all((r1 > r0) | ((r1 == r0) & (c1 >= c0))))
 
-    def sort_rowmajor(self) -> "COO":
-        """Stable sort by (row, col): duplicates keep their input order."""
+    def sort_rowmajor(self, stable_payload: bool = True) -> "COO":
+        """Stable sort by (row, col): duplicates keep their input order.
+        ``stable_payload=False`` permits any payload order among duplicates
+        (``sparsebase_tpu/convert/kernels.py:207-224``); K5 and the CPU's
+        ``torch.sort(stable=True)`` keep it stable all the same."""
         from ..convert.kernels import sort_by_pairs
 
         row, col, vals = sort_by_pairs(self.row, self.col, self.vals, major_bound=self.nrows,

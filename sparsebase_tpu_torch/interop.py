@@ -1,8 +1,11 @@
-"""Carry formats across from the JAX reference package, and back to numpy.
+"""Carry formats and objects across from the JAX reference package, and back
+to numpy.
 
 A reference format is recognised by its class name (``COO``, ``CSR``,
 ``CSC``, ``DIA``, ``ELL``, ``DenseArray``, ``PaddedCSR``): a CSC has the same
-field names as a CSR and is its transpose. Its fields are read by name and
+field names as a CSR and is its transpose. So are the objects that hold
+formats (``Graph``, ``HyperGraph``) and the SBFF container
+(``SbffObject``). Its fields are read by name and
 every array is taken through ``np.asarray``, so this module never imports
 ``jax`` or ``sparsebase_tpu``. Ids become int32 (checked), offsets int64;
 values keep their dtype, bf16 included.
@@ -14,13 +17,14 @@ import numpy as np
 import torch
 
 from .formats.array import DenseArray
-from .formats.base import Format
 from .formats.coo import COO
 from .formats.csc import CSC
 from .formats.csr import CSR
 from .formats.dia import DIA
 from .formats.ell import ELL
 from .formats.padded import PaddedCSR
+from .io.binary import SbffObject
+from .objects import Graph, HyperGraph
 from .utils.exceptions import TypeMismatchError
 from .utils.typing import convert_array_dtype
 
@@ -45,10 +49,28 @@ def _offsets(a, device) -> torch.Tensor:
     return _tensor(a).to(device=device, dtype=torch.int64)
 
 
-def from_reference(fmt, device) -> Format:
+def from_reference(fmt, device):
     """The port's counterpart of a reference COO, CSR, CSC, DIA, ELL,
-    DenseArray or PaddedCSR, on ``device``."""
+    DenseArray or PaddedCSR, on ``device``; of a Graph or HyperGraph, its
+    formats on ``device``; of an SbffObject, its arrays as CPU tensors."""
     kind = type(fmt).__name__
+    if kind == "SbffObject":
+        obj = SbffObject(fmt.name)
+        obj.add_dimensions(fmt.dimensions)
+        for name, arr in fmt._arrays.items():
+            obj.add_array(name, _tensor(arr))
+        return obj
+    if kind == "HyperGraph":
+        return HyperGraph(
+            from_reference(fmt.connectivity, device), from_reference(fmt.xnet_csr, device),
+            net_weights=None if fmt.net_weights is None else from_reference(fmt.net_weights, device),
+            cell_weights=None if fmt.cell_weights is None else from_reference(fmt.cell_weights, device),
+            base_type=fmt.base_type, constraint_num=fmt.constraint_num,
+        )
+    if kind == "Graph":
+        conn = None if fmt.connectivity is None else from_reference(fmt.connectivity, device)
+        weights = None if fmt.vertex_weights is None else [from_reference(w, device) for w in fmt.vertex_weights]
+        return Graph(conn, ncon=fmt.ncon, vertex_weights=weights)
     if kind == "DenseArray":
         return DenseArray(_vals(fmt.vals, device))
     if kind == "PaddedCSR":
@@ -76,10 +98,26 @@ def _numpy(t):
     return t.numpy()
 
 
-def to_numpy(fmt: Format) -> dict:
+def to_numpy(fmt) -> dict:
     """The format's arrays as numpy (bf16 widened to f32), keyed by field
     name, plus ``shape``; a PaddedCSR gives its padded CSR's arrays, and
-    ``nnz`` (the true count) beside its true ``shape``."""
+    ``nnz`` (the true count) beside its true ``shape``. A Graph gives its
+    connectivity's, ``n``, ``m``, ``ncon`` and its vertex weights; a
+    HyperGraph also ``xnet``, its net and cell weights, ``base_type`` and
+    ``constraint_num``; an SbffObject its ``name``, ``dimensions`` and
+    ``arrays``."""
+    if isinstance(fmt, SbffObject):
+        return {"name": fmt.name, "dimensions": list(fmt.dimensions),
+                "arrays": {k: _numpy(fmt.get_array(k)) for k in fmt._arrays}}
+    if isinstance(fmt, Graph):
+        out = {"connectivity": None if fmt.connectivity is None else to_numpy(fmt.connectivity), "n": fmt.n,
+               "m": fmt.m, "ncon": fmt.ncon,
+               "vertex_weights": None if fmt.vertex_weights is None else [_numpy(w.vals) for w in fmt.vertex_weights]}
+        if isinstance(fmt, HyperGraph):
+            out.update(xnet=to_numpy(fmt.xnet_csr), base_type=fmt.base_type, constraint_num=fmt.constraint_num,
+                       net_weights=None if fmt.net_weights is None else _numpy(fmt.net_weights.vals),
+                       cell_weights=None if fmt.cell_weights is None else _numpy(fmt.cell_weights.vals))
+        return out
     if isinstance(fmt, PaddedCSR):
         return {**to_numpy(fmt.csr), "shape": fmt.shape, "nnz": fmt.nnz}
     out = {"shape": fmt.shape}

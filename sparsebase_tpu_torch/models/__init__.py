@@ -1,5 +1,5 @@
 """End-to-end pipelines."""
 
-from .pipelines import preprocess_pipeline, rcm_pipeline, spmv, spmv_csr, spmv_ell
+from .pipelines import preprocess_pipeline, preprocess_pipeline_donating, rcm_pipeline, spmv, spmv_csr, spmv_ell
 
-__all__ = ["preprocess_pipeline", "rcm_pipeline", "spmv", "spmv_csr", "spmv_ell"]
+__all__ = ["preprocess_pipeline", "preprocess_pipeline_donating", "rcm_pipeline", "spmv", "spmv_csr", "spmv_ell"]

@@ -28,14 +28,32 @@ from ..formats.csr import CSR
 from ..formats.dia import DIA
 from ..formats.ell import ELL
 from ..ops.kernels.banded_spmv import banded_spmv
-from ..ops.kernels.csr_spmv import csr_spmv
+from ..ops.kernels.csr_spmv import check_real, csr_spmv
 from ..ops.permute import PermuteOrderTwoParams, _permute_csr
 from ..ops.reorder.base import ranks_from_sort_keys
 
 
-def spmv_csr(csr: CSR, x: torch.Tensor) -> torch.Tensor:
-    """Row-wise SpMV (kernel K2 on CUDA, its plain version on the CPU)."""
-    return csr_spmv(csr, x)
+def spmv_csr(csr: CSR, x: torch.Tensor, method: str = "auto") -> torch.Tensor:
+    """Row-wise SpMV (``sparsebase_tpu/models/pipelines.py:40-62``).
+
+    ``method``:
+      * ``"auto"`` and ``"segment"``: exact per-row sums, kernel K2 on CUDA
+        tensors, its plain version on CPU tensors;
+      * ``"cumsum"``: the JAX package's device formulation as torch ops, an
+        inclusive prefix sum of the products read off at the ``indptr``
+        boundaries; its rounding grows like O(eps·sqrt(nnz)·|v|) with the
+        running sum. For parity with that package, not for speed.
+    A complex matrix or ``x`` raises ``TypeMismatchError``."""
+    if method in ("auto", "segment"):
+        return csr_spmv(csr, x)
+    if method != "cumsum":
+        raise ValueError(f"spmv_csr: unknown method {method!r}; one of 'auto', 'segment', 'cumsum'")
+    check_real(csr, x)
+    prod = x[csr.indices.long()]
+    if csr.vals is not None:
+        prod = csr.vals.to(x.dtype) * prod
+    run = torch.cat([torch.zeros((1,), dtype=prod.dtype, device=prod.device), torch.cumsum(prod, 0)])
+    return run[csr.indptr[1:].long()] - run[csr.indptr[:-1].long()]
 
 
 def _permute_and_spmv(coo: COO, indptr: torch.Tensor, ro: torch.Tensor, x: torch.Tensor):
@@ -56,13 +74,58 @@ def preprocess_pipeline(coo: COO, x: torch.Tensor):
     Returns ``(permuted_csr, y)`` with ``y = P·(A@x)``, the permuted
     matrix applied to the permuted vector. The COO must be square and
     row-major sorted (its invariant)."""
+    return _preprocess(coo, x, donate=False)
+
+
+def preprocess_pipeline_donating(coo: COO, x: torch.Tensor):
+    """:func:`preprocess_pipeline` that consumes its COO (the JAX package's
+    donation, ``sparsebase_tpu/models/pipelines.py:326-332``; the
+    reference's move conversions, converter_order_two.cc:258-341). The COO
+    lets go of each of its tensors as soon as the pipeline's last reader of
+    it has run: ``coo.row`` right after K3 has built ``indptr``, which lowers
+    the peak by up to 4·nnz bytes (int32 ids) where the COO held the last
+    reference; ``coo.col`` and ``coo.vals``, which K2 and K4 read, at the
+    end. A later use of the COO raises. The tensors are dropped, not their
+    storage resized to 0: a tensor over freed storage would fault on its
+    next use (a segmentation fault on the CPU, an illegal address that ends
+    the CUDA context on the card), and storage that another tensor shares
+    (``x``, a view) must stay."""
+    return _preprocess(coo, x, donate=True)
+
+
+class _Consumed:
+    """Stands in for a tensor of a COO that ``preprocess_pipeline_donating``
+    consumed: any use raises."""
+
+    def __getattr__(self, name):
+        raise RuntimeError("this COO was consumed by preprocess_pipeline_donating; its tensors are gone")
+
+    def __repr__(self) -> str:
+        return "<consumed by preprocess_pipeline_donating>"
+
+
+_CONSUMED = _Consumed()
+
+
+def _drop(coo: COO, *names: str) -> None:
+    for name in names:
+        object.__setattr__(coo, name, _CONSUMED)  # COO is frozen to its users, not to its consumer
+
+
+def _preprocess(coo: COO, x: torch.Tensor, donate: bool):
     n, m = coo.shape
     if n != m:
         raise ValueError(f"preprocess_pipeline permutes rows and columns alike; shape {coo.shape} is not square")
+    nnz = coo.nnz
     indptr = indptr_from_sorted_rows(coo.row, n)
+    if donate:
+        _drop(coo, "row")
     # ro[old] = new. A degree is at most nnz: K5 plans only the bytes nnz has.
-    ro = ranks_from_sort_keys(indptr[1:] - indptr[:-1], key_bits=coo.nnz.bit_length())
-    return _permute_and_spmv(coo, indptr, ro, x)
+    ro = ranks_from_sort_keys(indptr[1:] - indptr[:-1], key_bits=nnz.bit_length())
+    permuted, y = _permute_and_spmv(coo, indptr, ro, x)
+    if donate:
+        _drop(coo, "col", "vals")
+    return permuted, y
 
 
 def rcm_pipeline(coo: COO, x: torch.Tensor):

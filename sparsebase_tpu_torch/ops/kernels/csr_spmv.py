@@ -53,10 +53,18 @@ def csr_spmv_plain(csr: CSR, x: torch.Tensor) -> torch.Tensor:
     return y.index_add_(0, csr.row_of_nnz(), prod)
 
 
+def check_real(csr: CSR, x: torch.Tensor) -> None:
+    """Raises ``TypeMismatchError`` for a complex matrix or ``x``: the SpMVs
+    sum real products and never drop an imaginary part quietly."""
+    if x.dtype.is_complex or (csr.vals is not None and csr.vals.dtype.is_complex):
+        raise TypeMismatchError("the CSR SpMV computes real sums; a complex matrix or x is not cast to real")
+
+
 def csr_spmv(csr: CSR, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x, one exact-order sum per row."""
     if x.shape != (csr.ncols,):
         raise ValueError(f"x has shape {tuple(x.shape)}, expected ({csr.ncols},)")
+    check_real(csr, x)
     tensors = [t for t in (csr.indptr, csr.indices, csr.vals, x) if t is not None]
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:

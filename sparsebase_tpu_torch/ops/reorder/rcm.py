@@ -9,7 +9,9 @@ children in (degree, id) order (rcm_reorder.cc:125-144). Each component's
 order is reversed (rcm_reorder.cc:146-153). Two routes, as in the JAX
 package, with different root choices:
 
-* host (CPU tensors): the reference's semantics exactly. Vertices are
+* host (CPU tensors): the reference's semantics exactly, in the native
+  graphkit library (``native.rcm``) where it is built and
+  ``config.use_graphkit`` is on, else ``_rcm_host`` as torch ops. Vertices are
   scanned in id order; an isolated vertex keeps its scan position; each
   other component starts at a pseudo-peripheral root (repeated BFS from the
   scan vertex, jumping to the lowest-degree vertex of the last level until
@@ -295,8 +297,16 @@ def _rcm_device(csr: CSR, peripheral_iters: int = 2, stats: Optional[dict] = Non
 
 def _rcm_impl(formats, params) -> torch.Tensor:
     csr: CSR = formats[0]
-    sym = _symmetrized_square(csr)
-    order = _rcm_host(sym) if csr.indptr.device.type == "cpu" else _rcm_device(sym)
+    if csr.indptr.device.type != "cpu":
+        order = _rcm_device(_symmetrized_square(csr))
+    else:
+        from ... import native
+
+        if native.available():
+            # graphkit folds and symmetrizes itself, the exact mirror of the host route
+            order = native.rcm(csr.nrows, csr.ncols, csr.indptr, csr.indices).to(torch.int32)
+        else:
+            order = _rcm_host(_symmetrized_square(csr))
     if max(csr.shape) != csr.nrows:
         # compress the folded order to a row permutation: rank the first
         # nrows vertices by their positions (a stable sort)

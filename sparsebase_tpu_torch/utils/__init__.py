@@ -15,7 +15,7 @@ from .exceptions import (
     WriterError,
 )
 from .logger import LOG_LVL_INFO, LOG_LVL_NONE, LOG_LVL_WARNING, Logger, LogLevel
-from .typing import can_dtype_fit, convert_array_dtype
+from .typing import can_dtype_fit, convert_array_dtype, index_dtype_for
 
 __all__ = [
     "SparseBaseError",
@@ -37,4 +37,5 @@ __all__ = [
     "LOG_LVL_NONE",
     "can_dtype_fit",
     "convert_array_dtype",
+    "index_dtype_for",
 ]

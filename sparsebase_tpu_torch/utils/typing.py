@@ -50,3 +50,9 @@ def convert_array_dtype(values, to_dtype: torch.dtype, *, check: bool = True):
             f"Tensor with dtype {values.dtype} contains values that do not fit in {to_dtype}"
         )
     return values.to(to_dtype)
+
+
+def index_dtype_for(n: int) -> torch.dtype:
+    """The narrowest index type that addresses ``n`` items: int32 up to
+    2^31 - 1, int64 beyond (``sparsebase_tpu/utils/typing.py:88``)."""
+    return torch.int32 if n <= torch.iinfo(torch.int32).max else torch.int64

@@ -687,3 +687,75 @@ def test_rcm_pipeline_on_card_matches_cpu(dev, gen):
     for field in ("indptr", "indices", "vals"):
         assert torch.equal(getattr(permuted, field).cpu(), getattr(cpu_permuted, field)), field
     torch.testing.assert_close(y.cpu(), cpu_y, rtol=1e-5, atol=1e-5)
+
+
+# -- slice 8: readers on the card, donation -------------------------------------------
+
+
+def write_symmetric_mtx(path, gen, dev, n=3_000, nnz=40_000):
+    from sparsebase_tpu_torch import IOBase
+
+    row = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    col = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    coo = COO.new(row, col, torch.randn((nnz,), generator=gen, device=dev), (n, n))
+    IOBase.write_coo_to_mtx(coo, str(path), symmetry="symmetric")
+    return str(path)
+
+
+def test_host_libraries_build_on_the_card_machine():
+    from sparsebase_tpu_torch import native
+    from sparsebase_tpu_torch.io import fastio
+
+    assert fastio.available() and native.available()
+
+
+def test_readers_place_on_the_card_by_default(tmp_path, dev, gen):
+    from sparsebase_tpu_torch import Graph, IOBase
+
+    p = write_symmetric_mtx(tmp_path / "m.mtx", gen, dev)
+    for fmt in (IOBase.read_mtx_to_coo(p), IOBase.read_pigo_mtx_to_coo(p),
+                Graph.read_connectivity_from_mtx_to_coo(p).connectivity):
+        assert fmt.row.device.type == "cuda" and fmt.col.device.type == "cuda" and fmt.vals.device.type == "cuda"
+    csr = IOBase.read_pigo_mtx_to_csr(p)
+    IOBase.write_csr_to_binary(csr, str(tmp_path / "m.sbff"))
+    assert IOBase.read_binary_to_csr(str(tmp_path / "m.sbff")).indptr.device.type == "cuda"
+
+
+def test_pigo_reader_on_card_equals_cpu_reader(tmp_path, dev, gen):
+    from sparsebase_tpu_torch.io import MTXReader, PigoMTXReader
+
+    p = write_symmetric_mtx(tmp_path / "m.mtx", gen, dev)
+    before = _build.launch_counts()["radix_rank"]
+    card = PigoMTXReader(p).read_coo()
+    assert _build.launch_counts()["radix_rank"] == before + 1  # the mirrored entries sorted by K5
+    for cpu in (PigoMTXReader(p, device="cpu").read_coo(), MTXReader(p, device="cpu").read_coo()):
+        for field in ("row", "col", "vals"):
+            assert torch.equal(getattr(card, field).cpu(), getattr(cpu, field)), field
+
+
+def test_donation_lowers_peak_memory_by_the_row_ids(dev, gen):
+    from sparsebase_tpu_torch import preprocess_pipeline_donating
+
+    n, nnz = 200_000, 4_000_000
+    row = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    col = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    coo = COO.new(row, col, torch.randn((nnz,), generator=gen, device=dev), (n, n))
+    del row, col
+    x = torch.randn((n,), generator=gen, device=dev)
+    preprocess_pipeline(coo, x)  # builds and loads the kernels
+
+    def peak(fn):
+        clone = COO(coo.row.clone(), coo.col.clone(), coo.vals.clone(), coo.shape)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(clone, x)
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    (plain_csr, plain_y), plain_peak = peak(preprocess_pipeline)
+    (don_csr, don_y), donating_peak = peak(preprocess_pipeline_donating)
+    assert plain_peak - donating_peak >= coo.row.numel() * coo.row.element_size()
+    for field in ("indptr", "indices", "vals"):
+        assert torch.equal(getattr(don_csr, field), getattr(plain_csr, field)), field
+    assert torch.equal(don_y, plain_y)

@@ -210,3 +210,205 @@ def test_path_b_banded_spmv(shape, offsets):
     np.testing.assert_allclose(y_dia.numpy(), sbt.spmv(csr, torch.from_numpy(x)).numpy(), rtol=1e-5, atol=1e-5)
     # a COO dispatches through the conversion graph to the CSR kernel
     np.testing.assert_allclose(sbt.spmv(coo, torch.from_numpy(x)).numpy(), y_dia.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# -- slice 8: spmv_csr methods, the donating pipeline, ReorderBase, config ----------
+
+
+def ref_device_csr(row, col, vals, n):
+    return ref.COO(jnp.asarray(row), jnp.asarray(col), jnp.asarray(vals), (n, n)).convert(ref.CSR)
+
+
+def row_bounds(csr, x):
+    """Per-row ``4·deg·eps·(|A||x|)_i`` and the cumsum's running-sum term
+    ``8·eps·sqrt(nnz)·max|run|`` (float64)."""
+    eps = np.finfo(np.float32).eps
+    ip, ix, v = (to_numpy(csr)[k].astype(np.float64) for k in ("indptr", "indices", "vals"))
+    prod = v * x.astype(np.float64)[ix.astype(np.int64)]
+    absdot = np.add.reduceat(np.r_[np.abs(prod), 0.0], ip[:-1].astype(np.int64))
+    absdot[np.diff(ip) == 0] = 0.0
+    exact = np.add.reduceat(np.r_[prod, 0.0], ip[:-1].astype(np.int64))
+    exact[np.diff(ip) == 0] = 0.0
+    run = np.abs(np.cumsum(prod)).max(initial=0.0)
+    return exact, 4 * np.diff(ip) * eps * absdot, 8 * eps * np.sqrt(len(ix)) * run
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_spmv_csr_methods_match_reference(name):
+    from sparsebase_tpu.models.pipelines import spmv_csr as ref_spmv_csr
+
+    row, col, vals, x = GRAPHS[name]()
+    n = x.size
+    csr = port_coo(row, col, vals, n).convert(CSR)
+    rcsr = ref_device_csr(row, col, vals, n)
+    xt = torch.from_numpy(x)
+    exact, per_row, running = row_bounds(csr, x)
+    seg = sbt.spmv_csr(csr, xt, method="segment")
+    np.testing.assert_array_equal(seg.numpy(), np.asarray(ref_spmv_csr(rcsr, jnp.asarray(x), method="segment")))
+    assert torch.equal(sbt.spmv_csr(csr, xt), seg)  # auto: exact per-row sums
+    assert np.all(np.abs(seg.numpy() - exact) <= per_row)
+    cum = sbt.spmv_csr(csr, xt, method="cumsum").numpy()
+    ref_cum = np.asarray(ref_spmv_csr(rcsr, jnp.asarray(x), method="cumsum"))
+    assert np.all(np.abs(cum - exact) <= per_row + running)
+    assert np.all(np.abs(cum - ref_cum) <= 2 * (per_row + running))
+    with pytest.raises(ValueError):
+        sbt.spmv_csr(csr, xt, method="nope")
+
+
+@pytest.mark.parametrize("method", ["auto", "segment", "cumsum"])
+def test_spmv_on_complex_raises(method):
+    from sparsebase_tpu_torch.utils.exceptions import TypeMismatchError
+
+    csr = CSR(torch.tensor([0, 1, 2]), torch.tensor([0, 1], dtype=torch.int32),
+              torch.tensor([1 + 2j, 3j], dtype=torch.complex64), (2, 2))
+    with pytest.raises(TypeMismatchError):
+        sbt.spmv_csr(csr, torch.ones(2), method=method)
+    real = CSR(csr.indptr, csr.indices, csr.vals.real.contiguous(), csr.shape)
+    with pytest.raises(TypeMismatchError):
+        sbt.spmv_csr(real, torch.ones(2, dtype=torch.complex64), method=method)
+    with pytest.raises(TypeMismatchError):
+        sbt.spmv(csr, torch.ones(2))
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+@pytest.mark.parametrize("shared", [False, True], ids=["own-storage", "row-col-one-storage"])
+def test_preprocess_pipeline_donating_equals_plain(name, shared):
+    import gc
+    import weakref
+
+    row, col, vals, x = GRAPHS[name]()
+    n = x.size
+    want_csr, want_y = sbt.preprocess_pipeline(port_coo(row, col, vals, n), torch.from_numpy(x))
+    coo = port_coo(row, col, vals, n)
+    if shared:  # row and col as two views of one buffer: the buffer must outlive the last reader of col
+        both = torch.stack([coo.row, coo.col])
+        coo = COO(both[0], both[1], coo.vals, coo.shape)
+        del both
+    tensors = [weakref.ref(t) for t in (coo.row, coo.col, coo.vals)]
+    xt = torch.from_numpy(x.copy())
+    got_csr, got_y = sbt.preprocess_pipeline_donating(coo, xt)
+    for key in ("indptr", "indices", "vals"):
+        assert torch.equal(getattr(got_csr, key), getattr(want_csr, key)), key
+    assert torch.equal(got_y, want_y)
+    assert torch.equal(xt, torch.from_numpy(x))  # x is not consumed
+    gc.collect()
+    assert all(t() is None for t in tensors)  # the COO held the last references
+    with pytest.raises(RuntimeError, match="consumed"):
+        coo.row.shape  # a consumed COO fails loudly
+    with pytest.raises(RuntimeError, match="consumed"):
+        sbt.preprocess_pipeline(coo, xt)
+
+
+def test_preprocess_pipeline_donating_releases_row_after_indptr(monkeypatch):
+    """``coo.row`` goes right after K3 has built ``indptr``, before the
+    degree rank and the relocation run; ``coo.col`` stays until then."""
+    import gc
+    import weakref
+
+    import sparsebase_tpu_torch.models.pipelines as pipes
+
+    row, col, vals, x = GRAPHS["sparse"]()
+    coo = port_coo(row, col, vals, x.size)
+    row_ref, col_ref = weakref.ref(coo.row), weakref.ref(coo.col)
+    seen = {}
+    real = pipes.ranks_from_sort_keys
+
+    def spy(*a, **k):
+        gc.collect()
+        seen["row"], seen["col"] = row_ref() is None, col_ref() is None
+        return real(*a, **k)
+
+    monkeypatch.setattr(pipes, "ranks_from_sort_keys", spy)
+    sbt.preprocess_pipeline_donating(coo, torch.from_numpy(x))
+    assert seen == {"row": True, "col": False}
+
+
+def test_reorder_base_matches_direct_calls_and_reference():
+    from sparsebase_tpu.bases import ReorderBase as RefReorderBase
+
+    from sparsebase_tpu_torch import ReorderBase
+    from sparsebase_tpu_torch.ops.permute import permute_1d
+    from sparsebase_tpu_torch.ops.reorder import RCMReorder
+
+    row, col, vals, x = GRAPHS["dups-empty-dense"]()
+    n = x.size
+    csr = port_coo(row, col, vals, n).convert(CSR)
+    ref_csr = ref.COO.new(row, col, vals, (n, n)).convert(ref.CSR)
+    for name, direct, params in [("degree", DegreeReorder(), None), ("DEGREE", DegreeReorder(False), False),
+                                 ("degree", DegreeReorder(False), {"ascending": False}),
+                                 ("rcm", RCMReorder(), None)]:
+        got = ReorderBase.reorder(name, csr, params)
+        assert torch.equal(got, direct.get_reorder(csr))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(RefReorderBase.reorder(name.lower(), ref_csr, params)))
+        cached, again = ReorderBase.reorder_cached(name, csr, params)
+        assert torch.equal(again, got) and cached == [None]
+    assert torch.equal(ReorderBase.reorder(DegreeReorder, csr), DegreeReorder().get_reorder(csr))
+    order = ReorderBase.reorder("degree", csr)
+    co = torch.from_numpy(np.random.default_rng(9).permutation(n).astype(np.int32))
+    for got, want in [(ReorderBase.permute2d(order, csr), permute_2d(csr, order, order)),
+                      (ReorderBase.permute2d_cached(order, csr)[1], permute_2d(csr, order, order)),
+                      (ReorderBase.permute2d_rowwise(order, csr), permute_2d(csr, order, None)),
+                      (ReorderBase.permute2d_colwise(co, csr), permute_2d(csr, None, co)),
+                      (ReorderBase.permute2d_row_columnwise(order, co, csr), permute_2d(csr, order, co))]:
+        assert all(torch.equal(getattr(got, k), getattr(want, k)) for k in ("indptr", "indices", "vals"))
+    arr = sbt.DenseArray(torch.from_numpy(x))
+    assert torch.equal(ReorderBase.permute1d(order, arr).vals, permute_1d(arr, order).vals)
+    assert torch.equal(ReorderBase.permute1d_cached(order, arr)[1].vals, permute_1d(arr, order).vals)
+    assert torch.equal(ReorderBase.inverse_permutation(order), inverse_permutation(order))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ReorderBase.reorder("gray", csr)
+    with pytest.raises(KeyError):
+        ReorderBase.reorder("no-such-reorderer", csr)
+
+
+def test_config_round_trips():
+    import dataclasses
+
+    from sparsebase_tpu.config import Config as RefConfig
+
+    from sparsebase_tpu_torch import Config, get_config, set_config
+    from sparsebase_tpu_torch.utils.logger import Logger, LogLevel
+
+    saved, level = get_config(), Logger.get_level()
+    try:
+        ours = {f.name for f in dataclasses.fields(Config)}
+        theirs = {f.name for f in dataclasses.fields(RefConfig)}
+        assert ours == {"use_fastio", "use_graphkit", "log_level"} and ours <= theirs
+        for name in ("use_fastio", "use_graphkit"):
+            assert getattr(set_config(**{name: False}), name) is False and getattr(get_config(), name) is False
+            set_config(**{name: True})
+            assert getattr(get_config(), name) is True
+        set_config(log_level="info")
+        assert Logger.get_level() == LogLevel.LOG_LVL_INFO
+        # the JAX package's settings that nothing reads, its TPU guards, and a made-up name
+        for name in sorted(theirs - ours) + ["no_such_field"]:
+            with pytest.raises(TypeError):
+                set_config(**{name: 1})
+    finally:
+        set_config(**{f: getattr(saved, f) for f in saved.__dataclass_fields__})
+        Logger.set_level(level)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 40])
+def test_index_dtype_for_matches_reference(n):
+    from sparsebase_tpu.utils.typing import index_dtype_for as ref_index_dtype_for
+
+    from sparsebase_tpu_torch.utils.typing import index_dtype_for
+
+    assert str(index_dtype_for(n)).replace("torch.", "") == np.dtype(ref_index_dtype_for(n)).name
+
+
+@pytest.mark.parametrize("stable_payload", [True, False])
+def test_coo_new_takes_stable_payload(stable_payload):
+    rng = np.random.default_rng(12)
+    row, col = rng.integers(0, 30, 500).astype(np.int32), rng.integers(0, 30, 500).astype(np.int32)
+    vals = np.arange(500, dtype=np.float32)  # payload order among duplicates shows in the values
+    want = ref.COO.new(row, col, vals, shape=(30, 30), stable_payload=stable_payload)
+    got = COO.new(torch.from_numpy(row), torch.from_numpy(col), torch.from_numpy(vals), (30, 30),
+                  stable_payload=stable_payload)
+    np.testing.assert_array_equal(got.row.numpy(), np.asarray(want.row))
+    np.testing.assert_array_equal(got.col.numpy(), np.asarray(want.col))
+    stable = np.lexsort((col, row))
+    np.testing.assert_array_equal(got.vals.numpy(), vals[stable])  # stable either way
+    unsorted = COO(torch.from_numpy(row), torch.from_numpy(col), torch.from_numpy(vals), (30, 30))
+    assert torch.equal(unsorted.sort_rowmajor(stable_payload=stable_payload).vals, got.vals)
