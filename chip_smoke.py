@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch + CUDA port (``sparsebase_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--nnz 100e6] [--band-nnz 64e6] [--rcm-n 131072] [--ingest-nnz 32e6] [--seed 0]
+    python3 chip_smoke.py [--nnz 100e6] [--band-nnz 64e6] [--rcm-n 131072] [--ingest-nnz 32e6]
+                          [--feature-n 4000000] [--seed 0]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -49,7 +50,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``IOBase.read_pigo_mtx_to_coo`` (fastio's parse on the host; the
    mirror and ``COO.new``'s sort, K5, on the card), through
    ``preprocess_pipeline`` and, on a clone, ``preprocess_pipeline_donating``,
-   then ``IOBase.write_csr_to_binary`` and ``IOBase.read_binary_to_csr``.
+   then ``IOBase.write_csr_to_binary`` and ``IOBase.read_binary_to_csr``;
+   path F, a random graph of ``--feature-n`` vertices (``n * 8`` uniform
+   pairs with u != v, mirrored, the first sixteenth of those entries again,
+   4,096 self-loops; ``COO.new``'s sort, K5) through ``convert(CSR)`` and
+   one ``GraphFeatureBase.extract`` of the 17 reference features that are
+   not fused classes (the extractor fuses them back): the column features
+   through ``convert(CSC)`` (K5, K3), ``JaccardWeights`` and the undirected
+   ``TriangleCount`` through K6.
    Every kernel of each path must have launched;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
@@ -74,7 +82,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    the Pigo reader and ``Graph.read_connectivity_from_mtx_to_coo`` agreeing
    on the card; ``ReorderBase.reorder("degree")`` equal to ``DegreeReorder``
    on the card and ``ReorderBase.reorder("rcm")`` on the host (graphkit)
-   equal to ``_rcm_host``);
+   equal to ``_rcm_host``); of path F (K6 against its plain version at full
+   size, the Jaccard weights bit for bit and the triangle sum exactly;
+   every other feature against the same feature on a CPU copy, integers and
+   ``DegreeDistribution`` exactly, the float64 column statistics within
+   1e-12 relative, the column features on the card's CSC, whose ``indptr``
+   is first held to the host's column counts; the directed ``TriangleCount``
+   of path F's graph (K6's directed mode, past the dense wall) equal to its
+   plain version and to twice the undirected count; K6 in its undirected
+   modes on ``phase_long_rows``'s power-law graph mirrored, and in directed
+   mode on the same graph unmirrored with 4,096 self-loops, against its plain
+   version, and on the same generator cut to 100,000 rows and 800,000
+   entries against graphkit's ``jaccard`` and ``triangles`` and the torch
+   ``_directed_count`` on host copies; at 16,384 vertices, with self-loops,
+   the dense tier equal to K6 and graphkit undirected, and to K6's directed
+   mode, to the same pattern as 16,385 vertices and to the host routes
+   directed; K_512 giving C(512, 3) on both tiers and twice that directed;
+   ``FillIn`` of a CUDA CSR of a 33-diagonal band at 131,072 rows equal to
+   its closed form);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -101,6 +126,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    end to end and staged (the host parse, the host-to-device copy, the
    device steps), the pipeline with and without donation (time and peak
    memory above what was held before), the SBFF write and read and bytes;
+   path F: K6 in its three modes, one call and back to back, beside its
+   plain version and its bound, and on the power-law graphs; the directed
+   ``TriangleCount`` end to end; graphkit's Jaccard and triangles on the
+   cut power-law graph (host times); the whole ``extract``; the dense tier
+   at 16,384 vertices beside K6, undirected and directed;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -113,17 +143,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    the device's idle share).
 
 Path D runs its phases 3, 4 and 5 (and its profile) after phase 6 of the
-other paths, and path E its phases 3, 4 and 5 after path D.
+other paths, path E its phases 3, 4 and 5 after path D, and path F its
+phases 3, 4 and 5 after path E.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
-sums of the same terms taken in different orders. K3, K4 and K5 compute
-exact results and must equal their plain versions (``torch.equal``).
+sums of the same terms taken in different orders. K3, K4, K5 and K6 compute
+exact results and must equal their plain versions (``torch.equal``; K6's
+Jaccard weights are one rounding of an exact quotient).
 
 A kernel's bound (``bound_ms``) is the larger of two times: the bytes its
 function must move (each input read once, each output written once) over
 the H100's 3.35 TB/s, and its floating-point operations over the 67 TFLOP/s
-f32 rate outside the tensor cores (data sheet, SXM, 700 W).
+f32 rate outside the tensor cores (data sheet, SXM, 700 W). K6's compares
+are integer operations: the bytes bound it, and no single PyTorch call
+computes its function (``library_ms`` null).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -159,7 +193,8 @@ def bound_bytes(kernel: str, **s) -> int:
     banded_spmv: ndiag, n, m, band_bytes; csr_spmv: n, ncols, nnz, pattern;
     indptr: nnz, nrows; relocate_csr: n, nnz, order_entries (entries of the
     distinct order tensors), value_bytes; radix_rank: n, key_bytes, sorted_keys
-    (the sorted keys are written as well)."""
+    (the sorted keys are written as well); common_neighbors: n, nnz, mode
+    ("jaccard", the default, "triangles" or "directed")."""
     if kernel == "banded_spmv":  # band, offsets, x in; y out
         return s["ndiag"] * s["n"] * s["band_bytes"] + 4 * s["ndiag"] + 4 * s["m"] + 4 * s["n"]
     if kernel == "csr_spmv":  # indptr, ids, values, x in; y out
@@ -172,6 +207,10 @@ def bound_bytes(kernel: str, **s) -> int:
         return 2 * csr + 4 * s["order_entries"]
     if kernel == "radix_rank":  # keys in; int32 ranks (or permutation) out, and the sorted keys on request
         return s["n"] * (s["key_bytes"] + 4 + (s["key_bytes"] if s.get("sorted_keys") else 0))
+    if kernel == "common_neighbors":  # indptr, ids in (directed: the CSC's too); f32 weights or one int64 sum out
+        lists = 8 * (s["n"] + 1) + 4 * s["nnz"]
+        mode = s.get("mode", "jaccard")
+        return (2 * lists if mode == "directed" else lists) + (4 * s["nnz"] if mode == "jaccard" else 8)
     raise KeyError(kernel)
 
 
@@ -289,6 +328,18 @@ def power_law_coo(g, dev, n, nnz):
     vals = torch.randn((nnz,), generator=g, device=dev)
     row, col, vals = sort_by_pairs_plain(row, col, vals)
     return COO(row, col, vals, (n, n))
+
+
+def power_law_csr(g, dev, n, nnz):
+    """A CSR whose row degrees follow ``power_law_degrees``, with uniform
+    column ids and random values (sorted within rows only by chance)."""
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
+
+    indptr = indptr_from_counts(power_law_degrees(g, dev, n, nnz))
+    total = int(indptr[-1])
+    cols = torch.randint(0, n, (total,), generator=g, device=dev, dtype=torch.int32)
+    return CSR(indptr, cols, torch.randn((total,), generator=g, device=dev), (n, n))
 
 
 def power_law_degrees(g, dev, n, nnz):
@@ -719,15 +770,11 @@ def phase_long_rows(g, dev, n: int = 1_000_000, nnz: int = 16_000_000) -> None:
     """K4's route for rows of more than 4,096 entries, which sorts them with
     K5 on a (row, new column) key: checked and timed on a graph whose row
     degrees follow a power law."""
-    from sparsebase_tpu_torch import CSR, _build
-    from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
+    from sparsebase_tpu_torch import _build
     from sparsebase_tpu_torch.ops.kernels import relocate_csr, relocate_csr_plain
 
-    deg = power_law_degrees(g, dev, n, nnz)
-    indptr = indptr_from_counts(deg)
-    total = int(indptr[-1])
-    cols = torch.randint(0, n, (total,), generator=g, device=dev, dtype=torch.int32)
-    csr = CSR(indptr, cols, torch.randn((total,), generator=g, device=dev), (n, n))
+    csr = power_law_csr(g, dev, n, nnz)
+    deg, total = csr.degrees(), csr.nnz
     ro = torch.randperm(n, generator=g, device=dev).to(torch.int32)
     over = deg > 4_096
     before = _build.launch_counts()["radix_rank"]
@@ -1102,6 +1149,293 @@ def path_e(g, dev, nnz: int):
     return launches
 
 
+FEATURE_AVG_DEGREE = 16
+FEATURE_LOOPS = 4_096
+POWER_LAW_CARD = (1_000_000, 16_000_000)  # rows, entries before mirroring: phase_long_rows's graph
+POWER_LAW_HOST = (100_000, 800_000)  # the same generator cut to a size graphkit takes in seconds
+COLUMN_STATS = ("MedianDegreeColumn", "StandardDeviationDegreeColumn", "CoefficientOfVariationDegreeColumn",
+                "GeometricAvgDegreeColumn")
+
+
+def random_pairs(g, dev, n, pairs, mirror=True):
+    """``pairs`` uniform (u, v) with u != v, mirrored (``2 * pairs``
+    entries) or not."""
+    u = torch.randint(0, n, (pairs,), generator=g, device=dev)
+    v = (u + torch.randint(1, n, (pairs,), generator=g, device=dev)) % n
+    if not mirror:
+        return u.to(torch.int32), v.to(torch.int32)
+    return torch.cat([u, v]).to(torch.int32), torch.cat([v, u]).to(torch.int32)
+
+
+def with_loops(g, dev, n, row, col, loops):
+    """The pattern (row, col) with ``loops`` random self-loops added, as a
+    CSR on the card (``COO.new``, K5; ``convert(CSR)``, K3)."""
+    from sparsebase_tpu_torch import COO, CSR
+
+    at = torch.randint(0, n, (loops,), generator=g, device=dev, dtype=torch.int32)
+    return COO.new(torch.cat([row, at]), torch.cat([col, at]), None, (n, n)).convert(CSR)
+
+
+def feature_graph(g, dev, n):
+    """Path F's graph: ``n * 8`` uniform pairs with u != v, mirrored (average
+    degree 16), the first sixteenth of those entries again, and 4,096
+    self-loops, row-major sorted by ``COO.new`` (K5)."""
+    from sparsebase_tpu_torch import COO
+
+    row, col = random_pairs(g, dev, n, n * FEATURE_AVG_DEGREE // 2)
+    k = row.numel() // 16
+    loops = torch.randint(0, n, (FEATURE_LOOPS,), generator=g, device=dev, dtype=torch.int32)
+    row, col = torch.cat([row, row[:k], loops]), torch.cat([col, col[:k], loops])
+    return COO.new(row, col, None, (n, n))
+
+
+def power_law_pattern(g, dev, n, nnz, mirror=True):
+    """``phase_long_rows``'s graph as a pattern CSR on the card: mirrored,
+    or as it is with ``FEATURE_LOOPS`` self-loops added."""
+    csr = power_law_csr(g, dev, n, nnz)
+    rows, cols = csr.row_of_nnz(), csr.indices
+    if mirror:
+        return with_loops(g, dev, n, torch.cat([rows, cols]), torch.cat([cols, rows]), 0)
+    return with_loops(g, dev, n, rows, cols, FEATURE_LOOPS)
+
+
+class PathF:
+    """Path F: ``convert(CSR)`` of a random graph of ``--feature-n`` vertices,
+    then every reference feature in one ``GraphFeatureBase.extract`` call.
+    The graphs of its checks and times are made here too, before the main
+    path runs, so that neither phase depends on the other."""
+
+    DENSE_N = 16_384  # vertices of the graphs on which the dense tier meets K6
+    FILL_N = 131_072  # rows of the band whose fill is checked
+
+    def __init__(self, g, dev, n):
+        from sparsebase_tpu_torch.ops import feature
+
+        self.g, self.dev, self.n = g, dev, n
+        self.coo = feature_graph(g, dev, n)
+        # a fused class is no feature of its own (the extractor matches
+        # sub-features, in both packages): the 17 others, which the extractor
+        # fuses back into DegreesDegreeDistribution and MinMaxAvgDegree
+        self.features = [c for c in feature.REFERENCE_FEATURES if not issubclass(c, feature.FusedFeature)]
+        # POWER_LAW_CARD's and POWER_LAW_HOST's graphs: mirrored, and as they
+        # are with self-loops (directed mode)
+        self.power_law = [power_law_pattern(g, dev, *size) for size in (POWER_LAW_CARD, POWER_LAW_HOST)]
+        self.power_law_directed = [power_law_pattern(g, dev, *size, mirror=False)
+                                   for size in (POWER_LAW_CARD, POWER_LAW_HOST)]
+        # at the dense wall, with self-loops: a symmetric graph and a directed one
+        dn = self.DENSE_N
+        self.dense_sym = with_loops(g, dev, dn, *random_pairs(g, dev, dn, dn * 8), 1_000)
+        self.dense_directed = with_loops(g, dev, dn, *random_pairs(g, dev, dn, dn * 16, mirror=False), 1_000)
+
+    def run(self):
+        from sparsebase_tpu_torch import CSR, GraphFeatureBase
+
+        csr = self.coo.convert(CSR)
+        return csr, GraphFeatureBase.extract(self.features, csr)
+
+
+def phase_path_f_checks(f: PathF, csr, out) -> float:
+    """K6 against its plain version at full size in its three modes; every
+    other feature against the same feature on a CPU copy; K6 on the power-law
+    graphs against its plain version and, cut to a size the host takes in
+    seconds, against graphkit and the torch host helpers; the triangle tiers
+    at 16,384 vertices and on K_512; FillIn on a band. Returns K6's largest
+    difference from its plain version."""
+    from sparsebase_tpu_torch import CSC, CSR, DenseArray, GraphFeatureBase, native
+    from sparsebase_tpu_torch.ops import feature
+    from sparsebase_tpu_torch.ops.feature.sparse_common import directed_triangle_count_sparse_device
+    from sparsebase_tpu_torch.ops.feature.triangles import _device_dense_count, _directed_count
+    from sparsebase_tpu_torch.ops.kernels import common_neighbors, common_neighbors_plain
+
+    n, nnz = csr.nrows, csr.nnz
+    print(f"phase 4 path F checks: n={n} entries={nnz} (mirrored pairs, a sixteenth again, {FEATURE_LOOPS} self-loops)")
+    weights = out[feature.JaccardWeights].vals
+    plain = common_neighbors_plain(csr, "jaccard")
+    check_equal("path F K6 Jaccard weights vs plain", weights, plain)
+    err = float((weights - plain).abs().max()) if nnz else 0.0
+    del plain
+    tri_sum, tri_plain = common_neighbors(csr, "triangles"), common_neighbors_plain(csr, "triangles")
+    check_equal("path F K6 triangle sum vs plain", tri_sum, tri_plain)
+    check(out[feature.TriangleCount] == int(tri_plain) // 6, "path F TriangleCount is not the K6 sum / 6")
+    csc = csr.convert(CSC)
+    check_equal("path F K6 directed sum vs plain", common_neighbors(csr, "directed", csc),
+                common_neighbors_plain(csr, "directed", csc))
+    directed = feature.TriangleCount(True).get_triangle_count(csr)
+    check(directed == 2 * out[feature.TriangleCount], "path F directed TriangleCount (K6) is not twice the undirected "
+          "count of the symmetric graph")
+    print(f"  path F triangles {out[feature.TriangleCount]} (K6 sum {int(tri_sum)}), directed 3-cycles {directed}")
+    # every other feature on a CPU copy; the column features on the card's
+    # CSC copied over, whose indptr is first held to the host's column counts
+    host = csr.to_host()
+    csc_host = csc.to_host()
+    del csc
+    want_ip = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(torch.bincount(
+        host.indices.to(torch.int64), minlength=n), 0)])
+    check_equal("path F CSC indptr (K5, K3) vs the host's column counts", csc_host.indptr, want_ip)
+    for cls in f.features:
+        if cls in (feature.JaccardWeights, feature.TriangleCount):
+            continue
+        column = "Column" in cls.__name__
+        want = GraphFeatureBase.extract([cls], csc_host if column else host)[cls]
+        got = out[cls]
+        got = got.vals if isinstance(got, DenseArray) else got
+        if isinstance(got, torch.Tensor):
+            check(got.device == csr.indptr.device, f"path F {cls.__name__} is not on the card")
+            got = got.cpu()
+        if cls.__name__ in COLUMN_STATS:
+            rel = abs(float(got) - float(want)) / max(abs(float(want)), 1e-300)
+            check(rel <= 1e-12, f"path F {cls.__name__}: {float(got)!r} vs {float(want)!r} on the CPU")
+        elif isinstance(got, torch.Tensor):
+            check_equal(f"path F {cls.__name__} vs the CPU", got, want)
+        else:
+            check(got == want, f"path F {cls.__name__}: {got!r} vs {want!r} on the CPU")
+    print(f"  path F: {len(f.features) - 2} other features equal the CPU's (column statistics within 1e-12)")
+    del host, csc_host
+    # power-law graphs: K6 against its plain version at full size, and
+    # against graphkit and the torch host helpers at the cut size
+    for pl, pd, size in zip(f.power_law, f.power_law_directed, (POWER_LAW_CARD, POWER_LAW_HOST)):
+        deg = pl.degrees()
+        label = (f"power-law n={size[0]} entries={pl.nnz} (largest row {int(deg.max())}, {int((deg > 4096).sum())} "
+                 "rows over 4,096)")
+        jac = common_neighbors(pl, "jaccard")
+        check_equal(f"path F K6 Jaccard on {label} vs plain", jac, common_neighbors_plain(pl, "jaccard"))
+        tri = common_neighbors(pl, "triangles")
+        check_equal(f"path F K6 triangle sum on {label} vs plain", tri, common_neighbors_plain(pl, "triangles"))
+        pd_csc = pd.convert(CSC)
+        cyc = common_neighbors(pd, "directed", pd_csc)
+        check_equal(f"path F K6 directed sum on the same unmirrored, {pd.nnz} entries with self-loops, vs plain", cyc,
+                    common_neighbors_plain(pd, "directed", pd_csc))
+        if size == POWER_LAW_HOST:
+            h, hd = pl.to_host(), pd.to_host()
+            check_equal(f"path F K6 Jaccard on {label} vs graphkit", jac.cpu(),
+                        native.jaccard(h.nrows, h.indptr, h.indices, h.nnz))
+            check(int(tri) // 6 == native.triangles(h.nrows, h.indptr, h.indices, False),
+                  f"path F K6 triangles on {label} differ from graphkit's")
+            on_host = feature.TriangleCount(True).get_triangle_count(hd)  # graphkit, self-loops dropped
+            check(int(cyc) == on_host == _directed_count(hd) > 0,
+                  f"path F K6 directed on the unmirrored {label}: {int(cyc)}, graphkit {on_host}")
+            print(f"  path F K6 on {label}: {int(tri) // 6} triangles, unmirrored {int(cyc)} directed 3-cycles "
+                  "(= graphkit = _directed_count)")
+    # the triangle tiers at the dense wall, on graphs with self-loops, and on K_512
+    ds, dd = f.dense_sym, f.dense_directed
+    hs, hdd = ds.to_host(), dd.to_host()
+    und = _device_dense_count(ds, False)
+    check(und == common_neighbors(ds, "triangles").item() // 6 == native.triangles(hs.nrows, hs.indptr, hs.indices,
+                                                                                 False) > 0,
+          "path F at 16,384 vertices: the dense tier, K6 and graphkit differ (undirected)")
+    dn = PathF.DENSE_N
+    counts = []
+    for graph, h in ((ds, hs), (dd, hdd)):
+        past = CSR(torch.cat([graph.indptr, graph.indptr[-1:]]), graph.indices, None, (dn + 1, dn + 1))
+        tiers = [_device_dense_count(graph, True), feature.TriangleCount(True).get_triangle_count(graph),
+                 directed_triangle_count_sparse_device(graph), feature.TriangleCount(True).get_triangle_count(past),
+                 feature.TriangleCount(True).get_triangle_count(h), _directed_count(h)]
+        check(len(set(tiers)) == 1 and tiers[0] > 0, f"path F at {dn} vertices: directed tiers differ: {tiers} (dense, "
+              f"route at {dn}, K6, route at {dn + 1}, graphkit, torch host)")
+        counts.append(tiers[0])
+    check(counts[0] == 2 * und, "path F at 16,384 vertices: directed count of the symmetric graph is not twice "
+          "the undirected")
+    m = 512
+    i = torch.arange(m, device=f.dev, dtype=torch.int32)
+    keep = i.repeat_interleave(m) != i.repeat(m)
+    k512 = with_loops(f.g, f.dev, m, i.repeat_interleave(m)[keep], i.repeat(m)[keep], 0)
+    want = m * (m - 1) * (m - 2) // 6
+    check(_device_dense_count(k512, False) == want == feature.TriangleCount().get_triangle_count(k512),
+          "path F K_512: a tier missed C(512, 3)")
+    check(_device_dense_count(k512, True) == 2 * want == directed_triangle_count_sparse_device(k512),
+          "path F K_512: a directed tier missed 2 C(512, 3)")
+    print(f"  path F triangle tiers at {dn} vertices with self-loops: symmetric {und} undirected, {counts[0]} directed; "
+          f"directed graph {counts[1]} (dense tier = K6 = the route past the wall = graphkit = torch host); K_512 "
+          f"{want} on both tiers, {2 * want} directed")
+    band = banded_coo(f.g, f.dev, PathF.FILL_N * (2 * BAND_HALF_WIDTH + 1)).convert(CSR)
+    fill = GraphFeatureBase.get_fill_in(band)
+    want = sum(min(i, BAND_HALF_WIDTH) + 1 for i in range(band.nrows))
+    check(fill == want, f"path F FillIn of the band: {fill}, expected {want}")
+    print(f"  path F FillIn of a 33-diagonal band at {band.nrows} rows: {fill} (closed form)")
+    return err
+
+
+def phase_path_f_times(f: PathF, csr) -> dict:
+    """K6 in its three modes beside its plain version and its bound; the
+    directed TriangleCount; the whole extract; the dense tier at 16,384
+    vertices; graphkit on the host."""
+    from sparsebase_tpu_torch import CSC, GraphFeatureBase, native
+    from sparsebase_tpu_torch.ops import feature
+    from sparsebase_tpu_torch.ops.feature.triangles import _device_dense_count
+    from sparsebase_tpu_torch.ops.kernels import common_neighbors, common_neighbors_plain
+
+    n, nnz = csr.nrows, csr.nnz
+    csc = csr.convert(CSC)
+    times = {}
+    for mode in ("jaccard", "triangles", "directed"):
+        one = cuda_ms(lambda: common_neighbors(csr, mode, csc))
+        back = cuda_ms(lambda: common_neighbors(csr, mode, csc), batch=10, reps=3)
+        plain = cuda_ms(lambda: common_neighbors_plain(csr, mode, csc), reps=3)
+        bound_ms, bound_by = bound("common_neighbors", n=n, nnz=nnz, mode=mode)
+        times[mode] = (one, plain)
+        print(f"phase 5 path F K6 {mode} (n={n}, {nnz} entries): one call {one:.4f} ms, back to back {back:.4f} ms, "
+              f"plain {plain:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / one:.1%} of it")
+    del csc
+    directed_ms = host_ms(lambda: feature.TriangleCount(True).get_triangle_count(csr), reps=3)
+    print(f"phase 5 path F TriangleCount(count_directed=True) end to end (convert to CSC, K6): {directed_ms:.3f} ms")
+    for graph in (csr, *f.power_law):
+        deg = graph.degrees()
+        searched = int(torch.minimum(deg[graph.row_of_nnz().long()], deg[graph.indices.long()]).sum())
+        ms = {mode: cuda_ms(lambda: common_neighbors(graph, mode), reps=3) for mode in ("jaccard", "triangles")}
+        print(f"phase 5 path F K6 on n={graph.nrows}, {graph.nnz} entries (largest row {int(deg.max())}): {searched} "
+              f"candidates searched (sum of min(deg u, deg v)), {searched / ms['jaccard'] / 1e6:.4g} per ns in "
+              f"Jaccard mode ({ms['jaccard']:.4f} ms), triangles {ms['triangles']:.4f} ms")
+    for pd in f.power_law_directed:
+        pd_csc = pd.convert(CSC)
+        print(f"phase 5 path F K6 directed on the unmirrored power-law graph (n={pd.nrows}, {pd.nnz} entries, largest "
+              f"row {int(pd.degrees().max())}): one call {cuda_ms(lambda: common_neighbors(pd, 'directed', pd_csc), reps=3):.4f} "
+              f"ms, plain {cuda_ms(lambda: common_neighbors_plain(pd, 'directed', pd_csc), reps=3):.4f} ms")
+    pl = f.power_law[-1]
+    for mode in ("jaccard", "triangles"):
+        print(f"phase 5 path F K6 {mode} on the power-law graph (n={pl.nrows}, {pl.nnz} entries): one call "
+              f"{cuda_ms(lambda: common_neighbors(pl, mode), reps=3):.4f} ms, plain "
+              f"{cuda_ms(lambda: common_neighbors_plain(pl, mode), reps=3):.4f} ms")
+    h = pl.to_host()
+    jac_host = host_ms(lambda: native.jaccard(h.nrows, h.indptr, h.indices, h.nnz), reps=2)
+    tri_host = host_ms(lambda: native.triangles(h.nrows, h.indptr, h.indices, False), reps=2)
+    print(f"phase 5 path F graphkit on the host, the same power-law graph: jaccard {jac_host:.1f} ms, "
+          f"triangles {tri_host:.1f} ms (host times, not the card's)")
+    whole = host_ms(lambda: GraphFeatureBase.extract(f.features, csr), reps=3)
+    print(f"phase 5 path F GraphFeatureBase.extract of {len(f.features)} features: {whole:.3f} ms")
+    per_kernel, spans, wall_ms = device_profile(lambda: GraphFeatureBase.extract(f.features, csr), runs=1)
+    check(bool(spans), "the profiler recorded no device activity in path F")
+    busy_ms = device_busy(spans)[0] / 1e3
+    print(f"phase 6 profile of path F's extract, 1 run: device busy {busy_ms:.4f} ms, wall under the profiler "
+          f"{wall_ms:.4f} ms, idle {1 - busy_ms / wall_ms:.1%}")
+    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:9.4f} ms {ms / busy_ms:6.1%}  {name[:110]}")
+    for label, graph in (("symmetric", f.dense_sym), ("directed", f.dense_directed)):
+        graph_csc = graph.convert(CSC)
+        dense_ms = {d: host_ms(lambda: _device_dense_count(graph, d), reps=3) for d in (False, True)}
+        k6_ms = {m: cuda_ms(lambda: common_neighbors(graph, m, graph_csc)) for m in ("triangles", "directed")}
+        print(f"phase 5 path F triangles at {PathF.DENSE_N} vertices, {label} graph ({graph.nnz} entries): dense tier "
+              f"(torch.matmul, float32) undirected {dense_ms[False]:.3f} ms, directed {dense_ms[True]:.3f} ms; K6 "
+              f"triangles {k6_ms['triangles']:.4f} ms, directed {k6_ms['directed']:.4f} ms")
+    return times
+
+
+def path_f(g, dev, n: int):
+    """Path F's phases 3, 4 and 5, run after path E. Returns its launch
+    counts, K6's largest difference from its plain version, its times and
+    the shapes of its bound."""
+    from sparsebase_tpu_torch import _build
+
+    f = PathF(g, dev, n)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    csr, out = f.run()
+    launches = read_launches("F", ("indptr", "radix_rank", "common_neighbors"))
+    err = phase_path_f_checks(f, csr, out)
+    del out
+    times = phase_path_f_times(f, csr)
+    return launches, err, times, dict(n=csr.nrows, nnz=csr.nnz)
+
+
 def read_launches(path: str, required) -> dict:
     from sparsebase_tpu_torch import _build
 
@@ -1120,6 +1454,8 @@ def main() -> None:
     ap.add_argument("--rcm-n", type=int, default=131_072, help="path D rows of the scrambled band (default 131,072)")
     ap.add_argument("--ingest-nnz", type=float, default=32e6,
                     help="path E source entries, written as a symmetric MTX file (default 32M, n = nnz/16)")
+    ap.add_argument("--feature-n", type=int, default=4_000_000,
+                    help="path F vertices, average degree 16 (default 4,000,000: about 68M entries)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1304,7 +1640,9 @@ def main() -> None:
           f"K1 plain {k1_plain_ms:.4f} ms")
     launches_d, err_k1_d = path_d(g, dev, args.rcm_n, args.seed)
     launches_e = path_e(g, dev, int(args.ingest_nnz))
-    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] for k in launches_a}
+    launches_f, err_k6, k6_times, k6_shape = path_f(g, dev, args.feature_n)
+    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
+                for k in launches_a}
 
     shapes = {
         "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],
@@ -1313,6 +1651,7 @@ def main() -> None:
         "indptr": dict(nnz=nnz, nrows=n),
         "relocate_csr": dict(n=n, nnz=nnz, order_entries=n, value_bytes=4),  # ro is both orders
         "radix_rank": dict(n=n, key_bytes=degrees.element_size()),
+        "common_neighbors": k6_shape,  # path F's graph, Jaccard weights
     }
 
     def entry(name, source, replaces, err, ms, plain_ms, library_ms):
@@ -1332,6 +1671,8 @@ def main() -> None:
         entry("relocate_csr", "relocate.cu", "tools/pallas_attempts.py:83", err_k4, k4_ms, k4_plain_ms, None),
         entry("radix_rank", "radix_sort.cu", "tools/pallas_attempts.py:109", err_k5, k5_ms, k5_plain_ms,
               k5_lib_ms),
+        entry("common_neighbors", "common_neighbors.cu", "sparsebase_tpu/ops/feature/sparse_common.py:53", err_k6,
+              *k6_times["jaccard"], None),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -7,14 +7,15 @@ neither ``jax`` nor ``sparsebase_tpu``.
 
 Layer map:
 
-    bases        IOBase / ReorderBase façades (static one-liners)
+    bases        IOBase / ReorderBase / GraphFeatureBase façades (static one-liners)
     models       preprocess_pipeline (and _donating), rcm_pipeline, spmv (format-polymorphic),
                  spmv_csr (auto / segment / cumsum), spmv_ell
     io           MTX, edge list, SBFF, METIS, PaToH readers and writers; Pigo readers (fastio)
     objects      Graph / HyperGraph over a connectivity format
     native       graphkit: host C++ graph algorithms (ctypes, g++ at first use)
-    ops          reorder (DegreeReorder, RCMReorder) / permute (2-D, 1-D) / kernels
-                 (K1 DIA SpMV, K2 CSR SpMV, K3 indptr, K4 CSR relocation, K5 stable radix sort)
+    ops          reorder (DegreeReorder, RCMReorder) / permute (2-D, 1-D) / feature (all 20
+                 features, the fused Extractor) / kernels (K1 DIA SpMV, K2 CSR SpMV, K3 indptr,
+                 K4 CSR relocation, K5 stable radix sort, K6 common neighbours)
     dispatch     Operation (auto-converting multi-format dispatch)
     convert      conversion graph + torch conversion functions
     formats      COO / CSR / CSC / DIA / ELL / DenseArray / PaddedCSR frozen dataclasses
@@ -28,7 +29,7 @@ Layer map:
 __version__ = "0.1.0"
 
 from . import bases, config, context, convert, dispatch, formats, io, models, native, objects, ops, utils
-from .bases import IOBase, ReorderBase
+from .bases import GraphFeatureBase, IOBase, ReorderBase
 from .config import Config, get_config, set_config
 from .context import CPU_CONTEXT, Context, DeviceContext, HostContext, context_for, context_of
 from .convert import can_convert, convert_cached, register_conversion
@@ -47,6 +48,7 @@ __all__ = [
     "objects",
     "IOBase",
     "ReorderBase",
+    "GraphFeatureBase",
     "Config",
     "get_config",
     "set_config",

@@ -34,7 +34,9 @@ from typing import Dict, List, Optional, Tuple
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("banded_spmv.cu", "csr_spmv.cu", "indptr.cu", "radix_sort.cu", "relocate.cu", "errors.cu")
+SOURCES = (
+    "banded_spmv.cu", "csr_spmv.cu", "indptr.cu", "radix_sort.cu", "relocate.cu", "common_neighbors.cu", "errors.cu",
+)
 LIB_NAME = "libsbtorch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -7,8 +7,7 @@ is a class of static one-liners over the readers, writers and ops.
 the JAX package knows and the port has not ported yet raises
 ``NotImplementedError``, an unknown one ``KeyError``. Not here yet:
 ``ReorderBase.heatmap`` and ``heatmap_with_stats``, which come with the
-heatmap reorderer, and ``GraphFeatureBase``, which comes with the feature
-ops (ROADMAP, queue 1).
+heatmap reorderer (ROADMAP, queue 1).
 
 The readers behind ``IOBase`` put what they read on the card unless the
 caller passes ``device="cpu"``.
@@ -118,6 +117,47 @@ class ReorderBase:
         from .ops.permute import inverse_permutation as inv
 
         return inv(perm)
+
+
+class GraphFeatureBase:
+    """Parity: ``bases::GraphFeatureBase`` (bases/graph_feature_base.h:20-135),
+    with a general ``extract`` that runs the fused extractor."""
+
+    @staticmethod
+    def get_degrees(fmt: Format, context=None, convert_input=True):
+        from .ops.feature import Degrees
+
+        return Degrees().get_degrees(fmt, context=context, convert_input=convert_input)
+
+    @staticmethod
+    def get_degree_distribution(fmt: Format, context=None, convert_input=True):
+        from .ops.feature import DegreeDistribution
+
+        return DegreeDistribution().get_distribution(fmt, context=context, convert_input=convert_input)
+
+    @staticmethod
+    def get_degrees_cached(fmt: Format, context=None):
+        """``(intermediates, degrees)``: the conversions actually run."""
+        from .ops.feature import Degrees
+
+        op = Degrees()
+        return op.execute_cached(op.params, fmt, context=context)
+
+    @staticmethod
+    def get_fill_in(fmt: Format, context=None, convert_input=True):
+        """nnz(L) of the symbolic factorisation in the current row order, the
+        fill an AMD or nested-dissection order is judged on (no reference
+        façade: the reference leaves fill to SuiteSparse, amd_reorder.cc:29-57)."""
+        from .ops.feature import FillIn
+
+        return FillIn().get_fill(fmt, context=context, convert_input=convert_input)
+
+    @staticmethod
+    def extract(features, fmt: Format, context=None, convert_input=True):
+        """Fused extraction of several features (``feature::Extractor::Extract``)."""
+        from .ops.feature import FeatureExtractor
+
+        return FeatureExtractor().extract(fmt, features=features, context=context, convert_input=convert_input)
 
 
 class IOBase:

@@ -1,8 +1,9 @@
-"""Preprocessing operations: reorder, permute, and the hand-written kernels.
+"""Preprocessing operations: reorder, permute, features, and the hand-written
+kernels.
 
-Reference analogue: src/sparsebase/{reorder,permute}/.
+Reference analogue: src/sparsebase/{reorder,permute,feature}/.
 """
 
-from . import kernels, permute, reorder
+from . import feature, kernels, permute, reorder
 
-__all__ = ["kernels", "permute", "reorder"]
+__all__ = ["feature", "kernels", "permute", "reorder"]

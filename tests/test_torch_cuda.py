@@ -759,3 +759,163 @@ def test_donation_lowers_peak_memory_by_the_row_ids(dev, gen):
     for field in ("indptr", "indices", "vals"):
         assert torch.equal(getattr(don_csr, field), getattr(plain_csr, field)), field
     assert torch.equal(don_y, plain_y)
+
+
+# -- K6: common neighbours (Jaccard weights, triangle sums) -------------------------
+def k6_graph(gen, dev, n, avg_deg, *, mirror=True, loops=0, dup_share=0, hub=0, ids_off_alignment=False):
+    """A random pattern through ``COO.new`` and ``convert(CSR)`` (K5, K3):
+    ``n * avg_deg // 2`` uniform pairs with u != v, mirrored; ``loops``
+    self-loops; the first ``dup_share`` of the entries again; row 0 a hub of
+    ``hub`` distinct columns (mirrored with the rest)."""
+    m = n * avg_deg // 2
+    row = torch.randint(0, n, (m,), generator=gen, device=dev)
+    col = (row + torch.randint(1, max(n, 2), (m,), generator=gen, device=dev)) % n
+    if hub:
+        spokes = torch.randperm(n - 1, generator=gen, device=dev)[:hub] + 1
+        row, col = torch.cat([row, torch.zeros_like(spokes)]), torch.cat([col, spokes])
+    if mirror:
+        row, col = torch.cat([row, col]), torch.cat([col, row])
+    if loops:
+        at = torch.randint(0, n, (loops,), generator=gen, device=dev)
+        row, col = torch.cat([row, at]), torch.cat([col, at])
+    if dup_share:
+        k = int(row.numel() * dup_share)
+        row, col = torch.cat([row, row[:k]]), torch.cat([col, col[:k]])
+    csr = COO.new(row.to(torch.int32), col.to(torch.int32), None, (n, n)).convert(CSR)
+    if ids_off_alignment:
+        csr = CSR(csr.indptr, off_alignment(csr.indices), None, csr.shape)
+    return csr
+
+
+K6_CASES = {
+    "no-entries": dict(n=1_000, avg_deg=0),
+    "one-edge": dict(n=2, avg_deg=1, mirror=False),
+    "one-edge-mirrored": dict(n=2, avg_deg=1),
+    "self-loops": dict(n=20_000, avg_deg=8, loops=2_000),
+    "duplicates": dict(n=20_000, avg_deg=8, dup_share=0.25, loops=100),
+    "empty-rows": dict(n=200_000, avg_deg=1),
+    "directed": dict(n=30_000, avg_deg=12, mirror=False),
+    "hub-262144": dict(n=300_000, avg_deg=4, hub=262_144),
+    "ids-off-alignment": dict(n=50_000, avg_deg=10, loops=50, dup_share=0.1, ids_off_alignment=True),
+}
+
+
+@pytest.mark.parametrize("mode", ["jaccard", "triangles", "directed"])
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_common_neighbors_kernel_matches_plain(dev, gen, case, mode):
+    from sparsebase_tpu_torch.convert.kernels import csr_to_csc
+    from sparsebase_tpu_torch.ops.kernels import common_neighbors, common_neighbors_plain
+
+    csr = k6_graph(gen, dev, **K6_CASES[case])
+    csc = csr_to_csc(csr) if mode == "directed" else None
+    before = _build.launch_counts()["common_neighbors"]
+    got = common_neighbors(csr, mode, csc)
+    assert _build.launch_counts()["common_neighbors"] == before + (1 if csr.nnz else 0)
+    want = common_neighbors_plain(csr, mode, csc)
+    assert got.dtype == want.dtype and got.shape == want.shape and got.device == csr.indices.device
+    assert torch.equal(got, want)  # Jaccard bit for bit, the sums exactly
+    assert torch.equal(common_neighbors(csr, mode, csc), got)  # two runs agree
+
+
+@pytest.mark.parametrize("mode", ["jaccard", "triangles", "directed"])
+def test_common_neighbors_makes_no_host_sync(dev, gen, mode):
+    from sparsebase_tpu_torch.convert.kernels import csr_to_csc
+    from sparsebase_tpu_torch.ops.kernels import common_neighbors, common_neighbors_plain
+
+    csr = k6_graph(gen, dev, 100_000, 16, loops=100, dup_share=0.05, mirror=mode != "directed")
+    csc = csr_to_csc(csr) if mode == "directed" else None
+    common_neighbors(csr, mode, csc)  # builds and loads the kernels
+    syncs, got = count_syncs(lambda: common_neighbors(csr, mode, csc))
+    assert not syncs, [str(w.message) for w in syncs]
+    assert torch.equal(got, common_neighbors_plain(csr, mode, csc))
+
+
+def test_features_on_card_launch_k6_and_equal_the_cpu(dev, gen, monkeypatch):
+    """On a CUDA CSR, JaccardWeights and the undirected TriangleCount launch K6
+    and never its plain version; every reference feature equals the same
+    feature on a CPU copy."""
+    import importlib
+
+    from sparsebase_tpu_torch import DenseArray, GraphFeatureBase
+    from sparsebase_tpu_torch.ops import feature
+    from sparsebase_tpu_torch.ops.kernels import common_neighbors as cn_fn
+
+    cn = importlib.import_module("sparsebase_tpu_torch.ops.kernels.common_neighbors")
+    csr = k6_graph(gen, dev, 50_000, 16, loops=64, dup_share=1 / 16)
+    cn_fn(csr, "jaccard")  # builds and loads the kernels
+    leaves = [c for c in feature.REFERENCE_FEATURES if not issubclass(c, feature.FusedFeature)]
+    host = GraphFeatureBase.extract(leaves, csr.to_host())
+
+    def no_plain(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA CSR")
+
+    monkeypatch.setattr(cn, "common_neighbors_plain", no_plain)
+    before = _build.launch_counts()["common_neighbors"]
+    card = GraphFeatureBase.extract(leaves, csr)
+    assert _build.launch_counts()["common_neighbors"] == before + 2
+    assert set(card) == set(host) == set(leaves)
+    for cls in leaves:
+        got, want = card[cls], host[cls]
+        if isinstance(got, DenseArray):
+            got, want = got.vals, want.vals
+        if isinstance(got, torch.Tensor):
+            assert got.device.type == "cuda", cls.__name__
+            got = got.cpu()
+        if cls.__name__ in ("MedianDegreeColumn", "StandardDeviationDegreeColumn",
+                            "CoefficientOfVariationDegreeColumn", "GeometricAvgDegreeColumn"):
+            assert float(got) == pytest.approx(float(want), rel=1e-12, abs=0), cls.__name__
+        elif isinstance(got, torch.Tensor):
+            assert torch.equal(got, want), cls.__name__
+        else:
+            assert got == want, cls.__name__
+
+
+def test_triangle_tiers_on_card(dev, gen):
+    """At 16,384 vertices, the dense wall, on graphs with self-loops and
+    duplicates: undirected, the dense tier, K6 and graphkit agree; directed,
+    the dense tier, K6's directed mode, the same pattern as 16,385 vertices
+    (the route past the wall) and the CPU routes (graphkit, the torch host
+    helpers) agree, self-loops ignored on every one; on the symmetric graph
+    the directed count is twice the undirected. K_512 gives C(512, 3) on both
+    tiers and twice that directed."""
+    from sparsebase_tpu_torch import native
+    from sparsebase_tpu_torch.ops.feature import TriangleCount
+    from sparsebase_tpu_torch.ops.feature.sparse_common import (
+        directed_triangle_count_sparse_device, triangle_count_sparse_device,
+    )
+    from sparsebase_tpu_torch.ops.feature.triangles import MAX_DEVICE_DENSE_N, _device_dense_count, _directed_count
+
+    n = MAX_DEVICE_DENSE_N
+    sym = k6_graph(gen, dev, n, 24, loops=2_000, dup_share=0.1)
+    host = sym.to_host()
+    k6 = triangle_count_sparse_device(sym)
+    assert k6 == _device_dense_count(sym, False) == TriangleCount().get_triangle_count(sym)
+    assert k6 == native.triangles(host.nrows, host.indptr, host.indices, False) > 0
+    for csr, twice in ((sym, 2 * k6), (k6_graph(gen, dev, n, 24, mirror=False, loops=2_000, dup_share=0.1), None)):
+        h = csr.to_host()
+        want = TriangleCount(True).get_triangle_count(h)  # graphkit, on a copy without the self-loops
+        assert want == _directed_count(h) > 0
+        if twice is not None:
+            assert want == twice
+        past = CSR(torch.cat([csr.indptr, csr.indptr[-1:]]), csr.indices, None, (n + 1, n + 1))
+        assert _device_dense_count(csr, True) == TriangleCount(True).get_triangle_count(csr) == want
+        assert directed_triangle_count_sparse_device(csr) == TriangleCount(True).get_triangle_count(past) == want
+    m = 512
+    i = torch.arange(m, device=dev)
+    row, col = i.repeat_interleave(m), i.repeat(m)
+    keep = row != col
+    k512 = COO.new(row[keep].to(torch.int32), col[keep].to(torch.int32), None, (m, m)).convert(CSR)
+    want = m * (m - 1) * (m - 2) // 6
+    assert triangle_count_sparse_device(k512) == want == _device_dense_count(k512, False)
+    assert directed_triangle_count_sparse_device(k512) == 2 * want == _device_dense_count(k512, True)
+
+
+def test_fill_in_of_a_card_csr(dev, gen):
+    from sparsebase_tpu_torch import GraphFeatureBase
+
+    n, half = 20_000, 16
+    i = torch.arange(n, device=dev)[:, None]
+    j = i + torch.arange(-half, half + 1, device=dev)[None, :]
+    ok = (j >= 0) & (j < n)
+    band = COO.new(i.expand_as(j)[ok].to(torch.int32), j[ok].to(torch.int32), None, (n, n)).convert(CSR)
+    assert GraphFeatureBase.get_fill_in(band) == sum(min(k, half) + 1 for k in range(n))

@@ -407,6 +407,14 @@ BOUND_CASES = {
     "path-A-radix_rank": ("radix_rank", dict(n=6_250_000, key_bytes=8), 75_000_000),
     # 1e8 packed int64 pairs in; the int32 permutation and the sorted int64 keys out
     "pair-sort-radix_rank": ("radix_rank", dict(n=100_000_000, key_bytes=8, sorted_keys=True), 2_000_000_000),
+    # path F: 4,000,001 * 8 indptr + 68,004,096 * 4 ids in, 68,004,096 * 4 float32 weights out
+    "path-F-common_neighbors": ("common_neighbors", dict(n=4_000_000, nnz=68_004_096), 576_032_776),
+    # the same ids and indptr in, one int64 sum out
+    "path-F-common_neighbors-triangles": ("common_neighbors", dict(n=4_000_000, nnz=68_004_096, mode="triangles"),
+                                          304_016_400),
+    # directed: the CSR's and the CSC's indptr and ids in, 2 * (32,000,008 + 272,016,384), one int64 sum out
+    "path-F-common_neighbors-directed": ("common_neighbors", dict(n=4_000_000, nnz=68_004_096, mode="directed"),
+                                         608_032_792),
 }
 
 
