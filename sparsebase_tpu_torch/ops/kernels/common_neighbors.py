@@ -29,18 +29,22 @@ one) and no more columns than rows, so that every id names a row; directed
 mode needs a square one. CPU tensors take the plain version; CUDA tensors
 launch the kernel, or the wrapper raises.
 
-Both versions take each entry's candidates from the shorter of its two
-lists and search them in the other (the counts are the same: see the
-kernel's source), so a hub row costs what its neighbours' lists cost.
+The plain version takes each entry's candidates from the shorter of its two
+lists and searches them in the other. The kernel works by row: it groups
+the rows by entry count on the card, stages each row's list once and, per
+entry, streams the other list through it or searches the staged ids in the
+other list, whichever costs less (the counts are the same: see the kernel's
+source).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from ..._build import Kernel
+from ..._build import Kernel, library
 from ...formats.csc import CSC
 from ...formats.csr import CSR
 from ...utils.exceptions import TypeMismatchError
@@ -51,13 +55,28 @@ MODES = ("jaccard", "triangles", "directed")
 # ten int64 temporaries, so 2^26 slots take about 5 GiB of the card's 80 GB
 # beside a graph of 68M entries (its per-entry arrays take about 8 GiB)
 PLAIN_CHUNK_SLOTS = 1 << 26
+# K6's queue of entries whose two lists are both long: a slot per
+# DEFER_SLOTS_PER entries, at least DEFER_MIN_SLOTS (the kernel counts an
+# entry in place when the queue is full)
+DEFER_SLOTS_PER = 16
+DEFER_MIN_SLOTS = 1024
 
 _K6 = Kernel(
     "common_neighbors",
     "sb_common_neighbors",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
-    + [ctypes.c_void_p] * 5,
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_void_p] * 3,
 )
+
+
+@functools.cache
+def _scratch_words():
+    """K6's ``sb_common_neighbors_scratch_words(n, cap)``: the int64 words
+    of the scratch the kernel carves into its plan, its tiers' row lists and
+    its queue."""
+    fn = library().sb_common_neighbors_scratch_words
+    fn.argtypes, fn.restype = [ctypes.c_int64, ctypes.c_int64], ctypes.c_int64
+    return fn
 
 
 def _check(csr: CSR, mode: str, csc) -> None:
@@ -188,16 +207,20 @@ def common_neighbors(csr: CSR, mode: str, csc: CSC | None = None) -> torch.Tenso
     ids = kernel_ids(csr.indices, "common_neighbors column ids")
     if csr.nrows > torch.iinfo(torch.int32).max:
         raise TypeMismatchError(f"common_neighbors: {csr.nrows} rows; the kernel takes int32 row ids")
-    row = CSR(indptr, ids, None, csr.shape).row_of_nnz()  # int32, like the ids
     in_ptr = in_ids = None
     if mode == "directed":
         in_ptr = kernel_offsets(csc.indptr, "common_neighbors CSC indptr")
         in_ids = kernel_ids(csc.indices, "common_neighbors CSC row ids")
-    out_w = torch.empty((nnz,), dtype=torch.float32, device=dev) if mode == "jaccard" else None
-    out_sum = torch.zeros((1,), dtype=torch.int64, device=dev) if mode != "jaccard" else None
+    # the kernel's scratch, one allocation: its plan, its tiers' row lists and
+    # its queue of entries whose two lists are both long
+    n, cap = csr.nrows, max(DEFER_MIN_SLOTS, nnz // DEFER_SLOTS_PER)
+    scratch = torch.empty((_scratch_words()(n, cap),), dtype=torch.int64, device=dev)
+    jaccard = mode == "jaccard"
+    out = torch.empty((nnz,) if jaccard else (1,), dtype=torch.float32 if jaccard else torch.int64, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _K6.launch(indptr.data_ptr(), ids.data_ptr(), row.data_ptr(), nnz, MODES.index(mode), ptr(in_ptr),
-                   ptr(in_ids), ptr(out_w), ptr(out_sum), stream)
-    return out_w if mode == "jaccard" else out_sum.reshape(())
+        _K6.launch(indptr.data_ptr(), ids.data_ptr(), n, nnz, MODES.index(mode), ptr(in_ptr), ptr(in_ids),
+                   scratch.data_ptr(), cap, out.data_ptr() if jaccard else None, None if jaccard else out.data_ptr(),
+                   stream)
+    return out if jaccard else out.reshape(())

@@ -762,30 +762,49 @@ def test_donation_lowers_peak_memory_by_the_row_ids(dev, gen):
 
 
 # -- K6: common neighbours (Jaccard weights, triangle sums) -------------------------
-def k6_graph(gen, dev, n, avg_deg, *, mirror=True, loops=0, dup_share=0, hub=0, ids_off_alignment=False):
+def k6_graph(gen, dev, n, avg_deg, *, mirror=True, loops=0, dup_share=0, hub=0, ids_off_alignment=False, hubs=(),
+             exact=(), ncols=None):
     """A random pattern through ``COO.new`` and ``convert(CSR)`` (K5, K3):
     ``n * avg_deg // 2`` uniform pairs with u != v, mirrored; ``loops``
     self-loops; the first ``dup_share`` of the entries again; row 0 a hub of
-    ``hub`` distinct columns (mirrored with the rest)."""
+    ``hub`` distinct columns (mirrored with the rest). ``hubs``: rows 1, 2,
+    ... get that many distinct columns each, drawn from the first
+    ``2 * max(hubs)`` ids (so the hubs are each other's neighbours), mirrored
+    with the rest. ``exact``: the last ``len(exact)`` rows hold exactly that
+    many distinct columns, added after the rest. ``ncols``: a rectangular
+    pattern of that many columns, not mirrored."""
+    wide = n if ncols is None else ncols
     m = n * avg_deg // 2
     row = torch.randint(0, n, (m,), generator=gen, device=dev)
-    col = (row + torch.randint(1, max(n, 2), (m,), generator=gen, device=dev)) % n
+    col = (row + torch.randint(1, max(n, 2), (m,), generator=gen, device=dev)) % wide
     if hub:
         spokes = torch.randperm(n - 1, generator=gen, device=dev)[:hub] + 1
         row, col = torch.cat([row, torch.zeros_like(spokes)]), torch.cat([col, spokes])
-    if mirror:
+    for i, size in enumerate(hubs):
+        spokes = torch.randperm(2 * max(hubs), generator=gen, device=dev)[:size]
+        row, col = torch.cat([row, torch.full_like(spokes, i + 1)]), torch.cat([col, spokes])
+    if mirror and ncols is None:
         row, col = torch.cat([row, col]), torch.cat([col, row])
     if loops:
-        at = torch.randint(0, n, (loops,), generator=gen, device=dev)
+        at = torch.randint(0, min(n, wide), (loops,), generator=gen, device=dev)
         row, col = torch.cat([row, at]), torch.cat([col, at])
     if dup_share:
         k = int(row.numel() * dup_share)
         row, col = torch.cat([row, row[:k]]), torch.cat([col, col[:k]])
-    csr = COO.new(row.to(torch.int32), col.to(torch.int32), None, (n, n)).convert(CSR)
+    if exact:
+        keep = row < n - len(exact)
+        row, col = row[keep], col[keep]
+        for i, size in enumerate(exact):
+            picked = torch.randperm(wide, generator=gen, device=dev)[:size]
+            row, col = torch.cat([row, torch.full_like(picked, n - len(exact) + i)]), torch.cat([col, picked])
+    csr = COO.new(row.to(torch.int32), col.to(torch.int32), None, (n, wide)).convert(CSR)
     if ids_off_alignment:
         csr = CSR(csr.indptr, off_alignment(csr.indices), None, csr.shape)
     return csr
 
+
+# K6's tier bounds (csrc/common_neighbors.cu::tier_of) and one past each
+K6_TIER_EDGES = (1, 8, 9, 16, 17, 32, 33, 1_024, 1_025, 8_192, 8_193)
 
 K6_CASES = {
     "no-entries": dict(n=1_000, avg_deg=0),
@@ -797,6 +816,11 @@ K6_CASES = {
     "directed": dict(n=30_000, avg_deg=12, mirror=False),
     "hub-262144": dict(n=300_000, avg_deg=4, hub=262_144),
     "ids-off-alignment": dict(n=50_000, avg_deg=10, loops=50, dup_share=0.1, ids_off_alignment=True),
+    "tier-edges": dict(n=40_000, avg_deg=6, mirror=False, loops=20, exact=K6_TIER_EDGES),
+    "tier-edges-mirrored": dict(n=40_000, avg_deg=6, dup_share=0.05, exact=K6_TIER_EDGES),
+    "two-adjacent-hubs": dict(n=100_000, avg_deg=4, loops=30, hubs=(40_000, 40_000)),
+    "hubs-of-hubs": dict(n=200_000, avg_deg=6, dup_share=0.02, hubs=(30_000, 9_000, 8_193, 8_192, 20_000)),
+    "rectangular": dict(n=60_000, avg_deg=12, dup_share=0.1, ncols=45_000, exact=(40, 2_000, 9_000)),
 }
 
 
@@ -807,6 +831,10 @@ def test_common_neighbors_kernel_matches_plain(dev, gen, case, mode):
     from sparsebase_tpu_torch.ops.kernels import common_neighbors, common_neighbors_plain
 
     csr = k6_graph(gen, dev, **K6_CASES[case])
+    if mode == "directed" and csr.nrows != csr.ncols:
+        with pytest.raises(ValueError):  # directed mode takes a square CSR only
+            common_neighbors(csr, mode, csr_to_csc(csr))
+        return
     csc = csr_to_csc(csr) if mode == "directed" else None
     before = _build.launch_counts()["common_neighbors"]
     got = common_neighbors(csr, mode, csc)
@@ -815,6 +843,23 @@ def test_common_neighbors_kernel_matches_plain(dev, gen, case, mode):
     assert got.dtype == want.dtype and got.shape == want.shape and got.device == csr.indices.device
     assert torch.equal(got, want)  # Jaccard bit for bit, the sums exactly
     assert torch.equal(common_neighbors(csr, mode, csc), got)  # two runs agree
+
+
+@pytest.mark.parametrize("mode", ["jaccard", "triangles", "directed"])
+def test_common_neighbors_counts_in_place_when_its_queue_is_full(dev, gen, mode, monkeypatch):
+    """With a queue of one slot, the entries whose two lists are both long
+    that do not fit are counted where they are met: the same result."""
+    import importlib
+
+    from sparsebase_tpu_torch.convert.kernels import csr_to_csc
+    from sparsebase_tpu_torch.ops.kernels import common_neighbors, common_neighbors_plain
+
+    cn = importlib.import_module("sparsebase_tpu_torch.ops.kernels.common_neighbors")
+    csr = k6_graph(gen, dev, **K6_CASES["hubs-of-hubs"])
+    csc = csr_to_csc(csr) if mode == "directed" else None
+    monkeypatch.setattr(cn, "DEFER_MIN_SLOTS", 1)
+    monkeypatch.setattr(cn, "DEFER_SLOTS_PER", csr.nnz + 1)
+    assert torch.equal(common_neighbors(csr, mode, csc), common_neighbors_plain(csr, mode, csc))
 
 
 @pytest.mark.parametrize("mode", ["jaccard", "triangles", "directed"])

@@ -428,6 +428,18 @@ def test_chip_smoke_bound_bytes(case):
     assert bound_ms == pytest.approx(want / 3.35e12 * 1e3)
 
 
+# rows [1, 1, 2], [0, 1, 3], [0], [1, 2] (degrees 3, 3, 1, 2): 4 deg v and a
+# 16-byte indptr pair for each entry the mode counts. jaccard: all nine, deg v
+# summing to 22; triangles: not (1, 1) nor the second (0, 1), 16 over seven;
+# directed: (0, 1), (0, 2), (1, 3), 6 over three
+@pytest.mark.parametrize("mode,want", [("jaccard", 4 * 22 + 16 * 9), ("triangles", 4 * 16 + 16 * 7),
+                                       ("directed", 4 * 6 + 16 * 3)])
+def test_chip_smoke_streamed_bytes(mode, want):
+    csr = CSR(torch.tensor([0, 3, 6, 7, 9]), torch.tensor([1, 1, 2, 0, 1, 3, 0, 1, 2], dtype=torch.int32), None,
+              (4, 4))
+    assert _chip_smoke().streamed_bytes(csr, mode) == want
+
+
 # calls that compute K2's or K3's function in one library call: chip_smoke.py
 # times them as yardsticks, the package must not make them
 _LIBRARY_CALLS = {"sparse_csr_tensor", "mv", "searchsorted"}
@@ -798,3 +810,225 @@ def test_csr_spmv_casts_values_to_x(dtype):
     want = np.asarray(ref_spmv_csr(ref.CSR.new(np.asarray(ref_csr.indptr), np.asarray(ref_csr.indices),
                                                vals.numpy(), ref_csr.shape), x.numpy(), method="segment"))
     np.testing.assert_allclose(y.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# -- K6 (common neighbours): the tier plan and a model of one task's count ---------
+def _k6_constants():
+    """The constants of ``csrc/common_neighbors.cu`` (``constexpr ... kName = v;``)."""
+    import re
+
+    src = (Path(__file__).resolve().parents[1] / "sparsebase_tpu_torch" / "csrc" / "common_neighbors.cu").read_text()
+    return {name: int(value) for name, value in re.findall(r"constexpr \w+ (k\w+) = (\d+);", src)}
+
+
+def k6_tier_of(d, k):
+    """``tier_of`` of ``csrc/common_neighbors.cu``."""
+    return 0 if d == 0 else 1 if d <= 8 else 2 if d <= 16 else 3 if d <= k["kGroupStage"] else 4 if d <= k[
+        "kMidCap"] else 5
+
+
+def k6_plan(deg, seed):
+    """``classify_count`` and ``classify_place`` in Python, the rows taken in
+    a shuffled order (the atomics fix none): ``(rows, tier_off,
+    chunk_end)`` as the kernel leaves them."""
+    k = _k6_constants()
+    tiers, chunk = k["kTiers"], k["kChunk"]
+    count = [0] * tiers
+    for d in deg:
+        count[k6_tier_of(d, k)] += 1
+    off = [0, 0]
+    for t in range(1, tiers):
+        off.append(off[t] + count[t])
+    cursor = [0] * tiers
+    rows = [-1] * len(deg)
+    chunk_end = [-1] * len(deg)
+    for r in np.random.default_rng(seed).permutation(len(deg)).tolist():
+        t = k6_tier_of(deg[r], k)
+        if t == 5:
+            chunks = -(-deg[r] // chunk)
+            old = cursor[5]
+            cursor[5] += (1 << 33) | chunks
+            pos = off[5] + (old >> 33)
+            rows[pos], chunk_end[pos] = r, (old & ((1 << 33) - 1)) + chunks
+        elif t > 0:
+            rows[off[t] + cursor[t]] = r
+            cursor[t] += 1
+    return rows, off, chunk_end
+
+
+K6_PLAN_DEGREES = [0, 1, 8, 9, 16, 17, 32, 33, 1_024, 1_025, 8_192, 8_193, 20_000, 0, 5, 40, 0, 3, 1, 12, 3_000]
+
+
+@pytest.mark.parametrize("grid", [1, 3, 7, 64])
+def test_k6_plan_places_every_entry_in_one_task(grid):
+    """The kernel's plan on degrees at every tier edge (0, 1, 8, 9, 16, 17,
+    32, 33, 1,024, 1,025 and rows past the staged capacity): each row with
+    entries lands once, in its tier. With the kernel's tasks (a row in
+    tiers 1-4; in tier 5, chunks of ``kChunk`` entries, each block taking a
+    run of consecutive chunks as ``cn_blocks`` does, its row found in
+    ``chunk_end``) every entry falls in exactly one task, within its row."""
+    k = _k6_constants()
+    chunk = k["kChunk"]
+    deg = K6_PLAN_DEGREES
+    indptr = np.r_[0, np.cumsum(deg)]
+    rows, off, chunk_end = k6_plan(deg, seed=grid)
+    tiers = [sorted(deg[r] for r in rows[off[t]:off[t + 1]]) for t in range(1, k["kTiers"])]
+    assert tiers == [[1, 1, 3, 5, 8], [9, 12, 16], [17, 32], [33, 40, 1_024], [1_025, 3_000, 8_192, 8_193, 20_000]]
+    assert sorted(rows[:off[-1]]) == [r for r, d in enumerate(deg) if d > 0]
+
+    covered = np.zeros(indptr[-1], np.int64)
+    for t in range(1, 5):
+        for r in rows[off[t]:off[t + 1]]:
+            covered[indptr[r]:indptr[r + 1]] += 1
+    r0, r1 = off[5], off[6]
+    ends = chunk_end[r0:r1]
+    assert ends == sorted(ends)
+    per = -(-ends[-1] // grid)
+    for block in range(grid):
+        for c in range(block * per, min((block + 1) * per, ends[-1])):
+            at = r0 + int(np.searchsorted(ends, c, side="right"))  # first r with chunk_end[r] > c
+            r, d = rows[at], deg[rows[at]]
+            j = c - (chunk_end[at] - -(-d // chunk))
+            lo, hi = j * chunk, min((j + 1) * chunk, d)
+            assert 0 <= lo < hi <= d
+            covered[indptr[r] + lo:indptr[r] + hi] += 1
+    assert bool((covered == 1).all())
+
+
+def test_k6_plan_of_empty_rows():
+    rows, off, _ = k6_plan([0, 0, 0], seed=0)
+    assert rows == [-1, -1, -1] and off == [0] * (_k6_constants()["kTiers"] + 1)
+
+
+class K6TaskModel:
+    """One K6 task's count as ``csrc/common_neighbors.cu`` does it, in
+    Python: row u's list S (N(u), or I(u) in directed mode) staged as
+    samples ``S[t * stride]`` in ``cap`` slots, and each entry counted in
+    the direction ``policy`` picks ("rule": the kernel's choice, a lane
+    streams N(v) up to ``kLaneStreamMax``, a group streams when deg v <=
+    kStreamCost * |S| * log2(deg v); "stream" or "search": always;
+    "deferred": ``cn_deferred``'s, nothing staged and candidates from the
+    shorter list)."""
+
+    def __init__(self, indptr, ids, mode, in_ptr=None, in_ids=None, cap=32, policy="rule"):
+        self.indptr, self.ids, self.mode = indptr, ids, mode
+        self.in_ptr, self.in_ids, self.cap, self.policy = in_ptr, in_ids, cap, policy
+        k = _k6_constants()
+        self.lane_max, self.cost = k["kLaneStreamMax"], k["kStreamCost"]
+
+    @staticmethod
+    def _bound(a, lo, hi, x, upper):  # first p in [lo, hi) failing a[p] < x (<= x when upper)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if (a[mid] <= x) if upper else (a[mid] < x):
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
+
+    def _s_bound(self, x, upper):
+        i = self._bound(self.samples, 0, len(self.samples), x, upper)
+        if self.stride == 1:
+            return i
+        lo = 0 if i == 0 else (i - 1) * self.stride + 1
+        hi = len(self.s) if i == len(self.samples) else i * self.stride
+        return self._bound(self.s, lo, hi, x, upper)
+
+    def _skip(self, x, u, v):
+        return (self.mode == "triangles" and x in (u, v)) or (self.mode == "directed" and (x <= u or x == v))
+
+    def stream(self, nv, u, v):
+        c = 0
+        for k, y in enumerate(nv):
+            if (k > 0 and nv[k - 1] == y) or self._skip(y, u, v):
+                continue
+            lb = self._s_bound(y, False)
+            if lb < len(self.s) and self.s[lb] == y:
+                c += self._s_bound(y, True) - lb if self.mode == "jaccard" else 1
+        return c
+
+    def search(self, nv, u, v):
+        c = 0
+        for t, x in enumerate(self.s):
+            if (self.mode != "jaccard" and t > 0 and self.s[t - 1] == x) or self._skip(x, u, v):
+                continue
+            lb = self._bound(nv, 0, len(nv), x, False)
+            c += lb < len(nv) and nv[lb] == x
+        return c
+
+    def row(self, u):
+        """Row u's counts: a float32 weight per entry (jaccard) or the sum."""
+        su, eu = int(self.indptr[u]), int(self.indptr[u + 1])
+        lists = (self.in_ptr, self.in_ids) if self.mode == "directed" else (self.indptr, self.ids)
+        self.s = lists[1][int(lists[0][u]):int(lists[0][u + 1])]
+        if self.policy == "deferred":  # stride 0: nothing staged, the whole list searched in device memory
+            self.stride, self.samples = 0, self.s[:0]
+        else:
+            self.stride = 1
+            while -(-len(self.s) // self.stride) > self.cap:
+                self.stride *= 2
+            self.samples = self.s[::self.stride]
+        weights, total = [], 0
+        for j in range(eu - su):
+            v = int(self.ids[su + j])
+            repeat = j > 0 and self.ids[su + j - 1] == v
+            if self.mode != "jaccard" and (repeat or (v == u if self.mode == "triangles" else v <= u)):
+                continue
+            nv = self.ids[int(self.indptr[v]):int(self.indptr[v + 1])]
+            dv = len(nv)
+            if self.policy == "rule":
+                streams = dv <= self.lane_max or dv <= self.cost * len(self.s) * dv.bit_length()
+            elif self.policy == "deferred":
+                streams = dv <= len(self.s)
+            else:
+                streams = self.policy == "stream"
+            c = self.stream(nv, u, v) if streams else self.search(nv, u, v)
+            if self.mode == "jaccard":
+                weights.append(np.float32(c / max(eu - su + dv - c, 1)))
+            total += c
+        return weights if self.mode == "jaccard" else total
+
+
+@st.composite
+def k6_patterns(draw):
+    """Small patterns with hubs (two of them adjacent, each other's
+    neighbours), duplicates, self-loops and sometimes fewer columns than
+    rows."""
+    n = draw(st.integers(1, 24))
+    ncols = draw(st.integers(1, n)) if draw(st.booleans()) else n
+    pairs = draw(st.lists(st.tuples(st.integers(0, n - 1), st.integers(0, ncols - 1)), max_size=70))
+    for h in range(draw(st.integers(0, 2))):  # hub rows 0 and 1, adjacent
+        cols = draw(st.lists(st.integers(0, ncols - 1), min_size=ncols // 2, max_size=2 * ncols))
+        pairs += [(min(h, n - 1), c) for c in cols]
+    if ncols == n and draw(st.booleans()):
+        pairs += [(b, a) for a, b in pairs]
+    r = np.array([a for a, _ in pairs], np.int64)
+    c = np.array([b for _, b in pairs], np.int64)
+    order = np.lexsort((c, r))
+    r, c = r[order], c[order]
+    indptr = np.r_[0, np.cumsum(np.bincount(r, minlength=n))]
+    return CSR(torch.from_numpy(indptr), torch.from_numpy(c.astype(np.int32)), None, (n, ncols))
+
+
+@pytest.mark.parametrize("policy", ["rule", "stream", "search", "deferred"])
+@settings(max_examples=60, deadline=None)
+@given(csr=k6_patterns(), cap=st.sampled_from([1, 2, 3, 32]))
+def test_k6_task_model_matches_plain(policy, csr, cap):
+    """The model of K6's count, in either direction and with S staged whole
+    or as samples, equals ``common_neighbors_plain`` in all three modes."""
+    from sparsebase_tpu_torch import CSC
+    from sparsebase_tpu_torch.ops.kernels import common_neighbors_plain
+
+    indptr, ids = csr.indptr.numpy(), csr.indices.numpy()
+    modes = ["jaccard", "triangles"] + (["directed"] if csr.nrows == csr.ncols else [])
+    for mode in modes:
+        csc = csr.convert(CSC) if mode == "directed" else None
+        in_ptr, in_ids = (csc.indptr.numpy(), csc.indices.numpy()) if csc is not None else (None, None)
+        model = K6TaskModel(indptr, ids, mode, in_ptr, in_ids, cap=cap, policy=policy)
+        per_row = [model.row(u) for u in range(csr.nrows)]
+        want = common_neighbors_plain(csr, mode, csc)
+        if mode == "jaccard":
+            got = np.array([w for ws in per_row for w in ws], np.float32)
+            np.testing.assert_array_equal(got, want.numpy())
+        else:
+            assert sum(per_row) == int(want), mode
