@@ -57,7 +57,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    one ``GraphFeatureBase.extract`` of the 17 reference features that are
    not fused classes (the extractor fuses them back): the column features
    through ``convert(CSC)`` (K5, K3), ``JaccardWeights`` and the undirected
-   ``TriangleCount`` through K6.
+   ``TriangleCount`` through K6; path G, the reorderers on path A's COO:
+   ``convert(CSR)`` (K3), ``GrayReorder`` (K5), ``BOBAReorder`` on the COO
+   (K5), ``DegreeReorder`` (K5) and ``ReorderHeatmap(8).get_heatmap_with_stats``
+   under the natural, degree, Gray and BOBA orders, then SlashBurn (k = 8),
+   AMD, nested dissection and Rabbit through ``ReorderBase.reorder`` by name
+   on a power-law graph of 32,768 vertices on the card (host algorithms:
+   graphkit on a host copy, the order back on the card).
    Every kernel of each path must have launched;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
@@ -99,7 +105,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    mode, to the same pattern as 16,385 vertices and to the host routes
    directed; K_512 giving C(512, 3) on both tiers and twice that directed;
    ``FillIn`` of a CUDA CSR of a 33-diagonal band at 131,072 rows equal to
-   its closed form);
+   its closed form); of path G (the Gray and BOBA orders and each heatmap
+   grid and stats equal to the port's CPU route on host copies of the full
+   graph; each order a permutation, int32 on the card; each grid summing to 1
+   within 1e-5 and its stats equal to a recount; Gray and BOBA with no host
+   sync, so nothing of theirs left the card, the heatmap with at most three
+   (``bincount``'s and the stats' reads); each host reorderer's order
+   int32 on the card and equal to the same call on a CPU copy);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -132,7 +144,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    counts), and on the power-law graphs; the directed
    ``TriangleCount`` end to end; graphkit's Jaccard and triangles on the
    cut power-law graph (host times); the whole ``extract``; the dense tier
-   at 16,384 vertices beside K6, undirected and directed;
+   at 16,384 vertices beside K6, undirected and directed; path G: Gray,
+   BOBA, ``DegreeReorder`` and the heatmap, one call and three back to
+   back, with their host syncs per call, Gray's histogram and key and
+   BOBA's pair sort alone, a profiled run of three calls of Gray, BOBA and
+   the heatmap (device busy, wall, the top device operations), and the host
+   reorderers' wall times;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -145,8 +162,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the device's idle share).
 
 Path D runs its phases 3, 4 and 5 (and its profile) after phase 6 of the
-other paths, path E its phases 3, 4 and 5 after path D, and path F its
-phases 3, 4 and 5 after path E.
+other paths, path E its phases 3, 4 and 5 after path D, path F its
+phases 3, 4 and 5 after path E, and path G its phases 3, 4 and 5 after
+path F.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -686,7 +704,9 @@ def device_profile(fn, runs: int = 3):
         wall_ms = (time.perf_counter() - t0) * 1e3 / runs
     per_kernel, spans = {}, []
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        # the package's ``sbtorch:`` labels come back as device ranges too:
+        # they span the work of an op, idle time included, and are no work
+        if ev.device_type == DeviceType.CUDA and not ev.name.startswith("sbtorch:"):
             per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + ev.device_time_total / 1e3 / runs
             spans.append((ev.time_range.start, ev.time_range.end, ev.name))
     return per_kernel, sorted(spans), wall_ms
@@ -1458,6 +1478,177 @@ def path_f(g, dev, n: int):
     return launches, err, times, dict(n=csr.nrows, nnz=csr.nnz)
 
 
+HOST_REORDER_GRAPH = (32_768, 262_144)  # vertices, entries before mirroring: the host reorderers' power-law graph
+HOST_REORDERERS = (("slashburn", {"k_size": 8}), ("amd", None), ("metis", None), ("rabbit", None))
+HEATMAP_PARTS = 8
+
+
+class PathG:
+    """Path G: the reorderers. The device part takes path A's COO: its
+    ``convert(CSR)`` (K3), ``GrayReorder`` on the CSR and ``BOBAReorder`` on
+    the COO (both K5), ``DegreeReorder`` (K5), and one
+    ``ReorderHeatmap(8).get_heatmap_with_stats`` under each of the natural,
+    degree, Gray and BOBA orders. The host part takes a power-law graph of
+    32,768 vertices on the card through ``ReorderBase.reorder`` by name:
+    SlashBurn (k = 8), AMD, nested dissection ("metis") and Rabbit."""
+
+    def __init__(self, g, dev, coo):
+        self.coo = coo
+        self.host_graph = power_law_pattern(g, dev, *HOST_REORDER_GRAPH)
+
+    def run(self):
+        from sparsebase_tpu_torch import CSR, DenseArray, ReorderBase
+        from sparsebase_tpu_torch.ops.reorder import BOBAReorder, DegreeReorder, GrayReorder, ReorderHeatmap
+
+        csr = self.coo.convert(CSR)
+        orders = {"natural": torch.arange(csr.nrows, dtype=torch.int32, device=csr.indptr.device),
+                  "degree": DegreeReorder().get_reorder(csr), "gray": GrayReorder().get_reorder(csr),
+                  "boba": BOBAReorder().get_reorder(self.coo)}
+        heat = {label: ReorderHeatmap(HEATMAP_PARTS).get_heatmap_with_stats(csr, DenseArray(o), DenseArray(o))
+                for label, o in orders.items()}
+        host = {name: timed(lambda: ReorderBase.reorder(name, self.host_graph, params=params))
+                for name, params in HOST_REORDERERS}
+        return csr, orders, heat, host
+
+
+def check_heatmap(label: str, csr, order, heat, stats) -> None:
+    """The grid sums to 1 within 1e-5 and the stats equal a recount by plain
+    torch ops on the card."""
+    b = HEATMAP_PARTS
+    total = float(heat.vals.to(torch.float64).sum())
+    check(heat.vals.device == csr.indptr.device and heat.vals.shape == (b * b,), f"path G heatmap {label}: placement")
+    check(abs(total - 1.0) <= 1e-5, f"path G heatmap {label}: the grid sums to {total!r}")
+    u = order.long()[csr.row_of_nnz().long()]
+    v = order.long()[csr.indices.long()]
+    bw = (u - v).abs()
+    bsize = csr.nrows // b
+    blocks = torch.zeros((b, b), dtype=torch.int64, device=u.device)
+    blocks.index_put_((torch.clamp(u // bsize, max=b - 1), torch.clamp(v // bsize, max=b - 1)),
+                      torch.ones_like(u), accumulate=True)
+    i = torch.arange(b, device=u.device)
+    want = {"mean_bw": int(bw.sum()) / csr.nnz, "max_bw": int(bw.max()), "num_full_blocks": int((blocks > 0).sum()),
+            "block_mean_bw": int(((i[:, None] - i[None, :]).abs() * blocks).sum()) / csr.nnz}
+    check(stats == want, f"path G heatmap {label}: stats {stats} against a recount {want}")
+
+
+def phase_path_g_checks(p: PathG, csr, orders, heat, host) -> None:
+    """Every path G result against the port's CPU route of the same function
+    on host copies of the full graph; the heatmaps against a recount; Gray
+    and BOBA with no host sync (nothing leaves the card)."""
+    from sparsebase_tpu_torch import DenseArray, ReorderBase
+    from sparsebase_tpu_torch.ops.reorder import BOBAReorder, GrayReorder, ReorderHeatmap
+
+    n = csr.nrows
+    print(f"phase 4 path G checks: n={n} entries={csr.nnz}, the CPU routes on host copies of the full graph")
+    host_csr, host_coo = csr.to_host(), p.coo.to_host()
+    for label, order in orders.items():
+        check(order.device == csr.indptr.device and order.dtype == torch.int32, f"path G {label} order placement")
+        check(bool((torch.bincount(order.long(), minlength=n) == 1).all()), f"path G {label} order: no permutation")
+    cpu_orders, seconds = {}, {}
+    for label, fn in (("gray", lambda: GrayReorder().get_reorder(host_csr)),
+                      ("boba", lambda: BOBAReorder().get_reorder(host_coo))):
+        t0 = time.perf_counter()
+        cpu_orders[label] = fn()
+        seconds[label] = time.perf_counter() - t0
+        check_equal(f"path G {label} order, card vs the CPU route", orders[label].cpu(), cpu_orders[label])
+    for label, order in orders.items():
+        grid, stats = heat[label]
+        check_heatmap(label, csr, order, grid, stats)
+        t0 = time.perf_counter()
+        cpu_grid, cpu_stats = ReorderHeatmap(HEATMAP_PARTS).get_heatmap_with_stats(
+            host_csr, DenseArray(order.cpu()), DenseArray(order.cpu()))
+        seconds[f"heatmap {label}"] = time.perf_counter() - t0
+        check_equal(f"path G heatmap grid ({label}), card vs the CPU route", grid.vals.cpu(), cpu_grid.vals)
+        check(stats == cpu_stats, f"path G heatmap stats ({label}): card {stats}, CPU {cpu_stats}")
+        print(f"  path G heatmap stats under the {label} order: mean_bw {stats['mean_bw']!r}, max_bw "
+              f"{stats['max_bw']}, num_full_blocks {stats['num_full_blocks']} of {HEATMAP_PARTS ** 2}, "
+              f"block_mean_bw {stats['block_mean_bw']!r}")
+    print("  path G CPU routes (host seconds, not the card's): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                                            seconds.items()))
+    for label, op, fmt in (("GrayReorder", GrayReorder(), csr), ("BOBAReorder", BOBAReorder(), p.coo)):
+        syncs = count_host_syncs(lambda: op.get_reorder(fmt))
+        check(syncs == 0, f"path G {label} synced the host {syncs} times: something left the card")
+    # the heatmap's three: torch.bincount's reads of its range, the stats' one read
+    gray = DenseArray(orders["gray"])
+    syncs = count_host_syncs(lambda: ReorderHeatmap(HEATMAP_PARTS).get_heatmap_with_stats(csr, gray, gray))
+    check(syncs <= 3, f"path G heatmap synced the host {syncs} times, more than bincount's and the stats' reads")
+    graph = p.host_graph
+    host_graph = graph.to_host()
+    for (name, params), (order, _) in zip(HOST_REORDERERS, host.values()):
+        check(order.device == graph.indptr.device and order.dtype == torch.int32,
+              f"path G {name}: the order is not int32 on the card")
+        check(bool((torch.bincount(order.long(), minlength=graph.nrows) == 1).all()), f"path G {name}: no permutation")
+        check_equal(f"path G {name} on the card vs on a CPU copy", order.cpu(),
+                    ReorderBase.reorder(name, host_graph, params=params))
+    print(f"  path G host reorderers on n={graph.nrows}, {graph.nnz} entries: each order int32 on the card and equal "
+          f"to the call on a CPU copy")
+
+
+def phase_path_g_times(p: PathG, csr, host) -> None:
+    """Gray, BOBA, DegreeReorder and the heatmap: one call (median of 5 after
+    a warm-up), three back to back, the host syncs of one call; their main
+    steps alone; one profiled run of three calls of Gray, BOBA and the
+    heatmap (K5 on path A's degrees is profiled in phase 6); the host
+    reorderers' wall times."""
+    from sparsebase_tpu_torch import DenseArray
+    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs
+    from sparsebase_tpu_torch.ops.reorder import BOBAReorder, DegreeReorder, GrayReorder, ReorderHeatmap
+    from sparsebase_tpu_torch.ops.reorder.gray import _gray_keys
+
+    gray = GrayReorder().get_reorder(csr)
+    coo = p.coo
+    zero = torch.zeros((csr.nrows,), dtype=torch.int64, device=csr.indptr.device)
+    calls = [("GrayReorder", lambda: GrayReorder().get_reorder(csr), True),
+             ("BOBAReorder", lambda: BOBAReorder().get_reorder(coo), True),
+             ("DegreeReorder", lambda: DegreeReorder().get_reorder(csr), False),
+             ("heatmap_with_stats (Gray order)",
+              lambda: ReorderHeatmap(HEATMAP_PARTS).get_heatmap_with_stats(csr, DenseArray(gray), DenseArray(gray)),
+              True)]
+    row = csr.row_of_nnz().to(torch.int64)
+    steps = [("Gray's histogram and key (_gray_keys, sparse thresholds)", lambda: _gray_keys(csr, row, 32, zero)),
+             ("BOBA's (col, row) pair sort (sort_by_pairs, K5)",
+              lambda: sort_by_pairs(coo.col, coo.row, major_bound=coo.ncols, minor_bound=coo.nrows))]
+    for label, fn, profiled in calls:
+        ms, back = cuda_ms(fn), cuda_ms(fn, batch=3, reps=3)
+        syncs = count_host_syncs(fn)
+        print(f"phase 5 path G {label} (n={csr.nrows}, {csr.nnz} entries): one call {ms:.4f} ms, back to back "
+              f"{back:.4f} ms, host syncs {syncs}")
+        if not profiled:
+            continue
+        runs = 3
+        per_kernel, spans, wall_ms = device_profile(fn, runs=runs)
+        if not spans:
+            print(f"phase 6 profile of path G {label}: the profiler recorded no device operation (not measured)")
+            continue
+        busy_ms = device_busy(spans)[0] / 1e3 / runs
+        print(f"phase 6 profile of path G {label}, {runs} runs: device busy {busy_ms:.4f} ms per run as recorded, "
+              f"wall under the profiler {wall_ms:.4f} ms, idle {1 - busy_ms / wall_ms:.1%}, "
+              f"{len(spans) / runs:.0f} device operations recorded per run")
+        for name, k_ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"  {k_ms:9.4f} ms {k_ms / busy_ms:6.1%}  {name[:110]}")
+    for label, fn in steps:
+        print(f"phase 5 path G step {label}: one call {cuda_ms(fn):.4f} ms")
+    graph = p.host_graph
+    print(f"phase 5 path G host reorderers on n={graph.nrows}, {graph.nnz} entries (one call each through "
+          f"ReorderBase.reorder, host and copies included): " + ", ".join(
+              f"{name} {ms:.1f} ms" for name, (_, ms) in host.items()))
+
+
+def path_g(g, dev, coo):
+    """Path G's phases 3, 4 and 5, run after path F on path A's COO. Returns
+    its launch counts."""
+    from sparsebase_tpu_torch import _build
+
+    p = PathG(g, dev, coo)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    csr, orders, heat, host = p.run()
+    launches = read_launches("G", ("indptr", "radix_rank"))
+    phase_path_g_checks(p, csr, orders, heat, host)
+    phase_path_g_times(p, csr, host)
+    return launches
+
+
 def read_launches(path: str, required) -> dict:
     from sparsebase_tpu_torch import _build
 
@@ -1663,8 +1854,9 @@ def main() -> None:
     launches_d, err_k1_d = path_d(g, dev, args.rcm_n, args.seed)
     launches_e = path_e(g, dev, int(args.ingest_nnz))
     launches_f, err_k6, k6_times, k6_shape = path_f(g, dev, args.feature_n)
+    launches_g = path_g(g, dev, coo_a)
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
-                for k in launches_a}
+                + launches_g[k] for k in launches_a}
 
     shapes = {
         "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],

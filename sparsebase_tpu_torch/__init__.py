@@ -13,9 +13,11 @@ Layer map:
     io           MTX, edge list, SBFF, METIS, PaToH readers and writers; Pigo readers (fastio)
     objects      Graph / HyperGraph over a connectivity format
     native       graphkit: host C++ graph algorithms (ctypes, g++ at first use)
-    ops          reorder (DegreeReorder, RCMReorder) / permute (2-D, 1-D) / feature (all 20
-                 features, the fused Extractor) / kernels (K1 DIA SpMV, K2 CSR SpMV, K3 indptr,
-                 K4 CSR relocation, K5 stable radix sort, K6 common neighbours)
+    ops          reorder (degree, RCM, Gray, BOBA, SlashBurn, AMD, nested dissection, Rabbit,
+                 generic; the heatmap) / permute (2-D, 1-D) / feature (all 20 features, the
+                 fused Extractor) / kernels (K1 DIA SpMV, K2 CSR SpMV, K3 indptr, K4 CSR
+                 relocation, K5 stable radix sort, K6 common neighbours) / partition (the
+                 multilevel helpers of nested dissection)
     dispatch     Operation (auto-converting multi-format dispatch)
     convert      conversion graph + torch conversion functions
     formats      COO / CSR / CSC / DIA / ELL / DenseArray / PaddedCSR frozen dataclasses

@@ -3,11 +3,8 @@
 Counterpart of ``sparsebase_tpu/bases.py`` (reference:
 src/sparsebase/bases/iobase.h:46-390, reorder_base.h:29-708). Each façade
 is a class of static one-liners over the readers, writers and ops.
-``ReorderBase`` knows the reorderers the port has ("degree", "rcm"); a name
-the JAX package knows and the port has not ported yet raises
-``NotImplementedError``, an unknown one ``KeyError``. Not here yet:
-``ReorderBase.heatmap`` and ``heatmap_with_stats``, which come with the
-heatmap reorderer (ROADMAP, queue 1).
+``ReorderBase`` takes a reorderer class or any of the JAX package's short
+names; an unknown name raises ``KeyError``.
 
 The readers behind ``IOBase`` put what they read on the card unless the
 caller passes ``device="cpu"``.
@@ -15,14 +12,21 @@ caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import torch
+
 from .formats.array import DenseArray
 from .formats.base import Format
 from .formats.coo import COO
 from .formats.csr import CSR
 from .io.placement import DEFAULT_DEVICE
 
-# reorderers of the JAX package that wait for ROADMAP queue 1, item 7
-_NOT_PORTED = ("gray", "slashburn", "boba", "amd", "metis", "nested_dissection", "rabbit")
+
+def _as_dense_array(order, fmt: Format) -> DenseArray:
+    """``order`` as a ``DenseArray``; a raw array or tensor goes on ``fmt``'s
+    device."""
+    if isinstance(order, DenseArray):
+        return order
+    return DenseArray(torch.as_tensor(order, device=fmt.context.device))
 
 
 class ReorderBase:
@@ -31,19 +35,27 @@ class ReorderBase:
 
     @staticmethod
     def _resolve(reorderer_cls):
-        """A Reorderer class, or its short name ("degree", "rcm")."""
+        """A Reorderer class, or its short name ("degree", "rcm", "gray",
+        "slashburn", "boba", "amd", "metis" or "nested_dissection",
+        "rabbit")."""
         if not isinstance(reorderer_cls, str):
             return reorderer_cls
         from .ops import reorder as _r
 
+        aliases = {
+            "degree": _r.DegreeReorder,
+            "rcm": _r.RCMReorder,
+            "gray": _r.GrayReorder,
+            "slashburn": _r.SlashburnReorder,
+            "boba": _r.BOBAReorder,
+            "amd": _r.AMDReorder,
+            "metis": _r.MetisReorder,
+            "nested_dissection": _r.MetisReorder,
+            "rabbit": _r.RabbitReorder,
+        }
         key = reorderer_cls.lower()
-        aliases = {"degree": _r.DegreeReorder, "rcm": _r.RCMReorder}
-        if key in _NOT_PORTED:
-            raise NotImplementedError(
-                f"reorderer {reorderer_cls!r} is not ported yet (ROADMAP queue 1, item 7); ported: {sorted(aliases)}"
-            )
         if key not in aliases:
-            raise KeyError(f"unknown reorderer {reorderer_cls!r}; one of {sorted([*aliases, *_NOT_PORTED])}")
+            raise KeyError(f"unknown reorderer {reorderer_cls!r}; one of {sorted(aliases)}")
         return aliases[key]
 
     @staticmethod
@@ -117,6 +129,26 @@ class ReorderBase:
         from .ops.permute import inverse_permutation as inv
 
         return inv(perm)
+
+    @staticmethod
+    def heatmap(fmt, order_r, order_c, num_parts: int = 8, context=None):
+        """(Heatmap, reorder_base.h:696-708): the block density grid of
+        ``fmt`` under a row and a column order (raw orders are wrapped in
+        ``DenseArray`` objects on ``fmt``'s device)."""
+        from .ops.reorder.heatmap import ReorderHeatmap
+
+        return ReorderHeatmap(num_parts).get_heatmap(fmt, _as_dense_array(order_r, fmt),
+                                                     _as_dense_array(order_c, fmt), context=context)
+
+    @staticmethod
+    def heatmap_with_stats(fmt, order_r, order_c, num_parts: int = 8, context=None):
+        """``(heatmap, stats)`` in one pass; the stats are the mean and
+        largest bandwidth, the count of non-empty blocks and the block
+        bandwidth (reorder_heatmap.cc:58-106)."""
+        from .ops.reorder.heatmap import ReorderHeatmap
+
+        return ReorderHeatmap(num_parts).get_heatmap_with_stats(fmt, _as_dense_array(order_r, fmt),
+                                                                _as_dense_array(order_c, fmt), context=context)
 
 
 class GraphFeatureBase:

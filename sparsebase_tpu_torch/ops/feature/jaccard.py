@@ -13,7 +13,8 @@ Routes: CPU tensors take ``native.jaccard`` (graphkit) where it builds,
 else ``_jaccard_host``; a CUDA CSR takes kernel K6 whatever its size (the
 JAX package's flat-expansion wall ``MAX_FLAT_EXPANSION`` and its host
 fallback are TPU limits with no counterpart here). All three agree bit for
-bit.
+bit. A CSR with more columns than rows raises ``ValueError`` before any
+route: a column id must name a row.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from ...formats.array import DenseArray
 from ...formats.csr import CSR
-from ..kernels.common_neighbors import common_neighbors_plain
+from ..kernels.common_neighbors import check_ids_name_rows, common_neighbors_plain
 from .base import Feature
 
 
@@ -39,6 +40,7 @@ class JaccardWeights(Feature):
     @staticmethod
     def _impl(formats, params) -> DenseArray:
         csr: CSR = formats[0]
+        check_ids_name_rows(csr)  # before any route: graphkit would read past indptr
         if csr.indptr.device.type != "cpu":
             from .sparse_common import jaccard_weights_sparse_device
 

@@ -26,7 +26,8 @@ Routes, which give the JAX package's counts:
 The JAX package's directed host route counts ``u -> v -> v -> u`` through a
 self-loop at ``v`` while its dense tier does not; here every route ignores
 self-loops, so a count does not change with the route. Every route returns a
-Python int.
+Python int. A CSR with more columns than rows raises ``ValueError`` before
+any route: a column id must name a row.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import dataclasses
 import torch
 
 from ...formats.csr import CSR
-from ..kernels.common_neighbors import lower_bound, search_rounds
+from ..kernels.common_neighbors import check_ids_name_rows, lower_bound, search_rounds
 from .base import Feature
 
 # One n x n float32 matrix at n = 16,384 is 1 GiB; the dense count holds the
@@ -167,6 +168,7 @@ class TriangleCount(Feature):
     @staticmethod
     def _impl(formats, params: TriangleCountParams) -> int:
         csr: CSR = formats[0]
+        check_ids_name_rows(csr)  # before any route: graphkit and the recast to (n, n) would read past indptr
         if csr.indptr.device.type != "cpu":
             from . import sparse_common
 

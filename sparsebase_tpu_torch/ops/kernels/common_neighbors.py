@@ -79,11 +79,18 @@ def _scratch_words():
     return fn
 
 
+def check_ids_name_rows(csr: CSR) -> None:
+    """Raise ``ValueError`` when ``csr`` has more columns than rows: a
+    common-neighbour count reads the row of every column id. The check reads
+    the shape only, no device memory."""
+    if csr.ncols > csr.nrows:
+        raise ValueError(f"common_neighbors: shape {csr.shape} has more columns than rows; every id must name a row")
+
+
 def _check(csr: CSR, mode: str, csc) -> None:
     if mode not in MODES:
         raise ValueError(f"common_neighbors: mode {mode!r}, expected one of {MODES}")
-    if csr.ncols > csr.nrows:
-        raise ValueError(f"common_neighbors: shape {csr.shape} has more columns than rows; every id must name a row")
+    check_ids_name_rows(csr)
     if mode == "directed":
         if not isinstance(csc, CSC) or csc.shape != csr.shape or csr.nrows != csr.ncols or csc.nnz != csr.nnz:
             raise ValueError("common_neighbors: directed mode needs a square CSR and its CSC (csc=)")

@@ -15,7 +15,15 @@ from .exceptions import (
     WriterError,
 )
 from .logger import LOG_LVL_INFO, LOG_LVL_NONE, LOG_LVL_WARNING, Logger, LogLevel
-from .typing import can_dtype_fit, convert_array_dtype, index_dtype_for
+from .typing import (
+    FLOAT_DTYPES,
+    ID_DTYPES,
+    NNZ_DTYPES,
+    VALUE_DTYPES,
+    can_dtype_fit,
+    convert_array_dtype,
+    index_dtype_for,
+)
 
 __all__ = [
     "SparseBaseError",
@@ -38,4 +46,8 @@ __all__ = [
     "can_dtype_fit",
     "convert_array_dtype",
     "index_dtype_for",
+    "ID_DTYPES",
+    "NNZ_DTYPES",
+    "VALUE_DTYPES",
+    "FLOAT_DTYPES",
 ]

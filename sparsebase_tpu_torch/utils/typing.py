@@ -12,6 +12,13 @@ import torch
 
 from .exceptions import TypeMismatchError
 
+# The dtype universes of the reference's CMake type lists (CMakeLists.txt:15-18),
+# as in ``sparsebase_tpu/utils/typing.py:26-29``; no code reads them.
+ID_DTYPES = (torch.int32, torch.uint32, torch.int64, torch.uint64)
+NNZ_DTYPES = (torch.int32, torch.uint32, torch.int64, torch.uint64)
+VALUE_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.int32, torch.int64)
+FLOAT_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
+
 
 def can_dtype_fit(to_dtype: torch.dtype, values: torch.Tensor) -> bool:
     """True iff every element of ``values`` is exactly representable in

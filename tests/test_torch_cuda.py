@@ -964,3 +964,83 @@ def test_fill_in_of_a_card_csr(dev, gen):
     ok = (j >= 0) & (j < n)
     band = COO.new(i.expand_as(j)[ok].to(torch.int32), j[ok].to(torch.int32), None, (n, n)).convert(CSR)
     assert GraphFeatureBase.get_fill_in(band) == sum(min(k, half) + 1 for k in range(n))
+
+
+@pytest.mark.parametrize("n", [4_096, 16_384, 16_385])
+def test_more_columns_than_rows_raises_on_card(dev, n):
+    """Fault 3.1 repaired: on both sides of the dense wall, a CUDA CSR whose
+    ids name no row raises before any route reads it."""
+    from sparsebase_tpu_torch.ops import feature
+
+    indptr = torch.tensor([0, 2, 3] + [4] * (n - 1), device=dev)
+    csr = CSR(indptr, torch.tensor([0, n, n + 1, 1], dtype=torch.int32, device=dev), None, (n, n + 2))
+    for run in (lambda: feature.JaccardWeights().get_jaccard_weights(csr),
+                lambda: feature.TriangleCount().get_triangle_count(csr),
+                lambda: feature.TriangleCount(True).get_triangle_count(csr)):
+        with pytest.raises(ValueError, match="more columns than rows"):
+            run()
+
+
+def reorder_graph(gen, dev, n, nnz, shape=None):
+    """A COO of ``nnz`` entries, rows uniform and a fifth of the columns from
+    a clump (path A's generator), duplicates kept, row-major sorted."""
+    n_rows, n_cols = shape or (n, n)
+    row = torch.randint(0, n_rows, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    col = torch.randint(0, n_cols, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    clump = torch.randint(0, max(n_cols // 100, 1), (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    col = torch.where(torch.rand((nnz,), generator=gen, device=dev) < 0.2, clump, col)
+    return COO.new(row, col, None, (n_rows, n_cols))
+
+
+@pytest.mark.parametrize("shape", [(200_000, 200_000), (50_000, 80_000), (80_000, 50_000), (1_000, 20)],
+                         ids=["square", "wide", "tall", "narrow"])
+def test_gray_boba_heatmap_on_card_equal_the_cpu(dev, gen, shape):
+    """Gray, BOBA and the heatmap run on the card (each stays there: no
+    result moves to the CPU) and equal their CPU routes exactly (``mean_bw``
+    too: both sum exactly)."""
+    from sparsebase_tpu_torch import ReorderBase
+    from sparsebase_tpu_torch.ops.reorder import BOBAReorder, GrayReorder
+
+    coo = reorder_graph(gen, dev, None, 1_000_000 if shape[0] > 1_000 else 20_000, shape)
+    csr = coo.convert(CSR)
+    host_coo, host_csr = coo.to_host(), csr.to_host()
+    for kw in (dict(), dict(resolution=16, nnz_threshold=4), dict(resolution=64, sparse_density_group_size=1)):
+        got = GrayReorder(**kw).get_reorder(csr)
+        assert got.device.type == "cuda" and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), GrayReorder(**kw).get_reorder(host_csr)), kw
+    got = BOBAReorder().get_reorder(coo)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), BOBAReorder().get_reorder(host_coo))
+    n, m = shape
+    orders = (torch.arange(n, device=dev), torch.arange(m, device=dev))
+    if n == m:
+        orders = (got, got)
+    for parts in (1, 8, 20):
+        heat, stats = ReorderBase.heatmap_with_stats(csr, *orders, num_parts=parts)
+        want_heat, want = ReorderBase.heatmap_with_stats(host_csr, *(o.cpu() for o in orders), num_parts=parts)
+        assert heat.vals.device.type == "cuda" and torch.equal(heat.vals.cpu(), want_heat.vals)
+        assert stats == want
+
+
+def test_gray_and_boba_make_no_host_sync(dev, gen):
+    from sparsebase_tpu_torch.ops.reorder import BOBAReorder, GrayReorder
+
+    coo = reorder_graph(gen, dev, 100_000, 1_000_000)
+    csr = coo.convert(CSR)
+    for op, fmt in ((GrayReorder(), csr), (BOBAReorder(), coo)):
+        op.get_reorder(fmt)  # builds and loads the kernels
+        syncs, got = count_syncs(lambda: op.get_reorder(fmt))
+        assert not syncs, (type(op).__name__, [str(w.message) for w in syncs])
+
+
+@pytest.mark.parametrize("name", ["slashburn", "amd", "metis", "rabbit"])
+def test_host_reorderers_return_to_the_card(dev, gen, name):
+    """A host reorderer copies a CUDA CSR to the host once and returns an
+    int32 order on the card, equal to the call on a CPU copy."""
+    from sparsebase_tpu_torch import ReorderBase
+
+    coo = reorder_graph(gen, dev, 3_000, 20_000)
+    csr = COO.new(torch.cat([coo.row, coo.col]), torch.cat([coo.col, coo.row]), None, coo.shape).convert(CSR)
+    params = {"k_size": 8} if name == "slashburn" else None
+    got = ReorderBase.reorder(name, csr, params=params)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), ReorderBase.reorder(name, csr.to_host(), params=params))

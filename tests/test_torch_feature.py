@@ -449,6 +449,30 @@ def test_jaccard_routes_off_the_cpu_to_k6(monkeypatch):
     assert calls == ["k6"] and isinstance(out, DenseArray)
 
 
+def more_columns_than_rows(n: int) -> CSR:
+    """``n`` rows and ``n + 2`` columns; ids ``n`` and ``n + 1`` name no row."""
+    indptr = torch.tensor([0, 2, 3] + [4] * (n - 1))
+    return CSR(indptr, torch.tensor([0, n, n + 1, 1], dtype=torch.int32), None, (n, n + 2))
+
+
+@pytest.mark.parametrize("device,n", [("cpu", 3), ("meta", 3), ("meta", 16_385)])
+@pytest.mark.parametrize("use_graphkit", [True, False], ids=["graphkit", "torch"])
+@pytest.mark.parametrize("op", ["jaccard", "triangles", "directed"])
+def test_more_columns_than_rows_raises_on_every_route(saved_config, op, use_graphkit, device, n):
+    """A column id that names no row raises before any route: on the CPU
+    with graphkit on (which read past ``indptr``) and off, and on the routes
+    of a CUDA CSR on both sides of the dense wall. Not held to the JAX
+    package, which reads undefined memory there."""
+    set_config(use_graphkit=use_graphkit)
+    csr = more_columns_than_rows(n)
+    csr = csr if device == "cpu" else on_meta(csr)
+    with pytest.raises(ValueError, match="more columns than rows"):
+        if op == "jaccard":
+            feature.JaccardWeights().get_jaccard_weights(csr)
+        else:
+            feature.TriangleCount(op == "directed").get_triangle_count(csr)
+
+
 def test_k6_wrapper_raises_off_the_cpu_without_a_card():
     """Tensors that are not on the CPU launch the kernel or raise: never the
     plain version."""

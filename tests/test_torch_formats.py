@@ -454,3 +454,13 @@ def test_new_formats_round_trip_through_interop(kind):
     assert got.context == HostContext()
     if kind != "DenseArray":
         assert got.to_host().shape == want.shape
+
+
+@pytest.mark.parametrize("name", ["ID_DTYPES", "NNZ_DTYPES", "VALUE_DTYPES", "FLOAT_DTYPES"])
+def test_dtype_universes_match_jax(name):
+    """The reference's CMake type lists, as torch dtypes in the JAX
+    package's order."""
+    from sparsebase_tpu import utils as ref_utils
+
+    got = [str(d).removeprefix("torch.") for d in getattr(sbt.utils, name)]
+    assert got == [np.dtype(d).name for d in getattr(ref_utils, name)]

@@ -355,8 +355,9 @@ def test_reorder_base_matches_direct_calls_and_reference():
     assert torch.equal(ReorderBase.permute1d(order, arr).vals, permute_1d(arr, order).vals)
     assert torch.equal(ReorderBase.permute1d_cached(order, arr)[1].vals, permute_1d(arr, order).vals)
     assert torch.equal(ReorderBase.inverse_permutation(order), inverse_permutation(order))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ReorderBase.reorder("gray", csr)
+    # every reorderer is ported: "gray" runs and equals the JAX package's
+    np.testing.assert_array_equal(ReorderBase.reorder("gray", csr).numpy(),
+                                  np.asarray(RefReorderBase.reorder("gray", ref_csr)))
     with pytest.raises(KeyError):
         ReorderBase.reorder("no-such-reorderer", csr)
 
