@@ -31,7 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    groups of 32 rows: rows of exactly 32 and 33 entries, a group of empty
    rows, a group of block-tier rows, one row, n not a multiple of 32, id
    and value arrays one element off 16-byte alignment, a column table of
-   2^24 entries);
+   2^24 entries) and K7 (a label-propagation round; k = 2, 8, 64, 4,096 and
+   8,192, past its shared-memory tier, a row of 262,144 entries, every third
+   row empty, no entries, integer-valued and real weights, ids one element
+   off 16-byte alignment; the penalty's weight at 0.1 and 1);
 3. the slice's paths, each once, with every launch count set to 0 just
    before it and read just after: path A, ``preprocess_pipeline`` on a
    ``--nnz`` COO made on the device (uniform rows, columns 20% from
@@ -63,7 +66,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    under the natural, degree, Gray and BOBA orders, then SlashBurn (k = 8),
    AMD, nested dissection and Rabbit through ``ReorderBase.reorder`` by name
    on a power-law graph of 32,768 vertices on the card (host algorithms:
-   graphkit on a host copy, the order back on the card).
+   graphkit on a host copy, the order back on the card); path H, partitioning:
+   ``models.partition_pipeline`` on path A's COO (k = 8, 10 rounds: K3, K7
+   once a round, K5, K4, K2), then ``PulpPartition`` (graphkit, and with
+   ``use_graphkit`` off, so that K7 runs inside it), ``MetisPartition``
+   (kway and rb) and ``PatohPartition``, k = 8, on path G's power-law graph
+   of 32,768 vertices on the card.
    Every kernel of each path must have launched;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
@@ -111,7 +119,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    within 1e-5 and its stats equal to a recount; Gray and BOBA with no host
    sync, so nothing of theirs left the card, the heatmap with at most three
    (``bincount``'s and the stats' reads); each host reorderer's order
-   int32 on the card and equal to the same call on a CPU copy);
+   int32 on the card and equal to the same call on a CPU copy); of path H
+   (the labels equal to ten rounds through K7's plain version on the card,
+   int32 in [0, 8); the permuted CSR equal to the plain relocation under the
+   labels' stable rank, ``y`` against the plain SpMV; ten rounds of
+   ``_propagate`` with no host sync; part sizes, balance and the edge cut
+   before and after; each partitioner's labels int32 on the card, equal to
+   the same call on a CPU copy, with K7 launched by Pulp without graphkit
+   only);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -149,7 +164,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    back, with their host syncs per call, Gray's histogram and key and
    BOBA's pair sort alone, a profiled run of three calls of Gray, BOBA and
    the heatmap (device busy, wall, the top device operations), and the host
-   reorderers' wall times;
+   reorderers' wall times; path H: ``partition_pipeline`` end to end (median
+   of 5 after a warm-up), K7 one call and back to back at the first and the
+   last round beside its plain version and its bound, K7's device time per
+   kernel, a profile of the pipeline, and K2 on the partitioned CSR beside
+   K2 on the source;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -163,21 +182,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 Path D runs its phases 3, 4 and 5 (and its profile) after phase 6 of the
 other paths, path E its phases 3, 4 and 5 after path D, path F its
-phases 3, 4 and 5 after path E, and path G its phases 3, 4 and 5 after
-path F.
+phases 3, 4 and 5 after path E, path G its phases 3, 4 and 5 after
+path F, and path H its phases 3, 4 and 5 after path G.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
 sums of the same terms taken in different orders. K3, K4, K5 and K6 compute
 exact results and must equal their plain versions (``torch.equal``; K6's
-Jaccard weights are one rounding of an exact quotient).
+Jaccard weights are one rounding of an exact quotient). K7's labels equal
+its plain version's where the counts are integers; with real weights a row
+may differ only where its two best scores lie within 8 ulp.
 
 A kernel's bound (``bound_ms``) is the larger of two times: the bytes its
 function must move (each input read once, each output written once) over
 the H100's 3.35 TB/s, and its floating-point operations over the 67 TFLOP/s
 f32 rate outside the tensor cores (data sheet, SXM, 700 W). K6's compares
 are integer operations: the bytes bound it, and no single PyTorch call
-computes its function (``library_ms`` null).
+computes its function (``library_ms`` null); nor K7's.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -214,7 +235,7 @@ def bound_bytes(kernel: str, **s) -> int:
     indptr: nnz, nrows; relocate_csr: n, nnz, order_entries (entries of the
     distinct order tensors), value_bytes; radix_rank: n, key_bytes, sorted_keys
     (the sorted keys are written as well); common_neighbors: n, nnz, mode
-    ("jaccard", the default, "triangles" or "directed")."""
+    ("jaccard", the default, "triangles" or "directed"); label_prop: n, nnz."""
     if kernel == "banded_spmv":  # band, offsets, x in; y out
         return s["ndiag"] * s["n"] * s["band_bytes"] + 4 * s["ndiag"] + 4 * s["m"] + 4 * s["n"]
     if kernel == "csr_spmv":  # indptr, ids, values, x in; y out
@@ -231,16 +252,22 @@ def bound_bytes(kernel: str, **s) -> int:
         lists = 8 * (s["n"] + 1) + 4 * s["nnz"]
         mode = s.get("mode", "jaccard")
         return (2 * lists if mode == "directed" else lists) + (4 * s["nnz"] if mode == "jaccard" else 8)
+    if kernel == "label_prop":  # indptr, ids, labels in; labels out
+        return 8 * (s["n"] + 1) + 4 * s["nnz"] + 4 * s["n"] + 4 * s["n"]
     raise KeyError(kernel)
 
 
 def bound_ops(kernel: str, **s) -> int:
     """Floating-point operations of the kernel's function (a multiply and an
-    add per stored entry of the SpMVs); the integer kernels do none."""
+    add per stored entry of the SpMVs; label_prop: an add per entry into the
+    float32 counts, a subtraction per cell for the scores, k = 8); the integer
+    kernels do none."""
     if kernel == "banded_spmv":
         return 2 * s["ndiag"] * s["n"]
     if kernel == "csr_spmv":
         return 2 * s["nnz"]
+    if kernel == "label_prop":
+        return s["nnz"] + s["n"] * s.get("k", 8)
     return 0
 
 
@@ -1636,7 +1663,7 @@ def phase_path_g_times(p: PathG, csr, host) -> None:
 
 def path_g(g, dev, coo):
     """Path G's phases 3, 4 and 5, run after path F on path A's COO. Returns
-    its launch counts."""
+    its launch counts and its host reorderers' graph."""
     from sparsebase_tpu_torch import _build
 
     p = PathG(g, dev, coo)
@@ -1646,7 +1673,262 @@ def path_g(g, dev, coo):
     launches = read_launches("G", ("indptr", "radix_rank"))
     phase_path_g_checks(p, csr, orders, heat, host)
     phase_path_g_times(p, csr, host)
-    return launches
+    return launches, p.host_graph
+
+
+PARTITION_K = 8
+PARTITION_ROUNDS = 10
+K7_EDGE_CASES = (  # (label, rows, average degree, k, options)
+    ("k = 2", 1_000_000, 16, 2, {}),
+    ("k = 8", 1_000_000, 16, 8, {}),
+    ("k = 64", 200_000, 12, 64, {}),
+    ("k = 4096", 20_000, 40, 4_096, {}),
+    ("k = 8192, past the shared-memory tier", 5_000, 30, 8_192, {}),
+    ("a row of 262144 entries", 100_000, 16, 8, dict(long_row=True)),
+    ("every third row empty", 300_000, 16, 8, dict(empty_every=3)),
+    ("no entries", 1_000, 0, 8, {}),
+    ("integer-valued weights", 500_000, 16, 8, dict(weights="integer")),
+    ("integer-valued weights, k = 8192", 3_000, 30, 8_192, dict(weights="integer")),
+    ("real weights", 500_000, 16, 8, dict(weights="real")),
+    ("real weights, k = 200", 100_000, 16, 200, dict(weights="real")),
+    ("ids off 16-byte alignment", 300_000, 16, 8, dict(misaligned=True)),
+)
+
+
+def k7_case(g, dev, n, avg_deg, k, long_row=False, empty_every=0, misaligned=False, weights=None):
+    """A CSR of ``n`` rows (degrees uniform in [0, 2 * avg_deg], ids uniform
+    in [0, n)) and labels in [0, k) with half the vertices in part 0, so that
+    the penalty bites; weights None, "integer" (1..5) or "real"."""
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
+
+    deg = torch.randint(0, 2 * avg_deg + 1, (n,), generator=g, device=dev)
+    if empty_every:
+        deg[::empty_every] = 0
+    if long_row:
+        deg[n // 3] = 262_144
+    indptr = indptr_from_counts(deg)
+    nnz = int(indptr[-1])
+    ids = torch.randint(0, n, (nnz,), generator=g, device=dev, dtype=torch.int32)
+    if misaligned:
+        buf = torch.empty((nnz + 1,), dtype=torch.int32, device=dev)
+        buf[1:] = ids
+        ids = buf[1:]
+    w = None
+    if weights == "integer":
+        w = torch.randint(1, 6, (nnz,), generator=g, device=dev).to(torch.float32)
+    elif weights == "real":
+        w = torch.rand((nnz,), generator=g, device=dev) * 3
+    labels = torch.randint(0, k, (n,), generator=g, device=dev, dtype=torch.int32)
+    labels[: n // 2] = 0
+    return CSR(indptr, ids, w, (n, n)), labels
+
+
+def check_k7(label: str, csr, labels, k, alpha, cap) -> None:
+    """K7 against its plain version: equal where the counts are integers;
+    with real weights a row may differ only where its two best scores lie
+    within 8 ulp (the plain version's card sums take another order)."""
+    from sparsebase_tpu_torch.ops.kernels import label_prop_round, label_prop_round_plain
+    from sparsebase_tpu_torch.ops.kernels.label_prop import neighbor_counts, part_counts, penalty_plain
+
+    got = label_prop_round(csr, labels, k, alpha, cap, csr.vals)
+    again = label_prop_round(csr, labels, k, alpha, cap, csr.vals)
+    want = label_prop_round_plain(csr, labels, k, alpha, cap, csr.vals)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"K7 {label}: two runs differ")
+    diff = torch.nonzero(got != want).flatten()
+    real = csr.vals is not None and not bool((csr.vals == csr.vals.round()).all())
+    near = 0
+    if diff.numel() and real:
+        counts = neighbor_counts(csr, labels, k, csr.vals)
+        scores = (counts - penalty_plain(counts, part_counts(labels, k), alpha, cap)[None, :])[diff]
+        a = scores.gather(1, got[diff].long()[:, None]).flatten()
+        b = scores.gather(1, want[diff].long()[:, None]).flatten()
+        near = int(((a - b).abs() <= 8 * EPS_F32 * torch.maximum(a.abs(), b.abs())).sum())
+    print(f"  K7 {label}: n={csr.nrows} entries={csr.nnz} k={k} alpha={alpha} rows differing {diff.numel()}"
+          + (f" (all within 8 ulp of a tie: {near == diff.numel()})" if real else ""))
+    check(diff.numel() == near, f"K7 {label}: {diff.numel() - near} rows differ from the plain version")
+
+
+def phase_k7_vs_plain(g, dev) -> None:
+    print("phase 2 K7 (label propagation round) vs plain")
+    for label, n, avg_deg, k, opts in K7_EDGE_CASES:
+        csr, labels = k7_case(g, dev, n, avg_deg, k, **opts)
+        for alpha in (0.1, 1.0):
+            check_k7(label, csr, labels, k, alpha, 1.1 * n / k)
+
+
+PARTITIONERS = (  # (label, class name, parameters, use_graphkit)
+    ("PulpPartition (graphkit)", "PulpPartition", {}, True),
+    ("PulpPartition (use_graphkit off: K7)", "PulpPartition", {}, False),
+    ("MetisPartition kway (graphkit)", "MetisPartition", {}, True),
+    ("MetisPartition rb", "MetisPartition", {"ptype": "rb"}, True),
+    ("PatohPartition", "PatohPartition", {}, True),
+)
+
+
+class PathH:
+    """Path H: partitioning. ``partition_pipeline`` on path A's COO (K3, K7
+    ten times, K5, K4, K2), then each partitioner by name on path G's
+    power-law graph of 32,768 vertices on the card."""
+
+    def __init__(self, coo, x, graph):
+        self.coo, self.x, self.graph = coo, x, graph
+
+    def pipeline(self):
+        from sparsebase_tpu_torch.models import partition_pipeline
+
+        return partition_pipeline(self.coo, self.x, PARTITION_K, PARTITION_ROUNDS)
+
+    def partitioners(self):
+        """``{label: (labels, ms, K7 launches)}``, one call each."""
+        from sparsebase_tpu_torch import _build, get_config, set_config
+        from sparsebase_tpu_torch.ops import partition
+
+        out = {}
+        saved = get_config().use_graphkit
+        try:
+            for label, cls, params, graphkit in PARTITIONERS:
+                set_config(use_graphkit=graphkit)
+                before = _build.launch_counts()["label_prop"]
+                labels, ms = timed(lambda: getattr(partition, cls)(num_partitions=PARTITION_K, **params)
+                                   .partition(self.graph))
+                out[label] = (labels, ms, _build.launch_counts()["label_prop"] - before)
+        finally:
+            set_config(use_graphkit=saved)
+        return out
+
+
+def phase_path_h_checks(h: PathH, permuted, y, labels, parts) -> float:
+    """The pipeline's labels against ``_propagate`` through the plain round
+    on the card, its permuted CSR against the plain relocation, ``y``
+    against the plain SpMV; the labels a partition; ten rounds with no host
+    sync; each partitioner's labels against the same call on a CPU copy.
+    Returns K7's largest difference from its plain version on path H."""
+    from sparsebase_tpu_torch import CSR, get_config, set_config
+    from sparsebase_tpu_torch.ops import partition
+    from sparsebase_tpu_torch.ops.kernels import (
+        csr_spmv_plain, indptr_plain, label_prop_round_plain, radix_rank_plain, relocate_csr_plain,
+    )
+    from sparsebase_tpu_torch.ops.partition.labelprop import _chunks, _propagate
+
+    coo, x, k = h.coo, h.x, PARTITION_K
+    n = coo.nrows
+    print(f"phase 4 path H checks: n={n} entries={coo.nnz} k={k} rounds={PARTITION_ROUNDS}")
+    src = CSR(indptr_plain(coo.row, n), coo.col, coo.vals, coo.shape)
+    cap = 1.1 * n / k
+    want = _chunks(n, k, src.indptr.device)
+    for it in range(PARTITION_ROUNDS):
+        want = label_prop_round_plain(src, want, k, (it + 1) / PARTITION_ROUNDS, cap)
+    check(labels.device == src.indptr.device and labels.dtype == torch.int32 and labels.shape == (n,),
+          "path H labels: not int32 on the card")
+    check(bool(((labels >= 0) & (labels < k)).all()), "path H labels: outside [0, k)")
+    check_equal("path H labels vs _propagate through the plain round", labels, want)
+    err = float((labels - want).abs().max())
+    ro = radix_rank_plain(labels.long())
+    check_csr_equal("path H permuted CSR vs plain relocation", permuted, relocate_csr_plain(src, ro, ro))
+    x_new = torch.empty_like(x)
+    x_new[ro] = x
+    check_rows("path H y vs plain SpMV of the permuted matrix", y, csr_spmv_plain(permuted, x_new),
+               permuted.degrees(), csr_spmv_plain(abs_csr(permuted), x_new.abs()))
+    labels0 = _chunks(n, k, src.indptr.device)
+    syncs = count_host_syncs(lambda: _propagate(src, labels0, k, cap, None, PARTITION_ROUNDS, stop_when_stable=False))
+    print(f"  path H: {PARTITION_ROUNDS} rounds of _propagate on the card synced the host {syncs} times")
+    check(syncs == 0, f"path H _propagate synced the host {syncs} times")
+    pipe_syncs = count_host_syncs(h.pipeline)
+    print(f"  path H partition_pipeline: host syncs in one call {pipe_syncs} (K4's count of its long rows)")
+    sizes = partition.part_sizes(labels, k)
+    print(f"  path H part sizes {sizes.tolist()}, balance {partition.balance_ratio(labels, k):.6f}, edge cut "
+          f"(entries across parts / 2): chunks {partition.edge_cut(src, labels0)}, after propagation "
+          f"{partition.edge_cut(src, labels)}")
+    graph = h.graph
+    host_graph = graph.to_host()
+    nets, pins, _ = partition.column_net_hypergraph(graph)
+    saved = get_config().use_graphkit
+    try:
+        for (label, cls, params, graphkit), (got, ms, k7) in zip(PARTITIONERS, parts.values()):
+            check(got.device == graph.indptr.device and got.dtype == torch.int32, f"path H {label}: placement")
+            check(bool(((got >= 0) & (got < k)).all()), f"path H {label}: labels outside [0, k)")
+            set_config(use_graphkit=graphkit)
+            cpu = getattr(partition, cls)(num_partitions=k, **params).partition(host_graph)
+            check_equal(f"path H {label} on the card vs on a CPU copy", got.cpu(), cpu)
+            check((k7 > 0) == (not graphkit and cls == "PulpPartition"), f"path H {label}: K7 launched {k7} times")
+            print(f"  path H {label} on n={graph.nrows}, {graph.nnz} entries: edge cut {partition.edge_cut(graph, got)}"
+                  f", connectivity-1 {partition.cutsize_connectivity(nets, pins, got, k)}, balance "
+                  f"{partition.balance_ratio(got, k):.6f}, wall {ms:.1f} ms, K7 launches {k7}")
+    finally:
+        set_config(use_graphkit=saved)
+    return err
+
+
+def phase_path_h_times(h: PathH, permuted, labels):
+    """The pipeline end to end; K7 one call and back to back beside its
+    plain version and its bound, at path H's first round and its last; a
+    profile of the pipeline; K2 on the permuted CSR beside K2 on the source.
+    Returns ``(k7_ms, k7_plain_ms, shape)``."""
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.ops.kernels import csr_spmv, label_prop_round, label_prop_round_plain, radix_rank_plain
+    from sparsebase_tpu_torch.ops.kernels.indptr import indptr_from_sorted_rows
+    from sparsebase_tpu_torch.ops.partition.labelprop import _chunks
+
+    coo, x, k = h.coo, h.x, PARTITION_K
+    n, nnz = coo.nrows, coo.nnz
+    ms = host_ms(h.pipeline)
+    print(f"phase 5 path H partition_pipeline (k={k}, {PARTITION_ROUNDS} rounds): median {ms:.3f} ms, "
+          f"{nnz / (ms / 1e3):.4g} nnz/s")
+    csr = CSR(indptr_from_sorted_rows(coo.row, n), coo.col, coo.vals, coo.shape)
+    cap = 1.1 * n / k
+    k7_bound, by = bound("label_prop", n=n, nnz=nnz)
+    first = _chunks(n, k, csr.indptr.device)
+    times = {}
+    for label, lab, alpha in (("first round", first, 1 / PARTITION_ROUNDS), ("last round", labels, 1.0)):
+        one = cuda_ms(lambda: label_prop_round(csr, lab, k, alpha, cap))
+        back = cuda_ms(lambda: label_prop_round(csr, lab, k, alpha, cap), batch=10)
+        plain = cuda_ms(lambda: label_prop_round_plain(csr, lab, k, alpha, cap))
+        times[label] = (one, plain)
+        print(f"phase 5 path H K7 label_prop ({label}): one call {one:.4f} ms, back to back {back:.4f} ms, plain "
+              f"{plain:.4f} ms; bound {k7_bound:.4f} ms ({by}), {k7_bound / one:.1%} / {k7_bound / back:.1%} of it")
+    per_kernel, spans, wall_ms = device_profile(lambda: label_prop_round(csr, first, k, 0.1, cap), runs=3)
+    if spans:
+        print(f"phase 6 path H K7 one round: device {sum(per_kernel.values()):.4f} ms per call (" + ", ".join(
+            f"{name[:50]} {v:.4f}" for name, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])) + ")")
+    else:  # the profiler drops operations in short windows
+        print("phase 6 path H K7 one round: the profiler recorded no device operation (not measured)")
+    per_kernel, spans, wall_ms = device_profile(h.pipeline, runs=3)
+    if spans:
+        busy_ms = device_busy(spans)[0] / 1e3 / 3
+        print(f"phase 6 profile of path H partition_pipeline, 3 runs: device busy {busy_ms:.4f} ms per run, wall "
+              f"under the profiler {wall_ms:.4f} ms, idle {1 - busy_ms / wall_ms:.1%}")
+        for name, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"  {v:9.4f} ms {v / busy_ms:6.1%}  {name[:110]}")
+    else:
+        print("phase 6 profile of path H: the profiler recorded no device operation (not measured)")
+    ro = radix_rank_plain(labels.long())
+    x_new = torch.empty_like(x)
+    x_new[ro] = x
+    src_ms, perm_ms = cuda_ms(lambda: csr_spmv(csr, x)), cuda_ms(lambda: csr_spmv(permuted, x_new))
+    print(f"phase 5 path H what partitioning buys: K2 on the source CSR {src_ms:.4f} ms, on the partitioned CSR "
+          f"{perm_ms:.4f} ms ({src_ms / perm_ms:.3f}x)")
+    one, plain = times["first round"]
+    return one, plain, dict(n=n, nnz=nnz)
+
+
+def path_h(coo, x, graph):
+    """Path H's phases 3, 4 and 5, run after path G on path A's COO and path
+    G's host graph. Returns its launch counts, K7's largest difference from
+    its plain version, and K7's times and shape."""
+    from sparsebase_tpu_torch import _build
+
+    h = PathH(coo, x, graph)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    permuted, y, labels = h.pipeline()
+    launches = read_launches("H", ("indptr", "label_prop", "radix_rank", "relocate_csr", "csr_spmv"))
+    check(launches["label_prop"] == PARTITION_ROUNDS, f"path H launched K7 {launches['label_prop']} times")
+    parts = h.partitioners()
+    err = phase_path_h_checks(h, permuted, y, labels, parts)
+    k7_ms, k7_plain_ms, shape = phase_path_h_times(h, permuted, labels)
+    return launches, err, (k7_ms, k7_plain_ms), shape
 
 
 def read_launches(path: str, required) -> dict:
@@ -1687,6 +1969,7 @@ def main() -> None:
     g.manual_seed(args.seed)
     phase_kernels_vs_plain(g, dev)
     phase_exact_kernels_vs_plain(g, dev)
+    phase_k7_vs_plain(g, dev)
 
     # -- the slice's paths, each once -------------------------------------------
     nnz = int(args.nnz)
@@ -1854,9 +2137,10 @@ def main() -> None:
     launches_d, err_k1_d = path_d(g, dev, args.rcm_n, args.seed)
     launches_e = path_e(g, dev, int(args.ingest_nnz))
     launches_f, err_k6, k6_times, k6_shape = path_f(g, dev, args.feature_n)
-    launches_g = path_g(g, dev, coo_a)
+    launches_g, host_graph = path_g(g, dev, coo_a)
+    launches_h, err_k7, k7_times, k7_shape = path_h(coo_a, x_a, host_graph)
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
-                + launches_g[k] for k in launches_a}
+                + launches_g[k] + launches_h[k] for k in launches_a}
 
     shapes = {
         "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],
@@ -1866,6 +2150,7 @@ def main() -> None:
         "relocate_csr": dict(n=n, nnz=nnz, order_entries=n, value_bytes=4),  # ro is both orders
         "radix_rank": dict(n=n, key_bytes=degrees.element_size()),
         "common_neighbors": k6_shape,  # path F's graph, Jaccard weights
+        "label_prop": k7_shape,  # path H: path A's graph, one round
     }
 
     def entry(name, source, replaces, err, ms, plain_ms, library_ms):
@@ -1887,6 +2172,8 @@ def main() -> None:
               k5_lib_ms),
         entry("common_neighbors", "common_neighbors.cu", "sparsebase_tpu/ops/feature/sparse_common.py:53", err_k6,
               *k6_times["jaccard"], None),
+        entry("label_prop", "label_prop.cu", "sparsebase_tpu/ops/partition/labelprop.py:160", err_k7, *k7_times,
+              None),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

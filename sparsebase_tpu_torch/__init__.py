@@ -8,16 +8,16 @@ neither ``jax`` nor ``sparsebase_tpu``.
 Layer map:
 
     bases        IOBase / ReorderBase / GraphFeatureBase façades (static one-liners)
-    models       preprocess_pipeline (and _donating), rcm_pipeline, spmv (format-polymorphic),
-                 spmv_csr (auto / segment / cumsum), spmv_ell
+    models       preprocess_pipeline (and _donating), rcm_pipeline, partition_pipeline, spmv
+                 (format-polymorphic), spmv_csr (auto / segment / cumsum), spmv_ell
     io           MTX, edge list, SBFF, METIS, PaToH readers and writers; Pigo readers (fastio)
     objects      Graph / HyperGraph over a connectivity format
     native       graphkit: host C++ graph algorithms (ctypes, g++ at first use)
     ops          reorder (degree, RCM, Gray, BOBA, SlashBurn, AMD, nested dissection, Rabbit,
                  generic; the heatmap) / permute (2-D, 1-D) / feature (all 20 features, the
                  fused Extractor) / kernels (K1 DIA SpMV, K2 CSR SpMV, K3 indptr, K4 CSR
-                 relocation, K5 stable radix sort, K6 common neighbours) / partition (the
-                 multilevel helpers of nested dissection)
+                 relocation, K5 stable radix sort, K6 common neighbours, K7 a label-propagation
+                 round) / partition (Metis, Pulp, Patoh; edge cut, part sizes, balance)
     dispatch     Operation (auto-converting multi-format dispatch)
     convert      conversion graph + torch conversion functions
     formats      COO / CSR / CSC / DIA / ELL / DenseArray / PaddedCSR frozen dataclasses

@@ -35,7 +35,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = (
-    "banded_spmv.cu", "csr_spmv.cu", "indptr.cu", "radix_sort.cu", "relocate.cu", "common_neighbors.cu", "errors.cu",
+    "banded_spmv.cu", "csr_spmv.cu", "indptr.cu", "radix_sort.cu", "relocate.cu", "common_neighbors.cu", "label_prop.cu",
+    "errors.cu",
 )
 LIB_NAME = "libsbtorch_kernels.so"
 NVCC_FLAGS = (

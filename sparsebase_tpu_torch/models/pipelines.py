@@ -1,5 +1,6 @@
 """The main path: COO → CSR → degree reorder → symmetric permutation → SpMV;
-``rcm_pipeline``, the same with the RCM device route; and the
+``rcm_pipeline``, the same with the RCM device route; ``partition_pipeline``,
+the same with the rows grouped by a label-propagation partition; and the
 format-polymorphic ``spmv``.
 
 Counterpart of ``sparsebase_tpu/models/pipelines.py`` in its default
@@ -142,6 +143,31 @@ def rcm_pipeline(coo: COO, x: torch.Tensor):
     indptr = indptr_from_sorted_rows(coo.row, n)
     ro = _rcm_device(CSR(indptr, coo.col, coo.vals, coo.shape))
     return _permute_and_spmv(coo, indptr, ro, x)
+
+
+def partition_pipeline(coo: COO, x: torch.Tensor, k: int = 8, num_iters: int = 10):
+    """COO → CSR (K3) → ``num_iters`` rounds of label propagation into ``k``
+    parts (K7 each) → rows grouped by part, in id order within a part (a
+    stable K5 rank of the labels) → symmetric permutation (K4) → SpMV (K2),
+    on the COO's device with no host read: the reference's
+    ``examples/metis_partition`` followed by a permute, as one call
+    (``sparsebase_tpu/models/pipelines.py:302-324``). The rounds start from
+    ``k`` contiguous chunks, with a capacity of ``1.1 n / k``, and all run,
+    as in the JAX package's device route. Returns ``(permuted_csr, y,
+    labels)`` with ``y = P·(A@x)`` and int32 ``labels``; the COO must be
+    square and row-major sorted."""
+    from ..ops.kernels.radix import bits_below
+    from ..ops.partition.labelprop import _chunks, _propagate
+
+    n, m = coo.shape
+    if n != m:
+        raise ValueError(f"partition_pipeline permutes rows and columns alike; shape {coo.shape} is not square")
+    indptr = indptr_from_sorted_rows(coo.row, n)
+    csr = CSR(indptr, coo.col, coo.vals, coo.shape)
+    labels = _propagate(csr, _chunks(n, k, indptr.device), k, 1.1 * n / k, None, num_iters, stop_when_stable=False)
+    ro = ranks_from_sort_keys(labels, key_bits=bits_below(k))  # ro[old] = new, stable within a part
+    permuted, y = _permute_and_spmv(coo, indptr, ro, x)
+    return permuted, y, labels
 
 
 def spmv_ell(ell: ELL, x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
-"""Preprocessing operations: reorder, permute, features, and the hand-written
-kernels.
+"""Preprocessing operations: reorder, permute, partition, feature, and the
+hand-written kernels.
 
-Reference analogue: src/sparsebase/{reorder,permute,feature}/.
+Reference analogue: src/sparsebase/{reorder,permute,partition,feature}/.
 """
 
-from . import feature, kernels, permute, reorder
+from . import feature, kernels, partition, permute, reorder
 
-__all__ = ["feature", "kernels", "permute", "reorder"]
+__all__ = ["feature", "kernels", "partition", "permute", "reorder"]

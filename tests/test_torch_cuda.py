@@ -1044,3 +1044,186 @@ def test_host_reorderers_return_to_the_card(dev, gen, name):
     got = ReorderBase.reorder(name, csr, params=params)
     assert got.device.type == "cuda" and got.dtype == torch.int32
     assert torch.equal(got.cpu(), ReorderBase.reorder(name, csr.to_host(), params=params))
+
+
+# -- K7: a label-propagation round ----------------------------------------------------
+def lp_case(gen, dev, n, avg_deg, k, *, long_row=None, empty_every=0, misaligned=False, weights=None, skew=True):
+    """A CSR of ``n`` rows (Poisson-like degrees around ``avg_deg``, ids
+    uniform in [0, n)), labels in [0, k) with half the vertices in part 0
+    when ``skew`` (so that the penalty bites), and weights: None, "integer"
+    (1..5) or "real"."""
+    deg = torch.randint(0, 2 * avg_deg + 1, (n,), generator=gen, device=dev)
+    if empty_every:
+        deg[::empty_every] = 0
+    if long_row is not None:
+        deg[long_row[0]] = long_row[1]
+    indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), deg.cumsum(0)])
+    nnz = int(indptr[-1])
+    ids = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    if misaligned:
+        ids = off_alignment(ids)
+    w = None
+    if weights == "integer":
+        w = torch.randint(1, 6, (nnz,), generator=gen, device=dev).to(torch.float32)
+    elif weights == "real":
+        w = torch.rand((nnz,), generator=gen, device=dev) * 3
+    labels = torch.randint(0, k, (n,), generator=gen, device=dev, dtype=torch.int32)
+    if skew:
+        labels[: n // 2] = 0
+    return CSR(indptr, ids, w, (n, n)), labels
+
+
+# name -> (n, average degree, k, options)
+LP_CASES = {
+    "k2": (200_000, 16, 2, {}),
+    "k8": (500_000, 16, 8, {}),
+    "k8-balanced": (500_000, 16, 8, dict(skew=False)),
+    "k64": (100_000, 12, 64, {}),
+    "k65": (50_000, 12, 65, {}),
+    "k4096": (20_000, 40, 4_096, {}),
+    "k6140-last-shared": (4_000, 30, 6_140, {}),
+    "k6141-first-global": (4_000, 30, 6_141, {}),
+    "k8192-global-tier": (5_000, 30, 8_192, {}),
+    "long-row": (50_000, 16, 8, dict(long_row=(7, 262_144))),
+    "long-row-k128": (20_000, 16, 128, dict(long_row=(19_999, 262_144))),
+    "empty-rows": (100_000, 16, 8, dict(empty_every=3)),
+    "no-entries": (1_000, 0, 8, {}),
+    "one-row": (1, 5, 8, {}),
+    "ids-off-alignment": (100_000, 16, 8, dict(misaligned=True)),
+    "integer-weights": (200_000, 16, 8, dict(weights="integer")),
+    "integer-weights-k4096": (10_000, 40, 4_096, dict(weights="integer")),
+    "integer-weights-global-tier": (3_000, 30, 8_192, dict(weights="integer")),
+    "real-weights": (200_000, 16, 8, dict(weights="real")),
+    "real-weights-k200": (50_000, 16, 200, dict(weights="real")),
+}
+
+
+def lp_scores(csr, labels, k, alpha, cap):
+    from sparsebase_tpu_torch.ops.kernels.label_prop import neighbor_counts, part_counts, penalty_plain
+
+    counts = neighbor_counts(csr, labels, k, csr.vals)
+    return counts - penalty_plain(counts, part_counts(labels, k), alpha, cap)[None, :]
+
+
+@pytest.mark.parametrize("alpha", [0.1, 1.0])
+@pytest.mark.parametrize("case", sorted(LP_CASES))
+def test_label_prop_kernel_matches_plain(dev, gen, case, alpha):
+    """K7 equals its plain version bit for bit where the counts are integers;
+    with real weights, a row may differ only where its two best scores lie
+    within 8 ulp (the card's plain version sums in another order)."""
+    from sparsebase_tpu_torch.ops.kernels import label_prop_round, label_prop_round_plain
+
+    n, avg_deg, k, opts = LP_CASES[case]
+    csr, labels = lp_case(gen, dev, n, avg_deg, k, **opts)
+    cap = 1.1 * n / k
+    before = _build.launch_counts()["label_prop"]
+    got = label_prop_round(csr, labels, k, alpha, cap, csr.vals)
+    assert _build.launch_counts()["label_prop"] == before + 1
+    want = label_prop_round_plain(csr, labels, k, alpha, cap, csr.vals)
+    assert got.dtype == torch.int32 and got.device == labels.device and got.shape == (n,)
+    assert torch.equal(label_prop_round(csr, labels, k, alpha, cap, csr.vals), got)  # two runs agree
+    if opts.get("weights") != "real":
+        assert torch.equal(got, want)
+        return
+    diff = torch.nonzero(got != want).flatten()
+    if diff.numel():
+        scores = lp_scores(csr, labels, k, alpha, cap)[diff]
+        a = scores.gather(1, got[diff].long()[:, None]).flatten()
+        b = scores.gather(1, want[diff].long()[:, None]).flatten()
+        ulp = torch.finfo(torch.float32).eps * torch.maximum(a.abs(), b.abs())
+        assert bool(((a - b).abs() <= 8 * ulp).all()), (diff.numel(), (a - b).abs().max())
+
+
+def test_label_prop_makes_no_host_sync(dev, gen):
+    """Ten rounds of ``_propagate`` on the card, run to the end, read nothing
+    back; they equal the same rounds through the plain version."""
+    from sparsebase_tpu_torch.ops.kernels import label_prop_round_plain
+    from sparsebase_tpu_torch.ops.partition.labelprop import _propagate
+
+    csr, labels = lp_case(gen, dev, 300_000, 16, 8, skew=False)
+    cap = 1.1 * csr.nrows / 8
+    _propagate(csr, labels, 8, cap, None, 1, stop_when_stable=False)  # builds and loads the kernels
+    syncs, got = count_syncs(lambda: _propagate(csr, labels, 8, cap, None, 10, stop_when_stable=False))
+    assert not syncs, [str(w.message) for w in syncs]
+    want = labels
+    for it in range(10):
+        want = label_prop_round_plain(csr, want, 8, (it + 1) / 10, cap)
+    assert torch.equal(got, want)
+
+
+def test_label_prop_raises_without_its_library(dev, gen, tmp_path, monkeypatch):
+    """A CUDA CSR never takes the plain version: with no compiler and no
+    built library the round raises."""
+    import importlib
+
+    from sparsebase_tpu_torch.ops.kernels import label_prop_round
+
+    lp = importlib.import_module("sparsebase_tpu_torch.ops.kernels.label_prop")
+    csr, labels = lp_case(gen, dev, 1_000, 8, 4)
+    monkeypatch.setattr(_build, "_LIBRARY", None)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(tmp_path / "no-such-nvcc"))
+    monkeypatch.setattr(lp._K7, "_fn", None)
+    lp._scratch_bytes.cache_clear()
+    try:
+        with pytest.raises((FileNotFoundError, _build.KernelBuildError)):
+            label_prop_round(csr, labels, 4, 0.5, 1.1 * 1_000 / 4)
+    finally:
+        lp._scratch_bytes.cache_clear()
+
+
+def partition_graph(gen, dev, n, pairs):
+    """A symmetric COO of ``2 * pairs`` uniform entries, row-major sorted."""
+    row = torch.randint(0, n, (pairs,), generator=gen, device=dev, dtype=torch.int32)
+    col = torch.randint(0, n, (pairs,), generator=gen, device=dev, dtype=torch.int32)
+    return COO.new(torch.cat([row, col]), torch.cat([col, row]), None, (n, n))
+
+
+def test_partition_pipeline_on_card_equals_cpu(dev, gen):
+    """``partition_pipeline`` launches K3, K7 (one a round), K5, K4 and K2,
+    and its labels and permuted CSR equal the CPU call's; ``y`` agrees per
+    row within the reordered-sum bound."""
+    from sparsebase_tpu_torch.models import partition_pipeline
+
+    coo = partition_graph(gen, dev, 200_000, 1_600_000)
+    coo = COO(coo.row, coo.col, torch.randn((coo.nnz,), generator=gen, device=dev), coo.shape)
+    x = torch.randn((coo.nrows,), generator=gen, device=dev)
+    _build.reset_launch_counts()
+    permuted, y, labels = partition_pipeline(coo, x, 8, 10)
+    counts = _build.launch_counts()
+    assert counts["label_prop"] == 10
+    assert all(counts[name] >= 1 for name in ("indptr", "radix_rank", "relocate_csr", "csr_spmv"))
+    host = coo.to_host()
+    want_p, want_y, want_l = partition_pipeline(host, x.cpu(), 8, 10)
+    assert labels.device == x.device and torch.equal(labels.cpu(), want_l)
+    assert torch.equal(permuted.indptr.cpu(), want_p.indptr) and torch.equal(permuted.indices.cpu(), want_p.indices)
+    assert torch.equal(permuted.vals.cpu(), want_p.vals)
+    abs_p = CSR(permuted.indptr, permuted.indices, permuted.vals.abs(), permuted.shape)
+    x_new = torch.empty_like(x)
+    x_new[radix_rank_plain(labels.long())] = x  # ro[old] = new: grouped by label, in id order within a part
+    assert_rows_within(y, csr_spmv_plain(permuted, x_new), permuted.degrees(), csr_spmv_plain(abs_p, x_new.abs()))
+
+
+@pytest.mark.parametrize("name", ["pulp", "pulp-no-graphkit", "metis", "metis-rb", "patoh"])
+def test_partitioners_on_card_equal_the_cpu(dev, gen, name):
+    """Each partitioner returns int32 labels on the card equal to the same
+    call on a CPU copy; Pulp without graphkit runs K7."""
+    from sparsebase_tpu_torch import get_config, set_config
+    from sparsebase_tpu_torch.ops.partition import MetisPartition, PatohPartition, PulpPartition
+
+    csr = partition_graph(gen, dev, 3_000, 12_000).convert(CSR)
+    op = {"pulp": PulpPartition(num_partitions=8), "pulp-no-graphkit": PulpPartition(num_partitions=8),
+          "metis": MetisPartition(num_partitions=8), "metis-rb": MetisPartition(num_partitions=8, ptype="rb"),
+          "patoh": PatohPartition(num_partitions=8)}[name]
+    saved = get_config().use_graphkit
+    set_config(use_graphkit=name != "pulp-no-graphkit")
+    try:
+        before = _build.launch_counts()["label_prop"]
+        got = op.partition(csr)
+        launched = _build.launch_counts()["label_prop"] - before
+        want = op.partition(csr.to_host())
+    finally:
+        set_config(use_graphkit=saved)
+    assert got.device == csr.indptr.device and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    assert (launched > 0) == (name == "pulp-no-graphkit")

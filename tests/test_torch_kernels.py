@@ -415,6 +415,8 @@ BOUND_CASES = {
     # directed: the CSR's and the CSC's indptr and ids in, 2 * (32,000,008 + 272,016,384), one int64 sum out
     "path-F-common_neighbors-directed": ("common_neighbors", dict(n=4_000_000, nnz=68_004_096, mode="directed"),
                                          608_032_792),
+    # path H: 6,250,001 * 8 indptr + 1e8 * 4 ids + 6.25M * 4 labels in, 6.25M * 4 labels out
+    "path-H-label_prop": ("label_prop", dict(n=6_250_000, nnz=100_000_000), 500_000_008),
 }
 
 
