@@ -34,7 +34,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    2^24 entries) and K7 (a label-propagation round; k = 2, 8, 64, 4,096 and
    8,192, past its shared-memory tier, a row of 262,144 entries, every third
    row empty, no entries, integer-valued and real weights, ids one element
-   off 16-byte alignment; the penalty's weight at 0.1 and 1);
+   off 16-byte alignment; both sides of its tier edges: n * k = nnz (the
+   cells stored) and one part more (two passes), k = 8 (registers) and 9,
+   k = 255 (1-byte gathers) and 256; every vertex in one part at k = 8 and
+   64; labels outside [0, k); the penalty's weight at 0.1 and 1; these
+   tier cases draw from a generator of their own, so that a case added
+   there leaves every path's graph as it was);
 3. the slice's paths, each once, with every launch count set to 0 just
    before it and read just after: path A, ``preprocess_pipeline`` on a
    ``--nnz`` COO made on the device (uniform rows, columns 20% from
@@ -68,10 +73,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    on a power-law graph of 32,768 vertices on the card (host algorithms:
    graphkit on a host copy, the order back on the card); path H, partitioning:
    ``models.partition_pipeline`` on path A's COO (k = 8, 10 rounds: K3, K7
-   once a round, K5, K4, K2), then ``PulpPartition`` (graphkit, and with
-   ``use_graphkit`` off, so that K7 runs inside it), ``MetisPartition``
-   (kway and rb) and ``PatohPartition``, k = 8, on path G's power-law graph
-   of 32,768 vertices on the card.
+   once a round, K5, K4, K2) and on a planted graph of the same size
+   (``planted_coo``: path A's rows, 8 blocks of equal size, 95% of the
+   entries inside their row's block, the ids shuffled), the counts set to
+   0 before and read after each of the two calls, then ``PulpPartition``
+   (graphkit, and with ``use_graphkit`` off, so that K7 runs inside it),
+   ``MetisPartition`` (kway and rb) and ``PatohPartition``, k = 8, on path
+   G's power-law graph of 32,768 vertices on the card.
    Every kernel of each path must have launched;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
@@ -120,11 +128,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    sync, so nothing of theirs left the card, the heatmap with at most three
    (``bincount``'s and the stats' reads); each host reorderer's order
    int32 on the card and equal to the same call on a CPU copy); of path H
-   (the labels equal to ten rounds through K7's plain version on the card,
-   int32 in [0, 8); the permuted CSR equal to the plain relocation under the
-   labels' stable rank, ``y`` against the plain SpMV; ten rounds of
-   ``_propagate`` with no host sync; part sizes, balance and the edge cut
-   before and after; each partitioner's labels int32 on the card, equal to
+   (on both graphs: the labels equal to ten rounds through K7's plain
+   version on the card, int32 in [0, 8); the permuted CSR equal to the plain
+   relocation under the labels' stable rank, ``y`` against the plain SpMV;
+   ten rounds of ``_propagate`` with no host sync; part sizes, balance and
+   the edge cut before and after, and against the planted cut; each
+   partitioner's labels int32 on the card, equal to
    the same call on a CPU copy, with K7 launched by Pulp without graphkit
    only);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
@@ -164,11 +173,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    back, with their host syncs per call, Gray's histogram and key and
    BOBA's pair sort alone, a profiled run of three calls of Gray, BOBA and
    the heatmap (device busy, wall, the top device operations), and the host
-   reorderers' wall times; path H: ``partition_pipeline`` end to end (median
-   of 5 after a warm-up), K7 one call and back to back at the first and the
-   last round beside its plain version and its bound, K7's device time per
-   kernel, a profile of the pipeline, and K2 on the partitioned CSR beside
-   K2 on the source;
+   reorderers' wall times; path H, on both graphs: ``partition_pipeline``
+   end to end (median of 5 after a warm-up) and its peak device memory, K7
+   one call and back to back at the first and the last round beside its
+   plain version and its bound, K7's device time per kernel, and K2 on the
+   partitioned CSR beside K2 on the source; a profile of the pipeline on
+   path A's graph;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -1693,16 +1703,36 @@ K7_EDGE_CASES = (  # (label, rows, average degree, k, options)
     ("real weights, k = 200", 100_000, 16, 200, dict(weights="real")),
     ("ids off 16-byte alignment", 300_000, 16, 8, dict(misaligned=True)),
 )
+K7_TIER_CASES = (  # the same, drawn from a generator of their own (k7_cases)
+    ("n * k = nnz (cells stored)", 500_000, 8, 8, dict(exact=True)),
+    ("n * k = nnz + n (two passes)", 500_000, 8, 9, dict(exact=True)),
+    ("k = 8, the last register tier, two passes", 300_000, 7, 8, dict(exact=True)),
+    ("k = 9, the first shared tier, stored", 300_000, 9, 9, dict(exact=True)),
+    ("k = 16, shared tier, stored", 300_000, 16, 16, dict(exact=True)),
+    ("every vertex in one part, k = 8", 1_000_000, 16, 8, dict(one_part=True)),
+    ("every vertex in one part, k = 64", 100_000, 64, 64, dict(one_part=True)),
+    ("real weights, stored, k = 12", 500_000, 16, 12, dict(weights="real")),
+    ("k = 255, the last 1-byte gather, stored", 20_000, 300, 255, dict(exact=True)),
+    ("k = 256, stored", 20_000, 300, 256, dict(exact=True)),
+    ("labels outside [0, k)", 300_000, 16, 8, dict(outside=True)),
+)
 
 
-def k7_case(g, dev, n, avg_deg, k, long_row=False, empty_every=0, misaligned=False, weights=None):
-    """A CSR of ``n`` rows (degrees uniform in [0, 2 * avg_deg], ids uniform
-    in [0, n)) and labels in [0, k) with half the vertices in part 0, so that
-    the penalty bites; weights None, "integer" (1..5) or "real"."""
+def k7_case(g, dev, n, avg_deg, k, long_row=False, empty_every=0, misaligned=False, weights=None, exact=False,
+            one_part=False, outside=False):
+    """A CSR of ``n`` rows (degrees uniform in [0, 2 * avg_deg], or all
+    ``avg_deg`` with ``exact``; ids uniform in [0, n)) and labels in [0, k)
+    with half the vertices in part 0, so that the penalty bites, or all in
+    part k - 1 with ``one_part``, some outside [0, k) with ``outside``;
+    weights None, "integer" (1..5) or "real". K7 keeps the cells between
+    its launches where n * k <= nnz, counts in registers up to k = 8 and
+    gathers 1-byte labels up to k = 255."""
     from sparsebase_tpu_torch import CSR
     from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
 
     deg = torch.randint(0, 2 * avg_deg + 1, (n,), generator=g, device=dev)
+    if exact:
+        deg.fill_(avg_deg)
     if empty_every:
         deg[::empty_every] = 0
     if long_row:
@@ -1721,6 +1751,11 @@ def k7_case(g, dev, n, avg_deg, k, long_row=False, empty_every=0, misaligned=Fal
         w = torch.rand((nnz,), generator=g, device=dev) * 3
     labels = torch.randint(0, k, (n,), generator=g, device=dev, dtype=torch.int32)
     labels[: n // 2] = 0
+    if one_part:
+        labels.fill_(k - 1)
+    if outside:
+        labels[::5] = k + 300
+        labels[1::7] = -3
     return CSR(indptr, ids, w, (n, n)), labels
 
 
@@ -1750,12 +1785,23 @@ def check_k7(label: str, csr, labels, k, alpha, cap) -> None:
     check(diff.numel() == near, f"K7 {label}: {diff.numel() - near} rows differ from the plain version")
 
 
-def phase_k7_vs_plain(g, dev) -> None:
+def k7_cases(g, dev, seed: int):
+    """Phase 2's K7 inputs, ``(label, csr, labels, k)``: K7_EDGE_CASES drawn
+    from ``g``, then K7_TIER_CASES from a generator of their own seeded with
+    ``seed``, so that a case added there leaves the draws of every graph
+    made from ``g`` after phase 2 as they were."""
+    own = torch.Generator(device=dev)
+    own.manual_seed(seed)
+    for cases, gen in ((K7_EDGE_CASES, g), (K7_TIER_CASES, own)):
+        for label, n, avg_deg, k, opts in cases:
+            yield (label, *k7_case(gen, dev, n, avg_deg, k, **opts), k)
+
+
+def phase_k7_vs_plain(g, dev, seed: int) -> None:
     print("phase 2 K7 (label propagation round) vs plain")
-    for label, n, avg_deg, k, opts in K7_EDGE_CASES:
-        csr, labels = k7_case(g, dev, n, avg_deg, k, **opts)
+    for label, csr, labels, k in k7_cases(g, dev, seed):
         for alpha in (0.1, 1.0):
-            check_k7(label, csr, labels, k, alpha, 1.1 * n / k)
+            check_k7(label, csr, labels, k, alpha, 1.1 * csr.nrows / k)
 
 
 PARTITIONERS = (  # (label, class name, parameters, use_graphkit)
@@ -1767,18 +1813,54 @@ PARTITIONERS = (  # (label, class name, parameters, use_graphkit)
 )
 
 
+PLANTED_INSIDE = 0.95  # the planted graph: share of a row's entries inside its block
+
+
+def planted_coo(g, dev, n, nnz, k=PARTITION_K, inside=PLANTED_INSIDE):
+    """A graph with ``k`` planted parts: path A's rows (uniform, so its
+    degrees) over ``k`` blocks of ``n / k`` vertices; an entry's column lies
+    in its row's block with probability ``inside``, else in one of the
+    other ``k - 1`` blocks, uniform within the block. The vertex ids are then
+    shuffled by a permutation drawn from ``g``, so that the contiguous chunks
+    ``partition_pipeline`` starts from hold no part of the answer. Row-major
+    sorted, duplicates kept. Returns the COO and the planted labels (int32,
+    by shuffled id)."""
+    from sparsebase_tpu_torch import COO
+    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs_plain
+
+    if k < 2 or n % k:
+        raise ValueError(f"planted_coo: {n} vertices do not split into {k} equal blocks")
+    size = n // k
+    row = torch.randint(0, n, (nnz,), generator=g, device=dev)
+    block = row // size
+    other = (block + torch.randint(1, k, (nnz,), generator=g, device=dev)) % k
+    block = torch.where(torch.rand((nnz,), generator=g, device=dev) < inside, block, other)
+    del other
+    col = block * size + torch.randint(0, size, (nnz,), generator=g, device=dev)
+    del block
+    perm = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+    row, col = perm[row], perm[col]
+    planted = torch.empty((n,), dtype=torch.int32, device=dev)
+    planted[perm.long()] = (torch.arange(n, device=dev) // size).to(torch.int32)
+    vals = torch.randn((nnz,), generator=g, device=dev)
+    row, col, vals = sort_by_pairs_plain(row, col, vals)
+    return COO(row, col, vals, (n, n)), planted
+
+
 class PathH:
     """Path H: partitioning. ``partition_pipeline`` on path A's COO (K3, K7
-    ten times, K5, K4, K2), then each partitioner by name on path G's
-    power-law graph of 32,768 vertices on the card."""
+    ten times, K5, K4, K2) and on the planted graph of the same size, then
+    each partitioner by name on path G's power-law graph of 32,768 vertices
+    on the card."""
 
-    def __init__(self, coo, x, graph):
+    def __init__(self, coo, x, graph, planted):
         self.coo, self.x, self.graph = coo, x, graph
+        self.planted_coo, self.planted_x, self.planted = planted
 
-    def pipeline(self):
-        from sparsebase_tpu_torch.models import partition_pipeline
-
-        return partition_pipeline(self.coo, self.x, PARTITION_K, PARTITION_ROUNDS)
+    def graphs(self):
+        """``(label, coo, x, planted labels or None)`` of the pipeline's two graphs."""
+        return (("path A's graph", self.coo, self.x, None),
+                ("the planted graph", self.planted_coo, self.planted_x, self.planted))
 
     def partitioners(self):
         """``{label: (labels, ms, K7 launches)}``, one call each."""
@@ -1799,49 +1881,70 @@ class PathH:
         return out
 
 
-def phase_path_h_checks(h: PathH, permuted, y, labels, parts) -> float:
-    """The pipeline's labels against ``_propagate`` through the plain round
-    on the card, its permuted CSR against the plain relocation, ``y``
-    against the plain SpMV; the labels a partition; ten rounds with no host
-    sync; each partitioner's labels against the same call on a CPU copy.
-    Returns K7's largest difference from its plain version on path H."""
-    from sparsebase_tpu_torch import CSR, get_config, set_config
+def pipeline_h(coo, x):
+    from sparsebase_tpu_torch.models import partition_pipeline
+
+    return partition_pipeline(coo, x, PARTITION_K, PARTITION_ROUNDS)
+
+
+def phase_path_h_pipeline_checks(label, coo, x, permuted, y, labels, planted) -> float:
+    """One graph's pipeline: its labels against ``_propagate`` through the
+    plain round on the card, its permuted CSR against the plain relocation,
+    ``y`` against the plain SpMV; the labels a partition; ten rounds with no
+    host sync; the part sizes, balance and edge cut (against the planted
+    cut where there is one). Returns K7's largest difference from its plain
+    version."""
+    from sparsebase_tpu_torch import CSR
     from sparsebase_tpu_torch.ops import partition
     from sparsebase_tpu_torch.ops.kernels import (
         csr_spmv_plain, indptr_plain, label_prop_round_plain, radix_rank_plain, relocate_csr_plain,
     )
     from sparsebase_tpu_torch.ops.partition.labelprop import _chunks, _propagate
 
-    coo, x, k = h.coo, h.x, PARTITION_K
-    n = coo.nrows
-    print(f"phase 4 path H checks: n={n} entries={coo.nnz} k={k} rounds={PARTITION_ROUNDS}")
+    k, n = PARTITION_K, coo.nrows
+    print(f"phase 4 path H checks, {label}: n={n} entries={coo.nnz} k={k} rounds={PARTITION_ROUNDS}")
     src = CSR(indptr_plain(coo.row, n), coo.col, coo.vals, coo.shape)
     cap = 1.1 * n / k
     want = _chunks(n, k, src.indptr.device)
     for it in range(PARTITION_ROUNDS):
         want = label_prop_round_plain(src, want, k, (it + 1) / PARTITION_ROUNDS, cap)
     check(labels.device == src.indptr.device and labels.dtype == torch.int32 and labels.shape == (n,),
-          "path H labels: not int32 on the card")
-    check(bool(((labels >= 0) & (labels < k)).all()), "path H labels: outside [0, k)")
-    check_equal("path H labels vs _propagate through the plain round", labels, want)
+          f"path H {label} labels: not int32 on the card")
+    check(bool(((labels >= 0) & (labels < k)).all()), f"path H {label} labels: outside [0, k)")
+    check_equal(f"path H {label} labels vs _propagate through the plain round", labels, want)
     err = float((labels - want).abs().max())
     ro = radix_rank_plain(labels.long())
-    check_csr_equal("path H permuted CSR vs plain relocation", permuted, relocate_csr_plain(src, ro, ro))
+    check_csr_equal(f"path H {label} permuted CSR vs plain relocation", permuted, relocate_csr_plain(src, ro, ro))
     x_new = torch.empty_like(x)
     x_new[ro] = x
-    check_rows("path H y vs plain SpMV of the permuted matrix", y, csr_spmv_plain(permuted, x_new),
+    check_rows(f"path H {label} y vs plain SpMV of the permuted matrix", y, csr_spmv_plain(permuted, x_new),
                permuted.degrees(), csr_spmv_plain(abs_csr(permuted), x_new.abs()))
     labels0 = _chunks(n, k, src.indptr.device)
     syncs = count_host_syncs(lambda: _propagate(src, labels0, k, cap, None, PARTITION_ROUNDS, stop_when_stable=False))
-    print(f"  path H: {PARTITION_ROUNDS} rounds of _propagate on the card synced the host {syncs} times")
-    check(syncs == 0, f"path H _propagate synced the host {syncs} times")
-    pipe_syncs = count_host_syncs(h.pipeline)
-    print(f"  path H partition_pipeline: host syncs in one call {pipe_syncs} (K4's count of its long rows)")
+    print(f"  path H {label}: {PARTITION_ROUNDS} rounds of _propagate on the card synced the host {syncs} times")
+    check(syncs == 0, f"path H {label}: _propagate synced the host {syncs} times")
+    pipe_syncs = count_host_syncs(lambda: pipeline_h(coo, x))
+    print(f"  path H {label} partition_pipeline: host syncs in one call {pipe_syncs} (K4's count of its long rows)")
     sizes = partition.part_sizes(labels, k)
-    print(f"  path H part sizes {sizes.tolist()}, balance {partition.balance_ratio(labels, k):.6f}, edge cut "
-          f"(entries across parts / 2): chunks {partition.edge_cut(src, labels0)}, after propagation "
-          f"{partition.edge_cut(src, labels)}")
-    graph = h.graph
+    cuts = f"chunks {partition.edge_cut(src, labels0)}, after propagation {partition.edge_cut(src, labels)}"
+    if planted is not None:
+        cuts += f", planted {partition.edge_cut(src, planted)}"
+        # each part's largest planted block: the vertices the pipeline put with their block
+        pair = labels.long() * k + planted.long()
+        most = torch.zeros((k * k,), dtype=torch.int64, device=pair.device).index_add_(
+            0, pair, torch.ones_like(pair)).view(k, k).amax(dim=1).sum()
+        cuts += f"; vertices in their part's largest planted block {int(most)} of {n}"
+    print(f"  path H {label} part sizes {sizes.tolist()}, balance {partition.balance_ratio(labels, k):.6f}, edge cut "
+          f"(entries across parts / 2): {cuts}")
+    return err
+
+
+def phase_path_h_partitioner_checks(h: PathH, parts) -> None:
+    """Each partitioner's labels on path G's graph against the same call on a CPU copy."""
+    from sparsebase_tpu_torch import get_config, set_config
+    from sparsebase_tpu_torch.ops import partition
+
+    k, graph = PARTITION_K, h.graph
     host_graph = graph.to_host()
     nets, pins, _ = partition.column_net_hypergraph(graph)
     saved = get_config().use_graphkit
@@ -1858,77 +1961,99 @@ def phase_path_h_checks(h: PathH, permuted, y, labels, parts) -> float:
                   f"{partition.balance_ratio(got, k):.6f}, wall {ms:.1f} ms, K7 launches {k7}")
     finally:
         set_config(use_graphkit=saved)
-    return err
 
 
-def phase_path_h_times(h: PathH, permuted, labels):
-    """The pipeline end to end; K7 one call and back to back beside its
-    plain version and its bound, at path H's first round and its last; a
-    profile of the pipeline; K2 on the permuted CSR beside K2 on the source.
-    Returns ``(k7_ms, k7_plain_ms, shape)``."""
+def phase_path_h_times(label, coo, x, permuted, labels, profile: bool):
+    """One graph's pipeline end to end (median of 5, and its peak device
+    memory above what was held before); K7 one call and back to back beside
+    its plain version and its bound, at the first round and the last; K7's
+    device time per kernel in one round; with ``profile``, a profile of the
+    pipeline; K2 on the permuted CSR beside K2 on the source. Returns
+    ``(k7_ms, k7_plain_ms)`` of the first round."""
     from sparsebase_tpu_torch import CSR
     from sparsebase_tpu_torch.ops.kernels import csr_spmv, label_prop_round, label_prop_round_plain, radix_rank_plain
     from sparsebase_tpu_torch.ops.kernels.indptr import indptr_from_sorted_rows
     from sparsebase_tpu_torch.ops.partition.labelprop import _chunks
 
-    coo, x, k = h.coo, h.x, PARTITION_K
+    k = PARTITION_K
     n, nnz = coo.nrows, coo.nnz
-    ms = host_ms(h.pipeline)
-    print(f"phase 5 path H partition_pipeline (k={k}, {PARTITION_ROUNDS} rounds): median {ms:.3f} ms, "
-          f"{nnz / (ms / 1e3):.4g} nnz/s")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(lambda: pipeline_h(coo, x))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 5 path H partition_pipeline, {label} (k={k}, {PARTITION_ROUNDS} rounds): median {ms:.3f} ms, "
+          f"{nnz / (ms / 1e3):.4g} nnz/s, peak device memory {(peak - base) / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB held before")
     csr = CSR(indptr_from_sorted_rows(coo.row, n), coo.col, coo.vals, coo.shape)
     cap = 1.1 * n / k
     k7_bound, by = bound("label_prop", n=n, nnz=nnz)
     first = _chunks(n, k, csr.indptr.device)
     times = {}
-    for label, lab, alpha in (("first round", first, 1 / PARTITION_ROUNDS), ("last round", labels, 1.0)):
+    for which, lab, alpha in (("first round", first, 1 / PARTITION_ROUNDS), ("last round", labels, 1.0)):
         one = cuda_ms(lambda: label_prop_round(csr, lab, k, alpha, cap))
         back = cuda_ms(lambda: label_prop_round(csr, lab, k, alpha, cap), batch=10)
         plain = cuda_ms(lambda: label_prop_round_plain(csr, lab, k, alpha, cap))
-        times[label] = (one, plain)
-        print(f"phase 5 path H K7 label_prop ({label}): one call {one:.4f} ms, back to back {back:.4f} ms, plain "
-              f"{plain:.4f} ms; bound {k7_bound:.4f} ms ({by}), {k7_bound / one:.1%} / {k7_bound / back:.1%} of it")
-    per_kernel, spans, wall_ms = device_profile(lambda: label_prop_round(csr, first, k, 0.1, cap), runs=3)
-    if spans:
-        print(f"phase 6 path H K7 one round: device {sum(per_kernel.values()):.4f} ms per call (" + ", ".join(
-            f"{name[:50]} {v:.4f}" for name, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])) + ")")
-    else:  # the profiler drops operations in short windows
-        print("phase 6 path H K7 one round: the profiler recorded no device operation (not measured)")
-    per_kernel, spans, wall_ms = device_profile(h.pipeline, runs=3)
-    if spans:
-        busy_ms = device_busy(spans)[0] / 1e3 / 3
-        print(f"phase 6 profile of path H partition_pipeline, 3 runs: device busy {busy_ms:.4f} ms per run, wall "
-              f"under the profiler {wall_ms:.4f} ms, idle {1 - busy_ms / wall_ms:.1%}")
-        for name, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
-            print(f"  {v:9.4f} ms {v / busy_ms:6.1%}  {name[:110]}")
+        times[which] = (one, plain)
+        print(f"phase 5 path H K7 label_prop ({label}, {which}): one call {one:.4f} ms, back to back {back:.4f} ms, "
+              f"plain {plain:.4f} ms; bound {k7_bound:.4f} ms ({by}), {k7_bound / one:.1%} / {k7_bound / back:.1%} "
+              "of it")
+    _, spans, _ = device_profile(lambda: label_prop_round(csr, first, k, 0.1, cap), runs=10)
+    if spans:  # the profiler drops some operations in short windows: each kernel's mean over the spans it kept
+        durations = {}
+        for start, end, name in spans:
+            durations.setdefault(name, []).append((end - start) / 1e3)
+        print(f"phase 6 path H K7 one round ({label}): device {sum(map(statistics.mean, durations.values())):.4f} ms "
+              "per call (" + ", ".join(f"{name[:50]} {statistics.mean(d):.4f} over {len(d)} of 10 calls"
+                                       for name, d in sorted(durations.items(), key=lambda kv: -sum(kv[1]))) + ")")
     else:
-        print("phase 6 profile of path H: the profiler recorded no device operation (not measured)")
+        print(f"phase 6 path H K7 one round ({label}): the profiler recorded no device operation (not measured)")
+    if profile:
+        per_kernel, spans, wall_ms = device_profile(lambda: pipeline_h(coo, x), runs=3)
+        if spans:
+            busy_ms = device_busy(spans)[0] / 1e3 / 3
+            print(f"phase 6 profile of path H partition_pipeline ({label}), 3 runs: device busy {busy_ms:.4f} ms per "
+                  f"run, wall under the profiler {wall_ms:.4f} ms, idle {1 - busy_ms / wall_ms:.1%}")
+            for name, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
+                print(f"  {v:9.4f} ms {v / busy_ms:6.1%}  {name[:110]}")
+        else:
+            print("phase 6 profile of path H: the profiler recorded no device operation (not measured)")
     ro = radix_rank_plain(labels.long())
     x_new = torch.empty_like(x)
     x_new[ro] = x
     src_ms, perm_ms = cuda_ms(lambda: csr_spmv(csr, x)), cuda_ms(lambda: csr_spmv(permuted, x_new))
-    print(f"phase 5 path H what partitioning buys: K2 on the source CSR {src_ms:.4f} ms, on the partitioned CSR "
-          f"{perm_ms:.4f} ms ({src_ms / perm_ms:.3f}x)")
-    one, plain = times["first round"]
-    return one, plain, dict(n=n, nnz=nnz)
+    print(f"phase 5 path H what partitioning buys, {label}: K2 on the source CSR {src_ms:.4f} ms, on the "
+          f"partitioned CSR {perm_ms:.4f} ms ({src_ms / perm_ms:.3f}x)")
+    return times["first round"]
 
 
-def path_h(coo, x, graph):
-    """Path H's phases 3, 4 and 5, run after path G on path A's COO and path
-    G's host graph. Returns its launch counts, K7's largest difference from
-    its plain version, and K7's times and shape."""
+def path_h(coo, x, graph, planted):
+    """Path H's phases 3, 4 and 5, run after path G on path A's COO, the
+    planted graph ``(coo, x, planted labels)`` and path G's host graph.
+    Returns the launch counts of the pipeline on path A's graph, K7's
+    largest difference from its plain version, and K7's times on path A's
+    graph and its shape."""
     from sparsebase_tpu_torch import _build
 
-    h = PathH(coo, x, graph)
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    permuted, y, labels = h.pipeline()
-    launches = read_launches("H", ("indptr", "label_prop", "radix_rank", "relocate_csr", "csr_spmv"))
-    check(launches["label_prop"] == PARTITION_ROUNDS, f"path H launched K7 {launches['label_prop']} times")
+    h = PathH(coo, x, graph, planted)
+    outs, launches = [], None
+    for label, g_coo, g_x, _ in h.graphs():
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        outs.append(pipeline_h(g_coo, g_x))
+        counts = read_launches(f"H, {label}", ("indptr", "label_prop", "radix_rank", "relocate_csr", "csr_spmv"))
+        check(counts["label_prop"] == PARTITION_ROUNDS, f"path H, {label}: K7 launched {counts['label_prop']} times")
+        launches = launches or counts
     parts = h.partitioners()
-    err = phase_path_h_checks(h, permuted, y, labels, parts)
-    k7_ms, k7_plain_ms, shape = phase_path_h_times(h, permuted, labels)
-    return launches, err, (k7_ms, k7_plain_ms), shape
+    err = 0.0
+    for (label, g_coo, g_x, g_planted), (g_perm, g_y, g_labels) in zip(h.graphs(), outs):
+        err = max(err, phase_path_h_pipeline_checks(label, g_coo, g_x, g_perm, g_y, g_labels, g_planted))
+    phase_path_h_partitioner_checks(h, parts)
+    k7_times = None
+    for (label, g_coo, g_x, _), (g_perm, _, g_labels) in zip(h.graphs(), outs):
+        times = phase_path_h_times(label, g_coo, g_x, g_perm, g_labels, profile=k7_times is None)
+        k7_times = k7_times or times
+    return launches, err, k7_times, dict(n=coo.nrows, nnz=coo.nnz)
 
 
 def read_launches(path: str, required) -> dict:
@@ -1969,7 +2094,7 @@ def main() -> None:
     g.manual_seed(args.seed)
     phase_kernels_vs_plain(g, dev)
     phase_exact_kernels_vs_plain(g, dev)
-    phase_k7_vs_plain(g, dev)
+    phase_k7_vs_plain(g, dev, args.seed)
 
     # -- the slice's paths, each once -------------------------------------------
     nnz = int(args.nnz)
@@ -2138,7 +2263,11 @@ def main() -> None:
     launches_e = path_e(g, dev, int(args.ingest_nnz))
     launches_f, err_k6, k6_times, k6_shape = path_f(g, dev, args.feature_n)
     launches_g, host_graph = path_g(g, dev, coo_a)
-    launches_h, err_k7, k7_times, k7_shape = path_h(coo_a, x_a, host_graph)
+    n_p = n - n % PARTITION_K  # equal blocks
+    coo_p, planted = planted_coo(g, dev, n_p, nnz)
+    x_p = torch.randn((n_p,), generator=g, device=dev)
+    launches_h, err_k7, k7_times, k7_shape = path_h(coo_a, x_a, host_graph, (coo_p, x_p, planted))
+    del coo_p, x_p, planted
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
                 + launches_g[k] + launches_h[k] for k in launches_a}
 

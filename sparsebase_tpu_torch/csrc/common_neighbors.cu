@@ -562,50 +562,54 @@ __global__ void __launch_bounds__(256) cn_deferred(Args a) {
   block_add<kMode>(total, a.out_sum);
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
-      sms = 132;
-  }
-  return sms;
+// the current device's SM count into *sms, read at each launch
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
-// blocks for `tasks` tasks of `per_block` each, at most as many as the
-// card holds at once (the kernels walk their work grid-stride); the
-// occupancy is asked once per kernel
+// *blocks: blocks for `tasks` tasks of `per_block` each, at most as many as
+// the card holds at once on its `sms` SMs (the kernels walk their work
+// grid-stride); the occupancy is asked once per kernel and host thread (a
+// failed query is returned and asked again)
 template <auto kKernel>
-unsigned grid(int threads, size_t smem, int64_t tasks, int64_t per_block) {
-  static const int per_sm = [&] {
+cudaError_t grid(int sms, int threads, size_t smem, int64_t tasks, int64_t per_block, unsigned* blocks) {
+  thread_local int per_sm = 0;
+  if (per_sm == 0) {
     int b = 0;
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kKernel, threads, smem) != cudaSuccess || b < 1) b = 1;
-    return b;
-  }();
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kKernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    per_sm = b < 1 ? 1 : b;
+  }
   int64_t b = (tasks + per_block - 1) / per_block;
-  const int64_t cap = (int64_t)sm_count() * per_sm;
+  const int64_t cap = (int64_t)sms * per_sm;
   if (b > cap) b = cap;
-  return (unsigned)(b < 1 ? 1 : b);
+  *blocks = (unsigned)(b < 1 ? 1 : b);
+  return cudaSuccess;
 }
 
 template <int kMode>
-void launch_tiers(const Args& a, int64_t n, int64_t nnz, cudaStream_t s) {
+cudaError_t launch_tiers(const Args& a, int64_t n, int64_t nnz, int sms, cudaStream_t s) {
   auto upto = [&](int64_t least) { return nnz / least < n ? nnz / least : n; };  // rows of >= least entries
   constexpr int T = kGroupThreads;
   constexpr size_t kMid = kMidCap * sizeof(int), kBig = kBigCap * sizeof(int);
-  const unsigned g1 = grid<cn_groups<kMode, 8>>(T, 0, upto(1), T / 8);
-  const unsigned g2 = grid<cn_groups<kMode, 16>>(T, 0, upto(9), T / 16);
-  const unsigned g3 = grid<cn_groups<kMode, 32>>(T, 0, upto(17), T / 32);
-  const unsigned g4 = grid<cn_blocks<kMode, 128>>(128, kMid, upto(kGroupStage + 1), 1);
-  const unsigned g5 = grid<cn_blocks<kMode, 256>>(256, kBig, nnz / kChunk + upto(kMidCap + 1), 1);
-  const unsigned gd = grid<cn_deferred<kMode>>(256, 0, a.defer_cap, 1);
+  unsigned g1, g2, g3, g4, g5, gd;
+  cudaError_t err = grid<cn_groups<kMode, 8>>(sms, T, 0, upto(1), T / 8, &g1);
+  if (err == cudaSuccess) err = grid<cn_groups<kMode, 16>>(sms, T, 0, upto(9), T / 16, &g2);
+  if (err == cudaSuccess) err = grid<cn_groups<kMode, 32>>(sms, T, 0, upto(17), T / 32, &g3);
+  if (err == cudaSuccess) err = grid<cn_blocks<kMode, 128>>(sms, 128, kMid, upto(kGroupStage + 1), 1, &g4);
+  if (err == cudaSuccess) err = grid<cn_blocks<kMode, 256>>(sms, 256, kBig, nnz / kChunk + upto(kMidCap + 1), 1, &g5);
+  if (err == cudaSuccess) err = grid<cn_deferred<kMode>>(sms, 256, 0, a.defer_cap, 1, &gd);
+  if (err != cudaSuccess) return err;
   cn_groups<kMode, 8><<<g1, T, 0, s>>>(a, 1);
   if (upto(9) > 0) cn_groups<kMode, 16><<<g2, T, 0, s>>>(a, 2);
   if (upto(17) > 0) cn_groups<kMode, 32><<<g3, T, 0, s>>>(a, 3);
   if (upto(kGroupStage + 1) > 0) cn_blocks<kMode, 128><<<g4, 128, kMid, s>>>(a, 4, kMidCap, 0);
   if (upto(kMidCap + 1) > 0) cn_blocks<kMode, 256><<<g5, 256, kBig, s>>>(a, 5, kBigCap, kChunk);
   cn_deferred<kMode><<<gd, 256, 0, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -637,13 +641,16 @@ extern "C" int sb_common_neighbors(const int64_t* indptr, const int* ids, int64_
   unsigned long long* words = reinterpret_cast<unsigned long long*>(plan);
   const Args a{indptr, ids, in_ptr, in_ids, rows, plan + 2 * kTiers, chunk_end, words, out_w,
                reinterpret_cast<unsigned long long*>(out_sum), defer_e, defer_u, words + kPlanWords - 1, cap};
-  cudaMemsetAsync(plan, 0, kPlanWords * sizeof(int64_t), s);
-  if (mode != kJaccard) cudaMemsetAsync(out_sum, 0, sizeof(int64_t), s);
-  const unsigned blocks = grid<classify_place>(256, 0, n, 256);
+  int sms = 0;
+  unsigned blocks = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err == cudaSuccess) err = grid<classify_place>(sms, 256, 0, n, 256, &blocks);
+  if (err == cudaSuccess) err = cudaMemsetAsync(plan, 0, kPlanWords * sizeof(int64_t), s);
+  if (err == cudaSuccess && mode != kJaccard) err = cudaMemsetAsync(out_sum, 0, sizeof(int64_t), s);
+  if (err != cudaSuccess) return (int)err;
   classify_count<<<blocks, 256, 0, s>>>(indptr, n, words);
   classify_place<<<blocks, 256, 0, s>>>(indptr, n, a);
-  if (mode == kTriangles) launch_tiers<kTriangles>(a, n, nnz, s);
-  else if (mode == kDirected) launch_tiers<kDirected>(a, n, nnz, s);
-  else launch_tiers<kJaccard>(a, n, nnz, s);
-  return (int)cudaGetLastError();
+  if (mode == kTriangles) return (int)launch_tiers<kTriangles>(a, n, nnz, sms, s);
+  if (mode == kDirected) return (int)launch_tiers<kDirected>(a, n, nnz, sms, s);
+  return (int)launch_tiers<kJaccard>(a, n, nnz, sms, s);
 }

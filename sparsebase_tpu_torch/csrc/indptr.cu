@@ -109,15 +109,12 @@ indptr_kernel(const int* __restrict__ row, int64_t nnz, int64_t nrows, int64_t s
     own_scalar(row, k < start ? k : tail + (k - start), nnz, nrows, nrows_c, indptr);
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
-      sms = 132;
-  }
-  return sms;
+// the current device's SM count into *sms, read at each launch
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
 }  // namespace
@@ -136,7 +133,10 @@ extern "C" int sb_indptr_from_sorted_rows(const int* row, int64_t nnz, int64_t n
   }
   const int64_t warps_per_block = kThreads / 32;
   int64_t blocks = (nchunks + warps_per_block - 1) / warps_per_block;
-  const int64_t cap = (int64_t)sm_count() * kBlocksPerSM;
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t cap = (int64_t)sms * kBlocksPerSM;
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   indptr_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(row, nnz, nrows, start, nchunks, indptr);

@@ -17,44 +17,74 @@
 //                  labels[r] where row r has no entries.
 // A label outside [0, k) counts nowhere (the caller's labels have none).
 //
-// What bounds it on the H100: device memory. Its function reads indptr,
-// ids and labels once and writes the new labels: at 6.25M rows and 100M
-// entries, 50 + 400 + 25 + 25 MB, 0.15 ms at 3.35 TB/s. The labels (25 MB)
-// fit in the 50 MB L2, so the gathers labels[ids[j]] are served there.
+// What bounds it on the H100. Its function reads indptr, ids and labels once
+// and writes the new labels: at 6.25M rows and 100M entries, 50 + 400 + 25 +
+// 25 MB, 0.15 ms at 3.35 TB/s. In practice the floor is the gather
+// labels[ids[j]], one random read an entry from L2: 100M 4-byte gathers from
+// the 25 MB labels take about 1 ms whatever issues them (chip_smoke.py's
+// torch.index_select probe). So a round gathers once an entry, and from a
+// 1-byte copy of the labels where k <= 255 (6.25 MB at path H; the copy is
+// one coalesced pass over n).
 //
-// The argmax needs gmax, a grid-wide maximum, before any row can choose. So
-// one C call is a memset and three launches on the caller's stream, with no
-// host read:
-//  1. lp_count: each row's histogram, the largest cell of the grid (an
-//     atomicMax on an order-preserving integer key of the float) and the part
-//     sizes (a block table, flushed by k atomics a block);
-//  2. lp_penalty: pen[p] for the k parts;
-//  3. lp_assign: each row's histogram again and its first-index argmax.
-// Reading the entries twice costs 400 MB more than the bound; keeping the
-// histograms instead would cost n * k words.
+// The argmax needs gmax, a grid-wide maximum, before any row can choose, so
+// one C call is a memset of the part sizes and gmax, lp_bytes (the 1-byte
+// copy, k <= 255), then two launches on the caller's stream, with no host
+// read. Which two is chosen on the host from (n, k, nnz), in make_plan:
+//  - stored (n * k <= nnz and k <= 6,140): lp_count counts each row once,
+//    takes the part sizes and gmax, and writes each row's k cells to a
+//    scratch of n * k words, no larger than the ids it read; then lp_pick
+//    reads those cells (coalesced, no gather), computes the k penalties in
+//    each block's prologue and takes each row's first-index argmax (a thread
+//    a row up to k = 8, else a group of lanes a row). The entries are read
+//    once. At path H (k = 8) the cells take 200 MB.
+//  - two passes (n * k > nnz: large k on a sparse graph, or the global
+//    tier): lp_count without the cells, lp_penalty for the k penalties, and
+//    lp_assign, which counts each row again and takes its argmax.
 //
-// Design. A group of G lanes takes a row (G = 8 for k <= 64, where path H's
-// rows of about 16 entries keep the lanes busy, else a warp). Each group owns
-// a k-word histogram in shared memory; its lanes stride the row's entries and
-// add 1 by shared-memory atomics: the counts are integers, so their order
-// does not matter and the result is exact. With weights, every lane of the
-// group walks the row in entry order and adds the weights of the parts it
-// owns (p = lane mod G), so each cell is a sum in entry order, as np.add.at
-// and the CPU's index_put_(accumulate=True) take it. The lane that reads a
-// cell clears it for the next row. Warps loop over the rows with a trip count
-// that is the same for all their lanes, so the group shuffles of the argmax
-// run converged.
+// Counting. A group of G lanes takes a row (G = 8 for k <= 64, where rows of
+// about 16 entries keep the lanes busy, else a warp). Three tiers, by k:
+//  - registers (k <= 8): unweighted, each lane keeps 8 counts in registers,
+//    strides the row's entries and adds 1 to the count of the label it reads
+//    (8 compares, no atomics: a labelling with one dominant part costs
+//    nothing extra); the group then folds the counts by shuffles (a
+//    reduce-scatter: 3 steps that each send half of what is left) so that
+//    lane gl holds the total of part gl. The counts are integers, so their
+//    order does not matter. Against the shared-memory tier at k = 8
+//    (tools/torch_k7_ab.py on the H100): 5% less device time on path H's
+//    graph, the same on the planted one, 12-14% less time with weights, and
+//    1.6x as fast on a row of 262,144 entries, where the group's atomics on
+//    one label serialise.
+//  - shared memory (8 < k <= 6,140): each group owns a k-word histogram in
+//    48 KB of shared memory (no opt-in) beside the block's k-word table; its
+//    lanes add 1 by shared-memory atomics.
+//  - global (k > 6,140): each warp's histogram is a slice of a scratch
+//    buffer in device memory (kGlobalWords words in all, at least 8 warps).
+// With weights every lane of the group walks the row in entry order and adds
+// the weights of the parts it owns (p = lane mod G), in a register or in its
+// group's histogram, so each cell is a sum in entry order, as np.add.at
+// takes it. The part sizes come from one coalesced read of the labels, a
+// warp adding each distinct label once (__match_any_sync). Warps loop over
+// the rows with a trip count that is the same for all their lanes, so the
+// group shuffles run converged. Grids are the rows' count capped at what the
+// card holds at once (the SM count, read at each launch, times each kernel's
+// occupancy, asked once per shape: a query takes about 10 us of host time; a
+// failed query is returned).
 //
-// Tiers. The block holds (groups + 1) * k words in 48 KB of shared memory
-// (no opt-in): k up to 6,140. Past that, each warp's histogram is a slice of
-// a scratch buffer in device memory (the global tier, kGlobalWords words in
-// all, at least 8 warps), and the sizes go straight to device atomics. Row
-// length needs no tier: a histogram's size is k, not the row's length; a
-// long row takes its group longer.
+// Scratch (sb_label_prop_scratch_bytes): the sizes (k ints), gmax's key, the
+// penalties (k floats), the 1-byte labels (n bytes, k <= 255), then the
+// stored cells (4 n k bytes <= 4 nnz) or the global tier's histograms.
 //
-// Known costs, left for later work: the second pass over the entries; a
-// group of 8 lanes walks a row of 262,144 entries alone; every row scans all
-// k cells, which is n * k work at large k.
+// Tried and dropped (tools/torch_k7_ab.py on the H100): counts in registers
+// up to k = 16 (16 compares an entry and a spill: no faster than the
+// shared-memory tier at k = 16); lp_pick with a group of 8 lanes a row at k
+// = 8 (128 bytes in flight a warp: 0.25 ms for path H's 200 MB of cells,
+// against 0.09-0.10 ms with a thread a row).
+//
+// Known costs, left for later work: a group of 8 lanes walks a row of
+// 262,144 entries alone; with weights each lane of a group reads every entry
+// of the row; every row scans all k cells, which is n * k work at large k;
+// on small graphs (a few million entries) the extra launch of lp_bytes and
+// the stored cells' write and read cost about what they save.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -65,7 +95,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSmemWords = 12280;           // 48 KB with lp_count's static 32 bytes: no opt-in
 constexpr int kNarrowK = 64;                // k up to this: groups of 8 lanes
-constexpr int kBlocksPerSM = 8;
+constexpr int kRegK = 8;                    // k up to this: counts in registers, one a lane
+constexpr int kByteK = 255;                 // k up to this: gathers from a 1-byte copy of the labels
 constexpr int64_t kGlobalWords = 1 << 24;   // the global tier's histograms: 64 MB
 
 // the current device's SM count into *sms
@@ -76,28 +107,58 @@ cudaError_t sm_count(int* sms) {
   return err;
 }
 
+// *blocks = want, at most the blocks of `kKernel` the card holds at once: the
+// SM count read at each launch, the occupancy asked once per shape and host
+// thread (a failed query is returned and asked again)
+template <auto kKernel>
+cudaError_t resident_grid(int threads, size_t smem, int64_t want, unsigned* blocks) {
+  struct Shape {
+    int threads;
+    size_t smem;
+    int per_sm;
+  };
+  thread_local Shape last{0, 0, 0};
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err == cudaSuccess && (last.threads != threads || last.smem != smem)) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel, threads, smem);
+    if (err == cudaSuccess) last = Shape{threads, smem, per_sm};
+  }
+  if (err != cudaSuccess) return err;
+  const int64_t cap = (int64_t)sms * (last.per_sm > 0 ? last.per_sm : 1);
+  *blocks = (unsigned)(want < 1 ? 1 : want < cap ? want : cap);
+  return cudaSuccess;
+}
+
 int64_t align256(int64_t bytes) { return (bytes + 255) & ~int64_t(255); }
 
+enum class Tier { kRegisters, kShared, kGlobal };
+
 struct Plan {
+  Tier tier;
   int group;       // lanes per row: 8 or 32
   int groups;      // rows a block takes at once
-  bool global;     // histograms in the scratch buffer
-  int64_t blocks;
+  bool stored;     // the cells kept between the launches: one read of the entries
+  bool bytes;      // the gathers read a 1-byte copy of the labels
+  int64_t blocks;  // before the cap by the card (global tier: exact)
 };
 
-Plan make_plan(int64_t n, int64_t k) {
-  Plan p;
+Plan make_plan(int64_t n, int64_t k, int64_t nnz) {
+  Plan p{};
   p.group = k <= kNarrowK ? 8 : 32;
   const int64_t fit = kSmemWords / k - 1;  // histograms beside the block's k-word table
-  if (fit >= 1) {
-    p.global = false;
+  if (k <= kRegK) {
+    p.tier = Tier::kRegisters;
+    p.groups = kThreads / p.group;
+  } else if (fit >= 1) {
+    p.tier = Tier::kShared;
     int64_t g = kThreads / p.group;
     if (fit < g) g = fit;
-    if (p.group == 8) g &= ~int64_t(3);  // whole warps (fit >= 191 here)
+    if (p.group == 8) g &= ~int64_t(3);  // whole warps (fit >= 190 here)
     p.groups = (int)g;
-    p.blocks = (n + g - 1) / g;  // capped by the SM count at launch
   } else {
-    p.global = true;
+    p.tier = Tier::kGlobal;
     p.groups = kThreads / 32;
     int64_t slices = (kGlobalWords / k) & ~int64_t(7);
     if (slices < 8) slices = 8;
@@ -105,9 +166,29 @@ Plan make_plan(int64_t n, int64_t k) {
     if (slices > need) slices = need;
     p.blocks = slices / 8;
   }
+  if (p.tier != Tier::kGlobal) p.blocks = (n + p.groups - 1) / p.groups;
   if (p.blocks < 1) p.blocks = 1;
+  p.stored = p.tier != Tier::kGlobal && n * k <= nnz;  // n, k < 2^31: no overflow
+  p.bytes = k <= kByteK;
   return p;
 }
+
+struct Args {
+  const int64_t* indptr;
+  const int* ids;
+  const float* w;
+  const int* labels;
+  uint8_t* labels8;  // the 1-byte copy (255 outside [0, k)) where k <= kByteK
+  int64_t n;
+  int k;
+  float alpha, cap, cap_div;
+  uint32_t* ghist;  // the global tier's histograms
+  uint32_t* cells;  // the stored route's (n, k) cells, else null
+  int* sizes;
+  unsigned* gmax_key;
+  float* pen;
+  int* out;
+};
 
 // an unsigned key that orders as the float does
 __device__ __forceinline__ unsigned order_key(float f) {
@@ -119,68 +200,199 @@ __device__ __forceinline__ float key_float(unsigned key) {
   return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
 }
 
+// the label of vertex `id`, from the 1-byte copy (L = uint8_t) or the labels
+template <class L>
+__device__ __forceinline__ int label_of(const Args& a, int id) {
+  if constexpr (sizeof(L) == 1) return __ldg(a.labels8 + id);
+  else return __ldg(a.labels + id);
+}
+
+// the 1-byte copy of the labels that the gathers read where k <= kByteK
+__global__ void __launch_bounds__(kThreads) lp_bytes(const Args a) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; v < a.n; v += step) {
+    const int p = __ldg(a.labels + v);
+    a.labels8[v] = (unsigned)p < (unsigned)a.k ? (uint8_t)p : (uint8_t)255;
+  }
+}
+
+// a cell's word as a float: an integer count, or the bits of a weighted sum
 template <bool W>
 __device__ __forceinline__ float cell(uint32_t word) {
   return W ? __uint_as_float(word) : __int2float_rn((int)word);
 }
 
-// the entries s..e of one row into its group's histogram (see the header)
-template <int G, bool W>
-__device__ __forceinline__ void accumulate(uint32_t* hist, const int* __restrict__ ids, const float* __restrict__ w,
-                                           const int* __restrict__ labels, int64_t s, int64_t e, int gl, int k) {
-  if (W) {
-    for (int64_t j = s; j < e; ++j) {
-      const int p = __ldg(labels + __ldg(ids + j));
-      if ((unsigned)p < (unsigned)k && (p & (G - 1)) == gl)
-        hist[p] = __float_as_uint(__fadd_rn(__uint_as_float(hist[p]), __ldg(w + j)));
-    }
-  } else {
-    for (int64_t j = s + gl; j < e; j += G) {
-      const int p = __ldg(labels + __ldg(ids + j));
-      if ((unsigned)p < (unsigned)k) atomicAdd(reinterpret_cast<int*>(hist + p), 1);
-    }
-  }
+__device__ __forceinline__ uint32_t add_weight(uint32_t word, float w) {
+  return __float_as_uint(__fadd_rn(__uint_as_float(word), w));
 }
 
-// pass 1: the histograms' largest cell and the part sizes
-template <int G, bool W, bool GLOBAL>
-__global__ void __launch_bounds__(kThreads)
-lp_count(const int64_t* __restrict__ indptr, const int* __restrict__ ids, const float* __restrict__ w,
-         const int* __restrict__ labels, int64_t n, int k, uint32_t* __restrict__ ghist, int* __restrict__ sizes,
-         unsigned* __restrict__ gmax_key) {
+// pen[p], in the reference's order of operations
+__device__ __forceinline__ float penalty(int size, unsigned gmax_key, float alpha, float cap, float cap_div) {
+  const float top = __fadd_rn(key_float(gmax_key), 1.0f);
+  const float over = fmaxf(__fsub_rn(__int2float_rn(size), cap), 0.0f);
+  return __fdiv_rn(__fmul_rn(__fmul_rn(alpha, over), top), cap_div);
+}
+
+// the first part of the group's best score (lanes hold their own best)
+template <int G>
+__device__ __forceinline__ int group_argmax(float best, int bp) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, off, G);
+    const int op = __shfl_xor_sync(0xffffffffu, bp, off, G);
+    if (ob > best || (ob == best && op < bp)) {
+      best = ob;
+      bp = op;
+    }
+  }
+  return bp;
+}
+
+// The counters: count(row) (the row's lanes only), then finish() (every lane
+// of the warp), then each(f), which hands lane gl its cells p = gl, gl + G,
+// ... (< k) in increasing order, then done() (every lane).
+
+// k <= kRegK counts in registers, a group of 8 lanes a row; lane gl owns cell gl
+template <bool W, class L>
+struct RegCounter {
+  using Label = L;
+  static constexpr int kGroup = 8;
+  static_assert(kRegK == kGroup, "one cell a lane");
+  static constexpr bool kWeighted = W, kGlobal = false;
+  static __host__ __device__ int64_t hist_words(int, int) { return 0; }
+  uint32_t c[kRegK] = {};  // weighted: only c[0], the lane's own cell
+
+  __device__ __forceinline__ RegCounter(const Args&, uint32_t*, int, int, int) {}
+
+  __device__ __forceinline__ void count(const Args& a, int64_t s, int64_t e, int gl) {
+#pragma unroll
+    for (int q = 0; q < kRegK; ++q) c[q] = 0;
+    if (W) {  // each lane walks the row in entry order and adds the weights of its part
+      for (int64_t j = s; j < e; ++j)
+        if (label_of<L>(a, __ldg(a.ids + j)) == gl) c[0] = add_weight(c[0], __ldg(a.w + j));
+    } else {  // a label in [k, kRegK) lands in a cell that is never read
+      for (int64_t j = s + gl; j < e; j += kGroup) {
+        const int p = label_of<L>(a, __ldg(a.ids + j));
+#pragma unroll
+        for (int q = 0; q < kRegK; ++q) c[q] += p == q;
+      }
+    }
+  }
+
+  // a reduce-scatter over the group: at step O a lane keeps the cells whose
+  // bit O matches its own (cell index 2i + up) and sends the others to lane
+  // gl ^ O; after 3 steps c[0] is the total of cell gl
+  template <int O, int N>
+  __device__ __forceinline__ void fold(int gl) {
+    if constexpr (O < kGroup) {
+      const bool up = gl & O;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const uint32_t lo = c[2 * i], hi = c[2 * i + 1];
+        c[i] = (up ? hi : lo) + __shfl_xor_sync(0xffffffffu, up ? lo : hi, O);
+      }
+      fold<2 * O, N / 2>(gl);
+    }
+  }
+
+  __device__ __forceinline__ void finish(int gl) {
+    if constexpr (!W) fold<1, kRegK>(gl);
+  }
+
+  template <class F>
+  __device__ __forceinline__ void each(int gl, int k, F&& f) {
+    if (gl < k) f(gl, c[0]);
+  }
+
+  __device__ __forceinline__ void done() {}
+};
+
+// a k-word histogram per group, in shared memory or (GLOBAL) in the scratch
+template <int G_, bool W, bool GLOBAL, class L>
+struct HistCounter {
+  using Label = L;
+  static constexpr int kGroup = G_;
+  static constexpr bool kWeighted = W, kGlobal = GLOBAL;
+  static __host__ __device__ int64_t hist_words(int groups, int k) { return GLOBAL ? 0 : (int64_t)groups * k; }
+  uint32_t* hist;
+  const int k;
+
+  // clears the histograms; the caller syncs the block before counting
+  __device__ __forceinline__ HistCounter(const Args& a, uint32_t* smem, int group, int groups, int gl) : k(a.k) {
+    if (GLOBAL) {
+      hist = a.ghist + ((int64_t)blockIdx.x * groups + group) * k;
+      for (int p = gl; p < k; p += G_) hist[p] = 0;
+    } else {
+      hist = smem + group * k;
+      for (int i = threadIdx.x; i < groups * k; i += blockDim.x) smem[i] = 0;
+    }
+  }
+
+  __device__ __forceinline__ void count(const Args& a, int64_t s, int64_t e, int gl) {
+    if (W) {
+      for (int64_t j = s; j < e; ++j) {
+        const int p = label_of<L>(a, __ldg(a.ids + j));
+        if ((unsigned)p < (unsigned)k && (p & (G_ - 1)) == gl) hist[p] = add_weight(hist[p], __ldg(a.w + j));
+      }
+    } else {
+      for (int64_t j = s + gl; j < e; j += G_) {
+        const int p = label_of<L>(a, __ldg(a.ids + j));
+        if ((unsigned)p < (unsigned)k) atomicAdd(reinterpret_cast<int*>(hist + p), 1);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish(int) { __syncwarp(); }
+
+  // the lane that reads a cell clears it for the next row
+  template <class F>
+  __device__ __forceinline__ void each(int gl, int, F&& f) {
+    for (int p = gl; p < k; p += G_) {
+      f(p, hist[p]);
+      hist[p] = 0;
+    }
+  }
+
+  __device__ __forceinline__ void done() { __syncwarp(); }
+};
+
+// pass 1: the part sizes, the histograms' largest cell and, stored, the cells
+template <class C>
+__global__ void __launch_bounds__(kThreads) lp_count(const Args a) {
   extern __shared__ uint32_t smem[];
   __shared__ float warp_max[kThreads / 32];
+  constexpr int G = C::kGroup;
   const int groups = blockDim.x / G;
   const int group = threadIdx.x / G, gl = threadIdx.x % G, lane = threadIdx.x & 31;
-  uint32_t* hist = GLOBAL ? ghist + ((int64_t)blockIdx.x * groups + group) * k : smem + group * k;
-  int* block_sizes = reinterpret_cast<int*>(smem + groups * k);
-  if (GLOBAL) {
-    for (int p = gl; p < k; p += G) hist[p] = 0;
-  } else {
-    for (int i = threadIdx.x; i < (groups + 1) * k; i += blockDim.x) smem[i] = 0;
-  }
+  const int k = a.k;
+  int* block_sizes = C::kGlobal ? a.sizes : reinterpret_cast<int*>(smem + C::hist_words(groups, k));
+  C counter(a, smem, group, groups, gl);
+  if (!C::kGlobal)
+    for (int p = threadIdx.x; p < k; p += blockDim.x) block_sizes[p] = 0;
   __syncthreads();
+  // the sizes: the labels read once, coalesced; a warp adds each of its distinct labels once
+  const int64_t vstep = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < a.n; base += vstep) {
+    const int p = base + lane < a.n ? __ldg(a.labels + base + lane) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, p);
+    if ((unsigned)p < (unsigned)k && lane == __ffs(peers) - 1) atomicAdd(block_sizes + p, __popc(peers));
+  }
   float lmax = __int_as_float(0xff800000);  // -inf
   const int warp_first = group & ~(32 / G - 1);
   const int64_t step = (int64_t)gridDim.x * groups;
-  for (int64_t blk = (int64_t)blockIdx.x * groups; blk + warp_first < n; blk += step) {
+  for (int64_t blk = (int64_t)blockIdx.x * groups; blk + warp_first < a.n; blk += step) {
     const int64_t row = blk + group;
-    const bool valid = row < n;
+    const bool valid = row < a.n;
+    if (valid) counter.count(a, __ldg(a.indptr + row), __ldg(a.indptr + row + 1), gl);
+    counter.finish(gl);
     if (valid) {
-      if (gl == 0) {
-        const int own = __ldg(labels + row);
-        if ((unsigned)own < (unsigned)k) atomicAdd(GLOBAL ? sizes + own : block_sizes + own, 1);
-      }
-      accumulate<G, W>(hist, ids, w, labels, __ldg(indptr + row), __ldg(indptr + row + 1), gl, k);
+      uint32_t* cells = a.cells ? a.cells + row * k : nullptr;
+      counter.each(gl, k, [&](int p, uint32_t word) {
+        lmax = fmaxf(lmax, cell<C::kWeighted>(word));
+        if (cells) __stcs(cells + p, word);  // streamed past L2, where the labels stay
+      });
     }
-    __syncwarp();
-    if (valid) {
-      for (int p = gl; p < k; p += G) {
-        lmax = fmaxf(lmax, cell<W>(hist[p]));
-        hist[p] = 0;
-      }
-    }
-    __syncwarp();
+    counter.done();
   }
   for (int off = 16; off > 0; off >>= 1) lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, off));
   if (lane == 0) warp_max[threadIdx.x >> 5] = lmax;
@@ -188,159 +400,210 @@ lp_count(const int64_t* __restrict__ indptr, const int* __restrict__ ids, const 
   if (threadIdx.x == 0) {
     float m = warp_max[0];
     for (int i = 1; i < (int)(blockDim.x >> 5); ++i) m = fmaxf(m, warp_max[i]);
-    atomicMax(gmax_key, order_key(m));
+    atomicMax(a.gmax_key, order_key(m));
   }
-  if (!GLOBAL) {
+  if (!C::kGlobal) {
     for (int p = threadIdx.x; p < k; p += blockDim.x) {
       const int c = block_sizes[p];
-      if (c) atomicAdd(sizes + p, c);
+      if (c) atomicAdd(a.sizes + p, c);
     }
   }
 }
 
-// between the passes: the k penalties, in the reference's order of operations
-__global__ void lp_penalty(const int* __restrict__ sizes, const unsigned* __restrict__ gmax_key, int k, float alpha,
-                           float cap, float cap_div, float* __restrict__ pen) {
+// two passes, between them: the k penalties
+__global__ void lp_penalty(const Args a) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= k) return;
-  const float top = __fadd_rn(key_float(*gmax_key), 1.0f);
-  const float over = fmaxf(__fsub_rn(__int2float_rn(sizes[p]), cap), 0.0f);
-  pen[p] = __fdiv_rn(__fmul_rn(__fmul_rn(alpha, over), top), cap_div);
+  if (p < a.k) a.pen[p] = penalty(a.sizes[p], *a.gmax_key, a.alpha, a.cap, a.cap_div);
 }
 
-// pass 2: each row's histogram again, and the first part of its best score
-template <int G, bool W, bool GLOBAL>
-__global__ void __launch_bounds__(kThreads)
-lp_assign(const int64_t* __restrict__ indptr, const int* __restrict__ ids, const float* __restrict__ w,
-          const int* __restrict__ labels, int64_t n, int k, uint32_t* __restrict__ ghist,
-          const float* __restrict__ pen, int* __restrict__ out) {
+// two passes, pass 2: each row's histogram again, and the first part of its best score
+template <class C>
+__global__ void __launch_bounds__(kThreads) lp_assign(const Args a) {
   extern __shared__ uint32_t smem[];
+  constexpr int G = C::kGroup;
   const int groups = blockDim.x / G;
   const int group = threadIdx.x / G, gl = threadIdx.x % G;
-  uint32_t* hist = GLOBAL ? ghist + ((int64_t)blockIdx.x * groups + group) * k : smem + group * k;
-  float* block_pen = reinterpret_cast<float*>(smem + groups * k);
-  if (GLOBAL) {
-    for (int p = gl; p < k; p += G) hist[p] = 0;
-  } else {
-    for (int i = threadIdx.x; i < groups * k; i += blockDim.x) smem[i] = 0;
-    for (int p = threadIdx.x; p < k; p += blockDim.x) block_pen[p] = pen[p];
-  }
+  const int k = a.k;
+  C counter(a, smem, group, groups, gl);
+  float* block_pen = reinterpret_cast<float*>(smem + C::hist_words(groups, k));
+  if (!C::kGlobal)
+    for (int p = threadIdx.x; p < k; p += blockDim.x) block_pen[p] = a.pen[p];
   __syncthreads();
-  const float* pens = GLOBAL ? pen : block_pen;
+  const float* pens = C::kGlobal ? a.pen : block_pen;
   const int warp_first = group & ~(32 / G - 1);
   const int64_t step = (int64_t)gridDim.x * groups;
-  for (int64_t blk = (int64_t)blockIdx.x * groups; blk + warp_first < n; blk += step) {
+  for (int64_t blk = (int64_t)blockIdx.x * groups; blk + warp_first < a.n; blk += step) {
     const int64_t row = blk + group;
-    const bool valid = row < n;
+    const bool valid = row < a.n;
     int64_t s = 0, e = 0;
     if (valid) {
-      s = __ldg(indptr + row);
-      e = __ldg(indptr + row + 1);
-      accumulate<G, W>(hist, ids, w, labels, s, e, gl, k);
+      s = __ldg(a.indptr + row);
+      e = __ldg(a.indptr + row + 1);
+      counter.count(a, s, e, gl);
     }
-    __syncwarp();
+    counter.finish(gl);
     float best = __int_as_float(0xff800000);
     int bp = INT_MAX;  // a lane without cells (k < G) never wins a tie
     if (valid) {
+      counter.each(gl, k, [&](int p, uint32_t word) {
+        const float score = __fsub_rn(cell<C::kWeighted>(word), pens[p]);
+        if (bp == INT_MAX || score > best) {
+          best = score;
+          bp = p;
+        }
+      });
+    }
+    counter.done();
+    bp = group_argmax<G>(best, bp);
+    if (valid && gl == 0) a.out[row] = e > s ? bp : __ldg(a.labels + row);
+  }
+}
+
+// stored, pass 2: the penalties in the block's prologue, then each row's
+// first part of its best score from its stored cells
+template <int G, bool W>
+__global__ void __launch_bounds__(kThreads) lp_pick(const Args a) {
+  extern __shared__ uint32_t smem[];
+  float* pen = reinterpret_cast<float*>(smem);
+  const int k = a.k;
+  const unsigned gmax_key = *a.gmax_key;
+  for (int p = threadIdx.x; p < k; p += blockDim.x) pen[p] = penalty(a.sizes[p], gmax_key, a.alpha, a.cap, a.cap_div);
+  __syncthreads();
+  const int groups = blockDim.x / G;
+  const int group = threadIdx.x / G, gl = threadIdx.x % G;
+  const int warp_first = group & ~(32 / G - 1);
+  const int64_t step = (int64_t)gridDim.x * groups;
+  for (int64_t blk = (int64_t)blockIdx.x * groups; blk + warp_first < a.n; blk += step) {
+    const int64_t row = blk + group;
+    const bool valid = row < a.n;
+    float best = __int_as_float(0xff800000);
+    int bp = INT_MAX;
+    if (valid) {
+      const uint32_t* cells = a.cells + row * k;
       for (int p = gl; p < k; p += G) {
-        const float score = __fsub_rn(cell<W>(hist[p]), pens[p]);
-        hist[p] = 0;
+        const float score = __fsub_rn(cell<W>(__ldcs(cells + p)), pen[p]);
         if (bp == INT_MAX || score > best) {
           best = score;
           bp = p;
         }
       }
     }
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, off, G);
-      const int op = __shfl_xor_sync(0xffffffffu, bp, off, G);
-      if (ob > best || (ob == best && op < bp)) {
-        best = ob;
-        bp = op;
-      }
-    }
-    if (valid && gl == 0) out[row] = e > s ? bp : __ldg(labels + row);
-    __syncwarp();
+    bp = group_argmax<G>(best, bp);
+    if (valid && gl == 0) a.out[row] = __ldg(a.indptr + row + 1) > __ldg(a.indptr + row) ? bp : __ldg(a.labels + row);
   }
 }
 
-struct Args {
-  const int64_t* indptr;
-  const int* ids;
-  const float* w;
-  const int* labels;
-  int64_t n;
-  int k;
-  float alpha, cap, cap_div;
-  uint32_t* ghist;
-  int* sizes;
-  unsigned* gmax_key;
-  float* pen;
-  int* out;
-};
+// stored, k <= kRegK: a thread per row, its k cells loaded at once (a group
+// per row keeps too few bytes in flight: 128 a warp)
+template <bool W>
+__global__ void __launch_bounds__(kThreads) lp_pick_rows(const Args a) {
+  __shared__ float pen[kRegK];
+  const int k = a.k;
+  if (threadIdx.x < k) pen[threadIdx.x] = penalty(a.sizes[threadIdx.x], *a.gmax_key, a.alpha, a.cap, a.cap_div);
+  __syncthreads();
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; row < a.n; row += step) {
+    const uint32_t* cells = a.cells + row * k;
+    uint32_t word[kRegK];
+#pragma unroll
+    for (int p = 0; p < kRegK; ++p) word[p] = p < k ? __ldg(cells + p) : 0u;
+    float best = 0.0f;
+    int bp = 0;
+#pragma unroll
+    for (int p = 0; p < kRegK; ++p) {
+      const float score = __fsub_rn(cell<W>(word[p]), pen[p < k ? p : 0]);
+      if (p < k && (p == 0 || score > best)) {
+        best = score;
+        bp = p;
+      }
+    }
+    a.out[row] = __ldg(a.indptr + row + 1) > __ldg(a.indptr + row) ? bp : __ldg(a.labels + row);
+  }
+}
 
-template <int G, bool W, bool GLOBAL>
-void run(const Plan& p, const Args& a, cudaStream_t s) {
-  const unsigned blocks = (unsigned)p.blocks, threads = (unsigned)(p.groups * G);
-  const size_t smem = GLOBAL ? 0 : (size_t)(p.groups + 1) * a.k * sizeof(uint32_t);
-  lp_count<G, W, GLOBAL><<<blocks, threads, smem, s>>>(a.indptr, a.ids, a.w, a.labels, a.n, a.k, a.ghist, a.sizes,
-                                                       a.gmax_key);
-  lp_penalty<<<(unsigned)((a.k + 255) / 256), 256, 0, s>>>(a.sizes, a.gmax_key, a.k, a.alpha, a.cap, a.cap_div,
-                                                           a.pen);
-  lp_assign<G, W, GLOBAL><<<blocks, threads, smem, s>>>(a.indptr, a.ids, a.w, a.labels, a.n, a.k, a.ghist, a.pen,
-                                                        a.out);
+template <class C>
+cudaError_t run(const Plan& p, const Args& a, cudaStream_t s) {
+  constexpr int G = C::kGroup;
+  const int threads = p.groups * G;
+  const size_t smem = (size_t)(C::hist_words(p.groups, a.k) + (C::kGlobal ? 0 : a.k)) * sizeof(uint32_t);
+  unsigned blocks = (unsigned)p.blocks;  // the global tier's slices are exact
+  cudaError_t err = cudaSuccess;
+  if constexpr (sizeof(typename C::Label) == 1) {
+    unsigned copy = 1;
+    err = resident_grid<lp_bytes>(kThreads, 0, (a.n + kThreads - 1) / kThreads, &copy);
+    if (err != cudaSuccess) return err;
+    lp_bytes<<<copy, kThreads, 0, s>>>(a);
+  }
+  if (!C::kGlobal) err = resident_grid<lp_count<C>>(threads, smem, p.blocks, &blocks);
+  if (err != cudaSuccess) return err;
+  lp_count<C><<<blocks, threads, smem, s>>>(a);
+  if (p.stored && p.tier == Tier::kRegisters) {
+    unsigned pick = 1;
+    err = resident_grid<lp_pick_rows<C::kWeighted>>(kThreads, 0, (a.n + kThreads - 1) / kThreads, &pick);
+    if (err != cudaSuccess) return err;
+    lp_pick_rows<C::kWeighted><<<pick, kThreads, 0, s>>>(a);
+  } else if (p.stored) {
+    unsigned pick = 1;
+    const size_t pen_bytes = (size_t)a.k * sizeof(float);
+    err = resident_grid<lp_pick<G, C::kWeighted>>(kThreads, pen_bytes, (a.n + kThreads / G - 1) / (kThreads / G),
+                        &pick);
+    if (err != cudaSuccess) return err;
+    lp_pick<G, C::kWeighted><<<pick, kThreads, pen_bytes, s>>>(a);
+  } else {
+    lp_penalty<<<(unsigned)((a.k + 255) / 256), 256, 0, s>>>(a);
+    if (!C::kGlobal) err = resident_grid<lp_assign<C>>(threads, smem, p.blocks, &blocks);
+    if (err != cudaSuccess) return err;
+    lp_assign<C><<<blocks, threads, smem, s>>>(a);
+  }
+  return cudaGetLastError();
 }
 
 template <bool W>
-void dispatch(const Plan& p, const Args& a, cudaStream_t s) {
-  if (p.global)
-    run<32, W, true>(p, a, s);
-  else if (p.group == 8)
-    run<8, W, false>(p, a, s);
-  else
-    run<32, W, false>(p, a, s);
+cudaError_t dispatch(const Plan& p, const Args& a, cudaStream_t s) {
+  switch (p.tier) {
+    case Tier::kRegisters:  // k <= kRegK <= kByteK
+      return run<RegCounter<W, uint8_t>>(p, a, s);
+    case Tier::kShared:
+      if (p.group == 8) return run<HistCounter<8, W, false, uint8_t>>(p, a, s);  // k <= kNarrowK <= kByteK
+      return p.bytes ? run<HistCounter<32, W, false, uint8_t>>(p, a, s) : run<HistCounter<32, W, false, int>>(p, a, s);
+    default:  // k > kSmemWords > kByteK
+      return run<HistCounter<32, W, true, int>>(p, a, s);
+  }
 }
 
 }  // namespace
 
-// Bytes of the scratch buffer that sb_label_prop_round needs for n rows and k
-// parts: the sizes (k ints), the largest count's key, the penalties (k
-// floats) and, in the global tier, the histograms.
-extern "C" int64_t sb_label_prop_scratch_bytes(int64_t n, int64_t k) {
-  const Plan p = make_plan(n, k);
-  int64_t bytes = 2 * align256(4 * k) + 256;
-  if (p.global) bytes += p.blocks * p.groups * k * (int64_t)sizeof(uint32_t);
+// Bytes of the scratch buffer that sb_label_prop_round needs for n rows, k
+// parts and nnz entries: the sizes (k ints), the largest count's key, the
+// penalties (k floats) and the stored cells (n * k words, where n * k <=
+// nnz) or the global tier's histograms.
+extern "C" int64_t sb_label_prop_scratch_bytes(int64_t n, int64_t k, int64_t nnz) {
+  const Plan p = make_plan(n, k, nnz);
+  int64_t bytes = 2 * align256(4 * k) + 256 + (p.bytes ? align256(n) : 0);
+  if (p.tier == Tier::kGlobal) bytes += p.blocks * p.groups * k * (int64_t)sizeof(uint32_t);
+  if (p.stored) bytes += n * k * (int64_t)sizeof(uint32_t);
   return bytes;
 }
 
-// indptr: (n+1,) int64; ids: (nnz,) int32 in [0, n); weights: (nnz,) float32
-// or null; labels: (n,) int32; 1 <= k < 2^31; alpha, cap, cap_div: the
-// float32 roundings of the reference's Python numbers; scratch: the bytes
-// sb_label_prop_scratch_bytes(n, k) gives; out: (n,) int32, written in full.
+// indptr: (n+1,) int64 with indptr[n] = nnz; ids: (nnz,) int32 in [0, n);
+// weights: (nnz,) float32 or null; labels: (n,) int32; 1 <= k < 2^31;
+// alpha, cap, cap_div: the float32 roundings of the reference's Python
+// numbers; scratch: the bytes sb_label_prop_scratch_bytes(n, k, nnz) gives;
+// out: (n,) int32, written in full.
 extern "C" int sb_label_prop_round(const int64_t* indptr, const int* ids, const float* weights, const int* labels,
-                                   int64_t n, int64_t k, float alpha, float cap, float cap_div, void* scratch,
-                                   int* out, void* stream) {
+                                   int64_t n, int64_t nnz, int64_t k, float alpha, float cap, float cap_div,
+                                   void* scratch, int* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
-  Plan p = make_plan(n, k);
-  if (!p.global) {
-    int sms = 0;
-    const cudaError_t err = sm_count(&sms);
-    if (err != cudaSuccess) return (int)err;
-    const int64_t cap = (int64_t)sms * kBlocksPerSM;
-    if (p.blocks > cap) p.blocks = cap;
-  }
+  const Plan p = make_plan(n, k, nnz);
   char* base = static_cast<char*>(scratch);
   const int64_t table = align256(4 * k);
-  Args a{indptr, ids, weights, labels, n, (int)k, alpha, cap, cap_div,
-         reinterpret_cast<uint32_t*>(base + 2 * table + 256), reinterpret_cast<int*>(base),
-         reinterpret_cast<unsigned*>(base + table), reinterpret_cast<float*>(base + table + 256), out};
+  uint8_t* labels8 = p.bytes ? reinterpret_cast<uint8_t*>(base + 2 * table + 256) : nullptr;
+  uint32_t* tail = reinterpret_cast<uint32_t*>(base + 2 * table + 256 + (p.bytes ? align256(n) : 0));
+  const Args a{indptr, ids, weights, labels, labels8, n, (int)k, alpha, cap, cap_div, tail, p.stored ? tail : nullptr,
+               reinterpret_cast<int*>(base), reinterpret_cast<unsigned*>(base + table),
+               reinterpret_cast<float*>(base + table + 256), out};
   const cudaError_t err = cudaMemsetAsync(base, 0, (size_t)(table + 256), s);  // sizes and the largest count
   if (err != cudaSuccess) return (int)err;
-  if (weights)
-    dispatch<true>(p, a, s);
-  else
-    dispatch<false>(p, a, s);
-  return (int)cudaGetLastError();
+  return (int)(weights ? dispatch<true>(p, a, s) : dispatch<false>(p, a, s));
 }

@@ -290,39 +290,39 @@ relocate_block_rows(const int64_t* __restrict__ indptr, const int* __restrict__ 
   }
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0)
-      sms = 132;
-  }
-  return sms;
+// the current device's SM count into *sms, read at each launch
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
 template <int kPayload>
 cudaError_t launch(const int64_t* indptr, const int* indices, const float* vals, const int* ro,
             const int* co, const int64_t* new_indptr, int64_t n, int* rows, int64_t block_cap,
             int* counts, int* out_indices, float* out_vals, int64_t* out_src, cudaStream_t s) {
-  static int resident = 0;  // warp tier blocks per SM
-  if (resident == 0 &&
-      (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, relocate_warp_rows<kPayload>, kThreads,
-                                                     0) != cudaSuccess ||
-       resident <= 0))
-    resident = 1;
+  thread_local int resident = 0;  // warp tier blocks per SM: asked once per host thread, a failed query returned
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err == cudaSuccess && resident == 0) {
+    int b = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, relocate_warp_rows<kPayload>, kThreads, 0);
+    if (err == cudaSuccess) resident = b < 1 ? 1 : b;
+  }
+  if (err != cudaSuccess) return err;
   const bool aligned = (reinterpret_cast<uintptr_t>(indices) & 15) == 0;
   const int64_t ngroups = (n + kGroup - 1) / kGroup;
   const int64_t warps_per_block = kThreads / 32;
   int64_t blocks = (ngroups + warps_per_block - 1) / warps_per_block;
-  const int64_t cap = (int64_t)sm_count() * resident * kWaves;
+  const int64_t cap = (int64_t)sms * resident * kWaves;
   if (blocks > cap) blocks = cap;
-  const cudaError_t err = cudaMemsetAsync(counts, 0, 2 * sizeof(int), s);
+  err = cudaMemsetAsync(counts, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess) return err;
   relocate_warp_rows<kPayload><<<(unsigned)blocks, kThreads, 0, s>>>(
       indptr, indices, vals, ro, co, new_indptr, n, aligned, counts, rows, rows + block_cap,
       out_indices, out_vals, out_src);
-  relocate_block_rows<kPayload><<<(unsigned)(sm_count() * kRowBlocksPerSM), kThreads, 0, s>>>(
+  relocate_block_rows<kPayload><<<(unsigned)(sms * kRowBlocksPerSM), kThreads, 0, s>>>(
       indptr, indices, vals, ro, co, new_indptr, rows, counts, out_indices, out_vals, out_src);
   return cudaGetLastError();
 }

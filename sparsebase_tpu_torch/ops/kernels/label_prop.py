@@ -25,7 +25,15 @@ caller's invariant forbids it) is skipped by both.
 CPU tensors take the plain version; CUDA tensors launch the kernel, or the
 wrapper raises. Unweighted counts are integers, so the kernel's labels
 equal the plain version's bit for bit; weighted ones sum each cell in entry
-order, as ``np.add.at`` and the CPU's ``index_put_(accumulate=True)`` do.
+order, as ``np.add.at`` does and as the plain version's ``index_add_`` does
+on the CPU (on the card its sums take another order).
+
+Where ``n * k <= nnz`` (and k <= 6,140) the kernel reads the entries once
+and keeps each row's k cells in the scratch between its launches, so the
+scratch the wrapper allocates (``_scratch_bytes``, the kernel's own plan)
+holds ``4 * n * k`` bytes more; otherwise it counts each row twice. Where
+``k <= 255`` the scratch also holds a 1-byte copy of the labels (n bytes),
+which the kernel gathers from.
 """
 
 from __future__ import annotations
@@ -44,17 +52,18 @@ from ._args import kernel_ids, kernel_offsets
 _K7 = Kernel(
     "label_prop",
     "sb_label_prop_round",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64] + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3,
 )
 
 
 @functools.cache
 def _scratch_bytes():
-    """K7's ``sb_label_prop_scratch_bytes(n, k)``: the bytes of the scratch
-    that holds the part sizes, the largest count, the penalties and, past
-    the shared-memory tier, the histograms."""
+    """K7's ``sb_label_prop_scratch_bytes(n, k, nnz)``: the bytes of the
+    scratch that holds the part sizes, the largest count, the penalties, the
+    1-byte labels (``k <= 255``) and the stored cells (where ``n * k <=
+    nnz``) or, past the shared-memory tier, the histograms."""
     fn = library().sb_label_prop_scratch_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int64, ctypes.c_int64], ctypes.c_int64
+    fn.argtypes, fn.restype = [ctypes.c_int64] * 3, ctypes.c_int64
     return fn
 
 
@@ -66,14 +75,17 @@ def _scalar(value: float, device) -> torch.Tensor:
 
 def neighbor_counts(csr: CSR, labels: torch.Tensor, k: int, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The ``(n, k)`` float32 histogram of the labels of each row's entries
-    (each entry's weight, with ``weights``), by an accumulating
-    ``index_put_``; entries whose label is outside ``[0, k)`` add nothing."""
+    (each entry's weight, with ``weights``), by ``index_add_`` into the flat
+    cells, which adds in entry order on the CPU (an accumulating
+    ``index_put_`` there splits the entries among threads); entries whose
+    label is outside ``[0, k)`` add nothing."""
     row = csr.row_of_nnz().long()
     lab = labels.long()[csr.indices.long()]
     valid = (lab >= 0) & (lab < k)
     vals = torch.ones_like(lab, dtype=torch.float32) if weights is None else weights.to(torch.float32)
-    out = torch.zeros((csr.nrows, k), dtype=torch.float32, device=labels.device)
-    return out.index_put_((row, torch.where(valid, lab, 0)), torch.where(valid, vals, 0.0), accumulate=True)
+    out = torch.zeros((csr.nrows * k,), dtype=torch.float32, device=labels.device)
+    out.index_add_(0, row * k + torch.where(valid, lab, 0), torch.where(valid, vals, 0.0))
+    return out.view(csr.nrows, k)
 
 
 def part_counts(labels: torch.Tensor, k: int) -> torch.Tensor:
@@ -132,10 +144,10 @@ def label_prop_round(csr: CSR, labels: torch.Tensor, k: int, alpha: float, cap: 
     ids = kernel_ids(csr.indices, "label_prop ids")
     lab = labels.to(torch.int32).contiguous()
     w = None if weights is None else weights.to(torch.float32).contiguous()
-    scratch = torch.empty((_scratch_bytes()(n, k),), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((_scratch_bytes()(n, k, csr.nnz),), dtype=torch.uint8, device=dev)
     out = torch.empty((n,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _K7.launch(indptr.data_ptr(), ids.data_ptr(), None if w is None else w.data_ptr(), lab.data_ptr(), n, k,
-                   alpha, cap, max(cap, 1.0), scratch.data_ptr(), out.data_ptr(), stream)
+        _K7.launch(indptr.data_ptr(), ids.data_ptr(), None if w is None else w.data_ptr(), lab.data_ptr(), n, csr.nnz,
+                   k, alpha, cap, max(cap, 1.0), scratch.data_ptr(), out.data_ptr(), stream)
     return out

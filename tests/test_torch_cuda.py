@@ -1047,12 +1047,17 @@ def test_host_reorderers_return_to_the_card(dev, gen, name):
 
 
 # -- K7: a label-propagation round ----------------------------------------------------
-def lp_case(gen, dev, n, avg_deg, k, *, long_row=None, empty_every=0, misaligned=False, weights=None, skew=True):
-    """A CSR of ``n`` rows (Poisson-like degrees around ``avg_deg``, ids
-    uniform in [0, n)), labels in [0, k) with half the vertices in part 0
-    when ``skew`` (so that the penalty bites), and weights: None, "integer"
-    (1..5) or "real"."""
+def lp_case(gen, dev, n, avg_deg, k, *, long_row=None, empty_every=0, misaligned=False, weights=None, skew=True,
+            exact=False, one_part=False, outside=False):
+    """A CSR of ``n`` rows (Poisson-like degrees around ``avg_deg``, or
+    exactly ``avg_deg`` with ``exact``; ids uniform in [0, n)), labels in
+    [0, k) with half the vertices in part 0 when ``skew`` (so that the
+    penalty bites), or all in part k - 1 with ``one_part``, some outside
+    [0, k) with ``outside`` (they count nowhere), and weights: None,
+    "integer" (1..5) or "real"."""
     deg = torch.randint(0, 2 * avg_deg + 1, (n,), generator=gen, device=dev)
+    if exact:
+        deg.fill_(avg_deg)
     if empty_every:
         deg[::empty_every] = 0
     if long_row is not None:
@@ -1070,10 +1075,18 @@ def lp_case(gen, dev, n, avg_deg, k, *, long_row=None, empty_every=0, misaligned
     labels = torch.randint(0, k, (n,), generator=gen, device=dev, dtype=torch.int32)
     if skew:
         labels[: n // 2] = 0
+    if one_part:
+        labels.fill_(k - 1)
+    if outside:
+        labels[::5] = k + 300
+        labels[1::7] = -3
     return CSR(indptr, ids, w, (n, n)), labels
 
 
-# name -> (n, average degree, k, options)
+# name -> (n, average degree, k, options). K7 keeps each row's k cells
+# between its launches where n * k <= nnz ("stored"), counts in registers up
+# to k = 8 and in shared memory up to k = 6,140, and gathers from a 1-byte
+# copy of the labels up to k = 255.
 LP_CASES = {
     "k2": (200_000, 16, 2, {}),
     "k8": (500_000, 16, 8, {}),
@@ -1095,6 +1108,21 @@ LP_CASES = {
     "integer-weights-global-tier": (3_000, 30, 8_192, dict(weights="integer")),
     "real-weights": (200_000, 16, 8, dict(weights="real")),
     "real-weights-k200": (50_000, 16, 200, dict(weights="real")),
+    "stored-n-k-equal-nnz": (100_000, 8, 8, dict(exact=True)),
+    "two-pass-n-k-one-over-nnz": (100_000, 8, 9, dict(exact=True)),
+    "k8-last-register-two-pass": (100_000, 7, 8, dict(exact=True)),
+    "k9-first-shared-stored": (100_000, 9, 9, dict(exact=True)),
+    "k16-shared-stored": (100_000, 16, 16, dict(exact=True)),
+    "one-part-k8": (300_000, 16, 8, dict(one_part=True)),
+    "one-part-k16": (100_000, 16, 16, dict(one_part=True)),
+    "one-part-k64": (50_000, 64, 64, dict(one_part=True)),
+    "integer-weights-stored-k16": (100_000, 16, 16, dict(weights="integer", exact=True)),
+    "real-weights-stored-k12": (100_000, 16, 12, dict(weights="real")),
+    "real-weights-stored-k200": (2_000, 250, 200, dict(weights="real")),
+    "k255-last-byte-gather-stored": (20_000, 300, 255, dict(exact=True)),
+    "k256-first-int-gather-stored": (20_000, 300, 256, dict(exact=True)),
+    "labels-outside-k8": (100_000, 16, 8, dict(outside=True)),
+    "labels-outside-k255": (20_000, 16, 255, dict(outside=True)),
 }
 
 
@@ -1149,6 +1177,88 @@ def test_label_prop_makes_no_host_sync(dev, gen):
     for it in range(10):
         want = label_prop_round_plain(csr, want, 8, (it + 1) / 10, cap)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["stored-n-k-equal-nnz", "two-pass-n-k-one-over-nnz", "k8-last-register-two-pass",
+                                  "k9-first-shared-stored", "k8192-global-tier"])
+def test_label_prop_scratch_holds_the_cells_where_n_k_fits_in_nnz(dev, gen, case):
+    """The scratch holds the n * k stored cells exactly where n * k <= nnz
+    and k <= 6,140 (at most 4 * nnz bytes more); without them it is the
+    same for any nnz (O(k) bytes and, k <= 255, the n 1-byte labels; or the
+    global tier's histograms)."""
+    from sparsebase_tpu_torch.ops.kernels.label_prop import _scratch_bytes
+
+    n, avg_deg, k, opts = LP_CASES[case]
+    csr, _ = lp_case(gen, dev, n, avg_deg, k, **opts)
+    small = _scratch_bytes()(n, k, 0)  # no entries: never stored
+    got = _scratch_bytes()(n, k, csr.nnz)
+    if n * k <= csr.nnz and k <= 6_140:
+        assert got == small + 4 * n * k and got - small <= 4 * csr.nnz
+    else:
+        assert got == small
+
+
+def test_label_prop_rounds_on_each_route_make_no_host_sync(dev, gen):
+    """Ten rounds of ``_propagate`` read nothing back on the stored route
+    (k = 8, 16 entries a row), the two-pass route (k = 8, 4 entries a row)
+    and the shared-memory tier (k = 100); each equals the plain rounds."""
+    from sparsebase_tpu_torch.ops.kernels import label_prop_round_plain
+    from sparsebase_tpu_torch.ops.partition.labelprop import _propagate
+
+    for avg_deg, k in ((16, 8), (4, 8), (16, 100)):
+        csr, labels = lp_case(gen, dev, 100_000, avg_deg, k, skew=False)
+        cap = 1.1 * csr.nrows / k
+        _propagate(csr, labels, k, cap, None, 1, stop_when_stable=False)
+        syncs, got = count_syncs(lambda: _propagate(csr, labels, k, cap, None, 10, stop_when_stable=False))
+        assert not syncs, (avg_deg, k, [str(w.message) for w in syncs])
+        want = labels
+        for it in range(10):
+            want = label_prop_round_plain(csr, want, k, (it + 1) / 10, cap)
+        assert torch.equal(got, want), (avg_deg, k)
+
+
+def test_label_prop_of_no_rows(dev):
+    from sparsebase_tpu_torch.ops.kernels import label_prop_round
+
+    empty = CSR(torch.zeros(1, dtype=torch.int64, device=dev), torch.zeros(0, dtype=torch.int32, device=dev), None,
+                (0, 0))
+    got = label_prop_round(empty, torch.zeros(0, dtype=torch.int32, device=dev), 8, 1.0, 1.0)
+    assert got.shape == (0,) and got.dtype == torch.int32 and got.device == dev
+
+
+def test_kernels_return_a_failed_device_query(tmp_path):
+    """K3, K4, K6 and K7 read the SM count at each launch and return the
+    query's error: in a process that sees no card, each C entry point
+    returns the same CUDA error (cudaErrorNoDevice) and launches nothing."""
+    import subprocess
+    import sys
+
+    lib = _build.build()
+    script = tmp_path / "no_card.py"
+    script.write_text(f"""
+import ctypes
+lib = ctypes.CDLL({str(lib)!r})
+V, I = ctypes.c_void_p, ctypes.c_int64
+calls = {{
+    "sb_indptr_from_sorted_rows": ([V, I, I, V, V], (None, 16, 4, None, None)),
+    "sb_relocate_csr": ([V] * 6 + [I, ctypes.c_int, V, I] + [V] * 5, (None,) * 6 + (4, 1, None, 4) + (None,) * 5),
+    "sb_common_neighbors": ([V, V, I, I, ctypes.c_int, V, V, V, I, V, V, V], (None, None, 4, 16, 0) + (None,) * 3
+                            + (16,) + (None,) * 3),
+    "sb_label_prop_round": ([V] * 4 + [I] * 3 + [ctypes.c_float] * 3 + [V] * 3, (None,) * 4 + (4, 16, 8, 0.5, 1.0, 1.0)
+                            + (None,) * 3),
+}}
+for name, (types, args) in calls.items():
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = types, ctypes.c_int
+    print(name, fn(*args))
+""")
+    env = dict(__import__("os").environ, CUDA_VISIBLE_DEVICES="")
+    run = subprocess.run([sys.executable, str(script)], capture_output=True, text=True, env=env, timeout=120)
+    assert run.returncode == 0, run.stderr
+    codes = dict(line.split() for line in run.stdout.split("\n") if line)
+    assert set(codes) == {"sb_indptr_from_sorted_rows", "sb_relocate_csr", "sb_common_neighbors",
+                          "sb_label_prop_round"}
+    assert len(set(codes.values())) == 1 and codes["sb_indptr_from_sorted_rows"] != "0", codes
 
 
 def test_label_prop_raises_without_its_library(dev, gen, tmp_path, monkeypatch):

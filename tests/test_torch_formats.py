@@ -251,7 +251,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
-    for path in [REPO / "chip_smoke.py", *sorted((REPO / "sparsebase_tpu_torch").rglob("*.py"))]:
+    for path in [REPO / "chip_smoke.py", *sorted((REPO / "tools").glob("torch_*.py")),
+                 *sorted((REPO / "sparsebase_tpu_torch").rglob("*.py"))]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:

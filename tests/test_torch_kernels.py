@@ -430,6 +430,60 @@ def test_chip_smoke_bound_bytes(case):
     assert bound_ms == pytest.approx(want / 3.35e12 * 1e3)
 
 
+@pytest.mark.parametrize("n,k", [(4_000, 8), (3_000, 4)])
+def test_chip_smoke_planted_graph(n, k):
+    """``chip_smoke.planted_coo`` on the CPU: k blocks of n / k vertices,
+    about 95% of the entries inside their row's block (all of the other 5%
+    outside it), ids shuffled by a permutation (the blocks are not the
+    contiguous chunks), rows uniform as path A's and row-major sorted."""
+    smoke = _chip_smoke()
+    g = torch.Generator()
+    g.manual_seed(3)
+    nnz = 16 * n
+    coo, planted = smoke.planted_coo(g, torch.device("cpu"), n, nnz, k)
+    assert coo.shape == (n, n) and coo.nnz == nnz and planted.dtype == torch.int32 and planted.shape == (n,)
+    assert torch.equal(torch.bincount(planted.long(), minlength=k), torch.full((k,), n // k))
+    inside = float((planted[coo.row.long()] == planted[coo.col.long()]).double().mean())
+    assert abs(inside - smoke.PLANTED_INSIDE) < 0.01, inside
+    chunks = (torch.arange(n) * k) // n
+    assert float((planted.long() == chunks).double().mean()) < 2.0 / k  # about 1 / k after the shuffle
+    key = coo.row.long() * n + coo.col.long()
+    assert bool((key[1:] >= key[:-1]).all())
+    deg = torch.bincount(coo.row.long(), minlength=n).double()
+    assert abs(float(deg.mean()) - 16) < 1e-9 and float(deg.std()) < 6  # uniform rows: about Poisson(16)
+    with pytest.raises(ValueError, match="equal blocks"):
+        smoke.planted_coo(g, torch.device("cpu"), n + 1, nnz, k)
+
+
+def test_chip_smoke_k7_tier_cases_leave_the_path_draws(monkeypatch):
+    """``chip_smoke.k7_cases`` draws ``K7_EDGE_CASES`` from the script's
+    generator and ``K7_TIER_CASES`` from one of their own: after it, the
+    script's generator stands where the edge cases alone leave it (so path
+    A's graph does not depend on the tier cases), and the tier cases do not
+    depend on it."""
+    smoke = _chip_smoke()
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(smoke, "K7_EDGE_CASES", tuple((c[0], 300, *c[2:]) for c in smoke.K7_EDGE_CASES[:3]))
+    monkeypatch.setattr(smoke, "K7_TIER_CASES", tuple((c[0], 200, *c[2:]) for c in smoke.K7_TIER_CASES[:3]))
+
+    def run(first_seed):
+        g = torch.Generator().manual_seed(first_seed)
+        cases = list(smoke.k7_cases(g, cpu, seed=5))
+        return cases, torch.randint(0, 1 << 30, (8,), generator=g)
+
+    cases, after = run(1)
+    g = torch.Generator().manual_seed(1)
+    for label, n, avg_deg, k, opts in smoke.K7_EDGE_CASES:
+        smoke.k7_case(g, cpu, n, avg_deg, k, **opts)
+    assert torch.equal(after, torch.randint(0, 1 << 30, (8,), generator=g))
+    assert [c[0] for c in cases] == [c[0] for c in smoke.K7_EDGE_CASES + smoke.K7_TIER_CASES]
+    other, _ = run(2)
+    tier = len(smoke.K7_EDGE_CASES)
+    for (_, csr, labels, _), (_, csr2, labels2, _) in zip(cases[tier:], other[tier:]):
+        assert torch.equal(csr.indices, csr2.indices) and torch.equal(labels, labels2)
+    assert not torch.equal(cases[0][2], other[0][2])
+
+
 # rows [1, 1, 2], [0, 1, 3], [0], [1, 2] (degrees 3, 3, 1, 2): 4 deg v and a
 # 16-byte indptr pair for each entry the mode counts. jaccard: all nine, deg v
 # summing to 22; triangles: not (1, 1) nor the second (0, 1), 16 over seven;

@@ -286,6 +286,65 @@ def test_weighted_round_sums_in_entry_order():
     np.testing.assert_array_equal(got.numpy(), ref_labelprop._propagate(np, rcsr, labels, 6, 1.1 * n / 6, vals, 8))
 
 
+def test_weighted_counts_sum_in_entry_order_on_many_threads():
+    """The plain counts add each cell's weights in entry order however many
+    threads torch runs (an accumulating ``index_put_`` splits the entries
+    among threads at this size), equal to ``np.add.at`` bit for bit."""
+    rng = np.random.default_rng(12)
+    n, k, nnz = 300, 200, 75_000
+    indptr = np.concatenate([[0], np.cumsum(np.full(n, nnz // n))]).astype(np.int64)
+    indices = rng.integers(0, n, nnz).astype(np.int32)
+    vals = (rng.random(nnz) * 3).astype(np.float32)
+    labels = rng.integers(0, k, n).astype(np.int32)
+    port = CSR(torch.from_numpy(indptr), torch.from_numpy(indices), torch.from_numpy(vals), (n, n))
+    want = ref_labelprop._neighbor_counts(np, ref.CSR(indptr, indices, vals, (n, n)), labels, k, vals)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        got = labelprop._neighbor_counts(port, torch.from_numpy(labels), k, port.vals)
+    finally:
+        torch.set_num_threads(threads)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def planted_graph(seed, n, k, avg_deg=16, inside=0.95):
+    """A directed graph with ``k`` planted blocks of ``n / k`` vertices
+    (``chip_smoke.planted_coo``'s model, with numpy): rows uniform, a
+    column in its row's block with probability ``inside``, else uniform in
+    another block; ids shuffled; row-major sorted, duplicates kept."""
+    rng = np.random.default_rng(seed)
+    size, nnz = n // k, n * avg_deg
+    row = rng.integers(0, n, nnz)
+    block = np.where(rng.random(nnz) < inside, row // size, (row // size + rng.integers(1, k, nnz)) % k)
+    col = block * size + rng.integers(0, size, nnz)
+    perm = rng.permutation(n)
+    row, col = perm[row], perm[col]
+    order = np.lexsort((col, row))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(row, minlength=n))]).astype(np.int64)
+    return indptr, col[order].astype(np.int32), row[order].astype(np.int32)
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_propagate_on_a_planted_graph_equals_both_jax_routes(k):
+    """From contiguous chunks (which the shuffled ids make uninformative),
+    ten rounds on a planted graph move the labels; both of ``_propagate``'s
+    routes equal the JAX package's (numpy; jnp called eagerly)."""
+    n = 2_000
+    indptr, indices, _ = planted_graph(20 + k, n, k)
+    port = CSR(torch.from_numpy(indptr), torch.from_numpy(indices), None, (n, n))
+    cap = 1.1 * n / k
+    chunks = labelprop._chunks(n, k, torch.device("cpu"))
+    got = labelprop._propagate(port, chunks, k, cap, None, 10, stop_when_stable=False)
+    rdev = ref.CSR(jnp.asarray(indptr), jnp.asarray(indices), None, (n, n))
+    want = ref_labelprop._propagate(jnp, rdev, jnp.asarray(chunks.numpy()), k, cap, None, 10)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    moved = int((got != chunks).sum())
+    assert moved > n // 4 and len(np.unique(got.numpy())) > 1, moved
+    got = labelprop._propagate(port, chunks, k, cap, None, 10, stop_when_stable=True)
+    want = ref_labelprop._propagate(np, ref.CSR(indptr, indices, None, (n, n)), chunks.numpy(), k, cap, None, 10)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("name", ["random-200", "directed-150", "empty-rows-120"])
 def test_balance_fixup_equals_jax(name):
     port, rcsr = graph(name)
@@ -511,6 +570,26 @@ def test_partition_pipeline_equals_eager_jax(case):
     exact, bound = y_bounds(row, col, vals, x, ro)
     assert np.all(np.abs(y.numpy() - exact) <= bound)
     assert np.all(np.abs(np.asarray(ry) - exact) <= bound)
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_partition_pipeline_on_a_planted_graph_equals_eager_jax(k):
+    """``partition_pipeline`` on a planted graph (ids shuffled): the same
+    labels and permuted CSR as the JAX package's eager call."""
+    n = 2_000
+    indptr, col, row = planted_graph(30 + k, n, k)
+    vals = np.random.default_rng(k).standard_normal(col.size).astype(np.float32)
+    x = np.random.default_rng(k + 1).standard_normal(n).astype(np.float32)
+    coo = COO(torch.from_numpy(row), torch.from_numpy(col), torch.from_numpy(vals), (n, n))
+    permuted, y, labels = partition_pipeline(coo, torch.from_numpy(x), k, 10)
+    rp, ry, rl = ref_partition_pipeline(ref.COO(jnp.asarray(row), jnp.asarray(col), jnp.asarray(vals), (n, n)),
+                                        jnp.asarray(x), k, 10)
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(rl))
+    assert len(np.unique(labels.numpy())) > 1
+    np.testing.assert_array_equal(permuted.indptr.numpy(), np.asarray(rp.indptr))
+    for a, b in zip(canonical(permuted.indptr.numpy(), permuted.indices.numpy(), permuted.vals.numpy()),
+                    canonical(np.asarray(rp.indptr), np.asarray(rp.indices), np.asarray(rp.vals))):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_partition_pipeline_against_jitted_jax_is_valid():

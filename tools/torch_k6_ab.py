@@ -3,46 +3,30 @@ own K6 in turns on one H100; every result held equal to the port's.
 
     python3 tools/torch_k6_ab.py [--feature-n 4000000] [--seed 0] SOURCE.cu ...
 
-Each SOURCE.cu is built by nvcc with the port's flags into
-``sparsebase_tpu_torch/_build/ab/`` and launched through ctypes. A source
-that exports ``sb_common_neighbors_scratch_words`` takes the port's C
-interface (a scratch tensor and a queue); any other takes the row-array
+Each SOURCE.cu is built and timed in turns as ``tools/torch_ab.py`` says.
+A source that exports ``sb_common_neighbors_scratch_words`` takes the port's
+C interface (a scratch tensor and a queue); any other takes the row-array
 interface of K6's first design (``sb_common_neighbors(indptr, ids, row, nnz,
 mode, in_ptr, in_ids, out_w, out_sum, stream)``), its ``row`` array built in
 the call. The graphs are ``chip_smoke.py``'s path F graph and its four
-power-law graphs, made from ``--seed``. Every build is timed 2 x rounds times
-(forward, then reverse order, one call per event pair); on the graphs of
-under 4M entries, the first source and the port's K6 also back to back,
-with the host's time per call (no sync), the device's busy time per call
-and the device operations per call, each with its device time, under
+power-law graphs, made from ``--seed``. On the graphs of under 4M entries,
+the first source and the port's K6 are also timed back to back, with the
+host's time per call (no sync), the device's busy time per call and the
+device operations per call, each with its device time, under
 ``torch.profiler``.
 """
 import argparse
 import ctypes
 import statistics
-import subprocess
-import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import torch_ab
 
 MODES = ("jaccard", "triangles", "directed")
 SMALL_NNZ = 4_000_000
 V = ctypes.c_void_p
-
-
-def nvcc(src: str) -> str:
-    from sparsebase_tpu_torch import _build
-
-    out = _build.BUILD_ROOT / "ab" / f"{Path(src).stem}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", src, "-o", str(out)], check=True,
-                   capture_output=True, text=True, timeout=600)
-    return str(out)
 
 
 def launcher(lib: str):
@@ -80,14 +64,9 @@ def launcher(lib: str):
     return run
 
 
-def short(kernel: str) -> str:
-    """A profiler kernel name without its namespace and arguments."""
-    return kernel.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0].strip()
-
-
 def main() -> None:
     import chip_smoke as cs
-    from sparsebase_tpu_torch import CSC, CSR, _build
+    from sparsebase_tpu_torch import CSC, CSR
     from sparsebase_tpu_torch.ops.kernels import common_neighbors, common_neighbors_plain
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -95,16 +74,7 @@ def main() -> None:
     ap.add_argument("--feature-n", type=int, default=4_000_000)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip())
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(args.sources) + 1) as pool:
-        port = pool.submit(_build.build)
-        libs = list(pool.map(nvcc, args.sources))
-        port.result()
-    print(f"built in {time.perf_counter() - t0:.1f} s")
+    libs = torch_ab.start(args.sources)
     kernels = [(Path(src).stem, launcher(lib)) for src, lib in zip(args.sources, libs)]
     kernels.append(("port", common_neighbors))
 
@@ -127,16 +97,7 @@ def main() -> None:
                 cs.check_equal(f"{label} {mode}: port vs plain", want, common_neighbors_plain(graph, mode, csc))
             for name, fn in kernels:
                 cs.check_equal(f"{label} {mode}: {name} vs port", fn(graph, mode, csc), want)
-            got = {name: [] for name, _ in kernels}
-            for r in range(rounds):
-                order = kernels + kernels[::-1] if r % 2 == 0 else kernels[::-1] + kernels
-                for name, fn in order:
-                    got[name].append(cs.cuda_ms(lambda: fn(graph, mode, csc), reps=reps))
-            first = statistics.median(got[kernels[0][0]])
-            for name, ms in got.items():
-                med = statistics.median(ms)
-                print(f"  {mode:9s} {name:18s} one call: median {med:.4f} ms, min {min(ms):.4f}, max {max(ms):.4f} "
-                      f"({med / first:.3f} x {kernels[0][0]}); {' '.join(f'{x:.4f}' for x in ms)}")
+            torch_ab.in_turns(kernels, lambda fn: fn(graph, mode, csc), rounds, reps, prefix=f"{mode:9s} ")
             if not small:
                 continue
             for name, fn in (kernels[0], kernels[-1]):
@@ -149,14 +110,8 @@ def main() -> None:
                         fn(graph, mode, csc)
                     host.append((time.perf_counter() - h0) / 10 * 1e3)
                 torch.cuda.synchronize()
-                runs = 5
-                per_kernel, spans, _ = cs.device_profile(lambda: fn(graph, mode, csc), runs=runs)
-                busy = cs.device_busy(spans)[0] / 1e3 / runs
-                top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
                 print(f"  {mode:9s} {name:18s} back to back {back:.4f} ms; host per call (no sync) "
-                      f"{statistics.median(host):.4f} ms; device busy {busy:.4f} ms per call; "
-                      f"{len(spans) / runs:g} device operations per call: "
-                      + "; ".join(f"{ms * 1e3:.1f} us {short(k)}" for k, ms in top))
+                      f"{statistics.median(host):.4f} ms; " + torch_ab.device_summary(lambda: fn(graph, mode, csc), 5))
 
 
 if __name__ == "__main__":
