@@ -79,7 +79,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    0 before and read after each of the two calls, then ``PulpPartition``
    (graphkit, and with ``use_graphkit`` off, so that K7 runs inside it),
    ``MetisPartition`` (kway and rb) and ``PatohPartition``, k = 8, on path
-   G's power-law graph of 32,768 vertices on the card.
+   G's power-law graph of 32,768 vertices on the card; path I, the harness:
+   a graph made as path E's written as a symmetric MTX file, the
+   reference's ``custom_experiment`` on it (``ConcreteExperiment(warmup=1)``,
+   ``load_csr`` onto the card, ``pass_preprocess`` and ``reorder_csr`` of
+   ``DegreeReorder``, ``GrayReorder`` and ``BOBAReorder``, the kernels
+   ``spmv`` on ones (K2) and ``JaccardWeights`` (K6), three reps), the
+   dashboard of the loaded CSR (``Visualizer``, 64 buckets, the degree,
+   Gray and BOBA orderings and the CLI's feature cards; counts, then
+   ``|values|``), the visualizer's CLI on the file in a subprocess on the
+   card, and ``bench_suite.run_matrix`` on rand-20k on the card (mesh-90k,
+   30 s of host algorithms, runs apart: ``python -m
+   sparsebase_tpu_torch.bench_suite --matrix "mesh-90k(scrambled)"``).
    Every kernel of each path must have launched;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
@@ -135,7 +146,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    the edge cut before and after, and against the planted cut; each
    partitioner's labels int32 on the card, equal to
    the same call on a CPU copy, with K7 launched by Pulp without graphkit
-   only);
+   only); of path I (24 run times keyed in the JAX order; the loaded CSR
+   equal to the source's mirrored lower triangle; each reordered matrix
+   equal to the plain relocation under its order, the order equal to the
+   CPU route on host copies; ``spmv`` per row against the plain SpMV of its
+   matrix, the same bits on every rep; ``jaccard`` equal to K6 called
+   directly (and K6 to its plain version) on ``pass``, and to the source's
+   weights carried through the order on a reordered matrix; a kernel that
+   enqueues 50 ms of ``torch.cuda._sleep`` recorded at 50 ms or more,
+   returning a CUDA tensor or ``None``; a kernel that raises makes ``run()``
+   raise; one traced run's Chrome trace naming its scope, an
+   ``sbtorch:op:`` span and K2's device kernels; each dashboard grid and its stats equal to
+   ``ReorderHeatmap`` on host copies, the ``|values|`` grids of two orders to
+   a float64 ``np.add.at`` at rtol 1e-12, four sections, the CLI's file equal
+   to the in-process HTML; the suite's rand-20k entry equal, but for its
+   times, to ``run_matrix`` on a CPU copy);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -178,7 +203,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    one call and back to back at the first and the last round beside its
    plain version and its bound, K7's device time per kernel, and K2 on the
    partitioned CSR beside K2 on the source; a profile of the pipeline on
-   path A's graph;
+   path A's graph; path I: the MTX write, the experiment's ``run``, per
+   (preprocess, kernel) the median recorded run time beside ``cuda_ms`` of
+   the same call, and the harness's own cost: the median, quartiles and
+   extremes of the differences of paired runs, the same call bare and
+   through a one-run ``ConcreteExperiment`` in turns; each
+   dashboard's ``to_html`` and its heatmaps' share, the CLI's wall,
+   ``run_matrix`` with its table, each ``reorder_csr`` and K2 on the loaded
+   CSR alone, and path I's wall;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -193,7 +225,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 Path D runs its phases 3, 4 and 5 (and its profile) after phase 6 of the
 other paths, path E its phases 3, 4 and 5 after path D, path F its
 phases 3, 4 and 5 after path E, path G its phases 3, 4 and 5 after
-path F, and path H its phases 3, 4 and 5 after path G.
+path F, path H its phases 3, 4 and 5 after path G, and path I its phases
+3, 4 and 5 after path H.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -222,12 +255,14 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
 EPS_F32 = torch.finfo(torch.float32).eps
 WIDE_OFFSETS = (-150, -7, 0, 2, 133)
 BAND_HALF_WIDTH = 16  # 33 diagonals
+REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, data sheet
 
@@ -1022,6 +1057,26 @@ def canonical_entries(row, col, vals):
     return row[order], col[order], vals[order]
 
 
+def mirrored_lower(src):
+    """``(row, col, vals)`` of what a symmetric MTX of ``src`` reads back as:
+    its lower triangle, mirrored, by plain torch ops (the diagonal once)."""
+    low = src.row >= src.col
+    lr, lc, lv = src.row[low], src.col[low], src.vals[low]
+    off = lr != lc
+    return torch.cat([lr, lc[off]]), torch.cat([lc, lr[off]]), torch.cat([lv, lv[off]])
+
+
+def check_read_back(label: str, got, mirrored) -> None:
+    """The entries ``got`` (row, col, vals) equal ``mirrored`` exactly, both
+    in canonical order."""
+    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs_plain
+
+    got = canonical_entries(*got)
+    want = canonical_entries(*sort_by_pairs_plain(*mirrored))
+    for name, a, b in zip(("row", "col", "vals"), got, want):
+        check_equal(f"{label} {name} vs the source's mirrored lower triangle", a.to(b.dtype), b)
+
+
 def check_pipeline_outputs(label: str, coo, x, permuted, y) -> None:
     """Path A's checks of ``preprocess_pipeline``'s outputs on ``coo``."""
     from sparsebase_tpu_torch import CSR
@@ -1105,19 +1160,10 @@ def phase_path_e_checks(e: PathE, coo, donated, back) -> None:
     from sparsebase_tpu_torch.ops.reorder.rcm import _rcm_host, _symmetrized_square
 
     print(f"phase 4 path E checks: n={e.n}, source entries {e.src.nnz}, read back {coo.nnz}")
-    src = e.src
-    low = src.row >= src.col
-    lr, lc, lv = src.row[low], src.col[low], src.vals[low]
-    off = lr != lc
-    mr, mc, mv = torch.cat([lr, lc[off]]), torch.cat([lc, lr[off]]), torch.cat([lv, lv[off]])
-    del low, lr, lc, lv, off
+    mr, mc, mv = mirrored_lower(e.src)
     check(coo.nnz == mr.numel() and coo.row.dtype == torch.int32 and coo.vals.dtype == torch.float32,
           f"path E read back {coo.nnz} entries of {coo.row.dtype}/{coo.vals.dtype}, expected {mr.numel()} int32/float32")
-    got = canonical_entries(coo.row, coo.col, coo.vals)
-    want = canonical_entries(*sort_by_pairs_plain(mr, mc, mv))
-    for name, a, b in zip(("row", "col", "vals"), got, want):
-        check_equal(f"path E read-back COO {name} vs the source's mirrored lower triangle", a, b)
-    del got, want
+    check_read_back("path E read-back COO", (coo.row, coo.col, coo.vals), (mr, mc, mv))
     k5 = sort_by_pairs(mr, mc, mv, major_bound=coo.nrows, minor_bound=coo.ncols)
     plain = sort_by_pairs_plain(mr, mc, mv)
     for name, a, b in zip(("row", "col", "vals"), k5, plain):
@@ -2056,6 +2102,396 @@ def path_h(coo, x, graph, planted):
     return launches, err, k7_times, dict(n=coo.nrows, nnz=coo.nnz)
 
 
+EXPERIMENT_REPS = 3
+EXPERIMENT_PREPROCESSES = ("pass", "degree", "gray", "boba")  # reorder_csr of DegreeReorder, GrayReorder, BOBAReorder
+DASHBOARD_PARTS = 64
+DASHBOARD_ORDERINGS = ("degree", "gray", "boba")
+SLEEP_MS = 50.0  # the enqueued work that the harness's sync must wait for
+HARNESS_REPS = {"spmv": 101, "jaccard": 31}  # paired runs per cell for the harness's own cost
+K2_KERNELS = ("csr_spmv_tiles", "csr_spmv_fixup")  # csrc/csr_spmv.cu's kernels, as a trace names them
+SUITE_MATRIX = "rand-20k"  # the suite's other matrix, mesh-90k, runs apart (the module docstring)
+
+
+def experiment_spmv(data, fparams, pparams, kparams):
+    """The experiment's ``spmv`` kernel: ``spmv(csr, ones)`` (K2)."""
+    from sparsebase_tpu_torch import spmv
+
+    return spmv(data, torch.ones((data.ncols,), device=data.indptr.device))
+
+
+def experiment_jaccard(data, fparams, pparams, kparams):
+    """The experiment's ``jaccard`` kernel: ``JaccardWeights`` (K6)."""
+    from sparsebase_tpu_torch.ops.feature import JaccardWeights
+
+    return JaccardWeights().get_jaccard_weights(data)
+
+
+EXPERIMENT_KERNELS = (("spmv", experiment_spmv), ("jaccard", experiment_jaccard))
+
+
+def reorderer(pid: str):
+    from sparsebase_tpu_torch.ops.reorder import BOBAReorder, DegreeReorder, GrayReorder
+
+    return {"degree": DegreeReorder, "gray": GrayReorder, "boba": BOBAReorder}[pid]
+
+
+def sleep_cycles(ms: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that take about ``ms`` on this card
+    (5% over, from one timed call of 10M cycles)."""
+    torch.cuda._sleep(1_000_000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    return int(10_000_000 * ms / start.elapsed_time(end) * 1.05)
+
+
+class PathI:
+    """Path I: the harness. A graph made as path E's (path A's generator at
+    ``--ingest-nnz`` entries) written as a symmetric MTX file; the reference's
+    ``custom_experiment`` on it (``ConcreteExperiment(warmup=1)``, ``load_csr``
+    onto the card, ``pass_preprocess`` and ``reorder_csr`` of the degree, Gray
+    and BOBA reorderers, the kernels ``spmv`` (K2) and ``jaccard`` (K6),
+    three reps); the dashboard of the loaded CSR with the degree, Gray and BOBA
+    orderings (counts, then ``|values|``) and the visualizer's CLI on the file
+    in a subprocess; the suite's ``run_matrix`` on rand-20k."""
+
+    def __init__(self, g, dev, nnz: int, workdir: str):
+        self.dev = dev
+        self.n = max(nnz // 16, 1)
+        self.src = power_law_coo(g, dev, self.n, nnz)
+        self.workdir = workdir
+        self.mtx = f"{workdir}/path_i.mtx"
+        self.cli_html = f"{workdir}/cli.html"
+        self.times = {}
+
+    def experiment(self, preprocesses, kernels, warmup=1, trace_dir=None, times=EXPERIMENT_REPS, loader=None):
+        from sparsebase_tpu_torch.experiment import ConcreteExperiment, load_csr, pass_preprocess, reorder_csr
+
+        e = ConcreteExperiment(warmup=warmup, trace_dir=trace_dir)
+        e.add_data_loader(loader or load_csr, [([self.mtx], None)])
+        for pid in preprocesses:
+            e.add_preprocess(pid, pass_preprocess if pid == "pass" else reorder_csr(reorderer(pid)))
+        for kid, fn in kernels:
+            e.add_kernel(kid, fn)
+        return e.run(times=times, store_auxiliary=True)
+
+    def dashboard(self, csr, weights: bool):
+        from sparsebase_tpu_torch.utils.visualizer import _report
+
+        viz = _report(csr, "path_i.mtx", DASHBOARD_ORDERINGS, DASHBOARD_PARTS, plot_edges_by_weights=weights)
+        html, ms = timed(viz.to_html)
+        return viz, html, ms
+
+    def run(self):
+        """The main path, each step timed once."""
+        from sparsebase_tpu_torch import IOBase, bench_suite
+
+        _, self.times["write"] = timed(lambda: IOBase.write_coo_to_mtx(self.src, self.mtx, symmetry="symmetric"))
+        exp, self.times["experiment"] = timed(lambda: self.experiment(EXPERIMENT_PREPROCESSES, EXPERIMENT_KERNELS))
+        csr = exp.get_auxiliary()[f"data,{self.mtx}"]
+        dash = {w: self.dashboard(csr, w) for w in (False, True)}
+        cmd = [sys.executable, "-m", "sparsebase_tpu_torch.utils.visualizer", self.mtx, self.cli_html,
+               "--orderings", ",".join(DASHBOARD_ORDERINGS), "--parts", str(DASHBOARD_PARTS)]
+        cli, self.times["cli"] = timed(lambda: subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                                                              cwd=REPO))
+        graph = bench_suite.MATRICES[SUITE_MATRIX]("cuda")
+        entry, self.times["suite"] = timed(lambda: bench_suite.run_matrix(SUITE_MATRIX, graph)[SUITE_MATRIX])
+        return exp, csr, dash, cli, (graph, entry)
+
+
+def check_experiment_read(i: PathI, csr) -> None:
+    """The CSR ``load_csr`` read back: the source's lower triangle mirrored
+    by plain torch ops, in canonical order, values exactly."""
+    mirrored = mirrored_lower(i.src)
+    dev = i.src.row.device
+    check(csr.indptr.device == dev and csr.nnz == mirrored[0].numel() and csr.shape == (i.n, i.n),
+          f"path I load_csr: {csr.nnz} entries of {csr.shape} on {csr.indptr.device}, expected {mirrored[0].numel()} "
+          f"on {dev}")
+    check_read_back("path I load_csr", (csr.row_of_nnz(), csr.indices, csr.vals), mirrored)
+
+
+def phase_path_i_experiment_checks(i: PathI, exp, csr) -> float:
+    """The run times' keys in the JAX order; each preprocess's matrix against
+    the plain relocation under its order, the order against the CPU route on
+    host copies; ``spmv`` per row against the plain SpMV of that matrix;
+    ``jaccard`` on ``pass`` equal to K6 called directly and to its plain
+    version, on a reordered matrix equal to the source's weights carried
+    through the order. Returns K2's largest difference."""
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.ops.kernels import common_neighbors, common_neighbors_plain, csr_spmv_plain
+    from sparsebase_tpu_torch.ops.kernels import relocate_csr_plain
+
+    print(f"phase 4 path I checks: n={csr.nrows} entries={csr.nnz}")
+    keys = [f"{i.mtx},{pid},{kid},{r}" for pid in EXPERIMENT_PREPROCESSES for kid, _ in EXPERIMENT_KERNELS
+            for r in range(EXPERIMENT_REPS)]
+    check(list(exp.get_run_times()) == keys, f"path I run-time keys {list(exp.get_run_times())[:4]}... not {keys[:4]}...")
+    check(list(exp.get_results()) == keys and all(t > 0 for t in exp.get_run_times().values()),
+          "path I results' keys or run times")
+    print(f"  path I {len(keys)} run times, keys in the JAX order: {keys[0]!r} ... {keys[-1]!r}")
+    check_experiment_read(i, csr)
+    aux, res = exp.get_auxiliary(), exp.get_results()
+    host = csr.to_host()
+    w_src = common_neighbors(csr, "jaccard")
+    check_equal("path I jaccard K6 vs its plain version", w_src, common_neighbors_plain(csr, "jaccard"))
+    ones = torch.ones((csr.ncols,), device=csr.indptr.device)
+    err = 0.0
+    for pid in EXPERIMENT_PREPROCESSES:
+        mat = aux[f"preprocess,{pid},{i.mtx}"]
+        if pid == "pass":
+            check(mat is csr, "path I pass_preprocess did not return its input")
+            want_w = w_src
+        else:
+            order = reorderer(pid)().get_reorder(csr)
+            check_equal(f"path I {pid} order, card vs the CPU route on host copies", order.cpu(),
+                        reorderer(pid)().get_reorder(host))
+            check_csr_equal(f"path I reorder_csr({pid}) vs the plain relocation", mat,
+                            relocate_csr_plain(csr, order, order))
+            want_w = relocate_csr_plain(CSR(csr.indptr, csr.indices, w_src, csr.shape), order, order).vals
+        y_ref, absdot = csr_spmv_plain(mat, ones), csr_spmv_plain(abs_csr(mat), ones)
+        y = res[f"{i.mtx},{pid},spmv,0"]
+        err = max(err, check_rows(f"path I {pid} spmv vs the plain SpMV", y, y_ref, mat.degrees(), absdot))
+        w = res[f"{i.mtx},{pid},jaccard,0"].vals
+        check_equal(f"path I {pid} jaccard vs {'K6 called directly' if pid == 'pass' else 'the weights through the order'}",
+                    w, want_w)
+        for r in range(1, EXPERIMENT_REPS):  # K2 and K6 give the same bits on every run
+            check(torch.equal(res[f"{i.mtx},{pid},spmv,{r}"], y) and torch.equal(res[f"{i.mtx},{pid},jaccard,{r}"].vals, w),
+                  f"path I {pid}: rep {r} differs from rep 0")
+    return err
+
+
+def phase_path_i_sync_checks(i: PathI) -> None:
+    """On the card: a kernel that enqueues ``SLEEP_MS`` of work and returns a
+    CUDA tensor, or ``None``, is recorded at ``SLEEP_MS`` or more; a kernel
+    that raises makes ``run()`` raise."""
+    from sparsebase_tpu_torch.experiment import ConcreteExperiment, pass_preprocess
+
+    cycles = sleep_cycles(SLEEP_MS)
+    dev = i.dev
+
+    def sleeping(returns):
+        def kernel(data, fparams, pparams, kparams):
+            torch.cuda._sleep(cycles)
+            return torch.ones((1,), device=dev) if returns else None
+        return kernel
+
+    def failing(data, fparams, pparams, kparams):
+        raise RuntimeError("a failing kernel")
+
+    e = ConcreteExperiment(warmup=0)
+    e.add_data_loader(lambda files: files, [(["none"], None)])
+    e.add_preprocess("pass", pass_preprocess)
+    e.add_kernel("tensor", sleeping(True))
+    e.add_kernel("none", sleeping(False))
+    times = e.run(times=2).get_run_times()
+    print(f"  path I sync: torch.cuda._sleep({cycles}) recorded at " + ", ".join(
+        f"{k.split(',', 1)[1]} {v * 1e3:.3f} ms" for k, v in times.items()))
+    check(all(v * 1e3 >= SLEEP_MS for v in times.values()), f"path I sync: a run recorded under {SLEEP_MS} ms")
+    e = ConcreteExperiment(warmup=0)
+    e.add_data_loader(lambda files: files, [(["none"], None)])
+    e.add_preprocess("pass", pass_preprocess)
+    e.add_kernel("fails", failing)
+    try:
+        e.run()
+    except RuntimeError as err:
+        check("a failing kernel" in str(err), f"path I: run() raised another error: {err}")
+    else:
+        raise SmokeFailure("path I: a failing kernel did not make run() raise")
+    print("  path I: a kernel that raises makes run() raise")
+
+
+def phase_path_i_trace(i: PathI, csr) -> None:
+    """One traced run on the loaded CSR: one preprocess, one kernel, one rep;
+    the Chrome trace names the run's scope, a dispatch span and K2's device
+    kernels (``cat == "kernel"``)."""
+    import os
+
+    trace_dir = f"{i.workdir}/traces"
+    _, ms = timed(lambda: i.experiment(("pass",), EXPERIMENT_KERNELS[:1], warmup=0, trace_dir=trace_dir, times=1,
+                                       loader=lambda files: csr))
+    path = f"{trace_dir}/pass-spmv-0/trace.json"
+    check(os.path.exists(path), f"path I: no trace at {path}")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {ev.get("name") for ev in events}
+    ops = sorted(n for n in names if str(n).startswith("sbtorch:op:"))
+    check("pass-spmv-0" in names and ops, f"path I trace: scope or sbtorch:op: spans missing ({len(names)} names)")
+    kernels = sorted({str(ev.get("name"))[:60] for ev in events if ev.get("cat") == "kernel"})
+    print(f"  path I trace: {os.path.getsize(path)} bytes, the scope 'pass-spmv-0', {ops}, device kernels "
+          f"{kernels or 'none recorded'}; the traced experiment {ms:.1f} ms")
+    check(all(any(k in name for name in kernels) for k in K2_KERNELS),
+          f"path I trace: K2's device kernels {K2_KERNELS} missing from the trace's kernels {kernels}")
+
+
+def phase_path_i_dashboard_checks(i: PathI, csr, dash, cli) -> None:
+    """Every grid and its stats equal ``ReorderHeatmap`` on host copies; the
+    ``|values|`` grids of the natural and Gray orders equal a float64
+    ``np.add.at`` on the host (rtol 1e-12); four sections; the CLI's file is
+    the in-process HTML. Prints ``to_html()`` and its heatmaps' share."""
+    import numpy as np
+
+    from sparsebase_tpu_torch import DenseArray
+    from sparsebase_tpu_torch.ops.reorder import ReorderHeatmap
+
+    check(cli.returncode == 0, f"path I visualizer CLI failed: {cli.stderr[-2000:]}")
+    host = csr.to_host()
+    b = DASHBOARD_PARTS
+    ident = torch.arange(csr.nrows, dtype=csr.indices.dtype, device=csr.indptr.device)
+    cpu_stats = {}  # the counts pass's, for both passes
+    for weights, (viz, html, ms) in dash.items():
+        check(html.count('class="section"') == 1 + len(DASHBOARD_ORDERINGS), "path I dashboard: sections")
+        orders = {"natural": ident, **{k: v[0] for k, v in viz._orderings.items()}}
+        heat_ms = 0.0
+        for label, order in orders.items():
+            (grid, stats), one = timed(lambda: viz._density(order, order))
+            heat_ms += one
+            if not weights:
+                cpu_heat, cpu_stats[label] = ReorderHeatmap(b).get_heatmap_with_stats(
+                    host, DenseArray(order.cpu()), DenseArray(order.cpu()))
+                check_equal(f"path I dashboard grid ({label}) vs ReorderHeatmap on host copies",
+                            torch.from_numpy(grid).view(-1), cpu_heat.vals)
+            check(stats == cpu_stats[label], f"path I dashboard stats ({label}): card {stats}, CPU {cpu_stats[label]}")
+            if weights and label in ("natural", "gray"):
+                o = order.cpu().numpy().astype(np.int64)
+                r, c = o[host.row_of_nnz().numpy()], o[host.indices.numpy()]
+                want = np.zeros((b, b))
+                np.add.at(want, (np.minimum(r * b // csr.nrows, b - 1), np.minimum(c * b // csr.ncols, b - 1)),
+                          np.abs(host.vals.numpy()))
+                rel = float(np.max(np.abs(grid - want) / np.maximum(np.abs(want), 1e-300)))
+                print(f"  path I dashboard |values| grid ({label}) vs np.add.at in float64: max relative "
+                      f"difference {rel:.3g}")
+                check(np.allclose(grid, want, rtol=1e-12, atol=0), f"path I |values| grid ({label}) off rtol 1e-12")
+        print(f"phase 5 path I dashboard ({'|values|' if weights else 'counts'}, {b}x{b}, natural + "
+              f"{len(DASHBOARD_ORDERINGS)} orderings): to_html {ms:.1f} ms; its four heatmaps alone "
+              f"{heat_ms:.1f} ms ({heat_ms / ms:.1%}), {len(html)} characters")
+    with open(i.cli_html) as f:
+        check(f.read() == dash[False][1], "path I: the CLI's HTML differs from the in-process dashboard's")
+    print(f"  path I visualizer CLI on the MTX file, on the card: {i.times['cli'] / 1e3:.1f} s in a subprocess, "
+          f"its HTML equal to the in-process dashboard's")
+
+
+SUITE_TIME_FIELDS = ("convert_roundtrip_nnz_per_s", "seconds")
+
+
+def without_times(entry):
+    """A suite entry without its time fields (at any depth)."""
+    if isinstance(entry, dict):
+        return {k: without_times(v) for k, v in entry.items() if k not in SUITE_TIME_FIELDS}
+    return entry
+
+
+def phase_path_i_suite_checks(suite, ms: float) -> None:
+    """rand-20k on the card: every field that is not a time equal to
+    ``run_matrix`` on a CPU copy. Prints its table."""
+    from sparsebase_tpu_torch import bench_suite
+
+    graph, entry = suite
+    print(f"phase 5 path I bench_suite.run_matrix({SUITE_MATRIX}) on the card: {ms / 1e3:.2f} s")
+    print(bench_suite.to_markdown({SUITE_MATRIX: entry}))
+    cpu, cpu_ms = timed(lambda: bench_suite.run_matrix(SUITE_MATRIX, graph.to_host())[SUITE_MATRIX])
+    check(without_times(entry) == without_times(cpu),
+          f"path I suite {SUITE_MATRIX}: the card's entry differs from the CPU's")
+    print(f"  path I suite {SUITE_MATRIX}: the card's non-time fields equal run_matrix on a CPU copy "
+          f"({cpu_ms / 1e3:.2f} s on the host)")
+
+
+def harness_cost(fn, data, reps: int):
+    """The harness's own cost of one run of ``fn`` on ``data``, paired:
+    ``reps`` times, in turns (bare first on even reps, the harness first on
+    odd), the call timed bare (host clock over the call and
+    ``torch.cuda.synchronize()``) and through a one-run
+    ``ConcreteExperiment`` (its recorded time). Returns ``(bare_ms,
+    recorded_ms)`` lists."""
+    from sparsebase_tpu_torch.experiment import ConcreteExperiment, pass_preprocess
+
+    def bare():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(data, None, None, None)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def recorded():
+        e = ConcreteExperiment(warmup=0)
+        e.add_data_loader(lambda files: data, [(["data"], None)])
+        e.add_preprocess("pass", pass_preprocess)
+        e.add_kernel("kernel", fn)
+        torch.cuda.synchronize()
+        return e.run().get_run_times()["data,pass,kernel,0"] * 1e3
+
+    bare_ms, recorded_ms = [], []
+    for r in range(reps):
+        if r % 2:
+            recorded_ms.append(recorded())
+            bare_ms.append(bare())
+        else:
+            bare_ms.append(bare())
+            recorded_ms.append(recorded())
+    return bare_ms, recorded_ms
+
+
+def phase_path_i_times(i: PathI, exp, csr) -> None:
+    """Per (preprocess, kernel): the median of the recorded run times beside
+    ``cuda_ms`` of the same call (their difference is the spread of
+    three-run medians, not a cost), and the harness's own cost per run from
+    :func:`harness_cost`: the median of the paired differences, with their
+    quartiles and extremes. Each ``reorder_csr`` preprocess and K2 alone on
+    the loaded CSR, one call each."""
+    from sparsebase_tpu_torch.experiment import reorder_csr
+    from sparsebase_tpu_torch.ops.kernels import csr_spmv
+
+    aux = exp.get_auxiliary()
+    t = i.times
+    print(f"phase 5 path I write_coo_to_mtx: {t['write']:.1f} ms; ConcreteExperiment.run (load_csr, 4 preprocesses, "
+          f"2 kernels, 1 warm-up + {EXPERIMENT_REPS} reps): {t['experiment']:.1f} ms")
+    ones = torch.ones((csr.ncols,), device=csr.indptr.device)
+    print(f"phase 5 path I K2 csr_spmv on the loaded CSR ({csr.nnz} entries): one call {cuda_ms(lambda: csr_spmv(csr, ones)):.4f} "
+          f"ms; reorder_csr, one call: " + ", ".join(
+              f"{pid} {cuda_ms(lambda: reorder_csr(reorderer(pid))(csr, None, None), reps=3):.4f} ms"
+              for pid in EXPERIMENT_PREPROCESSES[1:]))
+    for pid in EXPERIMENT_PREPROCESSES:
+        data = aux[f"preprocess,{pid},{i.mtx}"]
+        for kid, fn in EXPERIMENT_KERNELS:
+            runs = [exp.get_run_times()[f"{i.mtx},{pid},{kid},{r}"] * 1e3 for r in range(EXPERIMENT_REPS)]
+            median = statistics.median(runs)
+            one = cuda_ms(lambda: fn(data, None, None, None))
+            print(f"phase 5 path I {pid} / {kid}: recorded median {median:.4f} ms (runs "
+                  + ", ".join(f"{r:.4f}" for r in runs) + f"), cuda_ms of the same call {one:.4f} ms, "
+                  f"difference {median - one:.4f} ms")
+            bare_ms, rec_ms = harness_cost(fn, data, HARNESS_REPS[kid])
+            diffs = [b - a for a, b in zip(bare_ms, rec_ms)]
+            q1, _, q3 = statistics.quantiles(diffs, n=4)
+            print(f"phase 5 path I {pid} / {kid}: the harness's own cost, {len(diffs)} paired runs: median "
+                  f"{statistics.median(diffs):.4f} ms (quartiles {q1:.4f}, {q3:.4f}; min {min(diffs):.4f}, max "
+                  f"{max(diffs):.4f}); bare median {statistics.median(bare_ms):.4f} ms, through the harness "
+                  f"{statistics.median(rec_ms):.4f} ms")
+
+
+def path_i(g, dev, nnz: int):
+    """Path I's phases 3, 4 and 5, run after path H. Returns its launch
+    counts and K2's largest difference from the plain SpMV."""
+    import tempfile
+
+    from sparsebase_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_path_i_") as workdir:
+        i = PathI(g, dev, nnz, workdir)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        exp, csr, dash, cli, suite = i.run()
+        launches = read_launches("I", ("indptr", "radix_rank", "relocate_csr", "csr_spmv", "common_neighbors"))
+        err = phase_path_i_experiment_checks(i, exp, csr)
+        phase_path_i_sync_checks(i)
+        phase_path_i_trace(i, csr)
+        phase_path_i_dashboard_checks(i, csr, dash, cli)
+        phase_path_i_suite_checks(suite, i.times["suite"])
+        phase_path_i_times(i, exp, csr)
+    print(f"phase 5 path I wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
+    return launches, err
+
+
 def read_launches(path: str, required) -> dict:
     from sparsebase_tpu_torch import _build
 
@@ -2073,7 +2509,7 @@ def main() -> None:
     ap.add_argument("--band-nnz", type=float, default=64e6, help="path B stored band entries (default 64M)")
     ap.add_argument("--rcm-n", type=int, default=131_072, help="path D rows of the scrambled band (default 131,072)")
     ap.add_argument("--ingest-nnz", type=float, default=32e6,
-                    help="path E source entries, written as a symmetric MTX file (default 32M, n = nnz/16)")
+                    help="path E and I source entries, written as a symmetric MTX file (default 32M, n = nnz/16)")
     ap.add_argument("--feature-n", type=int, default=4_000_000,
                     help="path F vertices, average degree 16 (default 4,000,000: about 68M entries)")
     ap.add_argument("--seed", type=int, default=0)
@@ -2268,8 +2704,9 @@ def main() -> None:
     x_p = torch.randn((n_p,), generator=g, device=dev)
     launches_h, err_k7, k7_times, k7_shape = path_h(coo_a, x_a, host_graph, (coo_p, x_p, planted))
     del coo_p, x_p, planted
+    launches_i, err_k2_i = path_i(g, dev, int(args.ingest_nnz))
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
-                + launches_g[k] + launches_h[k] for k in launches_a}
+                + launches_g[k] + launches_h[k] + launches_i[k] for k in launches_a}
 
     shapes = {
         "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],
@@ -2293,8 +2730,8 @@ def main() -> None:
     record = {"kernels": [
         entry("banded_spmv", "banded_spmv.cu", "sparsebase_tpu/ops/kernels/banded_spmv.py:67",
               max(err_k1, err_k1_d), k1_ms, k1_plain_ms, None),
-        entry("csr_spmv", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189", err_k2, k2_ms, k2_plain_ms,
-              k2_lib_ms),
+        entry("csr_spmv", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189", max(err_k2, err_k2_i), k2_ms,
+              k2_plain_ms, k2_lib_ms),
         entry("indptr", "indptr.cu", "tools/pallas_attempts.py:218", err_k3, k3_ms, k3_plain_ms, k3_lib_ms),
         entry("relocate_csr", "relocate.cu", "tools/pallas_attempts.py:83", err_k4, k4_ms, k4_plain_ms, None),
         entry("radix_rank", "radix_sort.cu", "tools/pallas_attempts.py:109", err_k5, k5_ms, k5_plain_ms,

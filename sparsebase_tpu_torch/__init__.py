@@ -7,6 +7,8 @@ neither ``jax`` nor ``sparsebase_tpu``.
 
 Layer map:
 
+    experiment   benchmark harness: ConcreteExperiment, loaders, reorder_csr
+    bench_suite  quality + throughput suite (loaded on first access; a CLI)
     bases        IOBase / ReorderBase / GraphFeatureBase façades (static one-liners)
     models       preprocess_pipeline (and _donating), rcm_pipeline, partition_pipeline, spmv
                  (format-polymorphic), spmv_csr (auto / segment / cumsum), spmv_ell
@@ -22,7 +24,7 @@ Layer map:
     convert      conversion graph + torch conversion functions
     formats      COO / CSR / CSC / DIA / ELL / DenseArray / PaddedCSR frozen dataclasses
     context      Host / Device placement, read from tensor.device
-    utils        exceptions, logger, checked dtype casts
+    utils        exceptions, logger, checked dtype casts; visualizer (HTML dashboard, a CLI)
     config       process-wide dtype defaults and feature toggles
     _build       nvcc build + ctypes binding of csrc/*.cu; g++ build of the host libraries
     interop      carry reference formats and objects across (numpy arrays)
@@ -30,7 +32,7 @@ Layer map:
 
 __version__ = "0.1.0"
 
-from . import bases, config, context, convert, dispatch, formats, io, models, native, objects, ops, utils
+from . import bases, config, context, convert, dispatch, experiment, formats, io, models, native, objects, ops, utils
 from .bases import GraphFeatureBase, IOBase, ReorderBase
 from .config import Config, get_config, set_config
 from .context import CPU_CONTEXT, Context, DeviceContext, HostContext, context_for, context_of
@@ -41,10 +43,25 @@ from .formats import COO, CSC, CSR, DIA, ELL, Array, DenseArray, Format, PaddedC
 from .models import preprocess_pipeline, preprocess_pipeline_donating, rcm_pipeline, spmv, spmv_csr, spmv_ell
 from .objects import Graph, HyperGraph, Object
 
+
+def __getattr__(name):
+    # bench_suite is a ``python -m`` entry point: importing it with the
+    # package would import it twice when it runs as a script
+    if name == "bench_suite":
+        import importlib
+
+        module = importlib.import_module(f".{name}", __name__)
+        globals()[name] = module
+        return module
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "__version__",
     "bases",
+    "bench_suite",
     "config",
+    "experiment",
     "io",
     "native",
     "objects",

@@ -13,6 +13,7 @@ compute exact integer results, and equal their plain versions bit for bit.
 
 import warnings
 
+import numpy as np
 import pytest
 import torch
 
@@ -1337,3 +1338,135 @@ def test_partitioners_on_card_equal_the_cpu(dev, gen, name):
     assert got.device == csr.indptr.device and got.dtype == torch.int32
     assert torch.equal(got.cpu(), want)
     assert (launched > 0) == (name == "pulp-no-graphkit")
+
+
+# -- the harness: experiment, visualizer, bench_suite ----------------------------
+
+HARNESS_MTX = """%%MatrixMarket matrix coordinate real symmetric
+6 6 7
+1 1 2.5
+2 1 -1.0
+3 2 4.0
+4 3 0.5
+5 1 3.0
+6 4 -2.0
+6 5 1.5
+"""
+
+
+def test_harness_loaders_place_on_the_card(tmp_path, dev):
+    from sparsebase_tpu_torch import experiment
+
+    p = tmp_path / "m.mtx"
+    p.write_text(HARNESS_MTX)
+    for load in (experiment.load_csr, experiment.load_coo, experiment.load_csc, experiment.load_format(COO)):
+        out = load([str(p)])
+        assert all(t.device.type == "cuda" for t in out._tensors())
+        assert out.nnz == 13
+
+
+def _sleep_experiment(cycles, returns):
+    from sparsebase_tpu_torch.experiment import ConcreteExperiment, pass_preprocess
+
+    def kernel(data, fparams, pparams, kparams):
+        torch.cuda._sleep(cycles)
+        return {"out": [torch.ones((2,), device="cuda")]} if returns else None
+
+    e = ConcreteExperiment(warmup=1)
+    e.add_data_loader(lambda files: files, [(["none"], None)])
+    e.add_preprocess("pass", pass_preprocess)
+    e.add_kernel("sleep", kernel)
+    return e
+
+
+@pytest.mark.parametrize("returns", [True, False], ids=["returns-a-tensor", "returns-none"])
+def test_experiment_waits_for_enqueued_work(dev, returns):
+    """A kernel that enqueues about 50 ms of work is recorded at 50 ms or
+    more, whether it returns a CUDA tensor (in a dict of lists) or nothing."""
+    torch.cuda._sleep(1_000_000)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    cycles = int(10_000_000 * 50.0 / start.elapsed_time(end) * 1.05)
+    times = _sleep_experiment(cycles, returns).run(times=3).get_run_times()
+    assert len(times) == 3 and all(t >= 0.050 for t in times.values()), times
+
+
+def test_experiment_trace_holds_the_device_kernels(tmp_path, dev, gen):
+    """A traced run of ``spmv`` (K2) on the card: its Chrome trace holds the
+    run's scope, the dispatch span and K2's kernels as device events."""
+    import json
+
+    from sparsebase_tpu_torch.experiment import ConcreteExperiment, pass_preprocess
+
+    csr = device_csr(gen, dev, torch.full((50_000,), 8), 50_000)
+    e = ConcreteExperiment(warmup=0, trace_dir=str(tmp_path))
+    e.add_data_loader(lambda files: csr, [(["csr"], None)])
+    e.add_preprocess("pass", pass_preprocess)
+    e.add_kernel("spmv", lambda data, *params: spmv(data, torch.ones((data.ncols,), device=dev)))
+    e.run()
+    events = json.loads((tmp_path / "pass-spmv-0" / "trace.json").read_text())["traceEvents"]
+    names = {ev.get("name") for ev in events}
+    kernels = " ".join(str(ev.get("name")) for ev in events if ev.get("cat") == "kernel")
+    assert "pass-spmv-0" in names and "sbtorch:op:spmv" in names
+    assert "csr_spmv_tiles" in kernels and "csr_spmv_fixup" in kernels, kernels
+
+
+def test_experiment_raises_when_a_kernel_raises_on_the_card(dev):
+    from sparsebase_tpu_torch.experiment import ConcreteExperiment, pass_preprocess
+
+    def kernel(data, fparams, pparams, kparams):
+        torch.ones((4,), device=dev).sum()
+        raise RuntimeError("a failing kernel")
+
+    e = ConcreteExperiment(warmup=0)
+    e.add_data_loader(lambda files: files, [(["none"], None)])
+    e.add_preprocess("pass", pass_preprocess)
+    e.add_kernel("fails", kernel)
+    with pytest.raises(RuntimeError, match="a failing kernel"):
+        e.run()
+
+
+@pytest.mark.parametrize("weights", [False, True], ids=["counts", "weights"])
+def test_visualizer_grids_on_card_equal_the_cpu(dev, gen, weights):
+    """The dashboard of a CUDA CSR: each grid equal to the CPU's (counts
+    exactly, ``|values|`` at rtol 1e-12), the stats equal, and the HTML of
+    the count grids equal to the CPU's."""
+    from sparsebase_tpu_torch.utils.visualizer import _report
+
+    csr = partition_graph(gen, dev, 50_000, 400_000).convert(CSR)
+    csr = CSR(csr.indptr, csr.indices, torch.randn((csr.nnz,), generator=gen, device=dev), csr.shape)
+    card = _report(csr, "card", ("degree", "gray", "boba"), 64, plot_edges_by_weights=weights)
+    host = _report(csr.to_host(), "card", ("degree", "gray", "boba"), 64, plot_edges_by_weights=weights)
+    for (ro, _, _), (ro_h, _, _) in zip(card._orderings.values(), host._orderings.values()):
+        assert ro.device.type == "cuda" and torch.equal(ro.cpu(), ro_h)
+        grid, stats = card._density(ro, ro)
+        want, want_stats = host._density(ro_h, ro_h)
+        assert stats == want_stats
+        if weights:
+            np.testing.assert_allclose(grid, want, rtol=1e-12, atol=0)
+        else:
+            np.testing.assert_array_equal(grid, want)
+    if not weights:
+        assert card.to_html() == host.to_html()
+
+
+def test_bench_suite_run_matrix_on_card_equals_cpu(dev):
+    """``run_matrix`` on a small synthetic graph on the card: every field
+    that is not a time equal to the same call on a CPU copy."""
+    from sparsebase_tpu_torch import bench_suite
+
+    g = bench_suite.synthetic_graph(3_000, 8)
+    assert g.indptr.device.type == "cuda"
+
+    def without_times(e):
+        if isinstance(e, dict):
+            return {k: without_times(v) for k, v in e.items() if k not in ("seconds", "convert_roundtrip_nnz_per_s")}
+        return e
+
+    card = bench_suite.run_matrix("rand-3k", g)
+    host = bench_suite.run_matrix("rand-3k", g.to_host())
+    assert without_times(card) == without_times(host)
+    assert card["rand-3k"]["hypergraph_k4"]["connectivity_minus_1"] > 0
