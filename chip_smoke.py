@@ -90,7 +90,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``|values|``), the visualizer's CLI on the file in a subprocess on the
    card, and ``bench_suite.run_matrix`` on rand-20k on the card (mesh-90k,
    30 s of host algorithms, runs apart: ``python -m
-   sparsebase_tpu_torch.bench_suite --matrix "mesh-90k(scrambled)"``).
+   sparsebase_tpu_torch.bench_suite --matrix "mesh-90k(scrambled)"``);
+   path J, the distributed tier on a single-process mesh of four shards
+   that share the one card (``make_mesh(devices=[cuda:0] * 4)``), on path
+   A's COO and source CSR: ``ShardedCSR.from_coo_sharded`` (route: K5 and
+   K3 over the owners; local sort K5, ``indptr`` K3) and ``with_halo``
+   (K5, K3), ``from_csr`` at d = 4 and d = 1, ``dist.spmv`` (K2 per
+   shard), every replicated function of ``dist`` (``degrees``,
+   ``degree_reorder``, ``bfs_levels`` from 0, ``rcm_reorder``,
+   ``label_prop_partition`` with k = 8 and 10 rounds, ``edge_cut``,
+   ``refine_partition`` with 4 rounds, ``structure_features``,
+   ``reorder_heatmap`` with b = 8) at d = 4 and at d = 1, and
+   ``Sharded2DCSR.from_csr`` (K5, K3) on a 2×2 mesh of the card with its
+   ``spmv`` (K2 per tile, ``psum_scatter``) and ``degrees``.
    Every kernel of each path must have launched;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
@@ -160,7 +172,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``ReorderHeatmap`` on host copies, the ``|values|`` grids of two orders to
    a float64 ``np.add.at`` at rtol 1e-12, four sections, the CLI's file equal
    to the in-process HTML; the suite's rand-20k entry equal, but for its
-   times, to ``run_matrix`` on a CPU copy);
+   times, to ``run_matrix`` on a CPU copy); of path J (the ingest's shards
+   hold ``from_csr``'s entries shard by shard, in canonical order, with the
+   same ``indptr`` and counts, and the widths the JAX formulas give;
+   ``with_halo`` equal to the host builder ``_build_halo`` on path G's
+   32,768-vertex power-law graph at d = 4 and d = 8; ``dist.spmv`` and the
+   2-D SpMV within the per-row bound of K2 on the whole CSR and of the
+   plain SpMV; every replicated result the same at d = 4 and d = 1 bit for
+   bit, and against plain versions: degrees from ``indptr``, the degree
+   order a stable argsort rank, the levels a torch-op level BFS, the RCM
+   order a (level, degree, id) rank by stable argsorts, the edge cut a
+   count of the labels, the bandwidth and profile the features'
+   ``Bandwidth`` and ``Profile``, the heatmap ``ReorderHeatmap``'s at rtol
+   1e-6; the refined cut no higher than the labels');
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -210,7 +234,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    through a one-run ``ConcreteExperiment`` in turns; each
    dashboard's ``to_html`` and its heatmaps' share, the CLI's wall,
    ``run_matrix`` with its table, each ``reorder_csr`` and K2 on the loaded
-   CSR alone, and path I's wall;
+   CSR alone, and path I's wall; path J: each step's wall (median of 3
+   after a warm-up) and its host syncs, at d = 4 and d = 1; the ingest's
+   peak memory above what was held, its route capacity and ``w_c``, the
+   padded width ratio, ``halo_width`` and the halo's bytes beside the dense
+   ``psum``'s ``4·n·d``; ``dist.spmv`` at d = 4 and d = 1 and the 2-D SpMV
+   beside K2 on the whole CSR (what sharding costs on one card); a
+   profile of one ingest and one ``with_halo``, each held open 5 s either
+   side (device busy, idle share, the top device operations); with four
+   or more cards, the ingest and ``dist.spmv`` on ``make_mesh(4)`` too;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -225,8 +257,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 Path D runs its phases 3, 4 and 5 (and its profile) after phase 6 of the
 other paths, path E its phases 3, 4 and 5 after path D, path F its
 phases 3, 4 and 5 after path E, path G its phases 3, 4 and 5 after
-path F, path H its phases 3, 4 and 5 after path G, and path I its phases
-3, 4 and 5 after path H.
+path F, path H its phases 3, 4 and 5 after path G, path I its phases
+3, 4 and 5 after path H, and path J its phases 3, 4 and 5 and its
+profile after path I.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -759,21 +792,25 @@ def library_spmv(csr, x):
         return "sparse_csr_tensor @ x[:, None]", lambda: (a @ x[:, None]).squeeze(1)
 
 
-def device_profile(fn, runs: int = 3):
+def device_profile(fn, runs: int = 3, margin_s: float = 0.0):
     """``(per_kernel, spans, wall_ms)`` over ``runs`` calls of ``fn`` under
     torch.profiler: device ms per kernel name per run, the device intervals
-    (µs, sorted) and the profiled wall time per run."""
+    (µs, sorted) and the profiled wall time per run. ``margin_s`` holds the
+    profiler open that long before and after the calls: in an old process
+    it drops a short window's kernels (``experiment.TRACE_MARGIN_S``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
         t0 = time.perf_counter()
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / runs
+        time.sleep(margin_s)
     per_kernel, spans = {}, []
     for ev in prof.events():
         # the package's ``sbtorch:`` labels come back as device ranges too:
@@ -2492,6 +2529,268 @@ def path_i(g, dev, nnz: int):
     return launches, err
 
 
+MESH_SHARDS = 4  # path J: four shards on the one card
+HALO_CHECK_SHARDS = (4, 8)
+REFINE_ROUNDS = 4
+PATH_J_REPS = 3
+
+
+class PathJ:
+    """Path J: the distributed tier on a single-process mesh of four shards
+    that share the one card (``make_mesh(devices=[cuda:0] * 4)``). On path
+    A's COO: ``ShardedCSR.from_coo_sharded`` (route, K5, K3) and
+    ``with_halo``; ``from_csr`` of path A's source CSR at d = 4 and d = 1;
+    ``dist.spmv`` (K2 per shard) on the ingested container; every replicated
+    function of ``dist`` (degrees, ``degree_reorder``, ``bfs_levels`` from
+    0, ``rcm_reorder``, ``label_prop_partition`` (k = 8, 10 rounds),
+    ``edge_cut``, ``refine_partition`` (4 rounds), ``structure_features``,
+    ``reorder_heatmap`` (b = 8)) at d = 4 and at d = 1; ``Sharded2DCSR``
+    on a 2×2 mesh of the card with its ``spmv`` (K2 per tile,
+    ``psum_scatter``) and ``degrees``."""
+
+    def __init__(self, dev, coo, src, x, host_graph):
+        from sparsebase_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+        self.dev, self.coo, self.src, self.x, self.host_graph = dev, coo, src, x, host_graph
+        self.mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+        self.mesh1 = make_mesh(devices=[dev])
+        self.mesh2d = make_mesh_2d((2, 2), devices=[dev] * 4)
+        self.ingest_stats = {}
+
+    def ingest(self, mesh, stats=None):
+        from sparsebase_tpu_torch.parallel import ShardedCSR
+
+        c = self.coo
+        return ShardedCSR.from_coo_sharded(c.row, c.col, c.vals, c.shape, mesh, stats=stats)
+
+    def from_csr(self, mesh):
+        from sparsebase_tpu_torch.parallel import ShardedCSR
+
+        return ShardedCSR.from_csr(self.src, mesh, halo=False)
+
+    def replicated(self, sh, mesh):
+        """Every replicated function of ``dist`` on ``sh``, in call order."""
+        from sparsebase_tpu_torch.parallel import dist
+
+        n = sh.shape[0]
+        ident = torch.arange(n, dtype=torch.int32, device=self.dev)
+        lp = dist.label_prop_partition(sh, PARTITION_K, mesh, num_iters=PARTITION_ROUNDS)
+        out = {"degrees": dist.degrees(sh, mesh), "degree_reorder": dist.degree_reorder(sh, mesh),
+               "bfs_levels": dist.bfs_levels(sh, 0, mesh), "rcm_reorder": dist.rcm_reorder(sh, mesh),
+               "label_prop_partition": lp, "edge_cut": dist.edge_cut(sh, lp, mesh),
+               "refine_partition": dist.refine_partition(sh, lp, PARTITION_K, mesh, rounds=REFINE_ROUNDS),
+               "reorder_heatmap": dist.reorder_heatmap(sh, ident, ident, mesh, num_parts=HEATMAP_PARTS)}
+        out.update({f"structure {k}": v for k, v in dist.structure_features(sh, mesh).items()})
+        return out
+
+    def run(self):
+        from sparsebase_tpu_torch.parallel import Sharded2DCSR, dist, sharded2d
+
+        sh = self.ingest(self.mesh, self.ingest_stats)
+        halo = sh.with_halo()
+        sh4, sh1 = self.from_csr(self.mesh), self.from_csr(self.mesh1)
+        y = dist.spmv(halo, self.x, self.mesh)
+        rep4, rep1 = self.replicated(halo, self.mesh), self.replicated(sh1, self.mesh1)
+        tiles = Sharded2DCSR.from_csr(self.src, self.mesh2d)
+        y2, deg2 = sharded2d.spmv(tiles, self.x, self.mesh2d), sharded2d.degrees(tiles, self.mesh2d)
+        return sh, halo, sh4, y, rep4, rep1, tiles, y2, deg2
+
+
+def shard_entries(sh, k):
+    """Shard ``k``'s true entries ``(local row, col, val)`` in canonical order."""
+    csr = sh.shard_csr(k)
+    return canonical_entries(csr.row_of_nnz(), csr.indices, csr.vals)
+
+
+def plain_bfs_levels(csr, root: int):
+    """Level-synchronous BFS on the whole CSR by plain torch ops."""
+    n = csr.nrows
+    rows, cols = csr.row_of_nnz().long(), csr.indices.long()
+    levels = torch.full((n,), -1, dtype=torch.int32, device=cols.device)
+    levels[root] = 0
+    frontier = levels == 0
+    it = 0
+    while bool(frontier.any()):
+        reached = torch.zeros((n,), dtype=torch.bool, device=cols.device)
+        reached[cols[frontier[rows]]] = True
+        frontier = reached & (levels < 0)
+        levels[frontier] = it + 1
+        it += 1
+    return levels
+
+
+def plain_rcm(levels, deg):
+    """The (level, degree, id) rank reversed over the reached vertices, by
+    two stable ``torch.argsort`` s."""
+    n = levels.numel()
+    lev = torch.where(levels < 0, n, levels.long())
+    order = torch.argsort(deg, stable=True)
+    order = order[torch.argsort(lev[order], stable=True)]
+    pos = torch.empty_like(order)
+    pos[order] = torch.arange(n, device=order.device)
+    reached = int((levels >= 0).sum())
+    return torch.where(pos < reached, reached - 1 - pos, pos).to(torch.int32)
+
+
+def phase_path_j_checks(j: PathJ, sh, halo, sh4, y, rep4, rep1, tiles, y2, deg2) -> float:
+    """Returns K2's largest difference from the plain SpMV on path J."""
+    from sparsebase_tpu_torch.ops.feature.structure import Bandwidth, Profile
+    from sparsebase_tpu_torch.ops.kernels import csr_spmv, csr_spmv_plain, radix_rank_plain
+    from sparsebase_tpu_torch.parallel import ShardedCSR, make_mesh
+    from sparsebase_tpu_torch.parallel.sharded import _build_halo, _pow2_at_least_64
+
+    src, n, d = j.src, j.src.nrows, MESH_SHARDS
+    print(f"phase 4 path J checks: n={n} nnz={src.nnz}, {d} shards on {sorted({str(x) for x in sh.devices})} "
+          f"(the shards share one card), route capacity {j.ingest_stats['route_capacity']}, "
+          f"w_c {j.ingest_stats['compacted_width']}")
+    check(len(set(sh.devices)) == 1 and sh.n_shards == d, "path J: the ingest's shards are not all on the card")
+    # the ingest holds from_csr's entries, shard by shard
+    counts = sh4.nnz_counts
+    check(sh.nnz_counts == counts and sh.rows_per_shard == sh4.rows_per_shard, f"path J ingest counts {sh.nnz_counts} "
+          f"against from_csr's {counts}")
+    check(sh4.width == max(counts) and sh.width == min(_pow2_at_least_64(max(counts)), d * j.ingest_stats[
+        "route_capacity"]), f"path J widths: ingest {sh.width}, from_csr {sh4.width}, counts {counts}")
+    for k in range(d):
+        check_equal(f"path J shard {k} indptr, ingest vs from_csr", sh.indptr[k], sh4.indptr[k])
+        for name, a, b in zip(("row", "col", "vals"), shard_entries(sh, k), shard_entries(sh4, k)):
+            check_equal(f"path J shard {k} {name}, ingest vs from_csr (canonical order)", a, b)
+    # with_halo against the host builder on path G's power-law graph
+    for dh in HALO_CHECK_SHARDS:
+        base = ShardedCSR.from_csr(j.host_graph, make_mesh(devices=[j.dev] * dh), halo=False)
+        got = base.with_halo()
+        want = _build_halo(base.stacked("indices").cpu().numpy(), base.nnz_counts, base.rows_per_shard, dh)
+        for name, w in zip(("halo_send", "halo_counts", "halo_map"), want):
+            g = got.stacked(name).cpu()
+            check(g.shape == w.shape and bool((g.numpy() == w).all()),
+                  f"path J with_halo {name} at d={dh} against _build_halo: shapes {tuple(g.shape)}, {w.shape}")
+        print(f"  path J with_halo at d={dh} on the {j.host_graph.nrows}-vertex power-law graph equals _build_halo "
+              f"(S={got.halo_width}, {got.halo_bytes_per_exchange} halo bytes)")
+    # the SpMVs, within the reordered-sum bound
+    deg, absdot = src.degrees(), csr_spmv_plain(abs_csr(src), j.x.abs())
+    y_k2 = csr_spmv(src, j.x)
+    err = check_rows("path J dist.spmv (K2 per shard) vs K2 on the whole CSR", y, y_k2, deg, absdot)
+    err = max(err, check_rows("path J dist.spmv vs plain", y, csr_spmv_plain(src, j.x), deg, absdot))
+    err = max(err, check_rows("path J Sharded2DCSR spmv (K2 per tile) vs K2", y2, y_k2, deg, absdot))
+    check_equal("path J Sharded2DCSR degrees vs indptr", deg2, deg)
+    check(tiles.nnz == src.nnz, f"path J Sharded2DCSR holds {tiles.nnz} entries of {src.nnz}")
+    # d = 4 against d = 1, bit for bit, and against plain versions
+    for name in rep4:
+        a, b = rep4[name], rep1[name]
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), f"path J {name}: d={d} and d=1 differ")
+    print(f"  path J: {len(rep4)} replicated results equal at d={d} and d=1: {sorted(rep4)}")
+    check_equal("path J degrees vs indptr", rep4["degrees"], deg)
+    check_equal("path J degree_reorder vs a stable argsort rank", rep4["degree_reorder"], radix_rank_plain(deg))
+    levels = rep4["bfs_levels"]
+    check_equal("path J bfs_levels vs a plain level BFS", levels, plain_bfs_levels(src, 0))
+    check_equal("path J rcm_reorder vs a plain (level, degree, id) rank", rep4["rcm_reorder"], plain_rcm(levels, deg))
+    lp, refined = rep4["label_prop_partition"], rep4["refine_partition"]
+    rows = src.row_of_nnz().long()
+    cut = lambda lab: (lab[rows] != lab[src.indices.long()]).sum()  # noqa: E731
+    check_equal("path J edge_cut vs a plain count", rep4["edge_cut"], cut(lp))
+    for name, lab in (("label_prop_partition", lp), ("refine_partition", refined)):
+        check(lab.dtype == torch.int32 and int(lab.min()) >= 0 and int(lab.max()) < PARTITION_K,
+              f"path J {name}: labels outside [0, {PARTITION_K})")
+    check(int(cut(refined)) <= int(cut(lp)), "path J refine_partition raised the edge cut")
+    want = {"bandwidth": Bandwidth().get_bandwidth(src), "profile": Profile().get_profile(src), "nnz": src.nnz,
+            "min_degree": deg.min(), "max_degree": deg.max()}
+    for name, w in want.items():
+        check(int(rep4[f"structure {name}"]) == int(w), f"path J structure {name}: {int(rep4[f'structure {name}'])} "
+              f"against {int(w)}")
+    print(f"  path J structure features: { {k: float(v) for k, v in rep4.items() if k.startswith('structure')} }, "
+          f"edge cut {int(rep4['edge_cut'])} -> refined {int(cut(refined))}, BFS levels {int(levels.max())}")
+    ident = torch.arange(n, dtype=torch.int32, device=j.dev)
+    from sparsebase_tpu_torch import ReorderBase
+
+    host_grid = ReorderBase.heatmap(src, ident, ident, num_parts=HEATMAP_PARTS).vals.reshape(HEATMAP_PARTS, -1)
+    check(torch.allclose(rep4["reorder_heatmap"], host_grid.to(torch.float32), rtol=1e-6, atol=0),
+          "path J reorder_heatmap vs ReorderHeatmap")
+    return err
+
+
+def phase_path_j_times(j: PathJ, sh, halo) -> None:
+    from sparsebase_tpu_torch.ops.kernels import csr_spmv
+    from sparsebase_tpu_torch.parallel import Sharded2DCSR, dist, make_mesh, sharded2d
+
+    n, d = j.src.nrows, MESH_SHARDS
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    j.ingest(j.mesh)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    steps = [("from_coo_sharded", lambda: j.ingest(j.mesh)), ("with_halo", sh.with_halo),
+             ("from_csr d=4", lambda: j.from_csr(j.mesh)), ("from_csr d=1", lambda: j.from_csr(j.mesh1)),
+             ("dist.spmv d=4", lambda: dist.spmv(halo, j.x, j.mesh))]
+    for label, fn in steps:
+        print(f"phase 5 path J {label}: {host_ms(fn, reps=PATH_J_REPS):.3f} ms, host syncs {count_host_syncs(fn)}")
+    print(f"phase 5 path J ingest peak device memory {peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held; "
+          f"route capacity {j.ingest_stats['route_capacity']}, w_c {j.ingest_stats['compacted_width']}, "
+          f"padded_width_ratio {sh.padded_width_ratio():.4f}, halo_width {halo.halo_width}, "
+          f"halo_bytes_per_exchange {halo.halo_bytes_per_exchange} beside the dense psum's 4*n*d = {4 * n * d}")
+    for label, fn in (("from_coo_sharded", lambda: j.ingest(j.mesh)), ("with_halo", sh.with_halo)):
+        per_kernel, spans, wall = device_profile(fn, runs=1, margin_s=5.0)
+        check(bool(spans), f"path J: the profiler recorded no device activity in {label}")
+        busy = device_busy(spans)[0] / 1e3
+        top = ", ".join(f"{name[:50]} {ms:.3f}" for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
+        print(f"phase 6 profile of path J {label}: device busy {busy:.3f} ms of {wall:.3f} ms, idle "
+              f"{1 - busy / wall:.1%}; top device operations (ms): {top}")
+    sh1 = j.from_csr(j.mesh1)
+    for mesh, shc in ((j.mesh, halo), (j.mesh1, sh1)):
+        dd = len(shc.devices)
+        fns = [("degrees", lambda: dist.degrees(shc, mesh)), ("degree_reorder", lambda: dist.degree_reorder(shc, mesh)),
+               ("bfs_levels", lambda: dist.bfs_levels(shc, 0, mesh)), ("rcm_reorder", lambda: dist.rcm_reorder(shc, mesh)),
+               ("label_prop_partition", lambda: dist.label_prop_partition(shc, PARTITION_K, mesh,
+                                                                           num_iters=PARTITION_ROUNDS)),
+               ("structure_features", lambda: dist.structure_features(shc, mesh))]
+        lp = dist.label_prop_partition(shc, PARTITION_K, mesh, num_iters=PARTITION_ROUNDS)
+        ident = torch.arange(n, dtype=torch.int32, device=j.dev)
+        fns += [("edge_cut", lambda: dist.edge_cut(shc, lp, mesh)),
+                ("refine_partition", lambda: dist.refine_partition(shc, lp, PARTITION_K, mesh, rounds=REFINE_ROUNDS)),
+                ("reorder_heatmap", lambda: dist.reorder_heatmap(shc, ident, ident, mesh, num_parts=HEATMAP_PARTS))]
+        for label, fn in fns:
+            print(f"phase 5 path J d={dd} {label}: {host_ms(fn, reps=PATH_J_REPS):.3f} ms, "
+                  f"host syncs {count_host_syncs(fn)}")
+        bfs = {}
+        dist.bfs_levels(shc, 0, mesh, stats=bfs)
+        print(f"phase 5 path J d={dd} bfs_levels: {bfs['levels']} levels, {bfs['host_reads']} host reads")
+    k2 = cuda_ms(lambda: csr_spmv(j.src, j.x))
+    sharded = [cuda_ms(lambda: dist.spmv(s, j.x, m)) for s, m in ((halo, j.mesh), (sh1, j.mesh1))]
+    tiles = Sharded2DCSR.from_csr(j.src, j.mesh2d)
+    print(f"phase 5 path J SpMV: K2 on the whole CSR {k2:.4f} ms; dist.spmv d={d} {sharded[0]:.4f} ms, d=1 "
+          f"{sharded[1]:.4f} ms; Sharded2DCSR 2x2 {cuda_ms(lambda: sharded2d.spmv(tiles, j.x, j.mesh2d)):.4f} ms "
+          f"(the price of sharding on one card)")
+    for label, fn in (("Sharded2DCSR.from_csr 2x2", lambda: Sharded2DCSR.from_csr(j.src, j.mesh2d)),
+                      ("sharded2d.spmv", lambda: sharded2d.spmv(tiles, j.x, j.mesh2d)),
+                      ("sharded2d.degrees", lambda: sharded2d.degrees(tiles, j.mesh2d))):
+        print(f"phase 5 path J {label}: {host_ms(fn, reps=PATH_J_REPS):.3f} ms, host syncs {count_host_syncs(fn)}")
+    if torch.cuda.device_count() >= MESH_SHARDS:  # one shard per card
+        cards = make_mesh(MESH_SHARDS)
+        spread = j.ingest(cards)
+        for k in range(MESH_SHARDS):
+            check_equal(f"path J shard {k} indptr, {MESH_SHARDS} cards vs one", spread.indptr[k].to(j.dev), sh.indptr[k])
+        y = dist.spmv(spread, j.x, cards)
+        check(torch.equal(y, dist.spmv(sh, j.x, j.mesh)), "path J dist.spmv on four cards differs from one card")
+        print(f"phase 5 path J on {MESH_SHARDS} cards: from_coo_sharded {host_ms(lambda: j.ingest(cards), reps=PATH_J_REPS):.3f}"
+              f" ms, dist.spmv {host_ms(lambda: dist.spmv(spread, j.x, cards), reps=PATH_J_REPS):.3f} ms")
+
+
+def path_j(dev, coo, src, x, host_graph):
+    """Path J's phases 3, 4 and 5, run after path I. Returns its launch
+    counts and K2's largest difference from the plain SpMV."""
+    from sparsebase_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    j = PathJ(dev, coo, src, x, host_graph)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = j.run()
+    launches = read_launches("J", ("indptr", "radix_rank", "csr_spmv"))
+    err = phase_path_j_checks(j, *out)
+    phase_path_j_times(j, out[0], out[1])
+    print(f"phase 5 path J wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
+    return launches, err
+
+
 def read_launches(path: str, required) -> dict:
     from sparsebase_tpu_torch import _build
 
@@ -2705,8 +3004,9 @@ def main() -> None:
     launches_h, err_k7, k7_times, k7_shape = path_h(coo_a, x_a, host_graph, (coo_p, x_p, planted))
     del coo_p, x_p, planted
     launches_i, err_k2_i = path_i(g, dev, int(args.ingest_nnz))
+    launches_j, err_k2_j = path_j(dev, coo_a, src, x_a, host_graph)
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
-                + launches_g[k] + launches_h[k] + launches_i[k] for k in launches_a}
+                + launches_g[k] + launches_h[k] + launches_i[k] + launches_j[k] for k in launches_a}
 
     shapes = {
         "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],
@@ -2730,7 +3030,7 @@ def main() -> None:
     record = {"kernels": [
         entry("banded_spmv", "banded_spmv.cu", "sparsebase_tpu/ops/kernels/banded_spmv.py:67",
               max(err_k1, err_k1_d), k1_ms, k1_plain_ms, None),
-        entry("csr_spmv", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189", max(err_k2, err_k2_i), k2_ms,
+        entry("csr_spmv", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189", max(err_k2, err_k2_i, err_k2_j), k2_ms,
               k2_plain_ms, k2_lib_ms),
         entry("indptr", "indptr.cu", "tools/pallas_attempts.py:218", err_k3, k3_ms, k3_plain_ms, k3_lib_ms),
         entry("relocate_csr", "relocate.cu", "tools/pallas_attempts.py:83", err_k4, k4_ms, k4_plain_ms, None),

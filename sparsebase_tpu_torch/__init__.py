@@ -23,7 +23,9 @@ Layer map:
     dispatch     Operation (auto-converting multi-format dispatch)
     convert      conversion graph + torch conversion functions
     formats      COO / CSR / CSC / DIA / ELL / DenseArray / PaddedCSR frozen dataclasses
-    context      Host / Device placement, read from tensor.device
+    parallel     (imported on request) the mesh, ShardedCSR / Sharded2DCSR, the collectives and
+                 the distributed functions (spmv, BFS, RCM, label propagation, refinement, ...)
+    context      Host / Device / Mesh placement, read from the tensors' devices
     utils        exceptions, logger, checked dtype casts; visualizer (HTML dashboard, a CLI)
     config       process-wide dtype defaults and feature toggles
     _build       nvcc build + ctypes binding of csrc/*.cu; g++ build of the host libraries
@@ -35,7 +37,7 @@ __version__ = "0.1.0"
 from . import bases, config, context, convert, dispatch, experiment, formats, io, models, native, objects, ops, utils
 from .bases import GraphFeatureBase, IOBase, ReorderBase
 from .config import Config, get_config, set_config
-from .context import CPU_CONTEXT, Context, DeviceContext, HostContext, context_for, context_of
+from .context import CPU_CONTEXT, Context, DeviceContext, HostContext, MeshContext, context_for, context_of
 from .convert import can_convert, convert_cached, register_conversion
 from .convert import convert as convert_format
 from .dispatch import ClassMatcher, Operation
@@ -95,6 +97,7 @@ __all__ = [
     "Context",
     "HostContext",
     "DeviceContext",
+    "MeshContext",
     "CPU_CONTEXT",
     "context_for",
     "context_of",

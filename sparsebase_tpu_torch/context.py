@@ -6,10 +6,12 @@ cuda_context_cuda.cuh:14-19). The place is read from ``tensor.device``:
 
 * ``HostContext``            — tensors on the CPU
 * ``DeviceContext(device)``  — tensors on one CUDA device
+* ``MeshContext(mesh, axis)`` — per-shard tensors, one list of shards over
+                               the devices of ``mesh`` along ``axis``
 
 Equivalence follows the reference's ``IsEquivalent``: two contexts are
 equivalent iff data placed in one can be consumed in the other without a
-transfer. The mesh context waits for the distributed tier.
+transfer.
 """
 
 from __future__ import annotations
@@ -60,6 +62,31 @@ class DeviceContext(Context):
         return f"DeviceContext({self.device})"
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshContext(Context):
+    """Tensors are split into shards over a device mesh
+    (``parallel.mesh.Mesh``), one shard per device along ``axis``.
+
+    The JAX counterpart holds arrays sharded by XLA; here a sharded format
+    holds one tensor per shard on that shard's device, all driven from one
+    process. A mesh may name one device several times (``make_mesh(devices=
+    [cuda:0] * 4)``): its shards then share that device."""
+
+    mesh: object
+    axis: str = "x"
+
+    def is_equivalent(self, other: Context) -> bool:
+        return isinstance(other, MeshContext) and self.mesh == other.mesh and self.axis == other.axis
+
+    @property
+    def devices(self) -> tuple:
+        """The shard devices along ``axis`` (the first along every other axis)."""
+        return self.mesh.axis_devices(self.axis)
+
+    def __repr__(self) -> str:
+        return f"MeshContext(axes={self.mesh.shape}, axis={self.axis!r})"
+
+
 CPU_CONTEXT = HostContext()
 
 
@@ -70,7 +97,10 @@ def context_for(device) -> Context:
 
 
 def context_of(x) -> Context:
-    """The context of a tensor (``None`` counts as host)."""
+    """The context of a tensor (``None`` counts as host) or of a format
+    (a sharded format gives its ``MeshContext``)."""
     if x is None:
         return HostContext()
-    return context_for(x.device)
+    if hasattr(x, "device"):
+        return context_for(x.device)
+    return x.context

@@ -6,8 +6,10 @@ registration :124-128, ``ConversionBFS`` :138-195,
 ``GetConversionChain`` :197-213, ``ApplyConversionChain`` :253-). Edges
 are keyed on format classes with an optional ``condition(from_ctx,
 to_ctx)``; a placement move (``Format.to``) runs before the chain, so each
-conversion runs where its result must live. PyTorch runs eagerly, so a
-chain step is a direct call.
+conversion runs where its result must live, unless a step of the chain
+needs the target context itself (:class:`ContextConversion`: CSR →
+ShardedCSR needs the mesh) and places its result. PyTorch runs eagerly, so
+a chain step is a direct call.
 """
 
 from __future__ import annotations
@@ -21,6 +23,33 @@ from ..utils.exceptions import ConversionError
 
 ConversionFn = Callable[[Format], Format]
 Condition = Callable[[Optional[Context], Optional[Context]], bool]
+
+
+class ContextConversion:
+    """Marks a conversion whose implementation needs the *target context*
+    (CSR → ShardedCSR needs the mesh): called as ``fn(fmt, to_context)``,
+    it performs the placement itself, so the chain executor does not move
+    the input first (the reference's context-conditional CUDA edges,
+    converter_order_two.cc:288-341, generalised to meshes)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, fmt, to_ctx=None):
+        return self.fn(fmt, to_ctx)
+
+
+class EagerConversion:
+    """Marks a conversion whose output's shapes depend on the data
+    (CSR → ELL sizes its width to the largest degree). The JAX package
+    must not trace such a step; here every step runs eagerly, so the mark
+    records the kind and changes nothing."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, fmt):
+        return self.fn(fmt)
 
 
 class ConversionGraph:
@@ -102,11 +131,12 @@ class ConversionGraph:
             raise ConversionError(type(fmt).__name__, to_cls.__name__)
         out: List[Format] = []
         cur = fmt
-        if context is not None and not from_ctx.is_equivalent(context):
+        has_ctx_edge = any(isinstance(fn, ContextConversion) for fn, _ in chain)
+        if context is not None and not from_ctx.is_equivalent(context) and not has_ctx_edge:
             cur = cur.to(context)
             out.append(cur)
         for fn, _cls in chain:
-            cur = fn(cur)
+            cur = fn(cur, context) if isinstance(fn, ContextConversion) else fn(cur)
             out.append(cur)
         return out or [fmt]
 
@@ -151,8 +181,41 @@ def _register_builtin_edges():
     register_conversion(CSC, CSR, k.csc_to_csr)
     register_conversion(CSR, DIA, k.csr_to_dia)
     register_conversion(DIA, CSR, k.dia_to_csr)
-    register_conversion(CSR, ELL, k.csr_to_ell)
-    register_conversion(ELL, CSR, k.ell_to_csr)
+    register_conversion(CSR, ELL, EagerConversion(k.csr_to_ell))
+    register_conversion(ELL, CSR, EagerConversion(k.ell_to_csr))
+
+
+_MESH_EDGES_DONE = False
+
+
+def _register_mesh_edges():
+    """Mesh-placement edges: ShardedCSR joins the conversion graph, gated on
+    the target being a MeshContext. Called by ``sparsebase_tpu_torch.parallel``
+    on import, the only way user code can name ShardedCSR."""
+    global _MESH_EDGES_DONE
+    if _MESH_EDGES_DONE:
+        return
+    _MESH_EDGES_DONE = True
+    from ..context import MeshContext
+    from ..formats.csr import CSR
+    from ..parallel.sharded import ShardedCSR
+
+    def to_sharded(csr, to_ctx):
+        return ShardedCSR.from_csr(csr, to_ctx.mesh, axis=to_ctx.axis)
+
+    def to_csr(sh, to_ctx):
+        out = sh.to_csr()
+        if to_ctx is not None:
+            out = out.to(to_ctx)
+        return out
+
+    register_conversion(
+        CSR,
+        ShardedCSR,
+        ContextConversion(to_sharded),
+        condition=lambda f, t: isinstance(t, MeshContext),
+    )
+    register_conversion(ShardedCSR, CSR, ContextConversion(to_csr))
 
 
 _register_builtin_edges()

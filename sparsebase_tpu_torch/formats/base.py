@@ -15,7 +15,7 @@ from typing import Optional, Tuple, Type, TypeVar
 
 import torch
 
-from ..context import Context, context_for, context_of
+from ..context import Context, MeshContext, context_for, context_of
 from ..utils.exceptions import TypeMismatchError
 
 T = TypeVar("T", bound="Format")
@@ -66,7 +66,13 @@ class Format:
 
     # -- placement -----------------------------------------------------------
     def to(self: T, context: Context) -> T:
-        """Move every tensor field to ``context``'s device."""
+        """Move every tensor field to ``context``'s device. A format of one
+        tensor per field is not split over a mesh: ``convert(ShardedCSR,
+        MeshContext(...))`` shards a CSR (the sharded formats place their
+        shards with ``parallel.shard_rows``)."""
+        if isinstance(context, MeshContext):
+            raise TypeMismatchError(f"{type(self).__name__} is not a sharded format; convert it to ShardedCSR with "
+                                    f"{context!r}")
         device = context.device
         changes = {
             f.name: getattr(self, f.name).to(device)

@@ -5,7 +5,8 @@ A reference format is recognised by its class name (``COO``, ``CSR``,
 ``CSC``, ``DIA``, ``ELL``, ``DenseArray``, ``PaddedCSR``): a CSC has the same
 field names as a CSR and is its transpose. So are the objects that hold
 formats (``Graph``, ``HyperGraph``) and the SBFF container
-(``SbffObject``). Its fields are read by name and
+(``SbffObject``), and the sharded containers (``ShardedCSR``,
+``Sharded2DCSR``), given a port mesh. Its fields are read by name and
 every array is taken through ``np.asarray``, so this module never imports
 ``jax`` or ``sparsebase_tpu``. Ids become int32 (checked), offsets int64;
 values keep their dtype, bf16 included.
@@ -31,10 +32,10 @@ from .utils.typing import convert_array_dtype
 
 def _tensor(a) -> torch.Tensor:
     """A CPU tensor holding a copy of the array's data."""
-    arr = np.ascontiguousarray(np.asarray(a))
+    arr = np.array(np.asarray(a), order="C")  # a copy, 0-d kept
     if arr.dtype.name == "bfloat16":  # numpy has no native bf16: move the bits
-        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(arr.copy())
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _ids(a, device) -> torch.Tensor:
@@ -49,11 +50,49 @@ def _offsets(a, device) -> torch.Tensor:
     return _tensor(a).to(device=device, dtype=torch.int64)
 
 
+# the sharded containers' fields, each split on its leading (shard) axes
+_SHARDED_FIELDS = {"indptr": _offsets, "indices": _ids, "vals": _vals, "nnz_local": _offsets,
+                   "halo_send": _ids, "halo_counts": _offsets, "halo_map": _ids}
+
+
+def _sharded_from_reference(fmt, mesh):
+    """A reference ShardedCSR or Sharded2DCSR on the port mesh ``mesh``: row
+    k (tile (i, j)) of each array on the mesh's device k ((i, j))."""
+    from .parallel import Sharded2DCSR, ShardedCSR
+
+    shape = tuple(int(s) for s in fmt._shape)
+    if type(fmt).__name__ == "ShardedCSR":
+        devices = mesh.axis_devices(fmt._axis)
+        fields = dict.fromkeys(_SHARDED_FIELDS)
+        for name, conv in _SHARDED_FIELDS.items():
+            a = getattr(fmt, name, None)
+            if a is not None:
+                arr = np.asarray(a)
+                if arr.shape[0] != len(devices):
+                    raise TypeMismatchError(f"{name} has {arr.shape[0]} shards; the mesh has {len(devices)}")
+                fields[name] = tuple(conv(arr[k], dev) for k, dev in enumerate(devices))
+        return ShardedCSR(_shape=shape, _axis=fmt._axis, **fields)
+    devices = mesh.devices if mesh.axis_names.index(fmt._axes[0]) == 0 else mesh.devices.T
+    fields = dict.fromkeys(("indptr", "indices", "vals", "nnz_local"))
+    for name in fields:
+        a = getattr(fmt, name)
+        if a is not None:
+            arr = np.asarray(a)
+            if arr.shape[:2] != devices.shape:
+                raise TypeMismatchError(f"{name} has a grid of {arr.shape[:2]}; the mesh has {devices.shape}")
+            fields[name] = tuple(tuple(_SHARDED_FIELDS[name](arr[i, j], devices[i, j]) for j in range(arr.shape[1]))
+                                 for i in range(arr.shape[0]))
+    return Sharded2DCSR(_shape=shape, _axes=tuple(fmt._axes), **fields)
+
+
 def from_reference(fmt, device):
     """The port's counterpart of a reference COO, CSR, CSC, DIA, ELL,
     DenseArray or PaddedCSR, on ``device``; of a Graph or HyperGraph, its
-    formats on ``device``; of an SbffObject, its arrays as CPU tensors."""
+    formats on ``device``; of an SbffObject, its arrays as CPU tensors; of a
+    ShardedCSR or Sharded2DCSR, its shards on the port mesh ``device``."""
     kind = type(fmt).__name__
+    if kind in ("ShardedCSR", "Sharded2DCSR"):
+        return _sharded_from_reference(fmt, device)
     if kind == "SbffObject":
         obj = SbffObject(fmt.name)
         obj.add_dimensions(fmt.dimensions)
@@ -105,7 +144,12 @@ def to_numpy(fmt) -> dict:
     connectivity's, ``n``, ``m``, ``ncon`` and its vertex weights; a
     HyperGraph also ``xnet``, its net and cell weights, ``base_type`` and
     ``constraint_num``; an SbffObject its ``name``, ``dimensions`` and
-    ``arrays``."""
+    ``arrays``. A ShardedCSR or Sharded2DCSR gives each field as the JAX
+    container's stacked array, plus ``shape``."""
+    from .parallel import Sharded2DCSR, ShardedCSR
+
+    if isinstance(fmt, (ShardedCSR, Sharded2DCSR)):
+        return {"shape": fmt.shape, **{name: _numpy(fmt.stacked(name)) for name in fmt._FIELDS}}
     if isinstance(fmt, SbffObject):
         return {"name": fmt.name, "dimensions": list(fmt.dimensions),
                 "arrays": {k: _numpy(fmt.get_array(k)) for k in fmt._arrays}}

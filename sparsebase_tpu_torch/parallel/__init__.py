@@ -1,0 +1,53 @@
+"""Mesh-sharded formats and distributed functions (``sparsebase_tpu.parallel``).
+
+A mesh is a list of shard devices driven from one process; on one card the
+shards may share it (``make_mesh(devices=[cuda:0] * 4)``). The halo
+exchange, the ring and the multi-process layer are not ported yet
+(ROADMAP.md, item 10).
+"""
+
+from . import collectives, sharded2d
+from .dist import (
+    bfs_levels,
+    degree_reorder,
+    degrees,
+    edge_cut,
+    label_prop_partition,
+    rcm_reorder,
+    refine_partition,
+    reorder_heatmap,
+    spmv,
+    structure_features,
+)
+from .mesh import Mesh, Placement, make_mesh, make_mesh_2d, replicated, shard_rows
+from .sharded import ShardedCSR, balanced_row_order
+from .sharded2d import Sharded2DCSR
+
+# joining the conversion graph: CSR <-> ShardedCSR placement edges
+from ..convert.graph import _register_mesh_edges
+
+_register_mesh_edges()
+
+__all__ = [
+    "Mesh",
+    "Placement",
+    "ShardedCSR",
+    "Sharded2DCSR",
+    "balanced_row_order",
+    "collectives",
+    "sharded2d",
+    "make_mesh",
+    "make_mesh_2d",
+    "shard_rows",
+    "replicated",
+    "spmv",
+    "degrees",
+    "bfs_levels",
+    "degree_reorder",
+    "rcm_reorder",
+    "label_prop_partition",
+    "refine_partition",
+    "edge_cut",
+    "structure_features",
+    "reorder_heatmap",
+]

@@ -1470,3 +1470,85 @@ def test_bench_suite_run_matrix_on_card_equals_cpu(dev):
     host = bench_suite.run_matrix("rand-3k", g.to_host())
     assert without_times(card) == without_times(host)
     assert card["rand-3k"]["hypergraph_k4"]["connectivity_minus_1"] > 0
+
+
+# -- the distributed tier: four shards on the card against four on the CPU --------
+def parallel_graph(gen, dev, n=20_000, nnz=200_000):
+    """Random entries with duplicates kept, values, in random order (the
+    ingest routes entries in any order)."""
+    row = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    col = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
+    return COO(row, col, torch.randn((nnz,), generator=gen, device=dev), (n, n))
+
+
+def parallel_csr(gen, dev, n=20_000):
+    coo = parallel_graph(gen, dev, n)
+    return COO.new(coo.row, coo.col, coo.vals, coo.shape).convert(CSR)
+
+
+def within_bound_of_plain(y, csr, x):
+    absolute = CSR(csr.indptr, csr.indices, csr.vals.abs(), csr.shape)
+    assert_rows_within(y, csr_spmv_plain(csr, x), csr.degrees(), csr_spmv_plain(absolute, x.abs()))
+
+
+@pytest.fixture
+def shard_meshes(dev):
+    from sparsebase_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=[dev] * 4), make_mesh(devices=["cpu"] * 4)
+
+
+def test_parallel_ingest_and_halo_on_card_equal_cpu(dev, gen, shard_meshes):
+    """``from_coo_sharded`` (K5 sorts, K3 indptr) and ``with_halo`` (K5) on
+    a 4-shard mesh of the card: every field equal to the CPU mesh's (both
+    sorts are stable, so duplicates keep one order), the same widths."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR
+
+    card_mesh, cpu_mesh = shard_meshes
+    coo = parallel_graph(gen, dev)
+    host = coo.to_host()
+    before = _build.launch_counts()
+    stats, host_stats = {}, {}
+    card = ShardedCSR.from_coo_sharded(coo.row, coo.col, coo.vals, coo.shape, card_mesh, stats=stats).with_halo()
+    want = ShardedCSR.from_coo_sharded(host.row, host.col, host.vals, host.shape, cpu_mesh, stats=host_stats).with_halo()
+    after = _build.launch_counts()
+    assert after["radix_rank"] >= before["radix_rank"] + 12 and after["indptr"] >= before["indptr"] + 4
+    assert stats == host_stats and card.devices == (dev,) * 4
+    for name in ("indptr", "indices", "vals", "nnz_local", "halo_send", "halo_counts", "halo_map"):
+        assert torch.equal(card.stacked(name).cpu(), want.stacked(name)), name
+
+
+def test_parallel_spmv_and_label_prop_on_card(dev, gen, shard_meshes):
+    """``dist.spmv`` (K2 per shard) within the per-row bound of the plain
+    SpMV of the whole CSR, and ``label_prop_partition`` equal to the CPU
+    mesh's labels."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR, dist
+
+    card_mesh, cpu_mesh = shard_meshes
+    csr = parallel_csr(gen, dev)
+    x = torch.randn((csr.ncols,), generator=gen, device=dev)
+    sh = ShardedCSR.from_csr(csr, card_mesh, halo=False)
+    before = _build.launch_counts()["csr_spmv"]
+    y = dist.spmv(sh, x, card_mesh)
+    assert _build.launch_counts()["csr_spmv"] == before + 4 and y.device == dev
+    within_bound_of_plain(y, csr, x)
+    labels = dist.label_prop_partition(sh, 8, card_mesh, num_iters=10)
+    host = ShardedCSR.from_csr(csr.to_host(), cpu_mesh, halo=False)
+    assert labels.device == dev and torch.equal(labels.cpu(), dist.label_prop_partition(host, 8, cpu_mesh, num_iters=10))
+
+
+def test_sharded2d_on_card(dev, gen):
+    """``Sharded2DCSR.from_csr`` on a 2×2 mesh of the card equal to the CPU
+    mesh's tiles; its ``spmv`` (K2 per tile) within the per-row bound."""
+    from sparsebase_tpu_torch.parallel import Sharded2DCSR, make_mesh_2d, sharded2d
+
+    csr = parallel_csr(gen, dev, 30_001)
+    card_mesh, cpu_mesh = make_mesh_2d((2, 2), devices=[dev] * 4), make_mesh_2d((2, 2), devices=["cpu"] * 4)
+    tiles = Sharded2DCSR.from_csr(csr, card_mesh)
+    want = Sharded2DCSR.from_csr(csr.to_host(), cpu_mesh)
+    for name in ("indptr", "indices", "vals", "nnz_local"):
+        assert torch.equal(tiles.stacked(name).cpu(), want.stacked(name)), name
+    x = torch.randn((csr.ncols,), generator=gen, device=dev)
+    y = sharded2d.spmv(tiles, x, card_mesh)
+    within_bound_of_plain(y, csr, x)
+    assert torch.equal(sharded2d.degrees(tiles, card_mesh), csr.degrees())

@@ -246,7 +246,8 @@ def test_interop_carries_bf16_band():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, sparsebase_tpu_torch, sparsebase_tpu_torch.interop;"
+        "import sys, sparsebase_tpu_torch, sparsebase_tpu_torch.interop, sparsebase_tpu_torch.parallel;"
+        "import sparsebase_tpu_torch.parallel.collectives, sparsebase_tpu_torch.parallel.sharded2d;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sparsebase_tpu')];"
         "assert not bad, bad"
     )

@@ -1,0 +1,48 @@
+"""Path J of ``chip_smoke.py`` alone, at its full size, on one card: the
+kernels' build, path A's COO and source CSR (``--nnz`` entries, ``--seed``),
+path G's 32,768-vertex power-law graph (the halo check's), then
+``chip_smoke.path_j`` (its phases 3, 4 and 5 and its profile). The draws
+differ from the whole script's, which makes other graphs first.
+
+    python3 tools/torch_path_j.py [--nnz 100e6] [--seed 0]
+
+Exits non-zero if any check fails; the last line is path J's launch counts
+and K2's largest difference from the plain SpMV.
+"""
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--nnz", type=float, default=100e6)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.ops.kernels import indptr_plain
+
+    t0 = time.perf_counter()
+    dev = cs.phase_device()
+    cs.phase_build()
+    g = torch.Generator(device=dev)
+    g.manual_seed(args.seed)
+    nnz = int(args.nnz)
+    n = max(nnz // 16, 1)
+    coo = cs.power_law_coo(g, dev, n, nnz)
+    x = torch.randn((n,), generator=g, device=dev)
+    src = CSR(indptr_plain(coo.row, n), coo.col, coo.vals, coo.shape)
+    host_graph = cs.power_law_pattern(g, dev, *cs.HOST_REORDER_GRAPH)
+    launches, err = cs.path_j(dev, coo, src, x, host_graph)
+    print(f"tools/torch_path_j.py: {time.perf_counter() - t0:.1f} s in all")
+    print({"launches": launches, "max_abs_err": err})
+
+
+if __name__ == "__main__":
+    main()
