@@ -100,7 +100,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``degree_reorder``, ``bfs_levels`` from 0, ``rcm_reorder``,
    ``label_prop_partition`` with k = 8 and 10 rounds, ``edge_cut``,
    ``refine_partition`` with 4 rounds, ``structure_features``,
-   ``reorder_heatmap`` with b = 8) at d = 4 and at d = 1, and
+   ``reorder_heatmap`` with b = 8) at d = 4 and at d = 1, beside them every
+   function of ``halo`` (``spmv``, K2 per shard on its ``halo_map``
+   columns; ``bfs_levels`` from 0; ``rcm_reorder``, K5 and K3 in each
+   counting rank; ``label_prop_partition``; ``edge_cut``;
+   ``refine_partition``, K5 and K3 in each admission;
+   ``connected_components``) at d = 4 and at d = 1, and
    ``Sharded2DCSR.from_csr`` (K5, K3) on a 2×2 mesh of the card with its
    ``spmv`` (K2 per tile, ``psum_scatter``) and ``degrees``.
    Every kernel of each path must have launched;
@@ -184,7 +189,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    order a (level, degree, id) rank by stable argsorts, the edge cut a
    count of the labels, the bandwidth and profile the features'
    ``Bandwidth`` and ``Profile``, the heatmap ``ReorderHeatmap``'s at rtol
-   1e-6; the refined cut no higher than the labels');
+   1e-6; the refined cut no higher than the labels'; ``halo.spmv`` within
+   the per-row bound of K2 on the whole CSR, at d = 4 and d = 1; every
+   integer ``halo`` result the same at d = 4 and d = 1, ``halo.bfs_levels``
+   equal to ``dist.bfs_levels`` and the plain level BFS, ``halo.edge_cut``
+   to ``dist.edge_cut`` of the same labels, ``halo.rcm_reorder`` a
+   permutation in reverse level order from the root a plain
+   pseudo-peripheral search finds (that root last among the reached, each
+   BFS level one range, the unreached after), the labels in [0, 8), and
+   where the labels fed to refinement fit the cap, its cut no higher and
+   its parts within the cap; ``halo.connected_components`` on path A's
+   generator over 8 disjoint blocks, mirrored (half path A's entries
+   before mirroring), equal to a plain min-label fixpoint, whole and with
+   the 1% of vertices of highest degree masked out, at d = 4 and d = 1,
+   each component inside one block);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -243,6 +261,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    profile of one ingest and one ``with_halo``, each held open 5 s either
    side (device busy, idle share, the top device operations); with four
    or more cards, the ingest and ``dist.spmv`` on ``make_mesh(4)`` too;
+   each ``halo`` function's wall and host syncs at d = 4 and d = 1, the BFS
+   levels and host reads, the components' rounds, jumps and reads, RCM's
+   passes, buckets and ``all_gather`` bytes, the bytes of one exchange
+   (padded ``D·D·S·4`` beside ``step_comm_bytes`` and the dense
+   ``psum``'s) and its time, ``halo.spmv`` by CUDA events, and a profile
+   of one ``halo.label_prop_partition``; K1's tiled layout alone;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -2533,6 +2557,7 @@ MESH_SHARDS = 4  # path J: four shards on the one card
 HALO_CHECK_SHARDS = (4, 8)
 REFINE_ROUNDS = 4
 PATH_J_REPS = 3
+CC_HUB_SHARE = 0.01  # the components check's alive mask leaves out this share of vertices, the highest degrees first
 
 
 class PathJ:
@@ -2544,14 +2569,19 @@ class PathJ:
     function of ``dist`` (degrees, ``degree_reorder``, ``bfs_levels`` from
     0, ``rcm_reorder``, ``label_prop_partition`` (k = 8, 10 rounds),
     ``edge_cut``, ``refine_partition`` (4 rounds), ``structure_features``,
-    ``reorder_heatmap`` (b = 8)) at d = 4 and at d = 1; ``Sharded2DCSR``
-    on a 2×2 mesh of the card with its ``spmv`` (K2 per tile,
-    ``psum_scatter``) and ``degrees``."""
+    ``reorder_heatmap`` (b = 8)) at d = 4 and at d = 1; beside them every
+    function of ``halo`` (``spmv``, K2 per shard on its ``halo_map``
+    columns; ``bfs_levels`` from 0; ``rcm_reorder``, K5 and K3 per shard in
+    each counting rank; ``label_prop_partition`` (k = 8, 10 rounds);
+    ``edge_cut``; ``refine_partition`` (4 rounds), K5 and K3 in each
+    admission; ``connected_components``) at d = 4 and at d = 1 (``sh1``
+    gets its halo lists); ``Sharded2DCSR`` on a 2×2 mesh of the card with
+    its ``spmv`` (K2 per tile, ``psum_scatter``) and ``degrees``."""
 
-    def __init__(self, dev, coo, src, x, host_graph):
+    def __init__(self, g, dev, coo, src, x, host_graph):
         from sparsebase_tpu_torch.parallel import make_mesh, make_mesh_2d
 
-        self.dev, self.coo, self.src, self.x, self.host_graph = dev, coo, src, x, host_graph
+        self.g, self.dev, self.coo, self.src, self.x, self.host_graph = g, dev, coo, src, x, host_graph
         self.mesh = make_mesh(devices=[dev] * MESH_SHARDS)
         self.mesh1 = make_mesh(devices=[dev])
         self.mesh2d = make_mesh_2d((2, 2), devices=[dev] * 4)
@@ -2583,17 +2613,33 @@ class PathJ:
         out.update({f"structure {k}": v for k, v in dist.structure_features(sh, mesh).items()})
         return out
 
+    def halo_results(self, sh, mesh):
+        """Every function of ``halo`` on ``sh``, in call order."""
+        from sparsebase_tpu_torch.parallel import halo
+
+        n = sh.shape[0]
+        lp = halo.label_prop_partition(sh, PARTITION_K, mesh, num_iters=PARTITION_ROUNDS)
+        chunks = (torch.arange(n, device=self.dev) * PARTITION_K // n).to(torch.int32)  # within the cap
+        return {"spmv": halo.spmv(sh, self.x, mesh), "bfs_levels": halo.bfs_levels(sh, 0, mesh),
+                "rcm_reorder": halo.rcm_reorder(sh, mesh), "label_prop_partition": lp,
+                "edge_cut": halo.edge_cut(sh, lp, mesh),
+                "refine_partition": halo.refine_partition(sh, lp, PARTITION_K, mesh, rounds=REFINE_ROUNDS),
+                "refine_partition of chunks": halo.refine_partition(sh, chunks, PARTITION_K, mesh,
+                                                                    rounds=REFINE_ROUNDS),
+                "connected_components": halo.connected_components(sh, mesh)}
+
     def run(self):
         from sparsebase_tpu_torch.parallel import Sharded2DCSR, dist, sharded2d
 
         sh = self.ingest(self.mesh, self.ingest_stats)
         halo = sh.with_halo()
-        sh4, sh1 = self.from_csr(self.mesh), self.from_csr(self.mesh1)
+        sh4, sh1 = self.from_csr(self.mesh), self.from_csr(self.mesh1).with_halo()
         y = dist.spmv(halo, self.x, self.mesh)
         rep4, rep1 = self.replicated(halo, self.mesh), self.replicated(sh1, self.mesh1)
+        hal4, hal1 = self.halo_results(halo, self.mesh), self.halo_results(sh1, self.mesh1)
         tiles = Sharded2DCSR.from_csr(self.src, self.mesh2d)
         y2, deg2 = sharded2d.spmv(tiles, self.x, self.mesh2d), sharded2d.degrees(tiles, self.mesh2d)
-        return sh, halo, sh4, y, rep4, rep1, tiles, y2, deg2
+        return sh, halo, sh4, sh1, y, rep4, rep1, hal4, hal1, tiles, y2, deg2
 
 
 def shard_entries(sh, k):
@@ -2630,6 +2676,142 @@ def plain_rcm(levels, deg):
     pos[order] = torch.arange(n, device=order.device)
     reached = int((levels >= 0).sum())
     return torch.where(pos < reached, reached - 1 - pos, pos).to(torch.int32)
+
+
+def plain_peripheral_root(csr, deg, passes: int = 2):
+    """The root ``halo.rcm_reorder`` searches for, by plain BFS: from 0,
+    ``passes`` times the least id among the least-degree vertices of the
+    last level; returns it with its BFS levels."""
+    root = 0
+    for _ in range(passes):
+        levels = plain_bfs_levels(csr, root)
+        last = levels == levels.max()
+        low = last & (deg == deg[last].min())
+        root = int(torch.nonzero(low)[0])
+    return root, plain_bfs_levels(csr, root)
+
+
+def check_reversed_level_major(label: str, order, root: int, levels) -> None:
+    """``order`` (``order[old] = new``) is a permutation that puts the
+    vertices reached from ``root`` first, one contiguous range per BFS level
+    with the levels in reverse order (``root`` last among them), and the
+    unreached vertices after."""
+    n = order.numel()
+    check(bool((torch.bincount(order.long(), minlength=n) == 1).all()), f"{label}: not a permutation")
+    reached = int((levels >= 0).sum())
+    check(int(order[root]) == reached - 1, f"{label}: the root {root} sits at {int(order[root])}, not {reached - 1}")
+    inv = torch.empty_like(order)
+    inv[order.long()] = torch.arange(n, dtype=order.dtype, device=order.device)
+    by_pos = levels[inv.long()]
+    check(bool((by_pos[: reached - 1] >= by_pos[1:reached]).all()) and bool((by_pos[:reached] >= 0).all()),
+          f"{label}: the reached vertices are not in reverse level order")
+    check(bool((by_pos[reached:] == -1).all()), f"{label}: an unreached vertex sits among the reached")
+
+
+def plain_components(csr, alive=None):
+    """The min-label fixpoint by plain torch ops: each vertex's least
+    component member (int32) in the graph induced by ``alive``, -1 outside."""
+    n = csr.nrows
+    rows, cols = csr.row_of_nnz().long(), csr.indices.long()
+    ids = torch.arange(n, device=cols.device)
+    if alive is not None:
+        keep = alive[rows] & alive[cols]
+        rows, cols, ids = rows[keep], cols[keep], torch.where(alive, ids, n)
+    lab = ids
+    while True:
+        new = lab.scatter_reduce(0, rows, lab[cols], "amin")
+        if torch.equal(new, lab):
+            return torch.where(lab == n, -1, lab).to(torch.int32)
+        lab = new
+
+
+def components_graph(g, dev, n: int, nnz: int):
+    """Path A's generator over ``PARTITION_K`` disjoint blocks
+    (``planted_coo`` with every entry inside its block), mirrored: a
+    symmetric CSR (duplicates kept) and the planted block of each vertex."""
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs_plain
+    from sparsebase_tpu_torch.ops.kernels import indptr_plain
+
+    coo, planted = planted_coo(g, dev, n, nnz, inside=1.0)
+    row, col = sort_by_pairs_plain(torch.cat([coo.row, coo.col]), torch.cat([coo.col, coo.row]))
+    return CSR(indptr_plain(row, n), col, None, (n, n)), planted
+
+
+def phase_path_j_components(j: PathJ) -> None:
+    """``halo.connected_components`` on a mirrored 8-block graph of path
+    A's size against the plain fixpoint, whole and with the highest-degree
+    vertices masked out (SlashBurn's use), at d = 4 and d = 1."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR, halo
+
+    n = j.src.nrows - j.src.nrows % PARTITION_K
+    csr, planted = components_graph(j.g, j.dev, n, j.src.nnz // 2)
+    deg = csr.degrees()
+    alive = torch.ones((n,), dtype=torch.bool, device=j.dev)
+    alive[torch.topk(deg, int(n * CC_HUB_SHARE)).indices] = False
+    shards = {d: ShardedCSR.from_csr(csr, mesh) for d, mesh in ((MESH_SHARDS, j.mesh), (1, j.mesh1))}
+    for label, mask in (("whole", None), (f"without the {CC_HUB_SHARE:.0%} of highest degree", alive)):
+        want = plain_components(csr, mask)
+        stats = {}
+        got = halo.connected_components(shards[MESH_SHARDS], j.mesh, alive=mask, stats=stats)
+        check_equal(f"path J halo.connected_components ({label}) vs the plain fixpoint", got, want)
+        check_equal(f"path J halo.connected_components ({label}) at d=1 vs d={MESH_SHARDS}",
+                    halo.connected_components(shards[1], j.mesh1, alive=mask), got)
+        live = got >= 0
+        check(bool((planted[live] == planted[got[live].long()]).all()),
+              f"path J halo.connected_components ({label}): a component crosses the planted blocks")
+        sizes = torch.bincount(got[live].long(), minlength=n)
+        ms = host_ms(lambda: halo.connected_components(shards[MESH_SHARDS], j.mesh, alive=mask), reps=PATH_J_REPS)
+        print(f"  path J halo.connected_components on the mirrored {PARTITION_K}-block graph ({csr.nnz} entries, "
+              f"{label}): equal to the plain fixpoint at d={MESH_SHARDS} and d=1; {int((sizes > 0).sum())} components,"
+              f" the largest {sorted(sizes.tolist(), reverse=True)[:PARTITION_K]}; {stats['rounds']} rounds, "
+              f"{stats['jumps']} jumps, {stats['host_reads']} host reads; {ms:.3f} ms at d={MESH_SHARDS}")
+
+
+def phase_path_j_halo_checks(j: PathJ, halo_sh, hal4, hal1, rep4) -> float:
+    """The ``halo`` results against ``dist``'s and plain versions, and d = 4
+    against d = 1; returns ``halo.spmv``'s largest difference from K2."""
+    from sparsebase_tpu_torch.ops.kernels import csr_spmv, csr_spmv_plain
+    from sparsebase_tpu_torch.parallel import dist
+
+    src, n, d = j.src, j.src.nrows, MESH_SHARDS
+    deg, absdot = src.degrees(), csr_spmv_plain(abs_csr(src), j.x.abs())
+    err = check_rows("path J halo.spmv (K2 per shard on halo_map columns) vs K2 on the whole CSR", hal4["spmv"],
+                     csr_spmv(src, j.x), deg, absdot)
+    check_rows("path J halo.spmv d=1 vs K2 on the whole CSR", hal1["spmv"], csr_spmv(src, j.x), deg, absdot)
+    ints = [name for name, t in hal4.items() if not t.dtype.is_floating_point]
+    for name in ints:
+        a, b = hal4[name], hal1[name]
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), f"path J halo.{name}: d={d} and d=1 differ")
+    print(f"  path J: {len(ints)} halo results equal at d={d} and d=1: {sorted(ints)}")
+    check_equal("path J halo.bfs_levels vs dist.bfs_levels", hal4["bfs_levels"], rep4["bfs_levels"])
+    check_equal("path J halo.bfs_levels vs a plain level BFS", hal4["bfs_levels"], plain_bfs_levels(src, 0))
+    lp, refined = hal4["label_prop_partition"], hal4["refine_partition"]
+    check_equal("path J halo.edge_cut vs dist.edge_cut", hal4["edge_cut"], dist.edge_cut(halo_sh, lp, j.mesh))
+    root, levels = plain_peripheral_root(src, deg)
+    check_reversed_level_major("path J halo.rcm_reorder", hal4["rcm_reorder"], root, levels)
+    rows = src.row_of_nnz().long()
+    cut = lambda lab: int((lab[rows] != lab[src.indices.long()]).sum())  # noqa: E731
+    chunks = (torch.arange(n, device=j.dev) * PARTITION_K // n).to(torch.int32)
+    for name, lab in (("label_prop_partition", lp), ("refine_partition", refined),
+                      ("refine_partition of chunks", hal4["refine_partition of chunks"])):
+        check(lab.dtype == torch.int32 and int(lab.min()) >= 0 and int(lab.max()) < PARTITION_K,
+              f"path J halo.{name}: labels outside [0, {PARTITION_K})")
+    cap = 1.1 * n / PARTITION_K
+    print(f"  path J halo: the RCM root {root} (level {int(levels.max())} the last); refinement against the cap "
+          f"{cap:.1f}:")
+    for name, before, after in (("label propagation's labels", lp, refined),
+                                ("contiguous chunks", chunks, hal4["refine_partition of chunks"])):
+        sizes_in, sizes_out = (torch.bincount(lab.long(), minlength=PARTITION_K) for lab in (before, after))
+        fits = float(sizes_in.max()) <= cap
+        if fits:
+            check(cut(after) <= cut(before) and float(sizes_out.max()) <= cap,
+                  f"path J halo.refine_partition of {name}: cut {cut(before)} -> {cut(after)}, largest part "
+                  f"{int(sizes_out.max())} against the cap {cap:.1f}")
+        print(f"    {name}: edge cut {cut(before)} -> {cut(after)}, part sizes {sizes_in.tolist()} -> "
+              f"{sizes_out.tolist()}{'' if fits else ' (the input is over the cap: the cut is not held)'}")
+    phase_path_j_components(j)
+    return err
 
 
 def phase_path_j_checks(j: PathJ, sh, halo, sh4, y, rep4, rep1, tiles, y2, deg2) -> float:
@@ -2707,7 +2889,50 @@ def phase_path_j_checks(j: PathJ, sh, halo, sh4, y, rep4, rep1, tiles, y2, deg2)
     return err
 
 
-def phase_path_j_times(j: PathJ, sh, halo) -> None:
+def phase_path_j_halo_times(j: PathJ, halo_sh, sh1) -> None:
+    from sparsebase_tpu_torch.parallel import halo
+
+    n, d = j.src.nrows, MESH_SHARDS
+    for mesh, shc in ((j.mesh, halo_sh), (j.mesh1, sh1)):
+        dd = shc.n_shards
+        lp = halo.label_prop_partition(shc, PARTITION_K, mesh, num_iters=PARTITION_ROUNDS)
+        fns = [("spmv", lambda: halo.spmv(shc, j.x, mesh)), ("bfs_levels", lambda: halo.bfs_levels(shc, 0, mesh)),
+               ("rcm_reorder", lambda: halo.rcm_reorder(shc, mesh)),
+               ("label_prop_partition", lambda: halo.label_prop_partition(shc, PARTITION_K, mesh,
+                                                                           num_iters=PARTITION_ROUNDS)),
+               ("edge_cut", lambda: halo.edge_cut(shc, lp, mesh)),
+               ("refine_partition", lambda: halo.refine_partition(shc, lp, PARTITION_K, mesh, rounds=REFINE_ROUNDS)),
+               ("connected_components", lambda: halo.connected_components(shc, mesh))]
+        for label, fn in fns:
+            print(f"phase 5 path J d={dd} halo.{label}: {host_ms(fn, reps=PATH_J_REPS):.3f} ms, "
+                  f"host syncs {count_host_syncs(fn)}")
+        bfs, cc, rcm = {}, {}, {}
+        halo.bfs_levels(shc, 0, mesh, stats=bfs)
+        halo.connected_components(shc, mesh, stats=cc)
+        halo.rcm_reorder(shc, mesh, stats=rcm)
+        print(f"phase 5 path J d={dd} halo.bfs_levels: {bfs['levels']} levels, {bfs['host_reads']} host reads; "
+              f"halo.connected_components: {cc['rounds']} rounds, {cc['jumps']} jumps, {cc['host_reads']} host reads; "
+              f"halo.rcm_reorder: {rcm['levels']} BFS levels in its three passes, {rcm['host_reads']} host reads, "
+              f"{rcm['refine_iters']} refinement passes over {rcm['rank_buckets']} buckets, each all_gather a "
+              f"(D, buckets) stack of {4 * dd * rcm['rank_buckets']} bytes on every shard")
+    s = halo_sh.halo_width
+    ext = [torch.zeros((halo_sh.rows_per_shard,), dtype=torch.float32, device=dev) for dev in halo_sh.devices]
+    one = cuda_ms(lambda: halo._exchange(ext, halo_sh.halo_send, halo_sh.axis))
+    print(f"phase 5 path J halo exchange at d={d}: {4 * d * d * s} bytes padded (D·D·S·4, S={s}) beside "
+          f"step_comm_bytes {halo.step_comm_bytes(halo_sh)} and the dense psum's 4·n·d = {4 * n * d}; one "
+          f"_exchange of float32 {one:.4f} ms")
+    print(f"phase 5 path J SpMV: halo.spmv d={d} {cuda_ms(lambda: halo.spmv(halo_sh, j.x, j.mesh)):.4f} ms, d=1 "
+          f"{cuda_ms(lambda: halo.spmv(sh1, j.x, j.mesh1)):.4f} ms")
+    fn = lambda: halo.label_prop_partition(halo_sh, PARTITION_K, j.mesh, num_iters=PARTITION_ROUNDS)  # noqa: E731
+    per_kernel, spans, wall = device_profile(fn, runs=1, margin_s=5.0)
+    check(bool(spans), "path J: the profiler recorded no device activity in halo.label_prop_partition")
+    busy = device_busy(spans)[0] / 1e3
+    top = ", ".join(f"{name[:50]} {ms:.3f}" for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
+    print(f"phase 6 profile of path J halo.label_prop_partition d={d}: device busy {busy:.3f} ms of {wall:.3f} ms, "
+          f"idle {1 - busy / wall:.1%}; top device operations (ms): {top}")
+
+
+def phase_path_j_times(j: PathJ, sh, halo, sh1) -> None:
     from sparsebase_tpu_torch.ops.kernels import csr_spmv
     from sparsebase_tpu_torch.parallel import Sharded2DCSR, dist, make_mesh, sharded2d
 
@@ -2734,7 +2959,6 @@ def phase_path_j_times(j: PathJ, sh, halo) -> None:
         top = ", ".join(f"{name[:50]} {ms:.3f}" for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
         print(f"phase 6 profile of path J {label}: device busy {busy:.3f} ms of {wall:.3f} ms, idle "
               f"{1 - busy / wall:.1%}; top device operations (ms): {top}")
-    sh1 = j.from_csr(j.mesh1)
     for mesh, shc in ((j.mesh, halo), (j.mesh1, sh1)):
         dd = len(shc.devices)
         fns = [("degrees", lambda: dist.degrees(shc, mesh)), ("degree_reorder", lambda: dist.degree_reorder(shc, mesh)),
@@ -2774,19 +2998,23 @@ def phase_path_j_times(j: PathJ, sh, halo) -> None:
               f" ms, dist.spmv {host_ms(lambda: dist.spmv(spread, j.x, cards), reps=PATH_J_REPS):.3f} ms")
 
 
-def path_j(dev, coo, src, x, host_graph):
-    """Path J's phases 3, 4 and 5, run after path I. Returns its launch
-    counts and K2's largest difference from the plain SpMV."""
+def path_j(g, dev, coo, src, x, host_graph):
+    """Path J's phases 3, 4 and 5, run after path I (the components check
+    draws its graph from ``g``). Returns its launch counts and K2's largest
+    difference from the plain SpMV."""
     from sparsebase_tpu_torch import _build
 
     t0 = time.perf_counter()
-    j = PathJ(dev, coo, src, x, host_graph)
+    j = PathJ(g, dev, coo, src, x, host_graph)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    out = j.run()
+    sh, halo, sh4, sh1, y, rep4, rep1, hal4, hal1, tiles, y2, deg2 = j.run()
     launches = read_launches("J", ("indptr", "radix_rank", "csr_spmv"))
-    err = phase_path_j_checks(j, *out)
-    phase_path_j_times(j, out[0], out[1])
+    err = phase_path_j_checks(j, sh, halo, sh4, y, rep4, rep1, tiles, y2, deg2)
+    err = max(err, phase_path_j_halo_checks(j, halo, hal4, hal1, rep4))
+    del hal4, hal1, sh4
+    phase_path_j_times(j, sh, halo, sh1)
+    phase_path_j_halo_times(j, halo, sh1)
     print(f"phase 5 path J wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
     return launches, err
 
@@ -2990,10 +3218,11 @@ def main() -> None:
     del probe
     del lib_spmv, bounds
     k1_ms = cuda_ms(lambda: banded_spmv(dia_b, x_b))
+    k1_tiled_ms = cuda_ms(lambda: banded_spmv(dia_b, x_b, layout="tiled"))
     k1_plain_ms = cuda_ms(lambda: dia_spmv_plain(dia_b.offsets, dia_b.data, x_b, dia_b.shape))
     b_csr_ms = cuda_ms(lambda: csr_spmv(csr_b, x_b))
-    print(f"phase 5 path B spmv: DIA (K1) {k1_ms:.4f} ms, CSR (K2) {b_csr_ms:.4f} ms, "
-          f"K1 plain {k1_plain_ms:.4f} ms")
+    print(f"phase 5 path B spmv: DIA (K1) {k1_ms:.4f} ms, tiled layout {k1_tiled_ms:.4f} ms (its tile_band copy "
+          f"included), CSR (K2) {b_csr_ms:.4f} ms, K1 plain {k1_plain_ms:.4f} ms")
     launches_d, err_k1_d = path_d(g, dev, args.rcm_n, args.seed)
     launches_e = path_e(g, dev, int(args.ingest_nnz))
     launches_f, err_k6, k6_times, k6_shape = path_f(g, dev, args.feature_n)
@@ -3004,7 +3233,7 @@ def main() -> None:
     launches_h, err_k7, k7_times, k7_shape = path_h(coo_a, x_a, host_graph, (coo_p, x_p, planted))
     del coo_p, x_p, planted
     launches_i, err_k2_i = path_i(g, dev, int(args.ingest_nnz))
-    launches_j, err_k2_j = path_j(dev, coo_a, src, x_a, host_graph)
+    launches_j, err_k2_j = path_j(g, dev, coo_a, src, x_a, host_graph)
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
                 + launches_g[k] + launches_h[k] + launches_i[k] + launches_j[k] for k in launches_a}
 
@@ -3027,6 +3256,9 @@ def main() -> None:
                 "replaces": replaces, "launches": launches[name], "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
+    k1_bound, k1_by = bound("banded_spmv", **shapes["banded_spmv"])
+    print(f"phase 5 banded_spmv layout=\"tiled\": {k1_tiled_ms:.4f} ms against a bound of {k1_bound:.4f} ms ({k1_by}), "
+          f"{k1_bound / k1_tiled_ms:.1%} of it")
     record = {"kernels": [
         entry("banded_spmv", "banded_spmv.cu", "sparsebase_tpu/ops/kernels/banded_spmv.py:67",
               max(err_k1, err_k1_d), k1_ms, k1_plain_ms, None),

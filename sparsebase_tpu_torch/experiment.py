@@ -241,3 +241,51 @@ def reorder_csr(reorderer_factory):
         return ReorderBase.permute2d_rowwise(order, data)
 
     return fn
+
+
+def load_sharded_csr(mesh=None, axis: str = "x", halo: bool = True):
+    """Returns a loader producing ``(ShardedCSR, mesh)`` over ``mesh``
+    (default: ``make_mesh(axis=axis)``, the visible cards; it raises with
+    none): the MTX file is read onto the mesh's first device along
+    ``axis`` and sharded from there."""
+
+    def fn(file_names):
+        from .bases import IOBase
+        from .parallel import ShardedCSR, make_mesh
+
+        m = mesh if mesh is not None else make_mesh(axis=axis)
+        csr = IOBase.read_mtx_to_csr(file_names[0], device=m.axis_devices(axis)[0])
+        return ShardedCSR.from_csr(csr, m, axis=axis, halo=halo), m
+
+    return fn
+
+
+def distributed_reorder(kind: str = "rcm"):
+    """Preprocess applying a distributed reorder (``"rcm"``: ``halo.rcm_reorder``,
+    ``"degree"``: ``dist.degree_reorder``) to a ``(ShardedCSR, mesh)`` pair;
+    returns ``(sharded, mesh, order)``."""
+
+    def fn(data, fparams, pparams):
+        from .parallel import degree_reorder
+        from .parallel import halo as _halo
+
+        sh, mesh = data
+        if kind == "rcm":
+            order = _halo.rcm_reorder(sh, mesh)
+        elif kind == "degree":
+            order = degree_reorder(sh, mesh)
+        else:
+            raise ValueError(f"unknown distributed reorder {kind!r}")
+        return sh, mesh, order
+
+    return fn
+
+
+def distributed_spmv_kernel(data, fparams, pparams, kparams):
+    """Kernel: the halo SpMV of a ones vector on the (possibly reordered)
+    sharded matrix."""
+    from .parallel import halo as _halo
+
+    sh, mesh = data[0], data[1]
+    x = torch.ones((sh.shape[1],), dtype=torch.float32, device=mesh.first_device)
+    return _halo.spmv(sh, x, mesh)

@@ -1,12 +1,13 @@
 """Mesh-sharded formats and distributed functions (``sparsebase_tpu.parallel``).
 
 A mesh is a list of shard devices driven from one process; on one card the
-shards may share it (``make_mesh(devices=[cuda:0] * 4)``). The halo
-exchange, the ring and the multi-process layer are not ported yet
-(ROADMAP.md, item 10).
+shards may share it (``make_mesh(devices=[cuda:0] * 4)``). ``halo`` holds
+the boundary-proportional functions up to the partition refinement; its
+multilevel functions, the ring and the multi-process layer are not ported
+yet (ROADMAP.md, item 10).
 """
 
-from . import collectives, sharded2d
+from . import collectives, halo, sharded2d
 from .dist import (
     bfs_levels,
     degree_reorder,
@@ -35,6 +36,7 @@ __all__ = [
     "Sharded2DCSR",
     "balanced_row_order",
     "collectives",
+    "halo",
     "sharded2d",
     "make_mesh",
     "make_mesh_2d",

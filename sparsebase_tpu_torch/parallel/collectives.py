@@ -1,7 +1,7 @@
 """Collectives over the shards of one mesh axis, driven from one process.
 
 XLA supplies these to the JAX package (``jax.lax.psum``, ``pmax``, ``pmin``,
-``all_to_all``, ``psum_scatter`` inside ``shard_map``). Here each takes the
+``all_to_all``, ``all_gather``, ``psum_scatter`` inside ``shard_map``). Here each takes the
 sequence of per-shard tensors of one mesh axis, in shard order, and returns
 one tensor per shard on that shard's device. A reduction runs on the first
 shard's device, in shard order 0..d-1 (integer sums are exact; float sums
@@ -40,6 +40,15 @@ def pmax(parts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
 
 def pmin(parts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     return _reduce(parts, torch.minimum)
+
+
+def all_gather(parts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The shards' tensors stacked in shard order, ``(D, ...)``, on every
+    shard (``jax.lax.all_gather``): stacked on the first shard's device and
+    copied to the others; where shards share a device the stack is shared."""
+    first = parts[0].device
+    stacked = torch.stack([p.to(first) for p in parts])
+    return tuple(stacked.to(p.device) for p in parts)
 
 
 def all_to_all(parts: Sequence[torch.Tensor], split_axis: int = 0, concat_axis: int = 0) -> Tuple[torch.Tensor, ...]:

@@ -101,7 +101,9 @@ def bfs_levels(sh: ShardedCSR, root: int, mesh: Mesh, max_iters: Optional[int] =
     n, d, rows, width = _shards(sh, mesh)
     first = mesh.first_device
     iters = max_iters or n
-    slots = [_entries(sh, k, n) for k in range(d)]
+    # a column past n (a matrix with more columns than rows) marks the
+    # discard slot n: the JAX scatter drops it
+    slots = [(grow, valid, torch.clamp(idx, max=n)) for grow, valid, idx in (_entries(sh, k, n) for k in range(d))]
     frontier = torch.arange(n, device=first) == root
     levels = torch.where(frontier, 0, -1).to(torch.int32)
     it = reads = 0
@@ -112,9 +114,9 @@ def bfs_levels(sh: ShardedCSR, root: int, mesh: Mesh, max_iters: Optional[int] =
         reached = []
         for f, (grow, valid, idx) in zip(replicated(mesh).put(frontier), slots):
             active = valid & f[torch.clamp(grow, 0, n - 1)]
-            reached.append(torch.zeros((n,), dtype=torch.int32, device=f.device)
+            reached.append(torch.zeros((n + 1,), dtype=torch.int32, device=f.device)
                            .index_add_(0, idx, active.to(torch.int32)))
-        nxt = (psum(reached)[0] > 0) & (levels < 0)
+        nxt = (psum(reached)[0][:n] > 0) & (levels < 0)
         levels = torch.where(nxt, it + 1, levels)
         frontier = nxt
         it += 1
@@ -172,14 +174,13 @@ def edge_cut(sh: ShardedCSR, labels, mesh: Mesh):
     return psum(_cut_parts(labels, n, [_entries(sh, k, n) for k in range(d)]))[0]
 
 
-def _label_counts(sh: ShardedCSR, k: int, lab, n: int, parts: int, clip: bool):
+def _label_counts(sh: ShardedCSR, k: int, lab, n: int, parts: int):
     """Shard ``k``'s (rows, parts) float32 counts of its rows' neighbours'
-    labels, and its rows' global ids and labels."""
+    labels, and its rows' global ids and labels. A column past n reads the
+    label of n - 1, as the JAX gather clamps it."""
     rows, cnt = sh.rows_per_shard, sh.nnz_counts[k]
     dev = sh.devices[k]
-    idx = sh.indices[k][:cnt].long()
-    if clip:
-        idx = torch.clamp(idx, 0, n - 1)
+    idx = torch.clamp(sh.indices[k][:cnt].long(), 0, n - 1)
     lrow = _local_row_of(sh.indptr[k], cnt)
     counts = torch.zeros((rows * parts,), dtype=torch.float32, device=dev)
     counts.index_add_(0, lrow * parts + lab[idx].long(), torch.ones((cnt,), dtype=torch.float32, device=dev))
@@ -218,7 +219,7 @@ def refine_partition(sh: ShardedCSR, labels, k: int, mesh: Mesh, rounds: int = 4
     pos = torch.arange(n, dtype=torch.int64, device=first)
     key_bits = [(0, 32), (32, 32 + bits_below(k))]
     for _ in range(rounds):
-        local = [_label_counts(sh, j, labs, n, k, clip=True) for j, labs in enumerate(replicated(mesh).put(lab))]
+        local = [_label_counts(sh, j, labs, n, k) for j, labs in enumerate(replicated(mesh).put(lab))]
         sizes = _part_sizes(local, n, k)
         gains, bests = [], []
         for j, (counts, grows, cur) in enumerate(local):
@@ -303,7 +304,7 @@ def label_prop_partition(sh: ShardedCSR, k: int, mesh: Mesh, num_iters: int = 10
     margin = torch.full((), 1.000001, dtype=torch.float32, device=first)
     eps = torch.full((), 1e-6, dtype=torch.float32, device=first)
     for it in range(num_iters):
-        local = [_label_counts(sh, j, labs, n, k, clip=False) for j, labs in enumerate(replicated(mesh).put(labels))]
+        local = [_label_counts(sh, j, labs, n, k) for j, labs in enumerate(replicated(mesh).put(labels))]
         sizes = _part_sizes(local, n, k)
         new = []
         for j, (counts, grows, cur) in enumerate(local):

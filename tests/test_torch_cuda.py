@@ -36,6 +36,7 @@ from sparsebase_tpu_torch.ops.kernels import (
 from sparsebase_tpu_torch.ops.kernels.csr_spmv import TILE
 from sparsebase_tpu_torch.ops.permute import permute_2d
 from sparsebase_tpu_torch.ops.reorder import DegreeReorder
+from sparsebase_tpu_torch.parallel import halo
 from sparsebase_tpu_torch.utils.exceptions import TypeMismatchError
 
 pytestmark = pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
@@ -1535,6 +1536,56 @@ def test_parallel_spmv_and_label_prop_on_card(dev, gen, shard_meshes):
     labels = dist.label_prop_partition(sh, 8, card_mesh, num_iters=10)
     host = ShardedCSR.from_csr(csr.to_host(), cpu_mesh, halo=False)
     assert labels.device == dev and torch.equal(labels.cpu(), dist.label_prop_partition(host, 8, cpu_mesh, num_iters=10))
+
+
+HALO_FUNCTIONS = {  # name -> call on (sharded, mesh, stats); labels on the mesh's first device
+    "bfs_levels": lambda sh, m, st: halo.bfs_levels(sh, 0, m, stats=st),
+    "rcm_reorder": lambda sh, m, st: halo.rcm_reorder(sh, m, stats=st),
+    "label_prop_partition": lambda sh, m, st: halo.label_prop_partition(sh, 8, m, num_iters=6),
+    "connected_components": lambda sh, m, st: halo.connected_components(sh, m, stats=st),
+    "edge_cut": lambda sh, m, st: halo.edge_cut(sh, chunk_labels(sh.shape[0], m.first_device), m),
+    "refine_partition": lambda sh, m, st: halo.refine_partition(sh, chunk_labels(sh.shape[0], m.first_device), 8, m,
+                                                                rounds=3),
+}
+
+
+def chunk_labels(n, dev):
+    return (torch.arange(n, device=dev) * 8 // n).to(torch.int32)
+
+
+@pytest.mark.parametrize("shape", [(20_000, 20_000), (20_000, 35_000)], ids=["square", "more-columns"])
+def test_halo_on_card_equals_cpu(dev, gen, shard_meshes, shape):
+    """Every ``halo`` function on a 4-shard mesh of the card equal to the
+    CPU mesh's result, on a square matrix and on one with more columns than
+    rows (no out-of-range index reaches the card, for ``dist`` either);
+    ``halo.spmv`` (K2 per shard) within the per-row bound of the plain SpMV.
+    The counting rank and the refinement launch K5 and K3; a function syncs
+    the host only for the reads its loops count."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR, dist
+
+    card_mesh, cpu_mesh = shard_meshes
+    n, m = shape
+    row = torch.randint(0, n, (200_000,), generator=gen, device=dev, dtype=torch.int32)
+    col = torch.randint(0, m, (200_000,), generator=gen, device=dev, dtype=torch.int32)
+    csr = COO.new(row, col, torch.randn((200_000,), generator=gen, device=dev), shape).convert(CSR)
+    sh = ShardedCSR.from_csr(csr, card_mesh)
+    host = ShardedCSR.from_csr(csr.to_host(), cpu_mesh)
+    x = torch.randn((n,), generator=gen, device=dev)
+    y = halo.spmv(sh, x, card_mesh)
+    assert y.device == dev and torch.allclose(y.cpu(), halo.spmv(host, x.cpu(), cpu_mesh), rtol=1e-5, atol=1e-5)
+    if n == m:
+        within_bound_of_plain(y, csr, x)
+    assert torch.equal(dist.bfs_levels(sh, 0, card_mesh).cpu(), dist.bfs_levels(host, 0, cpu_mesh))
+    assert torch.equal(dist.rcm_reorder(sh, card_mesh).cpu(), dist.rcm_reorder(host, cpu_mesh))
+    assert torch.equal(dist.label_prop_partition(sh, 2, card_mesh).cpu(), dist.label_prop_partition(host, 2, cpu_mesh))
+    before = _build.launch_counts()
+    for name, fn in HALO_FUNCTIONS.items():
+        stats = {}
+        syncs, got = count_syncs(lambda: fn(sh, card_mesh, stats))
+        assert got.device == dev and torch.equal(got.cpu(), fn(host, cpu_mesh, {})), name
+        assert len(syncs) == stats.get("host_reads", 0), (name, len(syncs), stats)
+    after = _build.launch_counts()
+    assert after["radix_rank"] > before["radix_rank"] and after["indptr"] > before["indptr"]
 
 
 def test_sharded2d_on_card(dev, gen):

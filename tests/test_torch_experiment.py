@@ -277,3 +277,68 @@ def test_trace_dir_writes_a_trace_naming_its_scope(mtx_file, tmp_path):
     assert any(str(n).startswith("sbtorch:op:") for n in names)
     torch.testing.assert_close(e.get_results()[f"{mtx_file},pass,degree,0"],
                                reorder.DegreeReorder().get_reorder(IOBase.read_mtx_to_csr(mtx_file, device="cpu")))
+
+
+# -- the distributed helpers (load_sharded_csr, distributed_reorder, distributed_spmv_kernel)
+ASH958_SYM = str(GOLDEN / "ash958_sym.mtx")
+
+
+@pytest.mark.parametrize("d", [4, 8])
+def test_sharded_loader_pipeline(d):
+    """The JAX suite's distributed experiment on a CPU mesh: the recorded SpMV
+    is ``halo.spmv`` of ones and the order ``halo.rcm_reorder``, as the JAX
+    helpers compute them."""
+    import jax.numpy as jnp
+    from sparsebase_tpu.parallel import ShardedCSR as RefShardedCSR
+    from sparsebase_tpu.parallel import halo as ref_halo
+    from sparsebase_tpu.parallel import make_mesh as ref_make_mesh
+
+    from sparsebase_tpu_torch.parallel import ShardedCSR, halo, make_mesh
+
+    mesh = make_mesh(devices=["cpu"] * d)
+    ex = exp.ConcreteExperiment(warmup=0)
+    ex.add_data_loader(exp.load_sharded_csr(mesh), [((ASH958_SYM,), None)])
+    ex.add_preprocess("pass", exp.pass_preprocess)
+    ex.add_preprocess("rcm", exp.distributed_reorder("rcm"))
+    ex.add_kernel("spmv", exp.distributed_spmv_kernel)
+    ex.run(times=1, store_auxiliary=True)
+    times = ex.get_run_times()
+    assert list(times) == [f"{ASH958_SYM},{pid},spmv,0" for pid in ("pass", "rcm")]
+    assert all(t > 0 for t in times.values())
+    sh, got_mesh = ex.get_auxiliary()[f"data,{ASH958_SYM}"]
+    assert isinstance(sh, ShardedCSR) and sh.has_halo and got_mesh is mesh and sh.devices == mesh.axis_devices("x")
+    csr = IOBase.read_mtx_to_csr(ASH958_SYM, device="cpu")
+    ones = torch.ones(csr.ncols)
+    want_y = halo.spmv(ShardedCSR.from_csr(csr, mesh), ones, mesh)
+    for pid in ("pass", "rcm"):
+        y = ex.get_results()[f"{ASH958_SYM},{pid},spmv,0"]
+        assert torch.equal(y, want_y)
+    _, _, order = ex.get_auxiliary()[f"preprocess,rcm,{ASH958_SYM}"]
+    assert torch.equal(order, halo.rcm_reorder(sh, mesh))
+    fx.check_reorder(order.numpy(), csr.nrows)
+    # the same helpers of the JAX package give the same SpMV and order
+    rmesh = ref_make_mesh(d)
+    ref_sh = RefShardedCSR.from_csr(RefCSR(*(np.asarray(a) for a in (csr.indptr, csr.indices)), None, csr.shape), rmesh)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref_halo.spmv(ref_sh, jnp.ones(csr.ncols), rmesh)), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(order.numpy(), np.asarray(ref_halo.rcm_reorder(ref_sh, rmesh)))
+
+
+def test_distributed_degree_reorder_and_unknown_kind():
+    from sparsebase_tpu_torch.parallel import dist, make_mesh
+
+    mesh = make_mesh(devices=["cpu"] * 4)
+    data = exp.load_sharded_csr(mesh)([G960])
+    sh, m, order = exp.distributed_reorder("degree")(data, None, None)
+    assert sh is data[0] and m is mesh
+    assert torch.equal(order, dist.degree_reorder(sh, mesh))
+    with pytest.raises(ValueError, match="unknown distributed reorder"):
+        exp.distributed_reorder("gray")(data, None, None)
+
+
+def test_sharded_loader_without_a_mesh_takes_the_cards(monkeypatch):
+    """``mesh=None`` is ``make_mesh()`` over the visible cards: with none it
+    raises instead of sharding on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        exp.load_sharded_csr()([G960])

@@ -450,6 +450,41 @@ class TestDistributedOps:
             dist.degrees(ps, other)
 
 
+class TestMoreColumnsThanRows:
+    """ROADMAP.md §3, fault 3.4: a sharded matrix with more columns than rows.
+    The JAX BFS scatter drops the columns past n, its label gather clamps
+    them to n - 1; the port does the same and returns JAX's results."""
+
+    @staticmethod
+    def rect(seed):
+        if seed is None:  # the repro of ROADMAP.md §3
+            row, col, shape = np.array([0, 1, 2, 5, 9]), np.array([1, 12, 0, 14, 3]), (10, 15)
+        else:
+            rng = np.random.default_rng(seed)
+            shape = (30, 30 + 17 * seed)
+            row, col = rng.integers(0, shape[0], 90), rng.integers(0, shape[1], 90)
+        keys = np.unique(row.astype(np.int64) * shape[1] + col)
+        return ref_coo_to_csr(ref.COO.new((keys // shape[1]).astype(np.int32), (keys % shape[1]).astype(np.int32),
+                                          None, shape=shape))
+
+    @pytest.mark.parametrize("seed", [None, 1, 2], ids=["repro", "rand1", "rand2"])
+    def test_bfs_rcm_and_label_prop_equal_jax(self, meshes, seed):
+        rmesh, pmesh = meshes
+        rc = self.rect(seed)
+        rs, ps = RefShardedCSR.from_csr(rc, rmesh), ShardedCSR.from_csr(from_reference(rc, CPU), pmesh)
+        levels = dist.bfs_levels(ps, 0, pmesh)
+        order = dist.rcm_reorder(ps, pmesh)
+        labels = dist.label_prop_partition(ps, 2, pmesh)
+        np.testing.assert_array_equal(levels.numpy(), np.asarray(ref_dist.bfs_levels(rs, 0, rmesh)))
+        np.testing.assert_array_equal(order.numpy(), np.asarray(ref_dist.rcm_reorder(rs, rmesh)))
+        np.testing.assert_array_equal(labels.numpy(), np.asarray(ref_dist.label_prop_partition(rs, 2, rmesh)))
+        fx.check_reorder(order.numpy(), rc.nrows)
+        if seed is None:
+            assert levels.tolist() == [0, 1] + [-1] * 8
+            assert order.tolist() == [1, 0, 7, 2, 3, 8, 4, 5, 6, 9]
+            assert labels.tolist() == [0, 0, 1, 0, 0, 0, 1, 1, 1, 0]
+
+
 class TestRefinePartition:
     def test_equals_jax_and_reduces_edge_cut(self):
         rmesh, pmesh = ref_make_mesh(8), make_mesh(devices=["cpu"] * 8)

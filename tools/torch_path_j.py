@@ -1,7 +1,8 @@
 """Path J of ``chip_smoke.py`` alone, at its full size, on one card: the
 kernels' build, path A's COO and source CSR (``--nnz`` entries, ``--seed``),
 path G's 32,768-vertex power-law graph (the halo check's), then
-``chip_smoke.path_j`` (its phases 3, 4 and 5 and its profile). The draws
+``chip_smoke.path_j`` (its phases 3, 4 and 5 and its profiles; the
+components check's 8-block graph drawn last). The draws
 differ from the whole script's, which makes other graphs first.
 
     python3 tools/torch_path_j.py [--nnz 100e6] [--seed 0]
@@ -39,7 +40,7 @@ def main() -> None:
     x = torch.randn((n,), generator=g, device=dev)
     src = CSR(indptr_plain(coo.row, n), coo.col, coo.vals, coo.shape)
     host_graph = cs.power_law_pattern(g, dev, *cs.HOST_REORDER_GRAPH)
-    launches, err = cs.path_j(dev, coo, src, x, host_graph)
+    launches, err = cs.path_j(g, dev, coo, src, x, host_graph)
     print(f"tools/torch_path_j.py: {time.perf_counter() - t0:.1f} s in all")
     print({"launches": launches, "max_abs_err": err})
 
