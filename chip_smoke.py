@@ -107,7 +107,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``refine_partition``, K5 and K3 in each admission;
    ``connected_components``) at d = 4 and at d = 1, and
    ``Sharded2DCSR.from_csr`` (K5, K3) on a 2×2 mesh of the card with its
-   ``spmv`` (K2 per tile, ``psum_scatter``) and ``degrees``.
+   ``spmv`` (K2 per tile, ``psum_scatter``) and ``degrees``; path K, the
+   multilevel half of ``halo`` on path J's meshes, at d = 4 and d = 1:
+   ``heavy_edge_matching`` (weighted and on the pattern), ``coarsen`` with
+   its map (the route: K5, K3) and ``multilevel_partition`` (k = 8) on path
+   A's generator over 8 disjoint blocks, mirrored;
+   ``bfs_levels_multilevel`` from 0 and ``rcm_reorder_ml`` (K5) on path B's
+   band scrambled; ``slashburn_reorder`` (K5 and K3 in each counting rank)
+   on ``POWER_LAW_CARD``'s graph mirrored without repeats, k = 0.5% of its
+   vertices, ``hub_order`` off and on, and on ``POWER_LAW_HOST``'s with its
+   defaults and with every host tier and compaction off.
    Every kernel of each path must have launched;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
@@ -202,7 +211,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    generator over 8 disjoint blocks, mirrored (half path A's entries
    before mirroring), equal to a plain min-label fixpoint, whole and with
    the 1% of vertices of highest degree masked out, at d = 4 and d = 1,
-   each component inside one block);
+   each component inside one block); of path K (every integer result the
+   same at d = 4 and d = 1 bit for bit; both matchings involutions along
+   entries; the coarse graph equal to a plain torch contraction of its map
+   as a multiset of entries; the partition's labels in [0, 8) within the
+   1.1 cap, its cut printed beside the planted 0 and label propagation with
+   refinement's; every vertex of the band reached, the RCM order a
+   permutation, the levels' error against the closed-form exact levels and
+   the bandwidths printed; each SlashBurn order a permutation, the card
+   graph's first k positions its k highest-degree vertices of the giant
+   component, ids ascending on ties, and the host graph's orders equal to
+   graphkit's ``slashburn(greedy=False)``);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -266,7 +285,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    passes, buckets and ``all_gather`` bytes, the bytes of one exchange
    (padded ``D·D·S·4`` beside ``step_comm_bytes`` and the dense
    ``psum``'s) and its time, ``halo.spmv`` by CUDA events, and a profile
-   of one ``halo.label_prop_partition``; K1's tiled layout alone;
+   of one ``halo.label_prop_partition``; path K: each function's one call
+   at d = 4 and d = 1, the host reads its ``stats=`` counts, the ladder's
+   levels and sizes, the partition's peak memory, the
+   multilevel BFS's steps, SlashBurn's rounds, phases, compactions, host
+   tail and host reads; K1's tiled layout alone;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -282,8 +305,8 @@ Path D runs its phases 3, 4 and 5 (and its profile) after phase 6 of the
 other paths, path E its phases 3, 4 and 5 after path D, path F its
 phases 3, 4 and 5 after path E, path G its phases 3, 4 and 5 after
 path F, path H its phases 3, 4 and 5 after path G, path I its phases
-3, 4 and 5 after path H, and path J its phases 3, 4 and 5 and its
-profile after path I.
+3, 4 and 5 after path H, path J its phases 3, 4 and 5 and its
+profile after path I, and path K its phases 3, 4 and 5 after path J.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -533,14 +556,17 @@ def banded_coo(g, dev, band_nnz):
     return COO(row, col, vals, (n, n))
 
 
-def scrambled_band(g, dev, n):
+def scrambled_band(g, dev, n, with_perm: bool = False):
     """``banded_coo``'s band of ``n`` rows under a seeded random symmetric
-    permutation, row-major sorted again by ``COO.new`` (K5 on the card)."""
+    permutation, row-major sorted again by ``COO.new`` (K5 on the card);
+    with ``with_perm`` also the permutation (``perm[p]`` is the vertex at
+    band position p)."""
     from sparsebase_tpu_torch import COO
 
     band = banded_coo(g, dev, n * (2 * BAND_HALF_WIDTH + 1))
     perm = torch.randperm(n, generator=g, device=dev).to(torch.int32)
-    return COO.new(perm[band.row], perm[band.col], band.vals, band.shape)
+    coo = COO.new(perm[band.row], perm[band.col], band.vals, band.shape)
+    return (coo, perm) if with_perm else coo
 
 
 def abs_csr(csr):
@@ -3016,7 +3042,237 @@ def path_j(g, dev, coo, src, x, host_graph):
     phase_path_j_times(j, sh, halo, sh1)
     phase_path_j_halo_times(j, halo, sh1)
     print(f"phase 5 path J wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
-    return launches, err
+    return launches, err, j
+
+
+# slashburn_reorder's k_size on POWER_LAW_CARD's graph: 0.5% of its vertices.
+# At the default 64 a round would take 64 hubs of 10^6 vertices, each of
+# which keeps its 16 uniform columns on average: thousands of rounds
+SLASHBURN_CARD_K = POWER_LAW_CARD[0] // 200
+SLASHBURN_K = 64  # the default, on POWER_LAW_HOST's graph
+
+
+def unique_pattern(csr):
+    """The pattern of ``csr`` without repeated entries (SlashBurn's
+    adjacency: the host route drops repeats), sorted by (row, column)."""
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.ops.kernels import indptr_plain
+
+    n = csr.nrows
+    keys = torch.unique(csr.row_of_nnz().long() * n + csr.indices.long())
+    return CSR(indptr_plain((keys // n).to(torch.int32), n), (keys % n).to(torch.int32), None, csr.shape)
+
+
+def bandwidth(row, col, order=None) -> int:
+    """The largest |order[row] - order[col]| (the identity when ``order`` is
+    None)."""
+    if order is not None:
+        row, col = order[row.long()], order[col.long()]
+    return int((row.long() - col.long()).abs().max())
+
+
+class PathK:
+    """Path K: the multilevel half of ``halo`` on path J's meshes, four
+    shards that share the one card and d = 1. On path A's generator over 8
+    disjoint blocks, mirrored (100M entries, ``components_graph``):
+    ``heavy_edge_matching`` weighted and on the pattern, one ``coarsen``
+    with its map (K5 and K3 in the route), ``multilevel_partition`` (k = 8:
+    the ladder, label propagation on the coarsest graph, refinement at every
+    level, K5 and K3 in each admission). On path B's band scrambled
+    (1,939,393 rows, 64M entries): ``bfs_levels_multilevel`` from 0 and
+    ``rcm_reorder_ml`` (K5 in the rank). SlashBurn on the power-law graphs
+    mirrored, repeated entries dropped: on ``POWER_LAW_CARD``'s with
+    ``k_size`` = ``SLASHBURN_CARD_K`` and its other defaults, ``hub_order``
+    off and on (K5 and K3 in each round's counting rank); on
+    ``POWER_LAW_HOST``'s with its defaults and with every host tier and
+    compaction off."""
+
+    def __init__(self, g, dev, j: PathJ, n_blocks: int, nnz_blocks: int, band_n: int):
+        self.g, self.dev = g, dev
+        self.meshes = ((MESH_SHARDS, j.mesh), (1, j.mesh1))
+        self.blocks, self.planted = components_graph(g, dev, n_blocks, nnz_blocks)
+        self.band, self.band_perm = scrambled_band(g, dev, band_n, with_perm=True)
+        self.sb_card = unique_pattern(power_law_pattern(g, dev, *POWER_LAW_CARD))
+        self.sb_host = unique_pattern(power_law_pattern(g, dev, *POWER_LAW_HOST))
+        self.times = {}  # (function, d) -> ms of its one call
+
+    def call(self, label: str, d: int, fn):
+        """``fn()``, its wall time (one call, synchronised) kept as phase 5's."""
+        out, self.times[(label, d)] = timed(fn)
+        return out
+
+    def run(self):
+        """Every function once at d = 4 and at d = 1: ``{d: {name: result}}``."""
+        from sparsebase_tpu_torch import CSR
+        from sparsebase_tpu_torch.parallel import ShardedCSR, halo
+
+        band_csr = self.band.convert(CSR)
+        out = {}
+        for d, mesh in self.meshes:
+            r = out[d] = {}
+            sh = ShardedCSR.from_csr(self.blocks, mesh)
+            r["match"] = self.call("heavy_edge_matching", d, lambda: halo.heavy_edge_matching(sh, mesh))
+            r["match pattern"] = self.call("heavy_edge_matching weighted=False", d,
+                                           lambda: halo.heavy_edge_matching(sh, mesh, weighted=False))
+            r["coarse"], r["map"] = self.call("coarsen", d, lambda: halo.coarsen(sh, r["match"], mesh,
+                                                                                 return_mapping=True))
+            r["coarse"] = r["coarse"].to_csr()
+            r["ml stats"] = {}
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            r["labels"] = self.call("multilevel_partition", d, lambda: halo.multilevel_partition(
+                sh, PARTITION_K, mesh, stats=r["ml stats"]))
+            torch.cuda.synchronize()
+            r["ml peak"] = torch.cuda.max_memory_allocated() - held
+            r["flat"] = halo.refine_partition(sh, halo.label_prop_partition(sh, PARTITION_K, mesh, num_iters=20),
+                                              PARTITION_K, mesh, rounds=6)
+            sh = ShardedCSR.from_csr(band_csr, mesh)
+            r["bfs stats"] = {}
+            r["levels"], r["steps"] = self.call("bfs_levels_multilevel", d, lambda: halo.bfs_levels_multilevel(
+                sh, 0, mesh, stats=r["bfs stats"]))
+            r["rcm"], r["rcm steps"] = self.call("rcm_reorder_ml", d, lambda: halo.rcm_reorder_ml(sh, mesh))
+            sh = ShardedCSR.from_csr(self.sb_card, mesh)
+            for hub_order in (False, True):
+                st = r[f"sb card {hub_order}"] = {}
+                r[f"slashburn card {hub_order}"] = self.call(
+                    f"slashburn_reorder hub_order={hub_order}", d, lambda: halo.slashburn_reorder(
+                        sh, mesh, k_size=SLASHBURN_CARD_K, hub_order=hub_order, stats=st))
+            sh = ShardedCSR.from_csr(self.sb_host, mesh)
+            for tier, kw in (("defaults", {}), ("on the mesh", dict(host_tail=0, host_tail_nnz=0, compact_ratio=0))):
+                st = r[f"sb host {tier}"] = {}
+                r[f"slashburn host {tier}"] = self.call(
+                    f"slashburn_reorder on POWER_LAW_HOST, {tier}", d, lambda: halo.slashburn_reorder(
+                        sh, mesh, stats=st, **kw))
+        return out
+
+
+def check_matching(label: str, csr, match) -> None:
+    """``match`` is an involution whose pairs are entries of ``csr`` (whose
+    columns are sorted within rows)."""
+    n = csr.nrows
+    ids = torch.arange(n, device=match.device)
+    check(match.dtype == torch.int32 and bool((match.long()[match.long()] == ids).all()),
+          f"{label}: the matching is not an involution")
+    paired = match.long() != ids
+    keys = csr.row_of_nnz().long() * n + csr.indices.long()
+    want = ids[paired] * n + match.long()[paired]
+    at = torch.searchsorted(keys, want).clamp(max=keys.numel() - 1)
+    check(bool((keys[at] == want).all()), f"{label}: a matched pair is no entry of the graph")
+
+
+def phase_path_k_checks(k: PathK, out) -> None:
+    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs_plain
+
+    r, dev = out[MESH_SHARDS], k.dev
+    for name in ("match", "match pattern", "map", "labels", "levels", "rcm", "slashburn card False",
+                 "slashburn card True", "slashburn host defaults", "slashburn host on the mesh"):
+        check_equal(f"path K {name}: d={MESH_SHARDS} vs d=1", r[name], out[1][name])
+    for name in ("indptr", "indices", "vals"):
+        check_equal(f"path K coarse {name}: d={MESH_SHARDS} vs d=1", getattr(r["coarse"], name),
+                    getattr(out[1]["coarse"], name))
+    check(r["steps"] == out[1]["steps"] == r["rcm steps"], "path K: the multilevel BFS's steps differ")
+    # (a) the mirrored 8-block graph
+    csr, n = k.blocks, k.blocks.nrows
+    for name in ("match", "match pattern"):
+        check_matching(f"path K heavy_edge_matching ({name})", csr, r[name])
+    cid = r["map"].long()
+    rows, cols = csr.row_of_nnz().long(), csr.indices.long()
+    cu, cv = cid[rows], cid[cols]
+    keep = cu != cv
+    want = sort_by_pairs_plain(cu[keep].to(torch.int32), cv[keep].to(torch.int32))
+    coarse = r["coarse"]
+    got = sort_by_pairs_plain(coarse.row_of_nnz().to(torch.int32), coarse.indices)
+    check(coarse.nrows == int(cid.max()) + 1, "path K coarsen: the coarse size is not the map's")
+    check_equal("path K coarsen rows vs a plain contraction", got[0], want[0])
+    check_equal("path K coarsen columns vs a plain contraction", got[1], want[1])
+    check(bool((coarse.vals == 1).all()), "path K coarsen: a pattern's coarse value is not 1")
+    matched = int((r["match"].long() != torch.arange(n, device=dev)).sum())
+    lab, flat = r["labels"], r["flat"]
+    sizes = torch.bincount(lab.long(), minlength=PARTITION_K)
+    cap = 1.1 * n / PARTITION_K
+    check(lab.dtype == torch.int32 and int(lab.min()) >= 0 and int(lab.max()) < PARTITION_K and
+          float(sizes.max()) <= cap, f"path K multilevel_partition: part sizes {sizes.tolist()} against the cap {cap:.1f}")
+    cut = lambda t: int((t[rows] != t[cols]).sum())  # noqa: E731
+    st = r["ml stats"]
+    print(f"phase 4 path K (a) on the mirrored {PARTITION_K}-block graph (n={n}, {csr.nnz} entries): the matchings "
+          f"are involutions along entries, {matched} vertices matched (weighted), "
+          f"{int((r['match pattern'].long() != torch.arange(n, device=dev)).sum())} (pattern); coarsen: "
+          f"{coarse.nrows} coarse vertices, {coarse.nnz} entries, equal to the plain contraction; "
+          f"multilevel_partition: {st['levels']} levels, sizes {st['sizes']}, parts {sizes.tolist()} (cap "
+          f"{cap:.1f}), edge cut {cut(lab)} beside the planted 0 ({cut(k.planted)}) and label propagation with "
+          f"refinement's {cut(flat)}; peak device memory {r['ml peak'] / 2**30:.3f} GiB above what was held; "
+          f"{st['host_reads']} host reads, {st['host_writes']} writes")
+    # (b) the scrambled band
+    levels, order = r["levels"], r["rcm"]
+    nb = k.band.nrows
+    check(bool((levels >= 0).all()), "path K bfs_levels_multilevel: a vertex of the band is unreached")
+    check(bool((torch.bincount(order.long(), minlength=nb) == 1).all()), "path K rcm_reorder_ml: not a permutation")
+    pos = torch.empty((nb,), dtype=torch.int64, device=dev)
+    pos[k.band_perm.long()] = torch.arange(nb, device=dev)
+    exact = torch.div((pos - pos[0]).abs() + BAND_HALF_WIDTH - 1, BAND_HALF_WIDTH, rounding_mode="floor")
+    err = (levels.long() - exact).abs()
+    bs = r["bfs stats"]
+    print(f"phase 4 path K (b) on the scrambled band (n={nb}, {k.band.nnz} entries): every vertex reached; levels "
+          f"up to {int(levels.max())} against the exact {int(exact.max())}, error largest {int(err.max())}, mean "
+          f"{float(err.double().mean()):.3f}; {r['steps']} synchronous steps ({bs['levels']} contractions, sizes "
+          f"{bs['sizes']}, coarse BFS depth {bs['coarse_depth']}, {bs['host_reads']} host reads) against the exact "
+          f"BFS's {int(exact.max()) + 1} levels; rcm_reorder_ml a permutation, bandwidth "
+          f"{bandwidth(k.band.row, k.band.col, order)} beside the band's {BAND_HALF_WIDTH} and the scrambled "
+          f"{bandwidth(k.band.row, k.band.col)}")
+    # (c) SlashBurn
+    from sparsebase_tpu_torch import native
+
+    card, kk = k.sb_card, SLASHBURN_CARD_K
+    comp = plain_components(card)
+    gcc = int(torch.bincount(comp.long()[comp >= 0]).argmax())
+    alive = comp == gcc
+    rows, cols = card.row_of_nnz().long(), card.indices.long()
+    live = alive[rows] & alive[cols]
+    deg = torch.zeros((card.nrows,), dtype=torch.int64, device=dev).index_add_(0, rows, live.long())
+    deg = torch.where(alive, deg, -1)
+    hubs = torch.argsort(-deg, stable=True)[:kk]
+    for hub_order in (False, True):
+        o = r[f"slashburn card {hub_order}"]
+        check(bool((torch.bincount(o.long(), minlength=card.nrows) == 1).all()),
+              f"path K slashburn_reorder (hub_order={hub_order}): not a permutation")
+        check_equal(f"path K slashburn_reorder (hub_order={hub_order}): the first {kk} positions vs the {kk} highest "
+                    f"degrees of the giant component", o[hubs], torch.arange(kk, dtype=torch.int32, device=dev))
+        print(f"phase 4 path K (c) slashburn_reorder on POWER_LAW_CARD's graph (n={card.nrows}, {card.nnz} entries), "
+              f"hub_order={hub_order}: a permutation, the hubs first; {r[f'sb card {hub_order}']}")
+    host = k.sb_host
+    want = native.slashburn(host.nrows, host.indptr.cpu(), host.indices.cpu(), SLASHBURN_K, False, False)
+    for tier in ("defaults", "on the mesh"):
+        check_equal(f"path K slashburn_reorder on POWER_LAW_HOST ({tier}) vs native.slashburn(greedy=False)",
+                    r[f"slashburn host {tier}"].cpu(), want.to(torch.int32))
+        print(f"phase 4 path K (c) slashburn_reorder on POWER_LAW_HOST's graph (n={host.nrows}, {host.nnz} entries), "
+              f"{tier}: equal to native.slashburn(greedy=False); {r[f'sb host {tier}']}")
+
+
+def phase_path_k_times(k: PathK) -> None:
+    """Each function's one call of the main run, at d = 4 and d = 1 (a
+    second call, after it as a warm-up, gave the same times within their
+    spread and doubled path K's wall; PERF.md §6). The host reads are
+    phase 4's ``stats=`` counts (the card tests hold them to the syncs)."""
+    for (label, d), ms in k.times.items():
+        print(f"phase 5 path K d={d} {label}: {ms:.3f} ms (one call)")
+
+
+def path_k(g, dev, j: PathJ, n_blocks: int, nnz_blocks: int, band_n: int):
+    """Path K's phases 3, 4 and 5, run after path J on its meshes (the
+    graphs draw from ``g``). Returns its launch counts."""
+    from sparsebase_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    k = PathK(g, dev, j, n_blocks, nnz_blocks, band_n)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = k.run()
+    launches = read_launches("K", ("indptr", "radix_rank"))
+    phase_path_k_checks(k, out)
+    phase_path_k_times(k)
+    print(f"phase 5 path K wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def read_launches(path: str, required) -> dict:
@@ -3233,9 +3489,11 @@ def main() -> None:
     launches_h, err_k7, k7_times, k7_shape = path_h(coo_a, x_a, host_graph, (coo_p, x_p, planted))
     del coo_p, x_p, planted
     launches_i, err_k2_i = path_i(g, dev, int(args.ingest_nnz))
-    launches_j, err_k2_j = path_j(g, dev, coo_a, src, x_a, host_graph)
+    launches_j, err_k2_j, path_j_state = path_j(g, dev, coo_a, src, x_a, host_graph)
+    launches_k = path_k(g, dev, path_j_state, n_p, src.nnz // 2, coo_b.nrows)
+    del path_j_state
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
-                + launches_g[k] + launches_h[k] + launches_i[k] + launches_j[k] for k in launches_a}
+                + launches_g[k] + launches_h[k] + launches_i[k] + launches_j[k] + launches_k[k] for k in launches_a}
 
     shapes = {
         "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],

@@ -2,9 +2,8 @@
 
 A mesh is a list of shard devices driven from one process; on one card the
 shards may share it (``make_mesh(devices=[cuda:0] * 4)``). ``halo`` holds
-the boundary-proportional functions up to the partition refinement; its
-multilevel functions, the ring and the multi-process layer are not ported
-yet (ROADMAP.md, item 10).
+the boundary-proportional functions, the multilevel ones and SlashBurn; the
+ring and the multi-process layer are not ported yet (ROADMAP.md, item 10).
 """
 
 from . import collectives, halo, sharded2d

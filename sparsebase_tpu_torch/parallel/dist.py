@@ -140,13 +140,24 @@ def rcm_reorder(sh: ShardedCSR, mesh: Mesh, root: int = 0, max_iters: Optional[i
     (level, degree, id), reversed over the reached vertices; unreached
     vertices (other components) follow in id order. Returns an int32
     inverse permutation."""
-    n = sh.shape[0]
     levels = bfs_levels(sh, root, mesh, max_iters=max_iters)
-    deg = degrees(sh, mesh)
+    return _rcm_rank(levels, degrees(sh, mesh), sh.shape[0])
+
+
+def _rcm_rank(levels, deg, n: int) -> torch.Tensor:
+    """The int32 inverse permutation of the stable rank (K5) of (level,
+    degree, id), reversed over the reached vertices; unreached vertices
+    (level -1) rank as level n, after the BFS tree. The level and degree
+    bits stated to K5 come from their largest values, read back once: an
+    approximate level (:func:`.halo.bfs_levels_multilevel`) can exceed n."""
+    if n == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=levels.device)
     unreached = levels < 0
-    lev = torch.where(unreached, n, levels).to(torch.int64)  # components after the BFS tree
+    lev = torch.where(unreached, n, levels).to(torch.int64)
+    deg = deg.to(torch.int64)
+    top_lev, top_deg = torch.stack([lev.max(), deg.max()]).tolist()
     key = (lev << 32) | deg
-    pos = radix_rank(key, key_bits=[(0, bits_below(sh.width + 1)), (32, 32 + bits_below(n + 1))]).to(torch.int64)
+    pos = radix_rank(key, key_bits=[(0, bits_below(top_deg + 1)), (32, 32 + bits_below(top_lev + 1))]).to(torch.int64)
     reached_count = (~unreached).sum()
     return torch.where(pos < reached_count, reached_count - 1 - pos, pos).to(torch.int32)
 

@@ -1,8 +1,7 @@
 """Halo-exchange distributed functions: boundary-proportional communication.
 
-Counterpart of ``sparsebase_tpu/parallel/halo.py`` up to the refinement
-(matching, coarsening, the multilevel functions and SlashBurn are not
-ported yet). The functions of :mod:`.dist` exchange dense ``(n,)`` vectors
+Counterpart of ``sparsebase_tpu/parallel/halo.py``. The functions of
+:mod:`.dist` exchange dense ``(n,)`` vectors
 with ``psum``; here each shard ships only the values its neighbours read,
 through the halo lists of :class:`~.sharded.ShardedCSR` (``halo_send``,
 ``halo_counts``, ``halo_map``) and one ``all_to_all`` a step: one exchange
@@ -29,6 +28,23 @@ replicated result equals the JAX function's.
   counting rank (K5 and K3 per shard, an ``all_gather`` of the histograms)
 * :func:`edge_cut`, :func:`refine_partition` — sharded-label cut and
   boundary refinement with exact top-headroom admission
+* :func:`heavy_edge_matching` — handshake rounds (a float32 scatter-max,
+  ties by a Luby hash wrapped as int32), two exchanges a round
+* :func:`coarsen` — a matching contracted: coarse ids by a prefix count and
+  an ``all_gather`` of the shards' counts, two exchanges of them, the
+  relabelled entries through :meth:`ShardedCSR.from_coo_sharded`'s route
+* :func:`bfs_levels_multilevel`, :func:`rcm_reorder_ml` — a ladder of
+  pattern matchings and contractions, the exact BFS on the coarsest graph,
+  levels projected back up and relaxed (:func:`_level_correct`); the RCM
+  rank of those levels (:func:`.dist._rcm_rank`, K5)
+* :func:`multilevel_partition` — the V-cycle: the ladder,
+  :func:`_coarsest_init` (the host's region growing and refinement, or label
+  propagation past 4096 vertices), refinement at every level by vertex
+  weight, :func:`_enforce_balance` on the host
+* :func:`slashburn_reorder` — distributed SlashBurn rounds
+  (:func:`_active_degree`, the counting rank, :func:`_nbr_min`, the
+  components), compaction by re-sharding, and graphkit's ``slashburn`` for
+  the host-sized residual
 
 Gathers clamp and scatters drop an index out of range, as JAX's do: on a
 matrix with more columns than the shards have rows, a column past the last
@@ -36,22 +52,28 @@ shard's rows maps past its owner's rows.
 
 The JAX ``while_loop`` s are host loops that read one flag back a step (a
 BFS level, a components round, a pointer jump; ``stats=`` counts them); the
-``fori_loop`` s of label propagation, the rank refinement and the partition
-refinement read nothing back.
+``fori_loop`` s of label propagation, the rank refinement, the partition
+refinement, the matching and the level correction read nothing back. The
+multilevel functions and SlashBurn read back what sizes their next step (a
+coarse size, a route's loads, a round's largest degree, the host's share of
+SlashBurn) and count it in ``stats=``.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..formats.csr import CSR
 from ..ops.kernels.csr_spmv import csr_spmv
 from ..ops.kernels.indptr import indptr_from_sorted_rows
 from ..ops.kernels.radix import bits_below, radix_argsort
+from ..utils.logger import Logger
 from .collectives import all_gather, all_to_all, pmax, pmin, psum
-from .dist import _local_row_of, _shards
+from .dist import _local_row_of, _rcm_rank, _shards, degrees
 from .mesh import Mesh
 from .sharded import ShardedCSR
 
@@ -569,3 +591,547 @@ def refine_partition(sh: ShardedCSR, labels, k: int, mesh: Mesh, rounds: int = 4
         best_cut = torch.where(better, cut, best_cut)
         best_over = torch.where(better, over, best_over)
     return _join(best_lab, mesh, n)
+
+
+def _add(stats: Optional[dict], **counts) -> None:
+    """Add ``counts`` into ``stats`` (a dict, or None for no stats)."""
+    if stats is not None:
+        for key, v in counts.items():
+            stats[key] = stats.get(key, 0) + v
+
+
+def _nbr_ids(sh: ShardedCSR, slots, sends) -> list:
+    """Each shard's true entries' neighbour ids (int64), as the JAX bodies
+    read them: the global row ids shipped through the halo once, read at
+    the entries' slots (a column past the shards' rows reads its clamped
+    slot's id)."""
+    ext = _exchange(_gids(sh), sends, sh.axis)
+    return [e[slot] for e, (_, slot) in zip(ext, slots)]
+
+
+# -- heavy-edge matching --------------------------------------------------------
+def _luby_priority(ids: torch.Tensor, it: int) -> torch.Tensor:
+    """Round ``it``'s tie-break priority of the int64 vertex ``ids`` in [0,
+    2**31): the JAX body's int32 hash ``((id ^ it * 0x9E3779B9) *
+    0xC2B2AE3D) & 0x7FFFFFFF``, whose products wrap. Here the salt is
+    wrapped to int32 exactly and the hash taken in int64, whose low 31
+    bits are the wrapped product's."""
+    salt = (it * -1640531527 + 2**31) % 2**32 - 2**31
+    return ((ids ^ salt) * -1028477379) & 0x7FFFFFFF
+
+
+def _matching_round(sh: ShardedCSR, slots, sends, nb, weights, gids, match, it: int) -> list:
+    """One handshake round of :func:`heavy_edge_matching` on the shards'
+    (R,) int64 ``match``: each unmatched row proposes to its heaviest
+    unmatched neighbour (a float32 scatter-max from -inf; equal weights
+    broken by the highest Luby hash of the neighbour id, then the least
+    id), and mutual proposals match. Two exchanges: the match state, then
+    the proposals. Returns the new match."""
+    n, rows = sh.shape[0], sh.rows_per_shard
+    ext_match = _exchange(match, sends, sh.axis)
+    proposals = []
+    for (lrow, slot), em, b, w, g, m in zip(slots, ext_match, nb, weights, gids, match):
+        unmatched = (m == g) & (g < n)
+        cand = unmatched[lrow] & (em[slot] == b) & (b != g[lrow])
+        w = torch.where(cand, w, float("-inf"))
+        wmax = torch.full((rows,), float("-inf"), dtype=torch.float32, device=w.device).scatter_reduce_(
+            0, lrow, w, "amax")
+        tie = cand & (w >= wmax[lrow]) & torch.isfinite(w)
+        pri = torch.where(tie, _luby_priority(b, it), -1)
+        primax = torch.full((rows,), -1, dtype=torch.int64, device=w.device).scatter_reduce_(0, lrow, pri, "amax")
+        best = torch.full((rows,), _BIG, dtype=torch.int64, device=w.device).scatter_reduce_(
+            0, lrow, torch.where(tie & (pri == primax[lrow]), b, _BIG), "amin")
+        proposals.append(torch.where(unmatched & (best < _BIG), best, _BIG))
+    ext_prop = _exchange(proposals, sends, sh.axis)
+    new = []
+    for (lrow, slot), ep, b, g, m, p in zip(slots, ext_prop, nb, gids, match, proposals):
+        mutual_e = (b == p[lrow]) & (ep[slot] == g[lrow])
+        mutual = torch.zeros((rows + 1,), dtype=torch.bool, device=m.device).index_fill_(
+            0, torch.where(mutual_e, lrow, rows), True)[:rows]
+        new.append(torch.where(mutual, torch.clamp(p, max=_BIG - 1), m))
+    return new
+
+
+def heavy_edge_matching(sh: ShardedCSR, mesh: Mesh, rounds: int = 4, weighted: bool = True):
+    """Distributed heavy-edge matching, the coarsening step of a multilevel
+    partitioner: ``rounds`` handshake rounds (:func:`_matching_round`) on
+    ``|vals|`` as float32 weights, or on unit weights with ``weighted=False``
+    (pattern matching: every edge ties and the randomized priority decides,
+    the mode for structural ladders and asymmetric values; with asymmetric
+    weights locally dominant edges need not be mutual and the handshake can
+    stall). Returns the (n,) int32 ``match[v]``: v's partner, or v when
+    unmatched. Reads nothing back."""
+    _require_halo(sh)
+    n = _shards(sh, mesh)[0]
+    slots, sends, gids = _slots(sh), _sends(sh), _gids(sh)
+    nb = _nbr_ids(sh, slots, sends)
+    if weighted and sh.vals is not None:
+        weights = [sh.vals[k][: sh.nnz_counts[k]].abs().to(torch.float32) for k in range(sh.n_shards)]
+    else:
+        weights = [torch.ones(lrow.shape, dtype=torch.float32, device=lrow.device) for lrow, _ in slots]
+    match = list(gids)
+    for it in range(int(rounds)):
+        match = _matching_round(sh, slots, sends, nb, weights, gids, match, it)
+    return _join(match, mesh, n).to(torch.int32)
+
+
+# -- contraction ----------------------------------------------------------------
+def coarsen(sh: ShardedCSR, match, mesh: Mesh, halo: bool = True, return_mapping: bool = False,
+            stats: Optional[dict] = None):
+    """Contract a matching into the coarse graph, distributed: with
+    :func:`heavy_edge_matching` one level of multilevel coarsening. A pair
+    becomes one coarse vertex (the lower endpoint represents it): each shard
+    numbers its representatives by a prefix count, an ``all_gather`` of the
+    shards' counts gives their offsets, and the coarse size is read back
+    once; a non-representative takes its partner's coarse id through one
+    exchange, the entries are relabelled through a second, and an entry
+    inside a pair becomes the pad row nc. The shards' blocks of ``width``
+    slots (pads row nc) go through :meth:`ShardedCSR.from_coo_sharded`'s
+    route, so capacity and widths equal JAX's. Parallel edges are kept,
+    their float32 values (ones for a pattern) as the coarse values.
+
+    Returns the coarse ``ShardedCSR`` (with halo lists when ``halo``), and
+    with ``return_mapping`` the (n,) int32 fine-to-coarse map. ``stats``, a
+    dict, receives ``host_reads``."""
+    _require_halo(sh)
+    n, d, rows, width = _shards(sh, mesh)
+    slots, sends, gids = _slots(sh), _sends(sh), _gids(sh)
+    nb = _nbr_ids(sh, slots, sends)
+    match_l = _put(sh, match, dtype=torch.int64)
+    rep = [(g < n) & (g <= m) for g, m in zip(gids, match_l)]
+    counts = all_gather([r.sum() for r in rep])
+    cid = []
+    for k, (r, c) in enumerate(zip(rep, counts)):
+        prefix = torch.cumsum(r, 0) - r.long()
+        cid.append(torch.where(r, c[:k].sum() + prefix, -1))
+    nc = int(counts[0].sum())
+    # a non-representative's partner is a neighbour: its coarse id arrives
+    # on the entry that points at it
+    ext = _exchange(cid, sends, sh.axis)
+    for k, ((lrow, slot), e, b, m) in enumerate(zip(slots, ext, nb, match_l)):
+        partner = torch.full((rows,), _BIG, dtype=torch.int64, device=b.device).scatter_reduce_(
+            0, lrow, torch.where(b == m[lrow], e[slot], _BIG), "amin")
+        cid[k] = torch.where(rep[k], cid[k], torch.where(partner < _BIG, partner, -1))
+    ext = _exchange(cid, sends, sh.axis)
+    blocks = ([], [], [])
+    for k, ((lrow, slot), e, c) in enumerate(zip(slots, ext, cid)):
+        cnt, dev = sh.nnz_counts[k], c.device
+        cu, cv = c[lrow], e[slot]
+        keep = (cu >= 0) & (cv >= 0) & (cu != cv)
+        vals = torch.ones((cnt,), dtype=torch.float32, device=dev) if sh.vals is None else sh.vals[k][:cnt].float()
+        for out, fill, dtype, part in ((blocks[0], nc, torch.int32, torch.where(keep, cu, nc)),
+                                       (blocks[1], 0, torch.int32, torch.where(keep, cv, 0)),
+                                       (blocks[2], 0, torch.float32, torch.where(keep, vals, 0.0))):
+            out.append(torch.cat([part.to(dtype), torch.full((width - cnt,), fill, dtype=dtype, device=dev)]))
+    route = {}
+    out = ShardedCSR._from_blocks(*blocks, True, (nc, nc), sh.devices, sh.axis, stats=route)
+    reads = 1 + route["host_reads"]
+    if halo:
+        out = out.with_halo()
+        reads += 1
+    _add(stats, host_reads=reads)
+    return (out, _join(cid, mesh, n).to(torch.int32)) if return_mapping else out
+
+
+# -- the multilevel BFS and RCM -------------------------------------------------
+def _level_correct(sh: ShardedCSR, levels, mesh: Mesh, rounds: int) -> torch.Tensor:
+    """``rounds`` Bellman-Ford relaxations of the (n,) int32 level field
+    ``levels``: ``lev = min(lev, least neighbour level + 1)``, one exchange
+    a round; -1 (unreached) stays -1. Reads nothing back."""
+    rows = sh.rows_per_shard
+    slots, sends = _slots(sh), _sends(sh)
+    lev = _put(sh, levels, fill=-1, dtype=torch.int32)
+    for _ in range(int(rounds)):
+        masked = [torch.where(lv < 0, _BIG, lv) for lv in lev]
+        ext = _exchange(masked, sends, sh.axis)
+        new = []
+        for (lrow, slot), e, mk, lv in zip(slots, ext, masked, lev):
+            nmin = torch.full((rows,), _BIG, dtype=torch.int32, device=lv.device).scatter_reduce_(0, lrow, e[slot], "amin")
+            new.append(torch.where(lv < 0, -1, torch.minimum(mk, torch.clamp(nmin, max=_BIG - 1) + 1)))
+        lev = new
+    return _join(lev, mesh, sh.shape[0])
+
+
+def _project_levels(coarse: torch.Tensor) -> torch.Tensor:
+    """A level walked one contraction up, ``2 * level`` (-1 stays -1),
+    saturated at INT32_MAX - 1: where the ladder shrinks slowly the doubled
+    levels pass 2**31, which JAX's int32 cast wraps to negative values that
+    then read as unreached; saturating keeps reachability exact."""
+    return torch.where(coarse < 0, -1, torch.clamp(2 * coarse.long(), max=_BIG - 1)).to(torch.int32)
+
+
+def bfs_levels_multilevel(sh: ShardedCSR, root: int, mesh: Mesh, coarsen_until: int = 4096,
+                          correction_rounds: int = 2, matching_rounds: int = 8, max_levels: int = 24,
+                          stats: Optional[dict] = None):
+    """Approximate BFS levels in fewer synchronous steps than the diameter:
+    a ladder of pattern matchings and contractions down to
+    ``coarsen_until`` vertices (each level roughly halves the diameter), the
+    exact BFS on the coarsest graph, then back up each level projecting
+    ``lev = 2 * lev_coarse[map]`` (a device gather) and smoothing with
+    ``correction_rounds`` relaxations. The levels are approximate (a level
+    can exceed n when the ladder shrinks slowly, and saturates at INT32_MAX
+    - 1, :func:`_project_levels`); reachability is exact.
+
+    Returns ``(levels (n,) int32, steps)``: ``steps`` counts the synchronous
+    exchanges as JAX counts them (``2 * matching_rounds + 3`` a contraction,
+    the coarse BFS's levels, ``correction_rounds`` a level back up).
+    ``stats``, a dict, receives ``levels`` (contractions kept), ``sizes``
+    (n down the ladder), ``coarse_depth`` and ``host_reads``."""
+    _require_halo(sh)
+    _shards(sh, mesh)
+    reads = {}
+    ladder, maps, cur, steps = [sh], [], sh, 0
+    while cur.shape[0] > max(int(coarsen_until), 1) and len(maps) < max_levels:
+        match = heavy_edge_matching(cur, mesh, rounds=matching_rounds, weighted=False)
+        nxt, cid = coarsen(cur, match, mesh, halo=True, return_mapping=True, stats=reads)
+        steps += 2 * matching_rounds + 3  # the handshakes and the relabelling exchanges
+        if nxt.shape[0] >= cur.shape[0]:
+            break  # the matching stalled
+        maps.append(cid.long())
+        ladder.append(nxt)
+        cur = nxt
+    r = int(root)
+    for cid in maps:  # the root's coarse id, a 1-element view (indexing by a 0-d tensor reads it back)
+        r = cid[r : r + 1] if isinstance(r, int) else cid.index_select(0, r)
+    lev, depth = _bfs_sharded(cur, r if isinstance(r, int) else r[0], mesh, stats=reads)
+    lev = _join(lev, mesh, cur.shape[0])
+    steps += depth
+    for level in range(len(maps) - 1, -1, -1):
+        lev = _level_correct(ladder[level], _project_levels(lev[maps[level]]), mesh, correction_rounds)
+        steps += int(correction_rounds)
+    if stats is not None:
+        stats.update(levels=len(maps), sizes=[s.shape[0] for s in ladder], coarse_depth=depth)
+        _add(stats, host_reads=reads["host_reads"])
+    return lev, steps
+
+
+def rcm_reorder_ml(sh: ShardedCSR, mesh: Mesh, root: int = 0, coarsen_until: int = 4096,
+                   correction_rounds: int = 2, stats: Optional[dict] = None):
+    """RCM-class ordering from :func:`bfs_levels_multilevel`: the rank of
+    (level, degree, id) reversed over the reached vertices
+    (:func:`.dist._rcm_rank`, K5), the variant for graphs whose diameter
+    is large. Returns ``(the (n,) int32 inverse permutation, steps)``;
+    ``stats`` as :func:`bfs_levels_multilevel`'s, with the rank's read."""
+    levels, steps = bfs_levels_multilevel(sh, root, mesh, coarsen_until=coarsen_until,
+                                          correction_rounds=correction_rounds, stats=stats)
+    order = _rcm_rank(levels, degrees(sh, mesh), sh.shape[0])
+    _add(stats, host_reads=1)
+    return order, steps
+
+
+# -- the multilevel partitioner -------------------------------------------------
+def _coarsest_init(sh: ShardedCSR, k: int, mesh: Mesh, vw, balance, lp_iters, stats: Optional[dict] = None):
+    """The initial partition of the coarsest V-cycle graph: past 4096
+    vertices distributed label propagation with the vertex weights ``vw``;
+    else, as METIS solves its coarsest graph, on the host: the graph comes
+    back (``to_csr``), is symmetrized, and the best of four weighted region
+    growths, each refined, is kept (``np.random.default_rng(0x5EED)`` in
+    JAX's call order). Returns (n,) int32 labels on the mesh's first
+    device."""
+    from ..ops.partition.multilevel import _refine, _region_grow, _symmetrize
+
+    n = sh.shape[0]
+    if n > 4096:
+        _add(stats, host_reads=1)  # the weights' total
+        return label_prop_partition(sh, k, mesh, num_iters=lp_iters, balance=balance, vertex_weights=vw)
+    csr = sh.to_csr()
+    indptr = csr.indptr.cpu().numpy().astype(np.int64)
+    indices = csr.indices.cpu().numpy().astype(np.int64)
+    ew = np.ones(csr.nnz, np.float64) if csr.vals is None else np.abs(csr.vals.cpu().numpy()).astype(np.float64)
+    ip, ix, ew = _symmetrize(indptr, indices, ew, n)
+    vwts = torch.as_tensor(vw).cpu().numpy().astype(np.float64)[:n]
+    _add(stats, host_reads=3 + (csr.vals is not None), host_writes=1)
+    cap = balance * float(vwts.sum()) / k
+    rng = np.random.default_rng(0x5EED)
+    best_lab, best_cut = None, None
+    row = np.repeat(np.arange(n, dtype=np.int64), np.diff(ip))
+    for _ in range(4):
+        lab = _region_grow(ip, ix, ew, vwts, k, rng, cap)
+        lab = _refine(ip, ix, ew, vwts, lab, k, cap, rounds=8, rng=rng)
+        c = float(ew[lab[row] != lab[ix]].sum())
+        if best_cut is None or c < best_cut:
+            best_lab, best_cut = lab, c
+    return torch.as_tensor(best_lab.astype(np.int32)).to(mesh.first_device)
+
+
+def multilevel_partition(sh: ShardedCSR, k: int, mesh: Mesh, coarsen_until: int = 256, max_levels: int = 8,
+                         lp_iters: int = 20, refine_rounds: int = 6, balance: float = 1.1,
+                         stats: Optional[dict] = None):
+    """Distributed multilevel k-way partitioning (a V-cycle): a ladder of
+    :func:`heavy_edge_matching` and :func:`coarsen` down to
+    ``coarsen_until`` vertices (stopping when a level shrinks by less than
+    5%), :func:`_coarsest_init` and :func:`refine_partition` on the
+    coarsest graph, then back up: each level's labels are its coarse
+    vertices' (a device gather), refined at that level. A coarse vertex
+    weighs the float32 sum of its fine vertices (exact below 2**24), and
+    every level balances by weight. :func:`_enforce_balance` ends it.
+    Returns the (n,) int32 labels on the mesh's first device. ``stats``, a
+    dict, receives ``levels``, ``sizes``, ``host_reads`` and
+    ``host_writes``."""
+    _require_halo(sh)
+    n = _shards(sh, mesh)[0]
+    counts = {}
+    ladder, maps = [sh], []
+    weights = [torch.ones((n,), dtype=torch.float32, device=mesh.first_device)]
+    cur = sh
+    for _ in range(max_levels):
+        if cur.shape[0] <= coarsen_until:
+            break
+        m = heavy_edge_matching(cur, mesh, rounds=6)
+        nxt, cid = coarsen(cur, m, mesh, return_mapping=True, stats=counts)
+        if nxt.shape[0] >= int(cur.shape[0] * 0.95):
+            break  # the matching stalled
+        maps.append(cid.long())
+        weights.append(torch.zeros((nxt.shape[0],), dtype=torch.float32, device=mesh.first_device).index_add_(
+            0, maps[-1], weights[-1]))
+        ladder.append(nxt)
+        cur = nxt
+    labels = _coarsest_init(cur, k, mesh, weights[-1], balance, lp_iters, stats=counts)
+    labels = refine_partition(cur, labels, k, mesh, rounds=refine_rounds, balance=balance, vertex_weights=weights[-1])
+    for level in range(len(maps) - 1, -1, -1):
+        labels = refine_partition(ladder[level], labels[maps[level]], k, mesh, rounds=refine_rounds, balance=balance,
+                                  vertex_weights=weights[level])
+    _add(counts, host_reads=len(maps) + 1)  # each refinement reads its weights' total
+    labels = _enforce_balance(sh, labels, k, mesh, balance, stats=counts)
+    if stats is not None:
+        stats.update(levels=len(maps), sizes=[s.shape[0] for s in ladder])
+        _add(stats, host_reads=counts.get("host_reads", 0), host_writes=counts.get("host_writes", 0))
+    return labels
+
+
+def _enforce_balance(sh: ShardedCSR, labels, k: int, mesh: Mesh, balance: float, stats: Optional[dict] = None):
+    """The final balance guarantee of :func:`multilevel_partition`, a host
+    post-pass (METIS's ``ufactor`` contract): when refinement cannot reach
+    the cap (a hub cluster contracted into a coarse vertex heavier than
+    it), the lowest-degree members of over-cap parts move to the lightest
+    parts until every part fits. Labels within the cap come back as they
+    are; an infeasible cap (every part at ``floor(cap)``) logs a warning
+    and returns the best effort. Returns (n,) int32 labels on the mesh's
+    first device."""
+    n = sh.shape[0]
+    labels = torch.as_tensor(labels).to(mesh.first_device)
+    lab = labels.cpu().numpy().reshape(-1)[:n].astype(np.int32)
+    _add(stats, host_reads=1)
+    cap = balance * n / k
+    sizes = np.bincount(lab, minlength=k).astype(np.int64)
+    if sizes.max() <= cap:
+        return labels.reshape(-1)[:n].to(torch.int32)
+    deg = degrees(sh, mesh).cpu().numpy()[:n]
+    for p in np.argsort(-sizes):
+        excess = int(sizes[p] - np.floor(cap))
+        if excess <= 0:
+            continue
+        members = np.nonzero(lab == p)[0]
+        movers = members[np.argsort(deg[members], kind="stable")][:excess]
+        for v in movers:
+            if sizes[p] <= cap:
+                break
+            tgt = int(np.argmin(np.where(np.arange(k) == p, np.iinfo(np.int64).max, sizes)))
+            if sizes[tgt] + 1 > cap:
+                break  # nowhere to put it without overflowing the target
+            lab[v] = tgt
+            sizes[p] -= 1
+            sizes[tgt] += 1
+    if sizes.max() > cap:
+        # only when every part sits at the integer cap (floor(cap) * k < n):
+        # say so rather than hand back an over-cap labelling silently
+        Logger(type(sh)).warning(f"enforce_balance: infeasible at k={k} balance={balance:.3f} (max part "
+                                 f"{int(sizes.max())} > cap {cap:.1f}); returning best effort")
+    _add(stats, host_reads=1, host_writes=1)
+    return torch.as_tensor(lab).to(mesh.first_device)
+
+
+# -- SlashBurn ------------------------------------------------------------------
+def _active_degree(sh: ShardedCSR, alive) -> tuple:
+    """Each row's degree (int32) in the subgraph induced by ``alive`` (the
+    shards' (R,) bool pieces): one exchange of the mask, then each row's
+    count of live entries from a running count read at its bounds."""
+    ext = _exchange([a.to(torch.int32) for a in alive], _sends(sh), sh.axis)
+    out = []
+    for (lrow, slot), a, e, ip in zip(_slots(sh), alive, ext, sh.indptr):
+        seen = torch.cumsum(F.pad(a[lrow] & (e[slot] > 0), (1, 0)), 0)
+        out.append((seen[ip[1:]] - seen[ip[:-1]]).to(torch.int32))
+    return tuple(out)
+
+
+def _nbr_min(sh: ShardedCSR, vals) -> tuple:
+    """Each row's least neighbour value (the shards' (R,) int32 ``vals``,
+    one exchange and a scatter-min); a row without entries gets
+    INT32_MAX."""
+    ext = _exchange(vals, _sends(sh), sh.axis)
+    return tuple(torch.full((sh.rows_per_shard,), _BIG, dtype=torch.int32, device=e.device).scatter_reduce_(
+        0, lrow, e[slot], "amin") for (lrow, slot), e in zip(_slots(sh), ext))
+
+
+def slashburn_reorder(sh: ShardedCSR, mesh: Mesh, k_size: int = 64, hub_order: bool = False, bucket_cap: int = 4096,
+                      host_tail: int = 65536, host_tail_nnz: int = 2 << 20, compact_ratio: float = 0.5,
+                      stats: Optional[dict] = None):
+    """Distributed SlashBurn, the reference's non-greedy variant
+    (``SlashburnReorder(greedy=False)``, whose order it equals on a
+    symmetric adjacency): the k highest-degree hubs go to the front, the
+    components other than the giant one to the back, and the giant
+    component recurses.
+
+    A round on the mesh: the active degrees (:func:`_active_degree`), one
+    read of (largest degree, live entries), the hubs by a counting rank of
+    descending degree (:func:`_counting_rank`: K5 with ``bits_below(nb)``
+    and K3 per shard; ``nb`` sized from the largest degree, at least
+    ``bucket_cap``, so no degree clips), ``hub_order``'s discovering hub
+    (:func:`_nbr_min`), then :func:`connected_components` of the rest. The
+    host keeps the O(n) position bookkeeping. Rounds run in phases: when
+    the live entries fall below ``compact_ratio`` of the phase's first
+    round, the active subgraph is compacted and re-sharded
+    (``ShardedCSR.from_csr`` on the mesh); once the residual is host-sized
+    (``host_tail`` vertices or ``host_tail_nnz`` live entries) graphkit's
+    ``slashburn`` finishes it, else the numpy route. 0 turns a tier off.
+
+    Returns the (n,) int32 inverse permutation on the mesh's first device.
+    ``stats``, a dict, receives ``rounds`` (on the mesh), ``phases``,
+    ``compactions``, ``host_tail`` (the vertices finished on the host),
+    ``host_reads`` and ``host_writes`` (the masks copied to the card)."""
+    from .. import native
+    from ..ops.reorder.slashburn import SlashburnReorderParams, _place_spokes, _slashburn_host
+
+    _require_halo(sh)
+    _shards(sh, mesh)
+    first = mesh.first_device
+    k = max(int(k_size), 1)
+    nb_min = max(int(bucket_cap), 4)
+    n_glob = sh.shape[0]
+    counts = dict(rounds=0, phases=0, compactions=0, host_tail=0, host_reads=0, host_writes=0)
+
+    def read(t):
+        counts["host_reads"] += 1
+        return t.cpu().numpy()
+
+    def write(a):
+        counts["host_writes"] += 1
+        return torch.as_tensor(a).to(first)
+
+    def host_csr(c):
+        hc = c.to_csr()
+        return read(hc.indptr).astype(np.int64), read(hc.indices).astype(np.int64)
+
+    def induced(gip, gix, active, count):
+        """The subgraph induced by ``active``, ids compacted in order."""
+        n_cur = active.shape[0]
+        inv_id = np.full(n_cur, -1, np.int64)
+        verts = np.nonzero(active)[0]
+        inv_id[verts] = np.arange(count)
+        row_all = np.repeat(np.arange(n_cur, dtype=np.int64), np.diff(gip))
+        keep = active[row_all] & active[gix]
+        sub_r, sub_c = inv_id[row_all[keep]], inv_id[gix[keep]]
+        sub_ip = np.concatenate([[0], np.cumsum(np.bincount(sub_r, minlength=count))]).astype(np.int64)
+        return verts, sub_ip, sub_c
+
+    order = np.full(n_glob, -1, np.int64)
+    front, back = 0, n_glob - 1
+    cur = sh
+    vmap = np.arange(n_glob, dtype=np.int64)  # local id -> global id
+    first_phase = True
+    while True:  # phases
+        counts["phases"] += 1
+        n = cur.shape[0]
+        order_l = np.full(n, -1, np.int64)
+        active = np.ones(n, bool)
+
+        def cc_host(mask):
+            cc = {}
+            labels = connected_components(cur, mesh, alive=write(mask), stats=cc)
+            counts["host_reads"] += cc["host_reads"]
+            return read(labels).astype(np.int64)
+
+        if first_phase:
+            # the first spokes: everything outside the giant component (a
+            # compacted phase starts from a connected giant component)
+            labels = cc_host(active)
+            sizes = np.bincount(labels[labels >= 0], minlength=n)
+            gcc = int(np.argmax(sizes)) if sizes.size else 0
+            back, active = _place_spokes(order_l, labels, active, gcc, back)
+            first_phase = False
+        nnz_phase = None
+        compact = done = host_finish = False
+        while True:  # rounds
+            count = int(active.sum())
+            if count == 0:
+                done = True
+                break
+            if count < k:
+                verts = np.nonzero(active)[0]
+                order_l[verts] = back - count + 1 + np.arange(count)
+                back -= count
+                done = True
+                break
+            if 0 < host_tail >= count or host_finish:
+                # the connected residual goes to the host
+                gip, gix = host_csr(cur)
+                verts, sub_ip, sub_c = induced(gip, gix, active, count)
+                if native.available():
+                    sub_order = native.slashburn(count, sub_ip, sub_c, k, False, hub_order).numpy()
+                else:
+                    sub_order = _slashburn_host(sub_ip, sub_c, count, SlashburnReorderParams(k, False, hub_order))
+                order_l[verts] = front + np.asarray(sub_order, np.int64)
+                counts["host_tail"] = count
+                done = True
+                break
+            counts["rounds"] += 1
+            alive = _put(cur, write(active), fill=False)
+            deg = _active_degree(cur, alive)
+            # one read for both: the histogram's size and the live entries
+            # that decide compaction
+            dmax, nnz_act = (int(v) for v in read(torch.stack([pmax([dg.max() for dg in deg])[0].long(),
+                                                                psum([dg.sum() for dg in deg])[0]])))
+            if 0 < host_tail_nnz >= nnz_act:
+                host_finish = True
+                continue
+            if nnz_phase is None:
+                nnz_phase = max(nnz_act, 1)
+            elif compact_ratio > 0 and nnz_act < compact_ratio * nnz_phase:
+                compact = True
+                break
+            nb = max(nb_min, 1 << (dmax + 1).bit_length())
+            # descending degree, ascending id among ties (the stable rank);
+            # bucket nb - 1 holds the inactive rows
+            key = [torch.where(a, dmax - dg, nb - 1).to(torch.int32) for a, dg in zip(alive, deg)]
+            rank, _ = _counting_rank(cur, key, alive, nb)
+            ranks = read(_join(rank, mesh, n)).astype(np.int64)
+            hubs_mask = active & (ranks < k)
+            order_l[hubs_mask] = front + ranks[hubs_mask]
+            front += k
+            active = active & ~hubs_mask
+            hub_of = None
+            if hub_order:
+                hr = _put(cur, write(np.where(hubs_mask, ranks, _BIG).astype(np.int32)), fill=_BIG)
+                hub_of = read(_join(_nbr_min(cur, hr), mesh, n)).astype(np.int64)
+                hub_of = np.where(hub_of == _BIG, np.iinfo(np.int64).max, hub_of)
+            labels = cc_host(active)
+            live = labels[labels >= 0]
+            if live.size == 0:
+                done = True
+                break
+            sizes = np.bincount(live, minlength=n)
+            gcc = int(np.argmax(sizes))
+            back, active = _place_spokes(order_l, labels, active, gcc, back, hub_of)
+            if int(sizes[gcc]) < k:
+                verts = np.nonzero(active)[0]
+                order_l[verts] = back - verts.size + 1 + np.arange(verts.size)
+                back -= verts.size
+                done = True
+                break
+        placed = order_l >= 0
+        order[vmap[placed]] = order_l[placed]
+        if done:
+            break
+        # compact: re-shard the active induced subgraph at its true size
+        counts["compactions"] += 1
+        count = int(active.sum())
+        gip, gix = host_csr(cur)
+        verts, sub_ip, sub_c = induced(gip, gix, active, count)
+        vmap = vmap[verts]
+        sub = CSR(write(sub_ip), write(sub_c.astype(np.int32)), None, (count, count))
+        cur = ShardedCSR.from_csr(sub, mesh)
+        counts["host_reads"] += 2  # from_csr's shard counts, with_halo's list length
+    order = write(order.astype(np.int32))
+    if stats is not None:
+        _add(stats, **counts)
+    return order

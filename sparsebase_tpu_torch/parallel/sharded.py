@@ -242,9 +242,9 @@ class ShardedCSR(Format):
         # halo_counts[o][r] = reader r's request count to owner o
         counts = all_to_all(c_o)
         send = all_to_all([req for req, _ in built])
-        return dataclasses.replace(
-            self, halo_send=send, halo_counts=counts, halo_map=tuple(hm for _, hm in built)
-        )
+        out = dataclasses.replace(self, halo_send=send, halo_counts=counts, halo_map=tuple(hm for _, hm in built))
+        out.__dict__["nnz_counts"] = self.nnz_counts  # read once, kept
+        return out
 
     @staticmethod
     def from_coo_sharded(
@@ -267,13 +267,14 @@ class ShardedCSR(Format):
         ``pmax``'d scalar read back and rounded up to a power of two (at
         least 64). A load over an explicit capacity raises. After the route
         each shard's columns are cut to the same kind of power of two over
-        the largest true load. Halo metadata is not built here: call
-        :meth:`with_halo`. ``stats``, a dict, receives ``route_capacity``,
-        ``compacted_width`` and ``host_reads``."""
-        n, m = shape
+        the largest true load. An entry whose row is n or more takes a bucket
+        slot, as JAX's sentinel does, and is dropped after the route. Halo
+        metadata is not built here: call :meth:`with_halo`. ``stats``, a
+        dict, receives ``route_capacity``, ``compacted_width`` and
+        ``host_reads``."""
+        n = shape[0]
         devices = mesh.axis_devices(axis)
         d = len(devices)
-        rows = -(-n // d)
         nnz = int(row.shape[0])
         e = -(-nnz // d)  # entries per shard (the last block padded)
         row = convert_array_dtype(row, torch.int32)
@@ -286,11 +287,24 @@ class ShardedCSR(Format):
             piece = t[min(k * e, nnz) : min((k + 1) * e, nnz)]
             return F.pad(piece, (0, e - piece.shape[0]), value=fill).to(devices[k])
 
-        # pad entries: row n (routed to the last shard's pad space, dropped
-        # by the masks after the route), column 0, value 0
-        rowl = [block(row, k, n) for k in range(d)]
-        coll = [block(col, k, 0) for k in range(d)]
-        vall = [block(vals, k, 0) for k in range(d)]
+        # pad entries: row n (a row past the matrix, dropped after the
+        # route), column 0, value 0
+        return ShardedCSR._from_blocks([block(row, k, n) for k in range(d)], [block(col, k, 0) for k in range(d)],
+                                       [block(vals, k, 0) for k in range(d)], has_vals, shape, devices, axis,
+                                       route_capacity, stats)
+
+    @staticmethod
+    def _from_blocks(rowl, coll, vall, has_vals: bool, shape, devices, axis: str, route_capacity=None,
+                     stats: Optional[dict] = None) -> "ShardedCSR":
+        """:meth:`from_coo_sharded` on entries already cut into the shards'
+        equal blocks: ``rowl``, ``coll``, ``vall``, one int32 (int32, value)
+        tensor a shard on its device. An entry whose row is n or more is
+        routed as the pad row n, as JAX's sentinel: it fills a bucket slot,
+        counts toward the loads and the capacity, and is dropped after the
+        route."""
+        n, m = shape
+        d = len(devices)
+        rows = -(-n // d)
         # the route's sort by (owner, row) comes first: its per-owner counts
         # (K3 over the sorted owners) are the JAX counting pass
         routed = [_route_sort(rowl[k], coll[k], vall[k], n, rows, d) for k in range(d)]
@@ -300,21 +314,20 @@ class ShardedCSR(Format):
         else:
             cap = _pow2_at_least_64(int(pmax([torch.diff(r[4]).max() for r in routed])[0]))
             reads += 1
-        sends = [_route_send(*r, n, d, cap) for r in routed]
+        sends = [_route_send(*r[:5], n, d, cap) for r in routed]
         recv = [all_to_all([s[i] for s in sends]) for i in range(3)]
-        # one read: the overflow and each bucket's load; the pad rows (= n)
-        # sort last in their owner's bucket, so its true entries are a prefix
+        # one read: the overflow, each bucket's load and its pad rows; the
+        # pad rows sort last in their owner's bucket, so its true entries
+        # are a prefix
         first = devices[0]
         loads = [torch.diff(r[4]).to(first) for r in routed]
         overflow = sum(torch.clamp(load - cap, min=0).sum() for load in loads)
-        head = torch.cat([overflow.reshape(1)] + loads).tolist()
+        head = torch.cat([overflow.reshape(1)] + loads + [r[5].to(first) for r in routed]).tolist()
         reads += 1
-        pad_owner = min(n // max(rows, 1), d - 1)
-        for k in range(d):
-            head[1 + k * d + pad_owner] -= e - (min((k + 1) * e, nnz) - min(k * e, nnz))
         if head[0] > 0:
             raise ValueError(f"from_coo_sharded: routing bucket overflow — raise route_capacity (cap={cap})")
-        sent = [head[1 + s * d : 1 + (s + 1) * d] for s in range(d)]  # sent[s][r]: from shard s to r
+        # sent[s][r]: the true entries from shard s to shard r
+        sent = [[head[1 + s * d + r] - head[1 + d * d + s * d + r] for r in range(d)] for s in range(d)]
         counts = tuple(sum(sent[s][r] for s in range(d)) for r in range(d))
         w_c = min(_pow2_at_least_64(max(counts)), d * cap)
         local = []
@@ -413,12 +426,17 @@ def balanced_row_order(csr: CSR, d: int) -> torch.Tensor:
 # -- the per-shard passes (each JAX shard_map body, for one shard) -----------
 def _route_sort(rowl, coll, vall, n: int, rows: int, d: int):
     """Sort this shard's entries by (owner, row) (K5): ``(owners, rows,
-    cols, vals, bounds)``, ``bounds`` the (d+1,) start of each owner's run
-    (K3). Pad rows (= n) land in the last owner's run, last, and count
-    toward its load, so a capacity sized from the loads fits them too."""
+    cols, vals, bounds, pads)``, ``bounds`` the (d+1,) start of each owner's
+    run (K3), ``pads`` each run's pad rows. A row of n or more is owned by
+    its row block, as JAX's, and becomes the pad row n, which sorts last in
+    its owner's run and counts toward its load, so a capacity sized from
+    the loads fits it too."""
     owner = torch.clamp(rowl // max(rows, 1), max=d - 1).to(torch.int32)
+    rowl = torch.clamp(rowl, max=n)
     owner_s, row_s, col_s, val_s = sort_by_pairs(owner, rowl, coll, vall, major_bound=d, minor_bound=n + 1)
-    return owner_s, row_s, col_s, val_s, indptr_from_sorted_rows(owner_s, d)
+    bounds = indptr_from_sorted_rows(owner_s, d)
+    seen = torch.cumsum(F.pad(row_s == n, (1, 0)), 0)
+    return owner_s, row_s, col_s, val_s, bounds, seen[bounds[1:]] - seen[bounds[:-1]]
 
 
 def _route_send(owner_s, row_s, col_s, val_s, bounds, n: int, d: int, cap: int):

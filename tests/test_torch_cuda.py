@@ -1603,3 +1603,108 @@ def test_sharded2d_on_card(dev, gen):
     y = sharded2d.spmv(tiles, x, card_mesh)
     within_bound_of_plain(y, csr, x)
     assert torch.equal(sharded2d.degrees(tiles, card_mesh), csr.degrees())
+
+
+def symmetric_graph(gen, dev, n, pairs):
+    """A symmetric random pattern on the card: ``pairs`` uniform pairs
+    without self-loops, mirrored, repeats dropped."""
+    u = torch.randint(0, n, (pairs,), generator=gen, device=dev)
+    v = (u + torch.randint(1, n, (pairs,), generator=gen, device=dev)) % n
+    keys = torch.unique(torch.cat([u * n + v, v * n + u]))
+    return COO.new((keys // n).to(torch.int32), (keys % n).to(torch.int32), None, (n, n)).convert(CSR)
+
+
+MULTILEVEL_FUNCTIONS = {  # name -> call on (sharded, mesh, stats), an int32 tensor on the mesh's first device
+    "heavy_edge_matching": lambda sh, m, st: halo.heavy_edge_matching(sh, m),
+    "heavy_edge_matching pattern": lambda sh, m, st: halo.heavy_edge_matching(sh, m, rounds=8, weighted=False),
+    "coarsen": lambda sh, m, st: halo.coarsen(sh, halo.heavy_edge_matching(sh, m), m, return_mapping=True,
+                                              stats=st)[1],
+    "bfs_levels_multilevel": lambda sh, m, st: halo.bfs_levels_multilevel(sh, 0, m, coarsen_until=1000,
+                                                                          stats=st)[0],
+    "rcm_reorder_ml": lambda sh, m, st: halo.rcm_reorder_ml(sh, m, coarsen_until=1000, stats=st)[0],
+    "multilevel_partition": lambda sh, m, st: halo.multilevel_partition(sh, 8, m, coarsen_until=1000, stats=st),
+    "slashburn_reorder": lambda sh, m, st: halo.slashburn_reorder(sh, m, k_size=256, host_tail=0, host_tail_nnz=0,
+                                                                  stats=st),
+    "slashburn_reorder hybrid": lambda sh, m, st: halo.slashburn_reorder(sh, m, k_size=256, host_tail=2000,
+                                                                         stats=st),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MULTILEVEL_FUNCTIONS))
+def test_multilevel_on_card_equals_cpu(dev, gen, shard_meshes, name):
+    """Each multilevel ``halo`` function on a 4-shard mesh of the card equal
+    to the CPU mesh's result on a symmetric random graph of 6,000 vertices;
+    its host syncs (reads back and mask copies to the card) are the ones
+    ``stats=`` counts. K5 and K3 launch in the contractions' route and the
+    counting ranks; the hybrid SlashBurn, whose residual is host-sized after
+    its first degree pass, ranks nothing on the card."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR
+
+    card_mesh, cpu_mesh = shard_meshes
+    csr = symmetric_graph(gen, dev, 6_000, 30_000)
+    sh = ShardedCSR.from_csr(csr, card_mesh)
+    host = ShardedCSR.from_csr(csr.to_host(), cpu_mesh)
+    fn = MULTILEVEL_FUNCTIONS[name]
+    before = _build.launch_counts()
+    stats = {}
+    syncs, got = count_syncs(lambda: fn(sh, card_mesh, stats))
+    after = _build.launch_counts()
+    assert got.device == dev and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), fn(host, cpu_mesh, {})), name
+    assert len(syncs) == stats.get("host_reads", 0) + stats.get("host_writes", 0), (name, len(syncs), stats)
+    # the matchings sort nothing; the hybrid SlashBurn hands this graph to
+    # the host after one degree pass, before any counting rank
+    if name not in ("heavy_edge_matching", "heavy_edge_matching pattern", "slashburn_reorder hybrid"):
+        assert after["radix_rank"] > before["radix_rank"] and after["indptr"] > before["indptr"]
+    else:
+        assert stats.get("rounds", 0) <= 1
+
+
+def test_coarse_graph_and_passes_on_card_equal_cpu(dev, gen, shard_meshes):
+    """``coarsen``'s container, the level correction, the active-degree and
+    neighbour-min passes, ``_coarsest_init`` and ``_enforce_balance`` on the
+    card equal to the CPU mesh's."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR
+
+    card_mesh, cpu_mesh = shard_meshes
+    csr = symmetric_graph(gen, dev, 3_000, 12_000)
+    sh, host = ShardedCSR.from_csr(csr, card_mesh), ShardedCSR.from_csr(csr.to_host(), cpu_mesh)
+    match = halo.heavy_edge_matching(host, cpu_mesh)
+    coarse, want = halo.coarsen(sh, match.to(dev), card_mesh), halo.coarsen(host, match, cpu_mesh)
+    for name in ("indptr", "indices", "vals", "nnz_local", "halo_send", "halo_counts", "halo_map"):
+        assert torch.equal(coarse.stacked(name).cpu(), want.stacked(name)), name
+    lev = torch.randint(-1, 50, (3_000,), generator=gen, device=dev, dtype=torch.int32)
+    assert torch.equal(halo._level_correct(sh, lev, card_mesh, 3).cpu(), halo._level_correct(host, lev.cpu(), cpu_mesh, 3))
+    alive = torch.rand((3_000,), generator=gen, device=dev) < 0.7
+    vals = torch.randint(0, 100, (3_000,), generator=gen, device=dev, dtype=torch.int32)
+    for card_out, cpu_out in ((halo._active_degree(sh, halo._put(sh, alive, fill=False)),
+                               halo._active_degree(host, halo._put(host, alive.cpu(), fill=False))),
+                              (halo._nbr_min(sh, halo._put(sh, vals, fill=2**31 - 1)),
+                               halo._nbr_min(host, halo._put(host, vals.cpu(), fill=2**31 - 1)))):
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(card_out, cpu_out))
+    vw = torch.randint(1, 4, (3_000,), generator=gen, device=dev).to(torch.float32)
+    assert torch.equal(halo._coarsest_init(sh, 4, card_mesh, vw, 1.1, 5).cpu(),
+                       halo._coarsest_init(host, 4, cpu_mesh, vw.cpu(), 1.1, 5))
+    over = torch.where(torch.arange(3_000, device=dev) < 2_000, 0, torch.arange(3_000, device=dev) % 4).to(torch.int32)
+    got = halo._enforce_balance(sh, over, 4, card_mesh, 1.1)
+    assert got.device == dev and torch.equal(got.cpu(), halo._enforce_balance(host, over.cpu(), 4, cpu_mesh, 1.1))
+
+
+def test_ingest_drops_rows_past_n_on_card(dev, gen, shard_meshes):
+    """Fault 3.5 on the card: entries whose row is n or more take route
+    slots and are dropped; every field equal to the CPU mesh's."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR
+
+    card_mesh, cpu_mesh = shard_meshes
+    n = 20_000
+    row = torch.randint(0, n, (200_000,), generator=gen, device=dev, dtype=torch.int32)
+    col = torch.randint(0, n, (200_000,), generator=gen, device=dev, dtype=torch.int32)
+    past = torch.rand((200_000,), generator=gen, device=dev) < 0.3
+    row = torch.where(past, n + torch.randint(0, 3 * n, (200_000,), generator=gen, device=dev, dtype=torch.int32), row)
+    vals = torch.randn((200_000,), generator=gen, device=dev)
+    stats, host_stats = {}, {}
+    card = ShardedCSR.from_coo_sharded(row, col, vals, (n, n), card_mesh, stats=stats).with_halo()
+    want = ShardedCSR.from_coo_sharded(row.cpu(), col.cpu(), vals.cpu(), (n, n), cpu_mesh, stats=host_stats).with_halo()
+    assert stats == host_stats and card.nnz == int((~past).sum())
+    for name in ("indptr", "indices", "vals", "nnz_local", "halo_send", "halo_counts", "halo_map"):
+        assert torch.equal(card.stacked(name).cpu(), want.stacked(name)), name

@@ -484,6 +484,32 @@ def test_chip_smoke_k7_tier_cases_leave_the_path_draws(monkeypatch):
     assert not torch.equal(cases[0][2], other[0][2])
 
 
+def test_chip_smoke_path_k_on_the_cpu(monkeypatch, capsys):
+    """``chip_smoke.path_k`` rehearsed on the CPU at a small size, with the
+    card's clocks, memory counters and launch counts stubbed:
+    every check of phase 4 holds, at d = 4 and d = 1 alike, and phase 5
+    times each function."""
+    smoke = _chip_smoke()
+    from sparsebase_tpu_torch.parallel import make_mesh
+
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(smoke, "read_launches", lambda path, required: {})
+    monkeypatch.setattr(smoke, "POWER_LAW_CARD", (3_000, 48_000))
+    monkeypatch.setattr(smoke, "POWER_LAW_HOST", (1_500, 12_000))
+    monkeypatch.setattr(smoke, "SLASHBURN_CARD_K", 15)
+    cpu = torch.device("cpu")
+    meshes = type("J", (), {"mesh": make_mesh(devices=[cpu] * 4), "mesh1": make_mesh(devices=[cpu])})
+    g = torch.Generator().manual_seed(0)
+    assert smoke.path_k(g, cpu, meshes, 4_000, 32_000, 3_000) == {}
+    out = capsys.readouterr().out
+    assert "equal to the plain contraction" in out and "every vertex reached" in out
+    assert out.count("equal to native.slashburn(greedy=False)") == 2 and out.count("the hubs first") == 2
+    assert out.count("phase 5 path K d=") == 20
+
+
 # rows [1, 1, 2], [0, 1, 3], [0], [1, 2] (degrees 3, 3, 1, 2): 4 deg v and a
 # 16-byte indptr pair for each entry the mode counts. jaccard: all nine, deg v
 # summing to 22; triangles: not (1, 1) nor the second (0, 1), 16 over seven;

@@ -339,6 +339,54 @@ class TestShardedCSR:
 
 
 # -- nnz-balanced row blocks ----------------------------------------------------------
+class TestSentinelRows:
+    """ROADMAP.md §3, fault 3.5: ``from_coo_sharded`` given rows equal to n
+    and past it. JAX routes each as the pad row n from its own row block: it
+    fills a bucket slot and counts toward the loads and the capacity, never
+    toward a shard's entries, the compacted width or the local sort. The
+    port's container, capacity, width and halo lists equal JAX's; the values
+    of the true entries are compared in canonical order (the tail past them
+    holds whatever JAX's unstable sort left there)."""
+
+    # (n, d): the repro of ROADMAP.md §3 (n = 40), and n = 5 on 4 shards,
+    # whose row n lies in shard 2's block and the rows past it in shard 3's.
+    # Half the sentinel rows are n, half past it
+    @pytest.mark.parametrize("n,d", [(40, 4), (40, 8), (5, 4)])
+    def test_equals_jax(self, n, d):
+        rng = np.random.default_rng(0)
+        row, col = rng.integers(0, n, 300), rng.integers(0, n, 300)
+        vals = rng.random(300).astype(np.float32)
+        sentinel = rng.random(300) < 0.3
+        row[sentinel] = n
+        past = sentinel & (rng.random(300) < 0.5)
+        row[past] += rng.integers(1, 3 * n, int(past.sum()))
+        rmesh, pmesh = ref_make_mesh(d), make_mesh(devices=["cpu"] * d)
+        want = RefShardedCSR.from_coo_sharded(jnp.asarray(row, jnp.int32), jnp.asarray(col, jnp.int32),
+                                              jnp.asarray(vals), (n, n), rmesh).with_halo()
+        stats = {}
+        got = ShardedCSR.from_coo_sharded(torch.as_tensor(row), torch.as_tensor(col), torch.as_tensor(vals), (n, n),
+                                          pmesh, stats=stats).with_halo()
+        rows, e = -(-n // d), -(-300 // d)
+        load = int(np.asarray(ref_sharded._route_counts_runner(rmesh, "x", d, rows, e, n)(
+            jnp.asarray(np.r_[row, np.full(d * e - 300, n)].astype(np.int32)))).reshape(-1)[0])
+        assert stats["route_capacity"] == max(64, 1 << (max(load, 1) - 1).bit_length())
+        assert stats["compacted_width"] == got.width == np.asarray(want.indices).shape[1]
+        assert got.nnz_counts == tuple(np.asarray(want.nnz_local).tolist())
+        assert sum(got.nnz_counts) == int((row < n).sum())
+        assert_same_container(got, want, ("indptr", "indices", "nnz_local", "halo_send", "halo_counts"))
+        g, w = to_numpy(got), {name: np.asarray(getattr(want, name)) for name in ("vals", "halo_map")}
+        for k in range(d):
+            cnt = got.nnz_counts[k]
+            np.testing.assert_array_equal(g["halo_map"][k, :cnt], w["halo_map"][k, :cnt])
+            lrow = np.repeat(np.arange(rows), np.diff(g["indptr"][k]))
+            order = np.lexsort((g["vals"][k, :cnt], g["indices"][k, :cnt], lrow))
+            want_order = np.lexsort((w["vals"][k, :cnt], g["indices"][k, :cnt], lrow))
+            np.testing.assert_array_equal(g["vals"][k, :cnt][order], w["vals"][k, :cnt][want_order])
+        back, kept = got.to_csr(), row < n
+        want_csr = COO.new(torch.as_tensor(row[kept]), torch.as_tensor(col[kept]), None, (n, n)).convert(CSR)
+        assert torch.equal(back.indptr, want_csr.indptr) and torch.equal(back.indices, want_csr.indices)
+
+
 class TestBalancedSharding:
     @pytest.mark.parametrize("n", [20000, 20005])
     @pytest.mark.parametrize("d", SHARDS)

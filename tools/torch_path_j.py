@@ -1,14 +1,16 @@
-"""Path J of ``chip_smoke.py`` alone, at its full size, on one card: the
-kernels' build, path A's COO and source CSR (``--nnz`` entries, ``--seed``),
-path G's 32,768-vertex power-law graph (the halo check's), then
+"""Paths J and K of ``chip_smoke.py`` alone, at their full size, on one
+card: the kernels' build, path A's COO and source CSR (``--nnz`` entries,
+``--seed``), path G's 32,768-vertex power-law graph (the halo check's), then
 ``chip_smoke.path_j`` (its phases 3, 4 and 5 and its profiles; the
-components check's 8-block graph drawn last). The draws
-differ from the whole script's, which makes other graphs first.
+components check's 8-block graph drawn last) and ``chip_smoke.path_k`` on
+path J's meshes (its graphs drawn after path J's; path B's band of
+``--band-nnz`` entries). ``--paths k`` runs path K alone. The draws differ
+from the whole script's, which makes other graphs first.
 
-    python3 tools/torch_path_j.py [--nnz 100e6] [--seed 0]
+    python3 tools/torch_path_j.py [--nnz 100e6] [--band-nnz 64e6] [--paths jk] [--seed 0]
 
-Exits non-zero if any check fails; the last line is path J's launch counts
-and K2's largest difference from the plain SpMV.
+Exits non-zero if any check fails; the last line is the paths' launch
+counts and K2's largest difference from the plain SpMV on path J.
 """
 import argparse
 import sys
@@ -24,6 +26,8 @@ import chip_smoke as cs  # noqa: E402
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nnz", type=float, default=100e6)
+    ap.add_argument("--band-nnz", type=float, default=64e6)
+    ap.add_argument("--paths", choices=("j", "k", "jk"), default="jk")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     from sparsebase_tpu_torch import CSR
@@ -40,9 +44,16 @@ def main() -> None:
     x = torch.randn((n,), generator=g, device=dev)
     src = CSR(indptr_plain(coo.row, n), coo.col, coo.vals, coo.shape)
     host_graph = cs.power_law_pattern(g, dev, *cs.HOST_REORDER_GRAPH)
-    launches, err = cs.path_j(g, dev, coo, src, x, host_graph)
+    out = {}
+    if "j" in args.paths:
+        out["J"], out["max_abs_err"], j = cs.path_j(g, dev, coo, src, x, host_graph)
+    else:
+        j = cs.PathJ(g, dev, coo, src, x, host_graph)
+    if "k" in args.paths:
+        out["K"] = cs.path_k(g, dev, j, n - n % cs.PARTITION_K, nnz // 2,
+                             int(args.band_nnz) // (2 * cs.BAND_HALF_WIDTH + 1))
     print(f"tools/torch_path_j.py: {time.perf_counter() - t0:.1f} s in all")
-    print({"launches": launches, "max_abs_err": err})
+    print(out)
 
 
 if __name__ == "__main__":
