@@ -116,7 +116,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    band scrambled; ``slashburn_reorder`` (K5 and K3 in each counting rank)
    on ``POWER_LAW_CARD``'s graph mirrored without repeats, k = 0.5% of its
    vertices, ``hub_order`` off and on, and on ``POWER_LAW_HOST``'s with its
-   defaults and with every host tier and compaction off.
+   defaults and with every host tier and compaction off; path L, the rings
+   (``parallel.ring``) on a mesh of four shards of the card and on d = 1,
+   each graph ingested by ``from_coo_sharded`` (K5, K3) and its oracles,
+   K6 on the whole CSR (``TriangleCount``, directed too, and
+   ``JaccardWeights``): 128 disjoint cliques K_512 with shuffled ids (the
+   dense ``triangle_count`` and ``jaccard_flat`` at d = 4, 2^30 tile cells
+   a shard, ``MAX_DENSE_ELEMS`` exactly; the cliques with each pair
+   oriented by a coin, ``triangle_count(directed=True)`` at d = 4, and at
+   d = 1 its ``ValueError``), a uniform simple graph of 65,536 vertices (16
+   pairs a vertex, mirrored; both rings' four functions at d = 4, the
+   guard's sparse route at d = 1), a uniform simple graph of 2^20 vertices
+   and ``POWER_LAW_CARD``'s graph mirrored without repeats
+   (``triangle_count`` and ``jaccard_flat`` at d = 4 and d = 1, the
+   sparse ring), and ``bench_suite.run_distributed(shards=4)``.
    Every kernel of each path must have launched;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
@@ -221,7 +234,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the bandwidths printed; each SlashBurn order a permutation, the card
    graph's first k positions its k highest-degree vertices of the giant
    component, ids ascending on ties, and the host graph's orders equal to
-   graphkit's ``slashburn(greedy=False)``);
+   graphkit's ``slashburn(greedy=False)``); of path L (the cliques'
+   2,846,556,160 triangles, K6's count, every weight 510/512 and K6's bit
+   for bit, the directed count K6's; on the other graphs every count
+   equal to K6's, dense, sparse, d = 4 and d = 1, and every weight K6's
+   bit for bit; the suite's table on the card equal, but for its times, to
+   the same call on the CPU);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -289,7 +307,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    at d = 4 and d = 1, the host reads its ``stats=`` counts, the ladder's
    levels and sizes, the partition's peak memory, the
    multilevel BFS's steps, SlashBurn's rounds, phases, compactions, host
-   tail and host reads; K1's tiled layout alone;
+   tail and host reads; path L: each ring call's wall (one run after a
+   warm-up) beside the main run's and its peak memory, each dense call's
+   flop and rate, one step's product on one shard's block alone, the
+   sparse ring's ``_sparse_sizes`` and candidate slots; K1's tiled
+   layout alone;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -306,7 +328,8 @@ other paths, path E its phases 3, 4 and 5 after path D, path F its
 phases 3, 4 and 5 after path E, path G its phases 3, 4 and 5 after
 path F, path H its phases 3, 4 and 5 after path G, path I its phases
 3, 4 and 5 after path H, path J its phases 3, 4 and 5 and its
-profile after path I, and path K its phases 3, 4 and 5 after path J.
+profile after path I, path K its phases 3, 4 and 5 after path J, and
+path L its phases 3, 4 and 5 after path K.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -3275,6 +3298,262 @@ def path_k(g, dev, j: PathJ, n_blocks: int, nnz_blocks: int, band_n: int):
     return launches
 
 
+# path L: the rings. 128 disjoint cliques K_512 (n = 65,536): at d = 4 a
+# shard's tile is 16,384 × 65,536 = 2^30 cells, MAX_DENSE_ELEMS exactly
+PATH_L_CLIQUES = (128, 512)
+PATH_L_N = 65_536  # (b): the uniform graph where dense and sparse meet
+PATH_L_BIG_N = 1 << 20  # (c): the sparse ring at scale
+PATH_L_PAIRS = 16  # uniform pairs per vertex before mirroring
+
+
+def clique_entries(g, dev, count: int, size: int, directed: bool = False):
+    """``count`` disjoint cliques K_size, ids shuffled by a seeded
+    permutation: every ordered pair (u, v), u != v, of a clique, or, where
+    ``directed``, each pair once, oriented by a seeded coin. ``(row, col)``
+    int32, in clique order."""
+    n = count * size
+    perm = torch.randperm(n, generator=g, device=dev)
+    a = torch.arange(size, device=dev)
+    i, j = a.repeat_interleave(size), a.repeat(size)
+    keep = (i < j) if directed else (i != j)
+    i, j = i[keep], j[keep]
+    base = torch.arange(count, device=dev).repeat_interleave(i.numel()) * size
+    u, v = base + i.repeat(count), base + j.repeat(count)
+    if directed:
+        flip = torch.rand(u.shape, generator=g, device=dev) < 0.5
+        u, v = torch.where(flip, v, u), torch.where(flip, u, v)
+    return perm[u].to(torch.int32), perm[v].to(torch.int32)
+
+
+def uniform_simple(g, dev, n: int, per_vertex: int):
+    """``n * per_vertex`` uniform pairs with u != v, mirrored, repeats
+    dropped: ``(row, col)`` int32, sorted by (row, col)."""
+    row, col = random_pairs(g, dev, n, n * per_vertex)
+    keys = torch.unique(row.long() * n + col.long())
+    return (keys // n).to(torch.int32), (keys % n).to(torch.int32)
+
+
+def candidate_slots(csr) -> int:
+    """The sparse ring's expansion of a CSR: Σ over its entries (u, v), u !=
+    v, of min(deg u, deg v), the shorter list's candidates."""
+    deg = csr.degrees().long()
+    u, v = csr.row_of_nnz().long(), csr.indices.long()
+    return int(torch.where(u != v, torch.minimum(deg[u], deg[v]), 0).sum())
+
+
+class PathL:
+    """Path L: ``parallel.ring`` on a mesh of four shards that share the one
+    card (``make_mesh(devices=[cuda:0] * 4)``) and on d = 1, each graph
+    ingested by ``ShardedCSR.from_coo_sharded`` (K5, K3) and held to K6 on
+    the whole CSR (``TriangleCount``, ``TriangleCount(count_directed=True)``,
+    ``JaccardWeights``), whose CSR ``COO.new`` and ``convert(CSR)`` build
+    (K5, K3). (a) 128 disjoint cliques K_512, ids shuffled: the dense
+    ring's ``triangle_count`` and ``jaccard_flat`` at d = 4, where a shard's
+    tile is ``MAX_DENSE_ELEMS`` cells; the cliques with each pair oriented
+    by a coin, ``triangle_count(directed=True)`` at d = 4 and its
+    ``ValueError`` at d = 1. (b) A uniform simple graph of 65,536 vertices:
+    both rings' four functions at d = 4; at d = 1, where the guard routes to
+    the sparse ring, ``triangle_count`` and ``jaccard_flat``. (c) A uniform
+    simple graph of 2^20 vertices and ``POWER_LAW_CARD``'s graph mirrored
+    without repeats: ``triangle_count`` and ``jaccard_flat`` at d = 4 and
+    d = 1, both on the sparse ring. (d) ``bench_suite.run_distributed(shards
+    =4)`` on rand-20k."""
+
+    def __init__(self, g, dev):
+        from sparsebase_tpu_torch.parallel import make_mesh
+
+        self.dev = dev
+        self.meshes = {MESH_SHARDS: make_mesh(devices=[dev] * MESH_SHARDS), 1: make_mesh(devices=[dev])}
+        n_cliques = PATH_L_CLIQUES[0] * PATH_L_CLIQUES[1]
+        card = unique_pattern(power_law_pattern(g, dev, *POWER_LAW_CARD))
+        self.graphs = {  # name -> ((row, col), n)
+            "cliques": (clique_entries(g, dev, *PATH_L_CLIQUES), n_cliques),
+            "cliques directed": (clique_entries(g, dev, *PATH_L_CLIQUES, directed=True), n_cliques),
+            "uniform 65,536": (uniform_simple(g, dev, PATH_L_N, PATH_L_PAIRS), PATH_L_N),
+            "uniform 2^20": (uniform_simple(g, dev, PATH_L_BIG_N, PATH_L_PAIRS), PATH_L_BIG_N),
+            "power law": ((card.row_of_nnz(), card.indices), card.nrows),
+        }
+        del card
+        self.calls = {}  # (graph, d, function) -> the call, for phase 5
+        self.times = {}  # (graph, d, function) -> ms of the main run's call
+        self.peaks = {}  # (graph, d, function) -> device bytes above what was held
+
+    def sharded(self, name: str, d: int):
+        from sparsebase_tpu_torch.parallel import ShardedCSR
+
+        (row, col), n = self.graphs[name]
+        return ShardedCSR.from_coo_sharded(row, col, None, (n, n), self.meshes[d])
+
+    def call(self, key, fn):
+        """``fn()`` once, its wall time and its peak memory kept."""
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, self.times[key] = timed(fn)
+        self.peaks[key] = torch.cuda.max_memory_allocated() - held
+        self.calls[key] = fn
+        return out
+
+    def run(self):
+        """Every ring call once and the oracles: ``{graph: {key: result}}``."""
+        from sparsebase_tpu_torch import COO, CSR, bench_suite
+        from sparsebase_tpu_torch.ops.feature import JaccardWeights, TriangleCount
+        from sparsebase_tpu_torch.parallel import ring
+
+        plan = {  # graph -> [(d, function)]
+            "cliques": [(MESH_SHARDS, "triangle_count"), (MESH_SHARDS, "jaccard_flat")],
+            "cliques directed": [(MESH_SHARDS, "triangle_count directed")],
+            "uniform 65,536": [(MESH_SHARDS, "triangle_count"), (MESH_SHARDS, "jaccard_weights"),
+                               (MESH_SHARDS, "triangle_count_sparse"), (MESH_SHARDS, "jaccard_weights_sparse"),
+                               (1, "triangle_count"), (1, "jaccard_flat")],
+            "uniform 2^20": [(d, f) for d in (MESH_SHARDS, 1) for f in ("triangle_count", "jaccard_flat")],
+            "power law": [(d, f) for d in (MESH_SHARDS, 1) for f in ("triangle_count", "jaccard_flat")],
+        }
+        functions = {
+            "triangle_count": ring.triangle_count,
+            "triangle_count directed": lambda sh, m: ring.triangle_count(sh, m, directed=True),
+            "triangle_count_sparse": ring.triangle_count_sparse,
+            "jaccard_weights": ring.jaccard_weights,
+            "jaccard_weights_sparse": ring.jaccard_weights_sparse,
+            "jaccard_flat": ring.jaccard_flat,
+        }
+        out = {}
+        for name, calls in plan.items():
+            (row, col), n = self.graphs[name]
+            r = out[name] = {}
+            csr = COO.new(row, col, None, (n, n)).convert(CSR)
+            r["csr"] = csr
+            directed = name == "cliques directed"
+            r["K6 triangles"] = TriangleCount(directed).get_triangle_count(csr)
+            if not directed:
+                r["K6 jaccard"] = JaccardWeights().get_jaccard_weights(csr).vals
+            shards = {d: self.sharded(name, d) for d in sorted({d for d, _ in calls} | ({1} if directed else set()))}
+            r["shards"] = shards
+            for d, f in calls:
+                sh, mesh = shards[d], self.meshes[d]
+                r[(d, f)] = self.call((name, d, f), lambda sh=sh, mesh=mesh, f=f: functions[f](sh, mesh))
+            if directed:
+                try:
+                    ring.triangle_count(shards[1], self.meshes[1], directed=True)
+                    r["d=1 raised"] = None
+                except ValueError as err:
+                    r["d=1 raised"] = str(err)
+            r["sizes"] = {d: ring._sparse_sizes(sh, self.meshes[d]) for d, sh in shards.items()}
+        out["suite"] = self.call(("rand-20k", MESH_SHARDS, "run_distributed"),
+                                 lambda: bench_suite.run_distributed(shards=MESH_SHARDS))
+        return out
+
+
+def flat_of(padded, sh):
+    """Per-shard padded weights joined in the global entry order."""
+    return torch.cat([padded[k][: sh.nnz_counts[k]] for k in range(len(padded))])
+
+
+def phase_path_l_checks(p: PathL, out) -> None:
+    """Every count equal to K6's, every weight to K6's bit for bit, d = 4
+    equal to d = 1, and the closed forms."""
+    from sparsebase_tpu_torch import bench_suite
+
+    d4 = MESH_SHARDS
+    a, ad = out["cliques"], out["cliques directed"]
+    count, size = PATH_L_CLIQUES
+    want = count * (size * (size - 1) * (size - 2) // 6)  # 2,846,556,160 > 2^31 for 128 K_512
+    check(a[(d4, "triangle_count")] == want == a["K6 triangles"],
+          f"path L (a): {a[(d4, 'triangle_count')]} triangles on the cliques, K6 {a['K6 triangles']}, want {want}")
+    flat = a[(d4, "jaccard_flat")]
+    check(bool((flat == torch.tensor((size - 2) / size, dtype=torch.float32, device=flat.device)).all()),
+          f"path L (a): a clique's weight is not {size - 2}/{size}")
+    check_equal("path L (a) jaccard_flat vs K6 JaccardWeights", flat, a["K6 jaccard"])
+    check(ad[(d4, "triangle_count directed")] == ad["K6 triangles"],
+          f"path L (a): directed {ad[(d4, 'triangle_count directed')]} against K6's {ad['K6 triangles']}")
+    check(ad["d=1 raised"] is not None and "directed" in ad["d=1 raised"],
+          "path L (a): the directed count at d = 1 did not raise the guard's ValueError")
+    print(f"phase 4 path L (a) {PATH_L_CLIQUES[0]} cliques K_{PATH_L_CLIQUES[1]} (n={a['csr'].nrows}, "
+          f"{a['csr'].nnz} entries): {a[(d4, 'triangle_count')]} triangles, every weight {size - 2}/{size} and equal to "
+          f"K6's; "
+          f"directed {ad[(d4, 'triangle_count directed')]} 3-cycles equal to K6's ({ad['csr'].nnz} entries); d=1 "
+          f"raised: {ad['d=1 raised']!r}")
+    b = out["uniform 65,536"]
+    sh4 = b["shards"][d4]
+    tri = [b[(d4, "triangle_count")], b[(d4, "triangle_count_sparse")], b[(1, "triangle_count")]]
+    check(tri == [b["K6 triangles"]] * 3, f"path L (b): dense, sparse, d=1 {tri} against K6's {b['K6 triangles']}")
+    for label, got in (("jaccard_weights", flat_of(b[(d4, "jaccard_weights")], sh4)),
+                       ("jaccard_weights_sparse", flat_of(b[(d4, "jaccard_weights_sparse")], sh4)),
+                       ("jaccard_flat d=1", b[(1, "jaccard_flat")])):
+        check_equal(f"path L (b) {label} vs K6 JaccardWeights", got, b["K6 jaccard"])
+    print(f"phase 4 path L (b) uniform (n={b['csr'].nrows}, {b['csr'].nnz} entries): {tri[0]} triangles, dense, "
+          f"sparse and d=1 equal to K6; the weights of both rings and of d=1 equal to K6's bit for bit")
+    for name in ("uniform 2^20", "power law"):
+        c = out[name]
+        tri = [c[(d, "triangle_count")] for d in (d4, 1)]
+        check(tri == [c["K6 triangles"]] * 2, f"path L (c) {name}: {tri} against K6's {c['K6 triangles']}")
+        for d in (d4, 1):
+            check_equal(f"path L (c) {name} jaccard_flat d={d} vs K6 JaccardWeights", c[(d, "jaccard_flat")],
+                        c["K6 jaccard"])
+        print(f"phase 4 path L (c) {name} (n={c['csr'].nrows}, {c['csr'].nnz} entries): {tri[0]} triangles at d=4 "
+              f"and d=1, equal to K6, the weights equal to K6's bit for bit; _sparse_sizes {c['sizes']}; "
+              f"{candidate_slots(c['csr'])} candidate slots; peak device memory "
+              + ", ".join(f"d={d} {f} {p.peaks[(name, d, f)] / 2**30:.3f} GiB" for d in (d4, 1)
+                          for f in ("triangle_count", "jaccard_flat")))
+    card = out["suite"]
+    host = bench_suite.run_distributed(device="cpu", shards=MESH_SHARDS)
+    check(without_times(card) == without_times(host), f"path L (d) run_distributed on the card {card} vs the CPU {host}")
+    print(f"phase 4 path L (d) run_distributed(shards={MESH_SHARDS}) on the card equal, but for times, to the CPU "
+          f"call: {json.dumps(card)}")
+
+
+def phase_path_l_times(p: PathL) -> None:
+    """Each ring call's wall (``host_ms``, one run after a warm-up) beside
+    the main run's; each dense call's flop, rate and peak memory, and one
+    step's product on one shard's block alone."""
+    from sparsebase_tpu_torch.parallel import ring
+
+    for key, fn in p.calls.items():
+        name, d, f = key
+        if f == "run_distributed":
+            print(f"phase 5 path L {name} {f}(shards={d}) on the card: {p.times[key]:.3f} ms (one call)")
+            continue
+        ms = host_ms(fn, reps=1)
+        line = f"phase 5 path L {name} d={d} {f}: {ms:.3f} ms (main run {p.times[key]:.3f} ms)"
+        rows = -(-p.graphs[name][1] // d)
+        if f in ("triangle_count", "triangle_count directed", "jaccard_weights", "jaccard_flat") and \
+                rows * d * rows <= ring.MAX_DENSE_ELEMS:
+            flop = 2 * rows * rows * d * rows * d * d  # d steps on d shards
+            line += (f", dense: {flop:.4g} flop, {flop / (ms / 1e3) / 1e12:.1f} TFLOP/s, peak "
+                     f"{p.peaks[key] / 2**30:.3f} GiB above what was held")
+        else:
+            line += f", sparse: peak {p.peaks[key] / 2**30:.3f} GiB above what was held"
+        print(line)
+    # one step's product on one shard's block alone, at (a)'s shapes
+    sh = p.sharded("cliques", MESH_SHARDS)
+    rows = sh.rows_per_shard
+    tile = ring._densify(sh, 0, MESH_SHARDS * rows, True)
+    acc = torch.zeros((rows, MESH_SHARDS * rows), dtype=torch.float32, device=p.dev)
+    one = cuda_ms(lambda: ring._product(tile[:, :rows], tile, acc, add=True))
+    flop = 2 * rows * rows * MESH_SHARDS * rows
+    print(f"phase 5 path L one step's product (({rows}, {rows}) @ ({rows}, {MESH_SHARDS * rows}), {tile.dtype} into "
+          f"float32): {one:.4f} ms, {flop / (one / 1e3) / 1e12:.1f} TFLOP/s")
+    del tile, acc, sh
+
+
+def path_l(g, dev):
+    """Path L's phases 3, 4 and 5, after path K (the graphs draw from
+    ``g``). Returns its launch counts."""
+    from sparsebase_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    p = PathL(g, dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = p.run()
+    launches = read_launches("L", ("indptr", "radix_rank", "common_neighbors"))
+    phase_path_l_checks(p, out)
+    del out
+    phase_path_l_times(p)
+    print(f"phase 5 path L wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def read_launches(path: str, required) -> dict:
     from sparsebase_tpu_torch import _build
 
@@ -3492,8 +3771,10 @@ def main() -> None:
     launches_j, err_k2_j, path_j_state = path_j(g, dev, coo_a, src, x_a, host_graph)
     launches_k = path_k(g, dev, path_j_state, n_p, src.nnz // 2, coo_b.nrows)
     del path_j_state
+    launches_l = path_l(g, dev)
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
-                + launches_g[k] + launches_h[k] + launches_i[k] + launches_j[k] + launches_k[k] for k in launches_a}
+                + launches_g[k] + launches_h[k] + launches_i[k] + launches_j[k] + launches_k[k] + launches_l[k]
+                for k in launches_a}
 
     shapes = {
         "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],

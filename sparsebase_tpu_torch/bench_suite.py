@@ -4,6 +4,8 @@ Counterpart of ``sparsebase_tpu/bench_suite.py``. Usage::
 
     python -m sparsebase_tpu_torch.bench_suite [--device cuda|cpu] [--out BENCH.md] [--json]
         [--ash958 PATH] [--matrix NAME ...]
+    python -m sparsebase_tpu_torch.bench_suite --dist [--shards D] [--device cuda|cpu] [--ash958 PATH]
+        [--matrix NAME ...]
 
 Measures, per matrix (the reference's ash958, when ``--ash958`` gives the
 path of its ``examples/data/ash958.mtx``, and two synthetic graphs;
@@ -13,6 +15,10 @@ path of its ``examples/data/ash958.mtx``, and two synthetic graphs;
 * reorder quality: bandwidth/profile reduction per algorithm
 * partition quality: edge cut + balance vs a random baseline
 * hypergraph (column-net) partition quality: connectivity − 1
+
+``--dist`` prints the distributed table instead (:func:`run_distributed`):
+the halo and ring functions of ``parallel`` on a mesh of ``--shards``
+shards (default: every card) against the host algorithms.
 
 The graphs are generated with numpy on the host from a seed, as the JAX
 package generates them, and placed on the device afterwards, so both
@@ -223,6 +229,99 @@ def run(device: str = DEFAULT_DEVICE, names=None, ash958=None):
     return results
 
 
+def _dist_mesh(device, shards):
+    """The distributed table's 1-D mesh: every card where ``shards`` is None
+    (None where there are fewer than 2), else ``shards`` shards over the
+    first cards, naming ``device`` again where there are fewer cards (the
+    CPU: always)."""
+    from .parallel import make_mesh
+
+    dev = target_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if shards is None:
+        return make_mesh(cards) if cards >= 2 else None
+    return make_mesh(shards) if dev.type == "cuda" and shards <= cards else make_mesh(devices=[dev] * shards)
+
+
+def run_distributed(device: str = DEFAULT_DEVICE, shards=None, ash958=None, names=None):
+    """Distributed reorder/partition quality against the host algorithms, on
+    a mesh of ``shards`` shards (:func:`_dist_mesh`): RCM, label propagation
+    with refinement, SlashBurn's parity with the host order and, on matrices
+    of at most 2,048 vertices, the ring's triangles and Jaccard weights
+    against the host's. The matrices are ``names`` (default: ash958 where
+    ``ash958`` gives its path, then rand-20k)."""
+    mesh = _dist_mesh(device, shards)
+    if mesh is None:
+        return {"skipped": "needs >=2 devices (set xla_force_host_platform_device_count)"}
+
+    from .bases import ReorderBase
+    from .ops.feature import Bandwidth, Profile
+    from .ops.feature.jaccard import _jaccard_host
+    from .ops.feature.triangles import _undirected_count
+    from .ops.reorder import RCMReorder
+    from .ops.reorder.slashburn import SlashburnReorderParams, _slashburn_host
+    from .parallel import ShardedCSR, dist, halo, ring
+
+    if names is None:
+        names = ([ASH958] if ash958 is not None else []) + ["rand-20k"]
+    out = {"devices": mesh.size}
+    for name in names:
+        g = ash958_graph(ash958, device=device) if name == ASH958 else MATRICES[name](device)
+        sh = ShardedCSR.from_csr(g, mesh, halo=True)
+        entry = {
+            "n": g.nrows,
+            "nnz": g.nnz,
+            "natural": {"bandwidth": int(Bandwidth().get_bandwidth(g)), "profile": int(Profile().get_profile(g))},
+            "halo_comm_bytes_per_step": halo.step_comm_bytes(sh),
+            "dense_psum_bytes_per_step": 4 * g.nrows * sh.n_shards,
+        }
+
+        def quality(order):
+            perm = ReorderBase.permute2d(order.to(g.indptr.device), g)
+            return {"bandwidth": int(Bandwidth().get_bandwidth(perm)), "profile": int(Profile().get_profile(perm))}
+
+        t0 = time.perf_counter()
+        host_order = _sync(RCMReorder().get_reorder(g))
+        entry["rcm_host"] = {"seconds": round(time.perf_counter() - t0, 3), **quality(host_order)}
+        t0 = time.perf_counter()
+        d_order = _sync(halo.rcm_reorder(sh, mesh))
+        entry["rcm_distributed"] = {"seconds": round(time.perf_counter() - t0, 3), **quality(d_order)}
+
+        labels = halo.label_prop_partition(sh, 4, mesh, num_iters=20)
+        refined = dist.refine_partition(sh, labels, 4, mesh, rounds=8)
+        entry["labelprop_distributed_k4"] = {
+            "edge_cut": int(dist.edge_cut(sh, labels, mesh)),
+            "edge_cut_refined": int(dist.edge_cut(sh, refined, mesh)),
+            "total_nnz": g.nnz,
+        }
+
+        # distributed SlashBurn: exact host-order parity (non-greedy)
+        t0 = time.perf_counter()
+        sb_dist = _sync(halo.slashburn_reorder(sh, mesh, k_size=32)).cpu().numpy()
+        t_sb = time.perf_counter() - t0
+        sb_host = _slashburn_host(g.indptr.cpu().numpy().astype(np.int64), g.indices.cpu().numpy().astype(np.int64),
+                                  g.nrows, SlashburnReorderParams(k_size=32, greedy=False))
+        entry["slashburn_distributed_k32"] = {
+            "seconds": round(t_sb, 3),
+            "exact_host_parity": bool(np.array_equal(sb_dist, sb_host)),
+        }
+
+        # the rings: exact against the host (the dense tile of 20k vertices
+        # stays off the suite)
+        if g.nrows <= 2048:
+            tri = ring.triangle_count(sh, mesh)
+            jac = ring.jaccard_flat(sh, mesh)
+            entry["ring_mxu"] = {
+                "triangles": tri,
+                "triangles_match_host": bool(tri == _undirected_count(g)),
+                "jaccard_match_host": bool(torch.allclose(jac.cpu(), _jaccard_host(g.to_host()), atol=1e-6)),
+            }
+        out[name] = entry
+    return out
+
+
 def to_markdown(results) -> str:
     lines = ["# Benchmark suite results", ""]
     for mname, e in results.items():
@@ -270,7 +369,15 @@ def main(argv=None):
     ap.add_argument("--matrix", action="append", choices=[ASH958, *MATRICES],
                     help=f"run only this matrix (repeatable; default: {ASH958} where --ash958 is given, "
                          "and the synthetic ones)")
+    ap.add_argument("--dist", action="store_true",
+                    help="the distributed quality table only (a mesh of --shards shards, default every card)")
+    ap.add_argument("--shards", type=int, default=None, metavar="D",
+                    help="--dist: shards of the mesh, naming the device again where there are fewer cards")
     args = ap.parse_args(argv)
+    if args.dist:
+        print(json.dumps(run_distributed(device=args.device, shards=args.shards, ash958=args.ash958,
+                                         names=args.matrix), indent=2))
+        return
     results = run(device=args.device, names=args.matrix, ash958=args.ash958)
     if args.json:
         print(json.dumps(results, indent=2))

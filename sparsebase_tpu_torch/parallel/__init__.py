@@ -2,11 +2,12 @@
 
 A mesh is a list of shard devices driven from one process; on one card the
 shards may share it (``make_mesh(devices=[cuda:0] * 4)``). ``halo`` holds
-the boundary-proportional functions, the multilevel ones and SlashBurn; the
-ring and the multi-process layer are not ported yet (ROADMAP.md, item 10).
+the boundary-proportional functions, the multilevel ones and SlashBurn;
+``ring`` the dense and sparse rings for triangle counts and Jaccard weights.
+The multi-process layer is not ported yet (ROADMAP.md, item 10).
 """
 
-from . import collectives, halo, sharded2d
+from . import collectives, halo, ring, sharded2d
 from .dist import (
     bfs_levels,
     degree_reorder,
@@ -36,6 +37,7 @@ __all__ = [
     "balanced_row_order",
     "collectives",
     "halo",
+    "ring",
     "sharded2d",
     "make_mesh",
     "make_mesh_2d",

@@ -1,7 +1,8 @@
 """Collectives over the shards of one mesh axis, driven from one process.
 
 XLA supplies these to the JAX package (``jax.lax.psum``, ``pmax``, ``pmin``,
-``all_to_all``, ``all_gather``, ``psum_scatter`` inside ``shard_map``). Here each takes the
+``all_to_all``, ``all_gather``, ``psum_scatter``, ``ppermute`` inside
+``shard_map``). Here each takes the
 sequence of per-shard tensors of one mesh axis, in shard order, and returns
 one tensor per shard on that shard's device. A reduction runs on the first
 shard's device, in shard order 0..d-1 (integer sums are exact; float sums
@@ -77,3 +78,16 @@ def psum_scatter(parts: Sequence[torch.Tensor], scatter_dimension: int = 0, tile
     if not tiled:
         pieces = [p.squeeze(scatter_dimension) for p in pieces]
     return tuple(piece.to(p.device) for piece, p in zip(pieces, parts))
+
+
+def ppermute(parts: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]]) -> Tuple[torch.Tensor, ...]:
+    """Shard ``dst`` receives ``parts[src]`` for each ``(src, dst)`` pair of
+    ``perm`` (``jax.lax.ppermute``), moved to its own device; where the two
+    shards share a device it receives the tensor itself, not a copy. A shard
+    that no pair names receives zeros."""
+    d = len(parts)
+    srcs, dsts = [s for s, _ in perm], [t for _, t in perm]
+    if not all(0 <= k < d for k in srcs + dsts) or len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"ppermute: {list(perm)} is not a permutation of some of {d} shards")
+    got = {dst: parts[src].to(parts[dst].device) for src, dst in perm}
+    return tuple(got[k] if k in got else torch.zeros_like(parts[k]) for k in range(d))

@@ -184,3 +184,72 @@ def test_main_runs_on_the_card_by_default(small_suite):
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             suite.main(["--json"])
+
+
+# -- the distributed table -----------------------------------------------------------
+DIST_GRAPHS = {  # the table's two matrices: one under the ring's 2,048-vertex gate, one over it
+    "ash958(sym)": (lambda device: suite.synthetic_graph(1_000, 6, device=device),
+                    lambda: ref_suite.synthetic_graph(1_000, 6)),
+    "rand-20k": (lambda device: suite.mesh_graph(48, device=device), lambda: ref_suite.mesh_graph(48)),
+}
+DIST_TIME_FIELDS = ("rcm_host", "rcm_distributed", "slashburn_distributed_k32")
+
+
+def strip_dist_times(results):
+    out = copy.deepcopy(results)
+    for name, e in out.items():
+        if name != "devices":
+            for field in DIST_TIME_FIELDS:
+                e[field]["seconds"] = 0
+    return out
+
+
+@pytest.fixture
+def small_dist(monkeypatch):
+    """The port's distributed matrices replaced by ``DIST_GRAPHS``', its
+    torch CPU ops on one thread (beside the suite's other workers more
+    threads oversubscribe the cores and the mesh's many small passes slow
+    down many-fold)."""
+    port_ash, port_rand = (port for port, _ in DIST_GRAPHS.values())
+    monkeypatch.setattr(suite, "ash958_graph", lambda path, device: port_ash(device))
+    monkeypatch.setitem(suite.MATRICES, "rand-20k", port_rand)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def ref_dist():
+    """The JAX table, from its own ``run_distributed`` on the 8 virtual
+    devices, with ``ash958_graph`` and ``synthetic_graph`` patched."""
+    ga, gb = (ref() for _, ref in DIST_GRAPHS.values())
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_suite, "ash958_graph", lambda: ga)
+        mp.setattr(ref_suite, "synthetic_graph", lambda *a, **k: gb)
+        return ref_suite.run_distributed()
+
+
+def test_run_distributed_equals_the_reference_table(small_dist, ref_dist):
+    port = suite.run_distributed(device="cpu", shards=8, ash958="ash958.mtx")
+    assert json.dumps(strip_dist_times(port)) == json.dumps(strip_dist_times(ref_dist))
+    assert port["devices"] == 8 and list(port) == ["devices", "ash958(sym)", "rand-20k"]
+    ring_entry = port["ash958(sym)"]["ring_mxu"]
+    assert ring_entry["triangles"] > 0 and ring_entry["triangles_match_host"] and ring_entry["jaccard_match_host"]
+    assert "ring_mxu" not in port["rand-20k"]  # 2,304 vertices: past the ring's gate
+    assert all(port[name]["slashburn_distributed_k32"]["exact_host_parity"] for name in DIST_GRAPHS)
+    assert all(port[name][field]["seconds"] >= 0 for name in DIST_GRAPHS for field in DIST_TIME_FIELDS)
+
+
+def test_main_dist_prints_the_table(small_dist, capsys):
+    suite.main(["--dist", "--device", "cpu", "--shards", "8", "--json"])
+    table = json.loads(capsys.readouterr().out)
+    assert table["devices"] == 8 and list(table) == ["devices", "rand-20k"]  # ash958 only with its path
+    assert table["rand-20k"]["n"] == 2_304 and table["rand-20k"]["labelprop_distributed_k4"]["total_nnz"] > 0
+
+
+def test_run_distributed_on_one_device_is_skipped_as_the_reference():
+    """Without ``shards`` the table takes every device of its kind: one CPU
+    is too few, as JAX's one device is."""
+    assert suite.run_distributed(device="cpu") == {
+        "skipped": "needs >=2 devices (set xla_force_host_platform_device_count)"}

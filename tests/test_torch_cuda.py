@@ -36,7 +36,7 @@ from sparsebase_tpu_torch.ops.kernels import (
 from sparsebase_tpu_torch.ops.kernels.csr_spmv import TILE
 from sparsebase_tpu_torch.ops.permute import permute_2d
 from sparsebase_tpu_torch.ops.reorder import DegreeReorder
-from sparsebase_tpu_torch.parallel import halo
+from sparsebase_tpu_torch.parallel import halo, ring
 from sparsebase_tpu_torch.utils.exceptions import TypeMismatchError
 
 pytestmark = pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
@@ -1708,3 +1708,97 @@ def test_ingest_drops_rows_past_n_on_card(dev, gen, shard_meshes):
     assert stats == host_stats and card.nnz == int((~past).sum())
     for name in ("indptr", "indices", "vals", "nnz_local", "halo_send", "halo_counts", "halo_map"):
         assert torch.equal(card.stacked(name).cpu(), want.stacked(name)), name
+
+
+# -- the rings: four shards on the card against four on the CPU ---------------------
+RING_FUNCTIONS = {  # name -> call on (sharded, mesh); a count or a tuple of per-shard tensors
+    "triangle_count": ring.triangle_count,
+    "triangle_count directed": lambda sh, m: ring.triangle_count(sh, m, directed=True),
+    "triangle_count_sparse": ring.triangle_count_sparse,
+    "jaccard_weights": ring.jaccard_weights,
+    "jaccard_weights_sparse": ring.jaccard_weights_sparse,
+    "jaccard_flat": ring.jaccard_flat,
+    "_sparse_sizes": ring._sparse_sizes,
+}
+
+
+def ring_graph(gen, dev, n, pairs, repeats=0, loops=0):
+    """Random pairs, mirrored, with ``repeats`` of them stored again and
+    ``loops`` self-loops: a multiset pattern, rows sorted."""
+    u = torch.randint(0, n, (pairs,), generator=gen, device=dev)
+    v = torch.randint(0, n, (pairs,), generator=gen, device=dev)
+    row, col = torch.cat([u, v, u[:repeats]]), torch.cat([v, u, v[:repeats]])
+    at = torch.randint(0, n, (loops,), generator=gen, device=dev)
+    row, col = torch.cat([row, at]), torch.cat([col, at])
+    return COO.new(row.to(torch.int32), col.to(torch.int32), None, (n, n)).convert(CSR)
+
+
+@pytest.mark.parametrize("case", ["n=3000", "rows of 8", "multiset"])
+@pytest.mark.parametrize("name", sorted(RING_FUNCTIONS))
+def test_ring_on_card_equals_cpu(dev, gen, shard_meshes, name, case):
+    """Each ring function on a 4-shard card mesh equal to the CPU mesh's:
+    counts exactly, weights bit for bit. ``rows of 8``: 32 vertices, the
+    dense ring's products on 8-row tiles."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR
+
+    card_mesh, cpu_mesh = shard_meshes
+    n, pairs, extra = {"n=3000": (3_000, 20_000, {}), "rows of 8": (32, 120, {}),
+                       "multiset": (500, 3_000, dict(repeats=400, loops=30))}[case]
+    csr = ring_graph(gen, dev, n, pairs, **extra)
+    sh, host = ShardedCSR.from_csr(csr, card_mesh, halo=False), ShardedCSR.from_csr(csr.to_host(), cpu_mesh, halo=False)
+    got, want = RING_FUNCTIONS[name](sh, card_mesh), RING_FUNCTIONS[name](host, cpu_mesh)
+    if isinstance(want, torch.Tensor):
+        want = (want,)
+        got = (got,)
+    if isinstance(want, tuple) and isinstance(want[0], torch.Tensor):
+        assert all(g.device == dev and torch.equal(g.cpu(), w) for g, w in zip(got, want)), name
+    else:
+        assert got == want, name
+
+
+def test_ring_dense_counts_are_exact_on_card(dev, shard_meshes):
+    """K_512 on the card's dense ring: C(512, 3) triangles (6·C(512, 3) >
+    2^24) and weights of 510/512; a bfloat16 product output would read 510
+    as 512."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR
+
+    n = 512
+    ids = torch.arange(n, device=dev)
+    row, col = ids.repeat_interleave(n), ids.repeat(n)
+    keep = row != col
+    csr = COO.new(row[keep].to(torch.int32), col[keep].to(torch.int32), None, (n, n)).convert(CSR)
+    card_mesh = shard_meshes[0]
+    sh = ShardedCSR.from_csr(csr, card_mesh, halo=False)
+    assert ring.triangle_count(sh, card_mesh) == n * (n - 1) * (n - 2) // 6
+    assert ring.triangle_count(sh, card_mesh, directed=True) == n * (n - 1) * (n - 2) // 3
+    flat = ring.jaccard_flat(sh, card_mesh)
+    assert flat.device == dev and bool((flat == torch.tensor(510 / 512, dtype=torch.float32)).all())
+
+
+def test_ppermute_on_shared_devices_returns_the_tensors(dev):
+    from sparsebase_tpu_torch.parallel import collectives
+
+    parts = [torch.full((4,), k, device=dev) for k in range(4)]
+    got = collectives.ppermute(parts, [(j, (j - 1) % 4) for j in range(4)])
+    assert all(g is parts[(k + 1) % 4] for k, g in enumerate(got))
+    moved = collectives.ppermute([parts[0], torch.zeros(4)], [(0, 1), (1, 0)])
+    assert moved[1].device.type == "cpu" and torch.equal(moved[1], parts[0].cpu()) and moved[0].device == dev
+
+
+def test_bench_suite_run_distributed_on_card_equals_cpu(dev, monkeypatch):
+    """``run_distributed(shards=4)`` on a graph of 1,000 vertices (the ring
+    block runs): every field but the times equal to the CPU call's."""
+    from sparsebase_tpu_torch import bench_suite
+
+    monkeypatch.setitem(bench_suite.MATRICES, "rand-20k",
+                        lambda device: bench_suite.synthetic_graph(1_000, 6, device=device))
+    card = bench_suite.run_distributed(shards=4)
+    host = bench_suite.run_distributed(device="cpu", shards=4)
+
+    def without_times(e):
+        if isinstance(e, dict):
+            return {k: without_times(v) for k, v in e.items() if k != "seconds"}
+        return e
+
+    assert without_times(card) == without_times(host)
+    assert card["rand-20k"]["ring_mxu"]["triangles_match_host"] and card["rand-20k"]["ring_mxu"]["jaccard_match_host"]

@@ -1114,3 +1114,47 @@ def test_k6_task_model_matches_plain(policy, csr, cap):
             np.testing.assert_array_equal(got, want.numpy())
         else:
             assert sum(per_row) == int(want), mode
+
+
+@pytest.fixture
+def one_thread():
+    """torch's CPU ops on one thread: beside the suite's other workers more
+    threads oversubscribe the cores, and a rehearsal's many small passes
+    then slow down many-fold."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_chip_smoke_path_l_on_the_cpu(monkeypatch, capsys, one_thread):
+    """``chip_smoke.path_l`` rehearsed on the CPU at a small size (8 cliques
+    K_16, uniform graphs of 128 and 1,024 vertices, a power-law graph of
+    2,000; ``MAX_DENSE_ELEMS`` cut so that the cliques' tile at d = 4 sits on
+    it), with the card's clocks, memory counters and launch counts stubbed
+    and the suite's table run on the CPU: every check of phase 4 holds and
+    phase 5 times each ring call."""
+    smoke = _chip_smoke()
+    from sparsebase_tpu_torch import bench_suite
+    from sparsebase_tpu_torch.parallel import ring
+
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    monkeypatch.setattr(smoke, "read_launches", lambda path, required: {})
+    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, batch=1, reps=5: smoke.host_ms(fn, reps))
+    monkeypatch.setattr(smoke, "PATH_L_CLIQUES", (8, 16))
+    monkeypatch.setattr(smoke, "PATH_L_N", 128)
+    monkeypatch.setattr(smoke, "PATH_L_BIG_N", 1_024)
+    monkeypatch.setattr(smoke, "POWER_LAW_CARD", (2_000, 16_000))
+    monkeypatch.setattr(ring, "MAX_DENSE_ELEMS", 32 * 4 * 32)  # rows 32 at d = 4
+    run_distributed = bench_suite.run_distributed
+    monkeypatch.setattr(bench_suite, "run_distributed", lambda **kw: run_distributed(**{"device": "cpu", **kw}))
+    monkeypatch.setitem(bench_suite.MATRICES, "rand-20k", lambda device: bench_suite.mesh_graph(30, device=device))
+    g = torch.Generator().manual_seed(0)
+    assert smoke.path_l(g, torch.device("cpu")) == {}
+    out = capsys.readouterr().out
+    assert "4480 triangles, every weight 14/16" in out and "d=1 raised: 'ring.triangle_count" in out
+    assert out.count("equal to K6, the weights equal to K6's bit for bit") == 2
+    assert out.count("phase 5 path L ") == 20 and out.count(", dense: ") == 5

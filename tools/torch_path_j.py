@@ -1,13 +1,15 @@
-"""Paths J and K of ``chip_smoke.py`` alone, at their full size, on one
+"""Paths J, K and L of ``chip_smoke.py`` alone, at their full size, on one
 card: the kernels' build, path A's COO and source CSR (``--nnz`` entries,
 ``--seed``), path G's 32,768-vertex power-law graph (the halo check's), then
 ``chip_smoke.path_j`` (its phases 3, 4 and 5 and its profiles; the
 components check's 8-block graph drawn last) and ``chip_smoke.path_k`` on
 path J's meshes (its graphs drawn after path J's; path B's band of
-``--band-nnz`` entries). ``--paths k`` runs path K alone. The draws differ
-from the whole script's, which makes other graphs first.
+``--band-nnz`` entries), then ``chip_smoke.path_l`` (its own meshes and
+graphs). ``--paths`` picks some of ``j``, ``k`` and ``l``; ``--paths l``
+makes none of path A's graphs. The draws differ from the whole script's,
+which makes other graphs first.
 
-    python3 tools/torch_path_j.py [--nnz 100e6] [--band-nnz 64e6] [--paths jk] [--seed 0]
+    python3 tools/torch_path_j.py [--nnz 100e6] [--band-nnz 64e6] [--paths jkl] [--seed 0]
 
 Exits non-zero if any check fails; the last line is the paths' launch
 counts and K2's largest difference from the plain SpMV on path J.
@@ -27,9 +29,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nnz", type=float, default=100e6)
     ap.add_argument("--band-nnz", type=float, default=64e6)
-    ap.add_argument("--paths", choices=("j", "k", "jk"), default="jk")
+    ap.add_argument("--paths", default="jkl", help="some of j, k and l (default jkl)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    if not args.paths or set(args.paths) - set("jkl"):
+        ap.error(f"--paths {args.paths!r}: some of j, k and l")
     from sparsebase_tpu_torch import CSR
     from sparsebase_tpu_torch.ops.kernels import indptr_plain
 
@@ -38,20 +42,24 @@ def main() -> None:
     cs.phase_build()
     g = torch.Generator(device=dev)
     g.manual_seed(args.seed)
-    nnz = int(args.nnz)
-    n = max(nnz // 16, 1)
-    coo = cs.power_law_coo(g, dev, n, nnz)
-    x = torch.randn((n,), generator=g, device=dev)
-    src = CSR(indptr_plain(coo.row, n), coo.col, coo.vals, coo.shape)
-    host_graph = cs.power_law_pattern(g, dev, *cs.HOST_REORDER_GRAPH)
     out = {}
-    if "j" in args.paths:
-        out["J"], out["max_abs_err"], j = cs.path_j(g, dev, coo, src, x, host_graph)
-    else:
-        j = cs.PathJ(g, dev, coo, src, x, host_graph)
-    if "k" in args.paths:
-        out["K"] = cs.path_k(g, dev, j, n - n % cs.PARTITION_K, nnz // 2,
-                             int(args.band_nnz) // (2 * cs.BAND_HALF_WIDTH + 1))
+    if set(args.paths) & set("jk"):
+        nnz = int(args.nnz)
+        n = max(nnz // 16, 1)
+        coo = cs.power_law_coo(g, dev, n, nnz)
+        x = torch.randn((n,), generator=g, device=dev)
+        src = CSR(indptr_plain(coo.row, n), coo.col, coo.vals, coo.shape)
+        host_graph = cs.power_law_pattern(g, dev, *cs.HOST_REORDER_GRAPH)
+        if "j" in args.paths:
+            out["J"], out["max_abs_err"], j = cs.path_j(g, dev, coo, src, x, host_graph)
+        else:
+            j = cs.PathJ(g, dev, coo, src, x, host_graph)
+        if "k" in args.paths:
+            out["K"] = cs.path_k(g, dev, j, n - n % cs.PARTITION_K, nnz // 2,
+                                 int(args.band_nnz) // (2 * cs.BAND_HALF_WIDTH + 1))
+        del j, coo, x, src, host_graph
+    if "l" in args.paths:
+        out["L"] = cs.path_l(g, dev)
     print(f"tools/torch_path_j.py: {time.perf_counter() - t0:.1f} s in all")
     print(out)
 
