@@ -4,6 +4,9 @@
     python3 chip_smoke.py [--nnz 100e6] [--band-nnz 64e6] [--rcm-n 131072] [--ingest-nnz 32e6]
                           [--feature-n 4000000] [--seed 0]
 
+(``--path-m-child DIR`` makes the script one process of path M's group;
+path M starts it so.)
+
 Phases, in order; any failure raises and the script exits non-zero:
 
 0. needs ``torch.cuda.is_available()``; prints the card's name and power
@@ -129,8 +132,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    guard's sparse route at d = 1), a uniform simple graph of 2^20 vertices
    and ``POWER_LAW_CARD``'s graph mirrored without repeats
    (``triangle_count`` and ``jaccard_flat`` at d = 4 and d = 1, the
-   sparse ring), and ``bench_suite.run_distributed(shards=4)``.
-   Every kernel of each path must have launched;
+   sparse ring), and ``bench_suite.run_distributed(shards=4)``; path M,
+   the distributed ingest's path across processes: ``tools/multiproc_dcn.py``'s
+   graph at 2^22 vertices, average degree 8 (made on the card from
+   ``--seed`` by a generator of its own, so every process makes the same)
+   through ``ShardedCSR.from_coo_sharded`` (K5, K3), ``with_halo`` (K5,
+   K3), ``halo.spmv`` (K2 per shard) and ``dist.rcm_reorder`` (K5) on one
+   process of four shards of the card, then on two gloo processes of this
+   script (``--path-m-child``, started by ``multihost.launch`` under a
+   time limit) that share the card, each driving two shards of
+   ``multihost.global_mesh(devices=[cuda:0] * 2)``; with two or more cards
+   also on two NCCL processes with a card each; then
+   ``scaling.run_weak_scaling`` on the card at 1, 2 and 4 shards, the
+   random kind at 2^20 vertices a shard and the stencil at 2^12, each row
+   in a process of its own. Every kernel of each path must have launched,
+   in each process of path M too;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
    the plain SpMV of the permuted matrix), of path B (K1 against K2 and
@@ -239,7 +255,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    for bit, the directed count K6's; on the other graphs every count
    equal to K6's, dense, sparse, d = 4 and d = 1, and every weight K6's
    bit for bit; the suite's table on the card equal, but for its times, to
-   the same call on the CPU);
+   the same call on the CPU); of path M (one process's y against the plain
+   SpMV of the whole CSR, its order equal to the plain (level, degree, id)
+   rank of a plain BFS from 0; each process's ``nnz_counts``, route
+   capacity, ``w_c``, widths and halo bytes, every one of its shards'
+   ``indptr``, ``indices``, ``vals``, ``nnz_local``, ``halo_send``,
+   ``halo_counts`` and ``halo_map``, and its y and RCM order equal to the
+   one process's bit for bit; a process that fails or passes the time
+   limit fails the run);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -310,7 +333,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    tail and host reads; path L: each ring call's wall (one run after a
    warm-up) beside the main run's and its peak memory, each dense call's
    flop and rate, one step's product on one shard's block alone, the
-   sparse ring's ``_sparse_sizes`` and candidate slots; K1's tiled
+   sparse ring's ``_sparse_sizes`` and candidate slots; path M: each
+   phase's wall on the one process and on each of the two, with the bytes
+   each sent to the other process, the bytes staged between the card and
+   host memory and the exchanges; one ``halo._exchange`` across processes
+   beside the one process's, and a (D, 1) ``all_to_all`` (the latency),
+   from which the link figures of the weak-scaling projection come; the
+   group's wall and peak memory; each weak-scaling row; K1's tiled
    layout alone;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
@@ -329,7 +358,8 @@ phases 3, 4 and 5 after path E, path G its phases 3, 4 and 5 after
 path F, path H its phases 3, 4 and 5 after path G, path I its phases
 3, 4 and 5 after path H, path J its phases 3, 4 and 5 and its
 profile after path I, path K its phases 3, 4 and 5 after path J, and
-path L its phases 3, 4 and 5 after path K.
+path L its phases 3, 4 and 5 after path K, and path M its phases 3, 4
+and 5 after path L.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -354,11 +384,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -429,6 +462,12 @@ def bound(kernel: str, **s):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def sync(dev: torch.device) -> None:
+    """Wait for ``dev``'s queued work (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def check_rows(name: str, y, y_ref, deg, absdot) -> float:
@@ -3554,15 +3593,295 @@ def path_l(g, dev):
     return launches
 
 
+# -- path M: the distributed ingest's path across processes --------------------
+PATH_M_N = 1 << 22  # tools/multiproc_dcn.py's graph at 2^22 vertices, average degree 8: about 33.5M entries
+PATH_M_AVG_DEG = 8
+PATH_M_SHARDS = 4  # the single-process reference: four shards of the card
+PATH_M_PROCESSES = 2  # the group: two gloo processes sharing the card, two shards each
+PATH_M_TIME_LIMIT = 300  # seconds for the group, start-up included
+PATH_M_EXCHANGE_REPS = 5
+PATH_M_FIELDS = ("indptr", "indices", "vals", "nnz_local", "halo_send", "halo_counts", "halo_map")
+SCALING_COUNTS = [1, 2, 4]
+SCALING_AVG_DEG = 8
+SCALING_RANDOM_BASE_N = 1 << 20  # 4M vertices and about 33.5M entries at d = 4
+# the stencil's exact BFS takes about n / 8 levels, one host read each
+# (4,097 at d = 4); its three rows took 35.5 s on the card, within the
+# script's 700 s budget
+SCALING_STENCIL_BASE_N = 1 << 13
+SCALING_ROW_TIME_LIMIT = 180  # seconds for each row's process
+
+
+def tool_graph(dev, n: int, avg_deg: int, seed: int):
+    """``tools/multiproc_dcn.py``'s graph made on ``dev`` from a generator of
+    its own (every process of path M makes the same): ``n * avg_deg / 2``
+    uniform pairs without self-loops, mirrored, unique, row-major, standard
+    normal float32 values; then x. Returns ``(row, col, vals, x)``."""
+    from sparsebase_tpu_torch.ops.kernels.radix import bits_below, radix_unique
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    pairs = n * avg_deg // 2
+    r = torch.randint(0, n, (pairs,), generator=g, device=dev)
+    c = torch.randint(0, n, (pairs,), generator=g, device=dev)
+    keep = r != c
+    r, c = r[keep], c[keep]
+    keys = radix_unique(torch.cat([r * n + c, c * n + r]), key_bits=bits_below(n * n))
+    vals = torch.randn((keys.numel(),), generator=g, device=dev)
+    x = torch.randn((n,), generator=g, device=dev)
+    return (keys // n).to(torch.int32), (keys % n).to(torch.int32), vals, x
+
+
+def path_m_run(mesh, row, col, vals, x, barrier=lambda: None):
+    """The tool's path on ``mesh``: ``from_coo_sharded`` → ``with_halo`` →
+    ``halo.spmv`` → ``dist.rcm_reorder``, each phase's wall and what crossed
+    a process boundary in it (every process starts a phase after
+    ``barrier``). Returns ``(sharded, y, order, the ingest's stats, phases)``."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR, collectives, dist, halo
+
+    n = x.numel()
+    phases = {}
+
+    def phase(name, fn):
+        barrier()
+        sync(mesh.first_device)
+        collectives.reset_traffic()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(mesh.first_device)
+        phases[name] = {"ms": (time.perf_counter() - t0) * 1e3, **collectives.traffic()}
+        return out
+
+    stats = {}
+    sh = phase("from_coo_sharded", lambda: ShardedCSR.from_coo_sharded(row, col, vals, (n, n), mesh, stats=stats))
+    sh = phase("with_halo", sh.with_halo)
+    y = phase("halo.spmv", lambda: halo.spmv(sh, x, mesh))
+    order = phase("dist.rcm_reorder", lambda: dist.rcm_reorder(sh, mesh))
+    return sh, y, order, stats, phases
+
+
+def path_m_exchange(sh, x, barrier=lambda: None) -> dict:
+    """One ``halo._exchange`` of x's pieces and one ``all_to_all`` of a
+    (D, 1) int32 piece a shard (the latency), each the median wall of
+    ``PATH_M_EXCHANGE_REPS`` after a warm-up, with the bytes it sent to the
+    other process."""
+    from sparsebase_tpu_torch.parallel import collectives, halo
+
+    xs, sends, owners = halo._put(sh, x), halo._sends(sh), sh.owners
+    tiny = [None if s is None else s[:, :1].contiguous() for s in sends]
+
+    def timed(fn):
+        fn()
+        times = []
+        for _ in range(PATH_M_EXCHANGE_REPS):
+            barrier()
+            sync(x.device)
+            collectives.reset_traffic()
+            t0 = time.perf_counter()
+            fn()
+            sync(x.device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), collectives.traffic()
+
+    ms, sent = timed(lambda: halo._exchange(xs, sends, sh.axis, owners))
+    tiny_ms, tiny_sent = timed(lambda: collectives.all_to_all(tiny, owners=owners))
+    return {"ms": ms, "crossed_bytes": sent["crossed_bytes"], "staged_bytes": sent["staged_bytes"],
+            "tiny_ms": tiny_ms, "tiny_bytes": tiny_sent["crossed_bytes"]}
+
+
+def path_m_child(out: str, n: int, seed: int, backend: str, device: str) -> None:
+    """One process of path M's group (``chip_smoke.py --path-m-child DIR``,
+    started by ``multihost.launch``): joins the group, runs the tool's path
+    on its two shards of ``global_mesh`` and saves its shards' fields, y,
+    the order, the phases, one exchange and its launches to ``DIR``. It
+    loads the kernels that the parent built and builds nothing."""
+    import torch.distributed as tdist
+
+    from sparsebase_tpu_torch import _build
+    from sparsebase_tpu_torch.parallel import multihost
+
+    if device == "cuda":
+        check((_build.BUILD_ROOT / _build.source_hash() / _build.LIB_NAME).exists(),
+              "path M: the kernels are not built; the parent builds them before the group starts")
+    t0 = time.perf_counter()
+    check(multihost.initialize(backend=backend, timeout=PATH_M_TIME_LIMIT), "path M: no process group")
+    rank = tdist.get_rank()
+    dev = torch.device("cpu") if device == "cpu" else torch.device("cuda", rank if backend == "nccl" else 0)
+    mesh = multihost.global_mesh(devices=[dev] * (PATH_M_SHARDS // PATH_M_PROCESSES))
+    row, col, vals, x = tool_graph(dev, n, PATH_M_AVG_DEG, seed)
+    start_s = time.perf_counter() - t0
+    sync(dev)
+    _build.reset_launch_counts()
+    sh, y, order, stats, phases = path_m_run(mesh, row, col, vals, x, tdist.barrier)
+    sync(dev)
+    launches = _build.launch_counts()
+    exchange = path_m_exchange(sh, x, tdist.barrier)
+    torch.save({
+        "rank": rank, "backend": tdist.get_backend(), "mesh": repr(mesh), "local": sh.local, "start_s": start_s,
+        "fields": {name: {k: getattr(sh, name)[k].cpu() for k in sh.local} for name in PATH_M_FIELDS},
+        "nnz_counts": sh.nnz_counts, "stats": stats, "width": sh.width, "halo_width": sh.halo_width,
+        "halo_bytes": sh.halo_bytes_per_exchange, "y": y.cpu(), "order": order.cpu(), "phases": phases,
+        "exchange": exchange, "launches": launches,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0,
+    }, Path(out) / f"rank{rank}.pt")
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def path_m_group(dev, n: int, seed: int, backend: str) -> list:
+    """Path M's two processes (``multihost.launch``, ``PATH_M_TIME_LIMIT``):
+    each rank's saved results, and the group's wall."""
+    from sparsebase_tpu_torch.parallel import multihost
+
+    out = tempfile.mkdtemp(prefix="path_m_")
+    try:
+        t0 = time.perf_counter()
+        multihost.launch([sys.executable, str(REPO / "chip_smoke.py"), "--path-m-child", out, "--path-m-n", str(n),
+                          "--seed", str(seed), "--path-m-backend", backend, "--path-m-device", dev.type],
+                         PATH_M_PROCESSES, timeout=PATH_M_TIME_LIMIT, cwd=str(REPO))
+        wall = time.perf_counter() - t0
+        return [torch.load(Path(out) / f"rank{r}.pt", weights_only=False) for r in range(PATH_M_PROCESSES)], wall
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_path_m_checks(label: str, sh, y, order, stats, kids) -> None:
+    """Every process's shards, counts, route capacity, ``w_c``, y and order
+    equal to the single-process mesh's bit for bit."""
+    per = PATH_M_SHARDS // PATH_M_PROCESSES
+    for r, kid in enumerate(kids):
+        check(kid["local"] == tuple(range(r * per, (r + 1) * per)), f"path M {label} rank {r}: shards {kid['local']}")
+        check(kid["nnz_counts"] == sh.nnz_counts, f"path M {label} rank {r}: nnz_counts {kid['nnz_counts']} "
+                                                  f"against {sh.nnz_counts}")
+        check(kid["stats"]["route_capacity"] == stats["route_capacity"] and
+              kid["stats"]["compacted_width"] == stats["compacted_width"],
+              f"path M {label} rank {r}: route {kid['stats']} against {stats}")
+        check((kid["width"], kid["halo_width"], kid["halo_bytes"]) == (sh.width, sh.halo_width,
+                                                                         sh.halo_bytes_per_exchange),
+              f"path M {label} rank {r}: widths or halo bytes differ")
+        for name in PATH_M_FIELDS:
+            for k, got in kid["fields"][name].items():
+                want = getattr(sh, name)[k]
+                same = got.dtype == want.dtype and got.shape == want.shape and torch.equal(got.to(want.device), want)
+                check(same, f"path M {label} rank {r} shard {k}: {name} differs from the single-process mesh")
+        check(torch.equal(kid["y"].to(y.device), y), f"path M {label} rank {r}: y differs")
+        check(torch.equal(kid["order"].to(order.device), order), f"path M {label} rank {r}: the order differs")
+    print(f"phase 4 path M {label}: {len(kids)} processes x {per} shards equal to the single-process mesh of "
+          f"{PATH_M_SHARDS} shards bit for bit: nnz_counts {sh.nnz_counts}, route capacity {stats['route_capacity']}, "
+          f"w_c {stats['compacted_width']}, every shard's {', '.join(PATH_M_FIELDS)}, y and the RCM order")
+
+
+def path_m_scaling(link: Optional[dict], device: str) -> None:
+    """``scaling.run_weak_scaling`` on the card at ``SCALING_COUNTS`` shards,
+    the random kind and the stencil, projected with this machine's
+    cross-process exchange figures (``link``)."""
+    from sparsebase_tpu_torch.parallel import scaling
+
+    extra = {} if link is None else {"link_gb_s": link["gb_s"], "link_alpha_s": link["alpha_s"]}
+    for kind, base_n in (("random", SCALING_RANDOM_BASE_N), ("stencil", SCALING_STENCIL_BASE_N)):
+        t0 = time.perf_counter()
+        rows = scaling.run_weak_scaling(base_n, SCALING_AVG_DEG, SCALING_COUNTS, reps=3, kind=kind, device=device,
+                                        timeout=SCALING_ROW_TIME_LIMIT, **extra)
+        for d, r in rows.items():
+            print(f"phase 5 path M weak scaling {kind} base_n={base_n} d={d}: {json.dumps(r)}")
+        print(f"phase 5 path M weak scaling {kind}: {time.perf_counter() - t0:.1f} s for {len(rows)} rows, each in "
+              "a process of its own (shards that share the card share its silicon)")
+
+
+def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
+    """Path M's phases 3, 4 and 5, after path L: the tool's graph on a
+    single-process mesh of ``PATH_M_SHARDS`` shards of the card, then on two
+    gloo processes that share the card with two shards each, every field
+    held bit for bit; with two or more cards, on two NCCL processes with a
+    card each; then the weak-scaling harness on the card. Returns the
+    launch counts (the single-process run's and the processes') and K2's
+    largest difference from the plain SpMV."""
+    from sparsebase_tpu_torch import CSR, _build
+    from sparsebase_tpu_torch.ops.kernels import csr_spmv_plain, indptr_plain
+    from sparsebase_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    row, col, vals, x = tool_graph(dev, n, PATH_M_AVG_DEG, seed)
+    nnz = row.numel()
+    print(f"phase 3 path M graph: tools/multiproc_dcn.py's at n={n}, average degree {PATH_M_AVG_DEG}: {nnz} entries, "
+          "made on the card")
+    mesh = make_mesh(devices=[dev] * PATH_M_SHARDS)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    sh, y, order, stats, phases = path_m_run(mesh, row, col, vals, x)
+    launches = read_launches(f"M, one process of {PATH_M_SHARDS} shards", ("indptr", "radix_rank", "csr_spmv"))
+    exchange = path_m_exchange(sh, x)
+
+    src = CSR(indptr_plain(row, n), col, vals, (n, n))
+    err = check_rows("path M halo.spmv, one process, vs plain SpMV of the whole CSR", y, csr_spmv_plain(src, x),
+                     src.degrees(), csr_spmv_plain(abs_csr(src), x.abs()))
+    check_equal("path M dist.rcm_reorder vs the plain (level, degree, id) rank", order,
+                plain_rcm(plain_bfs_levels(src, 0), src.degrees()))
+    natural, rcm = bandwidth(row, col), bandwidth(row, col, order)
+    print(f"phase 4 path M RCM bandwidth {rcm} against the natural {natural}")
+    del src
+    # the group's processes and the rows' share the card: give back what the
+    # earlier paths left in this process's allocator cache
+    torch.cuda.empty_cache()
+
+    kids, wall = path_m_group(dev, n, seed, "gloo")
+    phase_path_m_checks("gloo", sh, y, order, stats, kids)
+    for kid in kids:
+        check(kid["backend"] == "gloo", f"path M: backend {kid['backend']}")
+        print(f"phase 3 path M rank {kid['rank']} ({kid['mesh']}): launches {kid['launches']}")
+        require_launches(f"M, rank {kid['rank']}", kid["launches"], ("indptr", "radix_rank", "csr_spmv"))
+        launches = {k: launches[k] + kid["launches"][k] for k in launches}
+
+    # phase 5: each phase for both runs, the exchange, the link figures
+    starts = ", ".join("rank %d reached its path after %.1f s" % (k["rank"], k["start_s"]) for k in kids)
+    print(f"phase 5 path M group of {PATH_M_PROCESSES} gloo processes on the card: {wall:.1f} s from start to exit, "
+          f"{starts}, peak {max(k['peak_gib'] for k in kids):.3f} GiB a process")
+    for name, one in phases.items():
+        line = [f"phase 5 path M {name}: one process {one['ms']:.3f} ms"]
+        for kid in kids:
+            p = kid["phases"][name]
+            line.append(f"rank {kid['rank']} {p['ms']:.3f} ms, {p['crossed_bytes']} bytes to the other process, "
+                        f"{p['staged_bytes']} staged, {p['exchanges']} exchanges")
+        print("; ".join(line))
+    ex = [kid["exchange"] for kid in kids]
+    across = "; ".join(f"rank {k['rank']} {e['ms']:.4f} ms, {e['crossed_bytes']} bytes sent, {e['staged_bytes']} "
+                       f"staged, a (D, 1) all_to_all {e['tiny_ms']:.4f} ms ({e['tiny_bytes']} bytes)"
+                       for k, e in zip(kids, ex))
+    print(f"phase 5 path M one halo._exchange (median of {PATH_M_EXCHANGE_REPS}): one process {exchange['ms']:.4f} ms "
+          f"(copies, no bytes cross); across processes {across}")
+    alpha = statistics.median(e["tiny_ms"] for e in ex) / 1e3
+    per_s = [e["crossed_bytes"] / max(e["ms"] / 1e3 - alpha, 1e-9) for e in ex]
+    link = {"gb_s": min(per_s) / 1e9, "alpha_s": alpha}
+    print(f"phase 5 path M link figures for the projection: {link['gb_s']:.4f} GB/s and {alpha * 1e6:.1f} us a step, "
+          "from this machine's gloo path between two processes on one card (not a link between cards)")
+
+    if torch.cuda.device_count() >= PATH_M_PROCESSES:
+        kids_nccl, wall = path_m_group(dev, n, seed, "nccl")
+        phase_path_m_checks("nccl", sh, y, order, stats, kids_nccl)
+        times = "; ".join(f"rank {k['rank']} {name} {k['phases'][name]['ms']:.3f} ms" for k in kids_nccl for name in phases)
+        print(f"phase 5 path M group of {PATH_M_PROCESSES} NCCL processes, a card each: {wall:.1f} s; {times}")
+    else:
+        print(f"phase 3 path M NCCL route: skipped, {torch.cuda.device_count()} card visible; it needs one card "
+              f"a process ({PATH_M_PROCESSES}), and NCCL refuses two ranks on one card")
+    del sh, y, order, row, col, vals, x, kids
+    torch.cuda.empty_cache()
+    path_m_scaling(link, dev.type)
+    print(f"phase 5 path M wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
+    return launches, err
+
+
 def read_launches(path: str, required) -> dict:
     from sparsebase_tpu_torch import _build
 
     torch.cuda.synchronize()
     counts = _build.launch_counts()
     print(f"phase 3 path {path}: launches {counts}")
+    require_launches(path, counts, required)
+    return counts
+
+
+def require_launches(path: str, counts: dict, required) -> None:
     for name in required:
         check(counts[name] > 0, f"path {path} did not launch {name}")
-    return counts
 
 
 def main() -> None:
@@ -3575,7 +3894,14 @@ def main() -> None:
     ap.add_argument("--feature-n", type=int, default=4_000_000,
                     help="path F vertices, average degree 16 (default 4,000,000: about 68M entries)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--path-m-child", metavar="DIR", help=argparse.SUPPRESS)  # one process of path M's group
+    ap.add_argument("--path-m-n", type=int, default=PATH_M_N, help=argparse.SUPPRESS)
+    ap.add_argument("--path-m-backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--path-m-device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.path_m_child:
+        path_m_child(args.path_m_child, args.path_m_n, args.seed, args.path_m_backend, args.path_m_device)
+        return
 
     dev = phase_device()
     import sparsebase_tpu_torch as sbt
@@ -3772,9 +4098,10 @@ def main() -> None:
     launches_k = path_k(g, dev, path_j_state, n_p, src.nnz // 2, coo_b.nrows)
     del path_j_state
     launches_l = path_l(g, dev)
+    launches_m, err_k2_m = path_m(dev, args.seed)
     launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
                 + launches_g[k] + launches_h[k] + launches_i[k] + launches_j[k] + launches_k[k] + launches_l[k]
-                for k in launches_a}
+                + launches_m[k] for k in launches_a}
 
     shapes = {
         "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],
@@ -3801,7 +4128,7 @@ def main() -> None:
     record = {"kernels": [
         entry("banded_spmv", "banded_spmv.cu", "sparsebase_tpu/ops/kernels/banded_spmv.py:67",
               max(err_k1, err_k1_d), k1_ms, k1_plain_ms, None),
-        entry("csr_spmv", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189", max(err_k2, err_k2_i, err_k2_j), k2_ms,
+        entry("csr_spmv", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189", max(err_k2, err_k2_i, err_k2_j, err_k2_m), k2_ms,
               k2_plain_ms, k2_lib_ms),
         entry("indptr", "indptr.cu", "tools/pallas_attempts.py:218", err_k3, k3_ms, k3_plain_ms, k3_lib_ms),
         entry("relocate_csr", "relocate.cu", "tools/pallas_attempts.py:83", err_k4, k4_ms, k4_plain_ms, None),

@@ -150,6 +150,15 @@ def radix_rank(keys: torch.Tensor, key_bits: KeyBits = None) -> torch.Tensor:
     return _radix_sort(keys, key_bits, inverse=True, return_keys=False)[0]
 
 
+def radix_unique(keys: torch.Tensor, key_bits: KeyBits = None) -> torch.Tensor:
+    """The distinct keys in ascending order: the stable sort (K5 on a card)
+    and the first key of each run of equal ones."""
+    _, keys = radix_argsort(keys, key_bits=key_bits, return_keys=True)
+    first = torch.ones((keys.numel(),), dtype=torch.bool, device=keys.device)
+    first[1:] = keys[1:] != keys[:-1]
+    return keys[first]
+
+
 def _radix_sort(keys: torch.Tensor, key_bits: KeyBits, inverse: bool, return_keys: bool):
     if keys.device.type != "cuda":
         raise TypeMismatchError(f"radix sort: keys on {keys.device}; need the CPU or a CUDA device")

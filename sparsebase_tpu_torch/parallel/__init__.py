@@ -1,13 +1,24 @@
 """Mesh-sharded formats and distributed functions (``sparsebase_tpu.parallel``).
 
-A mesh is a list of shard devices driven from one process; on one card the
-shards may share it (``make_mesh(devices=[cuda:0] * 4)``). ``halo`` holds
-the boundary-proportional functions, the multilevel ones and SlashBurn;
-``ring`` the dense and sparse rings for triangle counts and Jaccard weights.
-The multi-process layer is not ported yet (ROADMAP.md, item 10).
+A mesh is a list of shard devices; on one card the shards may share it
+(``make_mesh(devices=[cuda:0] * 4)``). ``halo`` holds the
+boundary-proportional functions, the multilevel ones and SlashBurn;
+``ring`` the dense and sparse rings for triangle counts and Jaccard
+weights; ``scaling`` the weak-scaling harness.
+
+``multihost`` joins a ``torch.distributed`` group and builds a mesh that
+spans its processes (``global_mesh``), each process driving its own
+shards. On such a mesh these run, each giving every process the
+single-process mesh's result: ``ShardedCSR.from_coo_sharded``,
+``with_halo``, ``nnz``, ``nnz_counts``, ``halo_bytes_per_exchange`` and
+``to_csr``; ``dist.degrees``, ``degree_reorder``, ``bfs_levels`` and
+``rcm_reorder``; ``halo.spmv`` and ``step_comm_bytes``; and every
+collective. Every other function of ``dist``, ``halo``, ``ring`` and
+``sharded2d`` (and ``ShardedCSR.from_csr``, ``stacked`` and ``to``) raises
+``NotImplementedError`` there, naming its ROADMAP.md item (10f-10i).
 """
 
-from . import collectives, halo, ring, sharded2d
+from . import collectives, halo, multihost, ring, scaling, sharded2d
 from .dist import (
     bfs_levels,
     degree_reorder,
@@ -37,7 +48,9 @@ __all__ = [
     "balanced_row_order",
     "collectives",
     "halo",
+    "multihost",
     "ring",
+    "scaling",
     "sharded2d",
     "make_mesh",
     "make_mesh_2d",

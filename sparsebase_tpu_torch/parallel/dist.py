@@ -26,6 +26,11 @@ and kept by the container): the JAX bodies mask the padded slots, which
 here would all add into one cell. The JAX ``while_loop`` of the BFS is a
 Python loop; the ``fori_loop`` s of refinement and label propagation have a
 fixed trip count and read nothing back.
+
+On a mesh that spans processes, :func:`degrees`, :func:`degree_reorder`,
+:func:`bfs_levels` and :func:`rcm_reorder` run, each process working on its
+own shards and holding the replicated results on its first shard's device;
+every other function raises ``NotImplementedError`` (ROADMAP.md, item 10f).
 """
 
 from __future__ import annotations
@@ -36,8 +41,8 @@ import torch
 
 from ..ops.kernels.csr_spmv import csr_spmv
 from ..ops.kernels.radix import bits_below, radix_argsort, radix_rank
-from .collectives import pmax, pmin, psum
-from .mesh import Mesh, replicated
+from .collectives import host_fetch, join, pmax, pmin, psum
+from .mesh import Mesh, replicated, single_process
 from .sharded import ShardedCSR
 
 _INT32_MAX = 2**31 - 1
@@ -52,10 +57,15 @@ def _local_row_of(indptr_local, width: int) -> torch.Tensor:
     return torch.cumsum(marks[:width], 0) - 1
 
 
+# ROADMAP.md's item for this module's functions that do not run on a mesh
+# that spans processes yet
+_ACROSS_ITEM = "10f"
+
+
 def _shards(sh: ShardedCSR, mesh: Mesh):
     """Check that ``mesh`` holds the shards along the container's axis;
     returns ``(n, d, rows, width)``."""
-    if mesh.axis_devices(sh.axis) != sh.devices:
+    if mesh.axis_devices(sh.axis) != sh.devices or mesh.axis_owners(sh.axis) != sh.owners:
         raise ValueError(f"the shards lie on {[str(d) for d in sh.devices]}, not on the mesh {mesh!r} along "
                          f"{sh.axis!r}")
     return sh.shape[0], sh.n_shards, sh.rows_per_shard, sh.width
@@ -78,6 +88,7 @@ def _max0(t: torch.Tensor) -> torch.Tensor:
 def spmv(sh: ShardedCSR, x, mesh: Mesh):
     """y = A @ x with A row-sharded and x replicated: K2 on each shard's
     local CSR; y joined in row order on the mesh's first device."""
+    single_process(mesh, "dist.spmv", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     first = mesh.first_device
     xs = replicated(mesh).put(x)
@@ -88,8 +99,7 @@ def spmv(sh: ShardedCSR, x, mesh: Mesh):
 def degrees(sh: ShardedCSR, mesh: Mesh):
     """Per-vertex degree (int64), joined in row order."""
     n = _shards(sh, mesh)[0]
-    first = mesh.first_device
-    return torch.cat([(ip[1:] - ip[:-1]).to(first) for ip in sh.indptr])[:n]
+    return join([None if ip is None else ip[1:] - ip[:-1] for ip in sh.indptr], sh.owners, mesh.first_device)[:n]
 
 
 def bfs_levels(sh: ShardedCSR, root: int, mesh: Mesh, max_iters: Optional[int] = None,
@@ -99,11 +109,14 @@ def bfs_levels(sh: ShardedCSR, root: int, mesh: Mesh, max_iters: Optional[int] =
     reach counts. Each level reads "any frontier left?" back once;
     ``stats``, a dict, receives ``levels`` and ``host_reads``."""
     n, d, rows, width = _shards(sh, mesh)
-    first = mesh.first_device
+    first, local = mesh.first_device, sh.local
     iters = max_iters or n
     # a column past n (a matrix with more columns than rows) marks the
     # discard slot n: the JAX scatter drops it
-    slots = [(grow, valid, torch.clamp(idx, max=n)) for grow, valid, idx in (_entries(sh, k, n) for k in range(d))]
+    slots = {}
+    for k in local:
+        grow, valid, idx = _entries(sh, k, n)
+        slots[k] = (grow, valid, torch.clamp(idx, max=n))
     frontier = torch.arange(n, device=first) == root
     levels = torch.where(frontier, 0, -1).to(torch.int32)
     it = reads = 0
@@ -111,12 +124,14 @@ def bfs_levels(sh: ShardedCSR, root: int, mesh: Mesh, max_iters: Optional[int] =
         reads += 1
         if not bool(frontier.any()):
             break
-        reached = []
-        for f, (grow, valid, idx) in zip(replicated(mesh).put(frontier), slots):
+        reached = [None] * d
+        fronts = replicated(mesh).put(frontier)
+        for k in local:
+            f, (grow, valid, idx) = fronts[k], slots[k]
             active = valid & f[torch.clamp(grow, 0, n - 1)]
-            reached.append(torch.zeros((n + 1,), dtype=torch.int32, device=f.device)
-                           .index_add_(0, idx, active.to(torch.int32)))
-        nxt = (psum(reached)[0][:n] > 0) & (levels < 0)
+            reached[k] = torch.zeros((n + 1,), dtype=torch.int32, device=f.device).index_add_(
+                0, idx, active.to(torch.int32))
+        nxt = (psum(reached, sh.owners)[local[0]][:n] > 0) & (levels < 0)
         levels = torch.where(nxt, it + 1, levels)
         frontier = nxt
         it += 1
@@ -155,7 +170,8 @@ def _rcm_rank(levels, deg, n: int) -> torch.Tensor:
     unreached = levels < 0
     lev = torch.where(unreached, n, levels).to(torch.int64)
     deg = deg.to(torch.int64)
-    top_lev, top_deg = torch.stack([lev.max(), deg.max()]).tolist()
+    # replicated values: each process reads its own copy
+    top_lev, top_deg = host_fetch([lev.max(), deg.max()])
     key = (lev << 32) | deg
     pos = radix_rank(key, key_bits=[(0, bits_below(top_deg + 1)), (32, 32 + bits_below(top_lev + 1))]).to(torch.int64)
     reached_count = (~unreached).sum()
@@ -180,6 +196,7 @@ def _on_first(t, mesh: Mesh) -> torch.Tensor:
 def edge_cut(sh: ShardedCSR, labels, mesh: Mesh):
     """Total directed edge cut of a labelling: a ``psum`` of per-shard
     counts of entries whose row and column labels differ (int64)."""
+    single_process(mesh, "dist.edge_cut", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     labels = replicated(mesh).put(_on_first(labels, mesh))
     return psum(_cut_parts(labels, n, [_entries(sh, k, n) for k in range(d)]))[0]
@@ -220,6 +237,7 @@ def refine_partition(sh: ShardedCSR, labels, k: int, mesh: Mesh, rounds: int = 4
     positive-gain moves into parts with headroom are admitted in the order
     (target part, gain descending, id) up to each part's headroom. The
     best labelling seen (by edge cut) is returned, as int32."""
+    single_process(mesh, "dist.refine_partition", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     first = mesh.first_device
     cap = torch.full((), balance * n / k, dtype=torch.float32, device=first)
@@ -267,6 +285,7 @@ def structure_features(sh: ShardedCSR, mesh: Mesh):
     pass: per-shard reductions combined with ``psum``/``pmax``/``pmin``.
     Returns a dict of 0-d tensors on the mesh's first device. The profile
     is an exact int64 sum (the JAX package sums it in float32)."""
+    single_process(mesh, "dist.structure_features", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     first = mesh.first_device
     bw, prof, nnz, min_deg, max_deg = [], [], [], [], []
@@ -307,6 +326,7 @@ def label_prop_partition(sh: ShardedCSR, k: int, mesh: Mesh, num_iters: int = 10
     weight's ``sizes / cap`` is a product with cap's float32 reciprocal
     (XLA's rewrite of a division by a constant), so near-ties fall as they
     do there."""
+    single_process(mesh, "dist.label_prop_partition", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     first = mesh.first_device
     labels = ((torch.arange(n, dtype=torch.int64, device=first) * k) // max(n, 1)).to(torch.int32)
@@ -339,6 +359,7 @@ def reorder_heatmap(sh: ShardedCSR, order_r, order_c, mesh: Mesh, num_parts: int
     """Distributed b×b block-density heatmap of a reordered sharded matrix:
     per-shard histograms combined with a (b²,) ``psum``. Returns the (b, b)
     float32 grid (counts / nnz)."""
+    single_process(mesh, "dist.reorder_heatmap", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     m = sh.shape[1]
     b = int(num_parts)

@@ -57,6 +57,11 @@ refinement, the matching and the level correction read nothing back. The
 multilevel functions and SlashBurn read back what sizes their next step (a
 coarse size, a route's loads, a round's largest degree, the host's share of
 SlashBurn) and count it in ``stats=``.
+
+On a mesh that spans processes, :func:`spmv` and :func:`step_comm_bytes`
+run, each process working on its own shards (the exchange moves only
+values); every other function raises ``NotImplementedError`` (ROADMAP.md,
+item 10g).
 """
 
 from __future__ import annotations
@@ -72,10 +77,14 @@ from ..ops.kernels.csr_spmv import csr_spmv
 from ..ops.kernels.indptr import indptr_from_sorted_rows
 from ..ops.kernels.radix import bits_below, radix_argsort
 from ..utils.logger import Logger
-from .collectives import all_gather, all_to_all, pmax, pmin, psum
+from .collectives import all_gather, all_to_all, join, pmax, pmin, psum
 from .dist import _local_row_of, _rcm_rank, _shards, degrees
-from .mesh import Mesh
+from .mesh import Mesh, single_process
 from .sharded import ShardedCSR
+
+# ROADMAP.md's item for this module's functions that do not run on a mesh
+# that spans processes yet
+_ACROSS_ITEM = "10g"
 
 _BIG = 2**31 - 1
 
@@ -85,16 +94,20 @@ def _require_halo(sh: ShardedCSR):
         raise ValueError("this function needs halo metadata — build the ShardedCSR with halo=True or call .with_halo()")
 
 
-def _exchange(x_local: Sequence[torch.Tensor], halo_send_l: Sequence[torch.Tensor], axis: str = "x"):
+def _exchange(x_local: Sequence[torch.Tensor], halo_send_l: Sequence[torch.Tensor], axis: str = "x", owners=None):
     """One halo exchange: each shard's extended local vector ``[R local
     values | D*S received halo values]``, whose slots match ``halo_map``
     (the slot of (owner o, j) is ``R + o*S + j``).
 
     ``x_local``: the shards' (R,) vectors and ``halo_send_l`` their (D, S)
     lists of rows in [0, R) (:func:`_sends`), in the order of the mesh
-    axis ``axis``. One ``all_to_all`` of (D, S) values."""
-    sends = [torch.index_select(x, 0, hs.reshape(-1)).view(hs.shape) for x, hs in zip(x_local, halo_send_l)]
-    return tuple(torch.cat([x, r.reshape(-1)]) for x, r in zip(x_local, all_to_all(sends)))
+    axis ``axis``; on a mesh that spans processes ``owners`` gives the
+    shards' ranks and a remote shard's slots are ``None``. One
+    ``all_to_all`` of (D, S) values."""
+    sends = [None if x is None else torch.index_select(x, 0, hs.reshape(-1)).view(hs.shape)
+             for x, hs in zip(x_local, halo_send_l)]
+    return tuple(None if x is None else torch.cat([x, r.reshape(-1)])
+                 for x, r in zip(x_local, all_to_all(sends, owners=owners)))
 
 
 def _wide(sh: ShardedCSR) -> bool:
@@ -107,7 +120,7 @@ def _sends(sh: ShardedCSR) -> tuple:
     """The shards' ``halo_send`` lists for :func:`_exchange`: a listed row
     past R reads row R - 1, as the JAX gather clamps it."""
     rows = sh.rows_per_shard
-    return tuple(hs.clamp(max=rows - 1) for hs in sh.halo_send) if _wide(sh) else sh.halo_send
+    return tuple(None if hs is None else hs.clamp(max=rows - 1) for hs in sh.halo_send) if _wide(sh) else sh.halo_send
 
 
 def step_comm_bytes(sh: ShardedCSR, itemsize: int = 4) -> int:
@@ -132,18 +145,20 @@ def _statics(sh: ShardedCSR):
 
 def _put(sh: ShardedCSR, x, fill=0, dtype=None) -> tuple:
     """A replicated (n,) vector as the shards' (R,) pieces, padded with
-    ``fill``, each on its shard's device."""
+    ``fill``, each on its shard's device (``None`` for another process's)."""
     _, n, d, rows, _, _ = _statics(sh)
     x = torch.as_tensor(x)
     if dtype is not None:
         x = x.to(dtype)
-    return tuple(p.to(dev) for p, dev in zip(_pad_vec(x, d, rows, n, fill).unbind(0), sh.devices))
+    local = sh.local
+    return tuple(None if k not in local else p.to(dev)
+                 for k, (p, dev) in enumerate(zip(_pad_vec(x, d, rows, n, fill).unbind(0), sh.devices)))
 
 
 def _join(parts, mesh: Mesh, n: int) -> torch.Tensor:
     """The shards' (R,) pieces joined in row order on the mesh's first
-    device, cut to n."""
-    return torch.cat([p.to(mesh.first_device) for p in parts])[:n]
+    device, cut to n; across processes the remote pieces are gathered."""
+    return join(parts, mesh.axis_owners(mesh.axis_names[0]), mesh.first_device)[:n]
 
 
 def _gids(sh: ShardedCSR) -> tuple:
@@ -201,16 +216,16 @@ def spmv(sh: ShardedCSR, x, mesh: Mesh):
     _require_halo(sh)
     n, d, rows, _ = _shards(sh, mesh)
     ext_len = rows + d * sh.halo_width
-    ext = _exchange(_put(sh, x), _sends(sh), sh.axis)
+    ext = _exchange(_put(sh, x), _sends(sh), sh.axis, sh.owners)
     wide = _wide(sh)
-    ys = []
-    for k in range(d):
+    ys = [None] * d
+    for k in sh.local:
         cnt = sh.nnz_counts[k]
         cols = sh.halo_map[k][:cnt]
         if wide:
             cols = cols.clamp(max=ext_len - 1)
         vals = None if sh.vals is None else sh.vals[k][:cnt]
-        ys.append(csr_spmv(CSR(sh.indptr[k], cols, vals, (rows, ext_len)), ext[k]))
+        ys[k] = csr_spmv(CSR(sh.indptr[k], cols, vals, (rows, ext_len)), ext[k])
     return _join(ys, mesh, n)
 
 
@@ -258,6 +273,7 @@ def bfs_levels(sh: ShardedCSR, root, mesh: Mesh, max_iters: Optional[int] = None
     each level exchanges only halo marks. Returns the (n,) int32 levels (-1
     = unreached); ``stats``, a dict, receives ``levels`` and
     ``host_reads``."""
+    single_process(mesh, "halo.bfs_levels", _ACROSS_ITEM)
     _require_halo(sh)
     levels, _ = _bfs_sharded(sh, root, mesh, max_iters, stats)
     return _join(levels, mesh, sh.shape[0])
@@ -271,6 +287,7 @@ def label_prop_partition(sh: ShardedCSR, k: int, mesh: Mesh, num_iters: int = 10
     ``vertex_weights`` (n,) measures the parts by weight. The float32
     arithmetic is the JAX body's as XLA compiles it: ``sizes / cap`` is a
     product with cap's float32 reciprocal. Returns the (n,) int32 labels."""
+    single_process(mesh, "halo.label_prop_partition", _ACROSS_ITEM)
     _require_halo(sh)
     n, d, rows, _ = _shards(sh, mesh)
     first = mesh.first_device
@@ -325,6 +342,7 @@ def connected_components(sh: ShardedCSR, mesh: Mesh, alive=None, max_iters: Opti
     (n,) bool mask, restricts to the induced subgraph; masked-out vertices
     get -1. ``stats``, a dict, receives ``rounds``, ``jumps`` and
     ``host_reads`` (one a round and one a jump)."""
+    single_process(mesh, "halo.connected_components", _ACROSS_ITEM)
     _require_halo(sh)
     n, d, rows, _ = _shards(sh, mesh)
     first = mesh.first_device
@@ -439,6 +457,7 @@ def rcm_reorder(sh: ShardedCSR, mesh: Mesh, root: int = 0, max_iters: Optional[i
     reads nothing back), ``refine_iters`` and ``rank_buckets``, the
     histogram width of a refinement pass (each ``all_gather`` stacks D of
     them)."""
+    single_process(mesh, "halo.rcm_reorder", _ACROSS_ITEM)
     _require_halo(sh)
     _shards(sh, mesh)
     for _ in range(max(peripheral_iters, 1)):
@@ -497,6 +516,7 @@ def _cut(labels, ext, slots) -> torch.Tensor:
 def edge_cut(sh: ShardedCSR, labels, mesh: Mesh):
     """Directed edge cut with sharded labels: one halo exchange of the
     labels and a scalar ``psum`` (int64, on the mesh's first device)."""
+    single_process(mesh, "halo.edge_cut", _ACROSS_ITEM)
     _require_halo(sh)
     _shards(sh, mesh)
     lab = _put(sh, labels, dtype=torch.int32)
@@ -568,6 +588,7 @@ def refine_partition(sh: ShardedCSR, labels, k: int, mesh: Mesh, rounds: int = 4
     ``vertex_weights`` (n,) measures the parts by weight. The best labelling
     seen is kept, feasibility first, then cut, chosen on the device. Returns
     the (n,) int32 labels."""
+    single_process(mesh, "halo.refine_partition", _ACROSS_ITEM)
     _require_halo(sh)
     n, d, rows, _ = _shards(sh, mesh)
     first = mesh.first_device
@@ -661,6 +682,7 @@ def heavy_edge_matching(sh: ShardedCSR, mesh: Mesh, rounds: int = 4, weighted: b
     weights locally dominant edges need not be mutual and the handshake can
     stall). Returns the (n,) int32 ``match[v]``: v's partner, or v when
     unmatched. Reads nothing back."""
+    single_process(mesh, "halo.heavy_edge_matching", _ACROSS_ITEM)
     _require_halo(sh)
     n = _shards(sh, mesh)[0]
     slots, sends, gids = _slots(sh), _sends(sh), _gids(sh)
@@ -693,6 +715,7 @@ def coarsen(sh: ShardedCSR, match, mesh: Mesh, halo: bool = True, return_mapping
     Returns the coarse ``ShardedCSR`` (with halo lists when ``halo``), and
     with ``return_mapping`` the (n,) int32 fine-to-coarse map. ``stats``, a
     dict, receives ``host_reads``."""
+    single_process(mesh, "halo.coarsen", _ACROSS_ITEM)
     _require_halo(sh)
     n, d, rows, width = _shards(sh, mesh)
     slots, sends, gids = _slots(sh), _sends(sh), _gids(sh)
@@ -777,6 +800,7 @@ def bfs_levels_multilevel(sh: ShardedCSR, root: int, mesh: Mesh, coarsen_until: 
     the coarse BFS's levels, ``correction_rounds`` a level back up).
     ``stats``, a dict, receives ``levels`` (contractions kept), ``sizes``
     (n down the ladder), ``coarse_depth`` and ``host_reads``."""
+    single_process(mesh, "halo.bfs_levels_multilevel", _ACROSS_ITEM)
     _require_halo(sh)
     _shards(sh, mesh)
     reads = {}
@@ -812,6 +836,7 @@ def rcm_reorder_ml(sh: ShardedCSR, mesh: Mesh, root: int = 0, coarsen_until: int
     (:func:`.dist._rcm_rank`, K5), the variant for graphs whose diameter
     is large. Returns ``(the (n,) int32 inverse permutation, steps)``;
     ``stats`` as :func:`bfs_levels_multilevel`'s, with the rank's read."""
+    single_process(mesh, "halo.rcm_reorder_ml", _ACROSS_ITEM)
     levels, steps = bfs_levels_multilevel(sh, root, mesh, coarsen_until=coarsen_until,
                                           correction_rounds=correction_rounds, stats=stats)
     order = _rcm_rank(levels, degrees(sh, mesh), sh.shape[0])
@@ -868,6 +893,7 @@ def multilevel_partition(sh: ShardedCSR, k: int, mesh: Mesh, coarsen_until: int 
     Returns the (n,) int32 labels on the mesh's first device. ``stats``, a
     dict, receives ``levels``, ``sizes``, ``host_reads`` and
     ``host_writes``."""
+    single_process(mesh, "halo.multilevel_partition", _ACROSS_ITEM)
     _require_halo(sh)
     n = _shards(sh, mesh)[0]
     counts = {}
@@ -989,6 +1015,7 @@ def slashburn_reorder(sh: ShardedCSR, mesh: Mesh, k_size: int = 64, hub_order: b
     ``stats``, a dict, receives ``rounds`` (on the mesh), ``phases``,
     ``compactions``, ``host_tail`` (the vertices finished on the host),
     ``host_reads`` and ``host_writes`` (the masks copied to the card)."""
+    single_process(mesh, "halo.slashburn_reorder", _ACROSS_ITEM)
     from .. import native
     from ..ops.reorder.slashburn import SlashburnReorderParams, _place_spokes, _slashburn_host
 

@@ -11,6 +11,13 @@ list, which may name one device several times: ``make_mesh(devices=
 [torch.device("cuda", 0)] * 4)`` puts four shards on one card, and
 ``make_mesh(devices=["cpu"] * 8)`` eight on the CPU (the counterpart of
 JAX's virtual CPU devices). Nothing falls back to the CPU on its own.
+
+A mesh may span processes (``multihost.global_mesh``): each shard has an
+owner, the rank of the process that drives it, and a mesh is seen from one
+process (``rank``), which holds tensors only for its own shards
+(``local``); a sharded field then has ``None`` in a remote shard's slot.
+Two processes' ``cuda:0`` are two shards. A single-process mesh has rank 0
+everywhere.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ class Mesh:
     """An array of devices with one name per axis; ``shape[axis]`` is the
     number of shards along ``axis``."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], owners=None, rank: int = 0):
         given = np.asarray(devices, dtype=object)
         self.axis_names = tuple(axis_names)
         if given.ndim != len(self.axis_names):
@@ -34,6 +41,11 @@ class Mesh:
         arr = np.empty(given.size, dtype=object)
         arr[:] = [torch.device(d) for d in given.reshape(-1)]
         self.devices = arr.reshape(given.shape)
+        self.owners = np.zeros(given.shape, dtype=np.int64) if owners is None else \
+            np.asarray(owners, dtype=np.int64).reshape(given.shape)
+        self.rank = int(rank)
+        if not (self.owners == self.rank).any():
+            raise ValueError(f"rank {self.rank} drives no shard of the mesh (owners {self.owners.tolist()})")
 
     @property
     def shape(self) -> dict:
@@ -44,16 +56,29 @@ class Mesh:
         return int(self.devices.size)
 
     @property
+    def spans_processes(self) -> bool:
+        return bool((self.owners != self.rank).any())
+
+    @property
+    def local(self) -> tuple:
+        """The flat indices of the shards this process drives."""
+        return tuple(int(k) for k in np.flatnonzero(self.owners.reshape(-1) == self.rank))
+
+    @property
     def first_device(self) -> torch.device:
-        return self.devices.reshape(-1)[0]
+        """This process's first shard's device, where replicated results land."""
+        return self.devices.reshape(-1)[self.local[0]]
 
     def axis_devices(self, axis: str) -> tuple:
         """The devices along ``axis``, at index 0 of every other axis."""
-        k = self.axis_names.index(axis)
-        return tuple(np.moveaxis(self.devices, k, 0).reshape(self.devices.shape[k], -1)[:, 0])
+        return tuple(_along(self.devices, self.axis_names.index(axis)))
+
+    def axis_owners(self, axis: str) -> tuple:
+        """The owner ranks of the shards along ``axis``, as :meth:`axis_devices`."""
+        return tuple(int(o) for o in _along(self.owners, self.axis_names.index(axis)))
 
     def _key(self):
-        return (self.axis_names, self.devices.shape, tuple(self.devices.reshape(-1)))
+        return (self.axis_names, self.devices.shape, tuple(self.devices.reshape(-1)), tuple(self.owners.reshape(-1)))
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Mesh) and self._key() == other._key()
@@ -62,7 +87,20 @@ class Mesh:
         return hash(self._key())
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.reshape(-1)]})"
+        owners = f", owners={self.owners.reshape(-1).tolist()}, rank={self.rank}" if self.spans_processes else ""
+        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices.reshape(-1)]}{owners})"
+
+
+def _along(arr: np.ndarray, k: int) -> np.ndarray:
+    """The entries of ``arr`` along its axis ``k``, at index 0 of every other axis."""
+    return np.moveaxis(arr, k, 0).reshape(arr.shape[k], -1)[:, 0]
+
+
+def single_process(mesh: Mesh, where: str, item: str) -> None:
+    """Raise ``NotImplementedError`` for ``where`` on a mesh that spans
+    processes: it does not run there yet (ROADMAP.md, item ``item``)."""
+    if mesh.spans_processes:
+        raise NotImplementedError(f"{where} does not run on a mesh that spans processes yet (ROADMAP.md, item {item})")
 
 
 def _devices(count: int, devices) -> list:
@@ -113,14 +151,22 @@ class Placement:
             return tuple(self.mesh.devices.reshape(-1))
         return self.mesh.axis_devices(self.axis)
 
+    @property
+    def owners(self) -> tuple:
+        if self.axis is None:
+            return tuple(int(o) for o in self.mesh.owners.reshape(-1))
+        return self.mesh.axis_owners(self.axis)
+
     def put(self, t) -> tuple:
         """One tensor per device of the placement. Along an axis, ``t`` is a
         sequence of pieces (piece k goes to device k) or a tensor whose
         leading dimension splits evenly into them; replicated, ``t`` is one
-        tensor, copied to each device (no copy where it already lies there)."""
-        devices = self.devices
+        tensor, copied to each device (no copy where it already lies there).
+        A shard of another process gets ``None``."""
+        devices, rank = self.devices, self.mesh.rank
+        devices = [d if o == rank else None for d, o in zip(devices, self.owners)]
         if self.axis is None:
-            return tuple(t.to(d) for d in devices)
+            return tuple(None if d is None else t.to(d) for d in devices)
         if isinstance(t, torch.Tensor):
             if t.shape[0] % len(devices):
                 raise ValueError(f"a leading dimension of {t.shape[0]} does not split into {len(devices)} shards")
@@ -128,7 +174,7 @@ class Placement:
         pieces = tuple(t)
         if len(pieces) != len(devices):
             raise ValueError(f"{len(pieces)} pieces for {len(devices)} shards")
-        return tuple(p.to(d) for p, d in zip(pieces, devices))
+        return tuple(None if d is None else p.to(d) for p, d in zip(pieces, devices))
 
     def __repr__(self) -> str:
         return f"Placement({self.mesh!r}, axis={self.axis!r})"

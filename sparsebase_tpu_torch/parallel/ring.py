@@ -56,8 +56,12 @@ from ..ops.kernels.radix import bits_below, radix_argsort
 from ..utils.exceptions import TypeMismatchError
 from .collectives import all_gather, pmax, ppermute, psum
 from .dist import _local_row_of, _max0, _shards
-from .mesh import Mesh
+from .mesh import Mesh, single_process
 from .sharded import ShardedCSR
+
+# ROADMAP.md's item for this module's functions that do not run on a mesh
+# that spans processes yet
+_ACROSS_ITEM = "10h"
 
 MAX_DENSE_ELEMS = 1 << 30  # per-shard tile cells; past it the sparse ring
 SUM_BLOCK_CELLS = 1 << 24  # cells of a dense product taken to int64 at once
@@ -141,6 +145,7 @@ def triangle_count(sh: ShardedCSR, mesh: Mesh, directed: bool = False) -> int:
     A²·Aᵀ // 3). Self-loops are ignored (the diagonal cleared). Past
     ``MAX_DENSE_ELEMS`` tile cells per shard the undirected count is
     :func:`triangle_count_sparse`'s and the directed one raises."""
+    single_process(mesh, "ring.triangle_count", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     if rows * d * rows > MAX_DENSE_ELEMS:
         if directed:
@@ -181,6 +186,7 @@ def jaccard_weights(sh: ShardedCSR, mesh: Mesh) -> Tuple[torch.Tensor, ...]:
     |N(u)∪N(v)| over out-neighbourhoods: one ``(width,)`` float32 tensor
     per shard, parallel to ``sh.indices`` (pad slots 0). Past
     ``MAX_DENSE_ELEMS`` tile cells per shard, :func:`jaccard_weights_sparse`'s."""
+    single_process(mesh, "ring.jaccard_weights", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     if rows * d * rows > MAX_DENSE_ELEMS:
         return jaccard_weights_sparse(sh, mesh)
@@ -319,6 +325,7 @@ def triangle_count_sparse(sh: ShardedCSR, mesh: Mesh) -> int:
     Undirected semantics on a symmetric simple adjacency (each triangle
     once); self-loops are ignored and repeats within a list collapse, while
     a repeated entry counts again."""
+    single_process(mesh, "ring.triangle_count_sparse", _ACROSS_ITEM)
     return int(psum([c.sum() for c in _sparse_common(sh, mesh, True)])[0]) // 6
 
 
@@ -326,6 +333,7 @@ def jaccard_weights_sparse(sh: ShardedCSR, mesh: Mesh) -> Tuple[torch.Tensor, ..
     """Distributed per-edge Jaccard without densification, laid out as
     :func:`jaccard_weights`' (one ``(width,)`` float32 tensor per shard, pad
     slots 0)."""
+    single_process(mesh, "ring.jaccard_weights_sparse", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     return _jaccard(sh, d, rows, [c.to(torch.float32) for c in _sparse_common(sh, mesh, False)])
 
@@ -334,6 +342,7 @@ def jaccard_flat(sh: ShardedCSR, mesh: Mesh) -> torch.Tensor:
     """The Jaccard weights in the global CSR entry order: a float32 tensor on
     the mesh's first device, as :meth:`ShardedCSR.to_csr` joins the shards
     (the JAX function returns host numpy)."""
+    single_process(mesh, "ring.jaccard_flat", _ACROSS_ITEM)
     padded = jaccard_weights(sh, mesh)
     first = mesh.first_device
     return torch.cat([padded[k][: sh.nnz_counts[k]].to(first) for k in range(len(padded))])

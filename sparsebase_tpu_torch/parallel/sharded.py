@@ -30,6 +30,14 @@ called for each shard on its device, followed by the collective
 ``radix_argsort``) and the local ``indptr`` on K3 on CUDA tensors, on their
 plain versions on CPU tensors. A static width that sizes a buffer is read
 back to the host once, as the JAX module reads it.
+
+On a mesh that spans processes (``multihost.global_mesh``) the container
+keeps its mesh, and each field holds this process's shards' tensors and
+``None`` in a remote shard's slot. ``from_coo_sharded``, ``with_halo``,
+``nnz``, ``halo_bytes_per_exchange`` and ``to_csr`` run there, every
+process making the same calls: every host read of values from several
+shards goes through ``collectives.host_fetch``, which gathers the remote
+ones first. ``from_csr``, ``stacked`` and ``to`` raise there.
 """
 
 from __future__ import annotations
@@ -49,8 +57,8 @@ from ..formats.csr import CSR
 from ..ops.kernels.indptr import indptr_from_sorted_rows
 from ..ops.kernels.radix import bits_below, radix_argsort
 from ..utils.typing import convert_array_dtype
-from .collectives import all_to_all, pmax
-from .mesh import Mesh, shard_rows
+from .collectives import all_to_all, gather, host_fetch
+from .mesh import Mesh, shard_rows, single_process
 
 _INT32_MAX = 2**31 - 1
 
@@ -74,6 +82,7 @@ class ShardedCSR(Format):
     halo_send: Optional[tuple] = None  # d × (D, S)
     halo_counts: Optional[tuple] = None  # d × (D,)
     halo_map: Optional[tuple] = None  # d × (C,)
+    _mesh: Optional[Mesh] = None  # kept only on a mesh that spans processes
 
     order = 2
     _FIELDS = ("indptr", "indices", "vals", "nnz_local", "halo_send", "halo_counts", "halo_map")
@@ -85,8 +94,7 @@ class ShardedCSR(Format):
     @functools.cached_property
     def nnz_counts(self) -> Tuple[int, ...]:
         """Each shard's true nnz on the host (one read, kept)."""
-        first = self.indptr[0].device
-        return tuple(torch.stack([c.to(first) for c in self.nnz_local]).tolist())
+        return tuple(host_fetch(self.nnz_local, self.owners))
 
     @property
     def nnz(self) -> int:
@@ -97,13 +105,23 @@ class ShardedCSR(Format):
         return len(self.indptr)
 
     @property
+    def local(self) -> tuple:
+        """The shards whose tensors this process holds."""
+        return tuple(k for k, p in enumerate(self.indptr) if p is not None)
+
+    @property
+    def owners(self) -> tuple:
+        """Each shard's owner rank (all 0 on one process)."""
+        return (0,) * self.n_shards if self._mesh is None else self._mesh.axis_owners(self._axis)
+
+    @property
     def rows_per_shard(self) -> int:
-        return int(self.indptr[0].shape[0]) - 1
+        return int(self.indptr[self.local[0]].shape[0]) - 1
 
     @property
     def width(self) -> int:
         """C: the padded entries per shard."""
-        return int(self.indices[0].shape[0])
+        return int(self.indices[self.local[0]].shape[0])
 
     @property
     def axis(self) -> str:
@@ -111,12 +129,14 @@ class ShardedCSR(Format):
 
     @property
     def devices(self) -> tuple:
+        if self._mesh is not None:
+            return self._mesh.axis_devices(self._axis)
         return tuple(t.device for t in self.indptr)
 
     @property
     def mesh(self) -> Mesh:
         """The 1-D mesh of the shards' devices."""
-        return Mesh(list(self.devices), (self._axis,))
+        return Mesh(list(self.devices), (self._axis,)) if self._mesh is None else self._mesh
 
     @property
     def context(self) -> Context:
@@ -129,7 +149,7 @@ class ShardedCSR(Format):
     @property
     def halo_width(self) -> int:
         """S: padded per-pair halo list length."""
-        return 0 if self.halo_send is None else int(self.halo_send[0].shape[1])
+        return 0 if self.halo_send is None else int(self.halo_send[self.local[0]].shape[1])
 
     @property
     def halo_bytes_per_exchange(self) -> int:
@@ -138,12 +158,12 @@ class ShardedCSR(Format):
         partition boundary, not to n."""
         if self.halo_counts is None:
             return 0
-        first = self.halo_counts[0].device
-        return 4 * int(torch.stack([c.to(first) for c in self.halo_counts]).sum())
+        return 4 * sum(map(sum, host_fetch(self.halo_counts, self.owners)))
 
     def stacked(self, name: str) -> Optional[torch.Tensor]:
         """The field ``name`` as one ``(D, ...)`` tensor on the first shard's
         device (the JAX container's array), or None."""
+        single_process(self.mesh, "ShardedCSR.stacked", "10i")
         parts = getattr(self, name)
         if parts is None:
             return None
@@ -153,16 +173,20 @@ class ShardedCSR(Format):
     def shard_csr(self, k: int) -> CSR:
         """Shard ``k``'s rows as a ``(R, m)`` CSR on its device, without the
         padding."""
+        if self.indptr[k] is None:
+            raise ValueError(f"shard {k} lies on another process")
         cnt = self.nnz_counts[k]
         vals = None if self.vals is None else self.vals[k][:cnt]
         return CSR(self.indptr[k], self.indices[k][:cnt], vals, (self.rows_per_shard, self._shape[1]))
 
     def _tensors(self):
-        return tuple(t for name in self._FIELDS if getattr(self, name) is not None for t in getattr(self, name))
+        return tuple(t for name in self._FIELDS if getattr(self, name) is not None for t in getattr(self, name)
+                     if t is not None)
 
     def to(self, context: Context) -> "ShardedCSR":
         """A ``MeshContext`` places shard k on the k-th device along its axis
         (``shard_rows``); a host or device context puts every shard there."""
+        single_process(self.mesh, "ShardedCSR.to", "10i")
         if isinstance(context, MeshContext):
             placement = shard_rows(context.mesh, context.axis)
             move = placement.put
@@ -179,6 +203,7 @@ class ShardedCSR(Format):
         """Partition a CSR into row blocks over ``mesh``: sliced on the CSR's
         device, each shard then moved to its own (one host read: the shards'
         entry counts, which size the padded width)."""
+        single_process(mesh, "ShardedCSR.from_csr", "10i")
         n, m = csr.shape
         devices = mesh.axis_devices(axis)
         d = len(devices)
@@ -234,15 +259,17 @@ class ShardedCSR(Format):
         (:func:`_build_halo`) is the oracle."""
         if self.has_halo:
             return self
-        d, rows, width = self.n_shards, self.rows_per_shard, self.width
-        locs = [_halo_locals(self.indices[k][: self.nnz_counts[k]], rows, d, k) for k in range(d)]
-        c_o = [loc[-1] for loc in locs]
-        s = max(int(pmax([c.max() for c in c_o])[0]), 1)
-        built = [_halo_build(loc, rows, d, width, s, k) for k, loc in enumerate(locs)]
+        d, rows, width, owners = self.n_shards, self.rows_per_shard, self.width, self.owners
+        locs = [None if self.indices[k] is None else _halo_locals(self.indices[k][: self.nnz_counts[k]], rows, d, k)
+                for k in range(d)]
+        c_o = [None if loc is None else loc[-1] for loc in locs]
+        s = max(max(host_fetch([None if c is None else c.max() for c in c_o], owners)), 1)
+        built = [None if loc is None else _halo_build(loc, rows, d, width, s, k) for k, loc in enumerate(locs)]
         # halo_counts[o][r] = reader r's request count to owner o
-        counts = all_to_all(c_o)
-        send = all_to_all([req for req, _ in built])
-        out = dataclasses.replace(self, halo_send=send, halo_counts=counts, halo_map=tuple(hm for _, hm in built))
+        counts = all_to_all(c_o, owners=owners)
+        send = all_to_all([None if b is None else b[0] for b in built], owners=owners)
+        out = dataclasses.replace(self, halo_send=send, halo_counts=counts,
+                                  halo_map=tuple(None if b is None else b[1] for b in built))
         out.__dict__["nnz_counts"] = self.nnz_counts  # read once, kept
         return out
 
@@ -271,9 +298,14 @@ class ShardedCSR(Format):
         slot, as JAX's sentinel does, and is dropped after the route. Halo
         metadata is not built here: call :meth:`with_halo`. ``stats``, a
         dict, receives ``route_capacity``, ``compacted_width`` and
-        ``host_reads``."""
+        ``host_reads``.
+
+        On a mesh that spans processes every process passes the same global
+        ``row``, ``col`` and ``vals`` (on its own device), and cuts and routes
+        only its own shards' blocks."""
         n = shape[0]
         devices = mesh.axis_devices(axis)
+        owners, rank = mesh.axis_owners(axis), mesh.rank
         d = len(devices)
         nnz = int(row.shape[0])
         e = -(-nnz // d)  # entries per shard (the last block padded)
@@ -284,6 +316,8 @@ class ShardedCSR(Format):
             vals = torch.zeros((nnz,), dtype=torch.float32, device=row.device)
 
         def block(t, k, fill):
+            if owners[k] != rank:
+                return None
             piece = t[min(k * e, nnz) : min((k + 1) * e, nnz)]
             return F.pad(piece, (0, e - piece.shape[0]), value=fill).to(devices[k])
 
@@ -291,47 +325,59 @@ class ShardedCSR(Format):
         # route), column 0, value 0
         return ShardedCSR._from_blocks([block(row, k, n) for k in range(d)], [block(col, k, 0) for k in range(d)],
                                        [block(vals, k, 0) for k in range(d)], has_vals, shape, devices, axis,
-                                       route_capacity, stats)
+                                       route_capacity, stats, mesh=mesh)
 
     @staticmethod
     def _from_blocks(rowl, coll, vall, has_vals: bool, shape, devices, axis: str, route_capacity=None,
-                     stats: Optional[dict] = None) -> "ShardedCSR":
+                     stats: Optional[dict] = None, mesh: Optional[Mesh] = None) -> "ShardedCSR":
         """:meth:`from_coo_sharded` on entries already cut into the shards'
         equal blocks: ``rowl``, ``coll``, ``vall``, one int32 (int32, value)
         tensor a shard on its device. An entry whose row is n or more is
         routed as the pad row n, as JAX's sentinel: it fills a bucket slot,
         counts toward the loads and the capacity, and is dropped after the
-        route."""
+        route. On a ``mesh`` that spans processes a remote shard's blocks
+        are ``None``."""
         n, m = shape
         d = len(devices)
         rows = -(-n // d)
+        span = mesh if mesh is not None and mesh.spans_processes else None
+        owners = (0,) * d if span is None else span.axis_owners(axis)
+
+        def each(fn, parts):
+            return [None if p is None else fn(p) for p in parts]
+
         # the route's sort by (owner, row) comes first: its per-owner counts
         # (K3 over the sorted owners) are the JAX counting pass
-        routed = [_route_sort(rowl[k], coll[k], vall[k], n, rows, d) for k in range(d)]
+        routed = [None if rowl[k] is None else _route_sort(rowl[k], coll[k], vall[k], n, rows, d) for k in range(d)]
         reads = 0
         if route_capacity:
             cap = int(route_capacity)
         else:
-            cap = _pow2_at_least_64(int(pmax([torch.diff(r[4]).max() for r in routed])[0]))
+            cap = _pow2_at_least_64(max(host_fetch(each(lambda r: torch.diff(r[4]).max(), routed), owners)))
             reads += 1
-        sends = [_route_send(*r[:5], n, d, cap) for r in routed]
-        recv = [all_to_all([s[i] for s in sends]) for i in range(3)]
-        # one read: the overflow, each bucket's load and its pad rows; the
-        # pad rows sort last in their owner's bucket, so its true entries
-        # are a prefix
-        first = devices[0]
-        loads = [torch.diff(r[4]).to(first) for r in routed]
-        overflow = sum(torch.clamp(load - cap, min=0).sum() for load in loads)
-        head = torch.cat([overflow.reshape(1)] + loads + [r[5].to(first) for r in routed]).tolist()
+        sends = each(lambda r: _route_send(*r[:5], n, d, cap), routed)
+        recv = [all_to_all(each(lambda s: s[i], sends), owners=owners) for i in range(3)]
+
+        # one read: each source's overflow, its buckets' loads and their pad
+        # rows; the pad rows sort last in their owner's bucket, so its true
+        # entries are a prefix
+        def head_of(r):
+            load = torch.diff(r[4])
+            return torch.cat([torch.clamp(load - cap, min=0).sum().reshape(1), load, r[5]])
+
+        head = host_fetch(each(head_of, routed), owners)
         reads += 1
-        if head[0] > 0:
+        if sum(h[0] for h in head) > 0:
             raise ValueError(f"from_coo_sharded: routing bucket overflow — raise route_capacity (cap={cap})")
         # sent[s][r]: the true entries from shard s to shard r
-        sent = [[head[1 + s * d + r] - head[1 + d * d + s * d + r] for r in range(d)] for s in range(d)]
+        sent = [[head[s][1 + r] - head[s][1 + d + r] for r in range(d)] for s in range(d)]
         counts = tuple(sum(sent[s][r] for s in range(d)) for r in range(d))
         w_c = min(_pow2_at_least_64(max(counts)), d * cap)
         local = []
         for r in range(d):
+            if recv[0][r] is None:
+                local.append((None, None, None))
+                continue
             # the true prefix of each source's piece; the JAX body sorts the
             # whole d·cap buffer, pad rows last, and cuts it to w_c
             real = [torch.cat([piece[s, : sent[s][r]] for s in range(d)]) for piece in
@@ -341,9 +387,11 @@ class ShardedCSR(Format):
             tuple(loc[0] for loc in local),
             tuple(loc[1] for loc in local),
             tuple(loc[2] for loc in local) if has_vals else None,
-            tuple(torch.full((), c, dtype=torch.int64, device=dev) for c, dev in zip(counts, devices)),
+            tuple(None if loc[0] is None else torch.full((), c, dtype=torch.int64, device=dev)
+                  for c, dev, loc in zip(counts, devices, local)),
             (n, m),
             axis,
+            _mesh=span,
         )
         sh.__dict__["nnz_counts"] = counts
         if stats is not None:
@@ -355,7 +403,16 @@ class ShardedCSR(Format):
         :meth:`from_csr`)."""
         n, m = self._shape
         d, rows = self.n_shards, self.rows_per_shard
-        first = self.indptr[0].device
+        first = self.mesh.first_device
+        counts = self.nnz_counts
+
+        def every(parts):
+            # each shard's true entries, gathered over the group where the
+            # mesh spans processes
+            return gather([None if p is None else p[:c] for p, c in zip(parts, counts)], self.owners, first)
+
+        ips, idx = gather(self.indptr, self.owners, first), every(self.indices)
+        vls = None if self.vals is None else every(self.vals)
         indptr = [torch.zeros((1,), dtype=torch.int64, device=first)]
         chunks_i, chunks_v = [], []
         base = 0
@@ -363,16 +420,15 @@ class ShardedCSR(Format):
             lo, hi = k * rows, min((k + 1) * rows, n)
             if hi <= lo:
                 continue  # shard entirely past n (small matrices on big meshes)
-            cnt = self.nnz_counts[k]
-            indptr.append(self.indptr[k][1 : hi - lo + 1].to(first) + base)
-            chunks_i.append(self.indices[k][:cnt].to(first))
+            indptr.append(ips[k][1 : hi - lo + 1] + base)
+            chunks_i.append(idx[k])
             if self.vals is not None:
-                chunks_v.append(self.vals[k][:cnt].to(first))
-            base += cnt
+                chunks_v.append(vls[k])
+            base += counts[k]
         indices = torch.cat(chunks_i) if chunks_i else torch.zeros((0,), dtype=torch.int32, device=first)
         vals = None
         if self.vals is not None:
-            vals = torch.cat(chunks_v) if chunks_v else self.vals[0][:0].to(first)
+            vals = torch.cat(chunks_v) if chunks_v else vls[0][:0]
         return CSR(torch.cat(indptr), indices, vals, self._shape)
 
     def local_row_offset(self, shard_index):

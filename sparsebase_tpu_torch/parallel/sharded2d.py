@@ -19,6 +19,8 @@ mesh's device (i, j), each of the JAX array's (i, j) shape
 :meth:`Sharded2DCSR.from_csr` builds the tiles with array ops on the CSR's
 device: a stable sort of the entries by tile (K5), then each tile's local
 columns and its ``indptr`` (K3); the JAX package loops over rows on the host.
+Nothing here runs on a mesh that spans processes yet: it raises
+``NotImplementedError`` (ROADMAP.md, item 10i).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..ops.kernels.csr_spmv import csr_spmv
 from ..ops.kernels.indptr import indptr_from_sorted_rows
 from ..ops.kernels.radix import bits_below, radix_argsort
 from .collectives import psum, psum_scatter
-from .mesh import Mesh
+from .mesh import Mesh, single_process
 
 
 @register_format
@@ -120,6 +122,7 @@ class Sharded2DCSR(Format):
         """Tile a CSR over the 2-D ``mesh`` on the CSR's device (one host
         read: the tiles' entry counts, which size the padded width)."""
         n, m = csr.shape
+        single_process(mesh, "Sharded2DCSR.from_csr", "10i")
         dr, dc = mesh.shape[axes[0]], mesh.shape[axes[1]]
         devices = mesh.devices if mesh.axis_names.index(axes[0]) == 0 else mesh.devices.T
         # rows per tile padded to a multiple of dc so psum_scatter tiles evenly
@@ -169,7 +172,8 @@ class Sharded2DCSR(Format):
         )
 
 
-def _check(sh: Sharded2DCSR, mesh: Mesh) -> None:
+def _check(sh: Sharded2DCSR, mesh: Mesh, where: str) -> None:
+    single_process(mesh, where, "10i")
     if mesh != sh.mesh:
         raise ValueError(f"the tiles lie on {sh.mesh!r}, not on {mesh!r}")
 
@@ -178,7 +182,7 @@ def spmv(sh: Sharded2DCSR, x, mesh: Mesh):
     """y = A @ x on the 2-D mesh: x split by column blocks, K2 per tile, the
     partial sums of each row of tiles reduced with ``psum_scatter``; y
     joined in row order on the mesh's first device."""
-    _check(sh, mesh)
+    _check(sh, mesh, "sharded2d.spmv")
     n, m = sh.shape
     dr, dc = sh.grid
     cols = -(-m // dc)
@@ -197,7 +201,7 @@ def spmv(sh: Sharded2DCSR, x, mesh: Mesh):
 def degrees(sh: Sharded2DCSR, mesh: Mesh):
     """Per-row degree (int64): per-tile counts ``psum``'d over the column
     axis, joined in row order."""
-    _check(sh, mesh)
+    _check(sh, mesh, "sharded2d.degrees")
     n = sh.shape[0]
     first = mesh.first_device
     out = [psum([ip[1:] - ip[:-1] for ip in row])[0].to(first) for row in sh.indptr]

@@ -282,6 +282,17 @@ def test_radix_kernel_edges_match_plain(dev, gen, case):
     assert sorted_keys.dtype == keys.dtype and torch.equal(sorted_keys, torch.sort(keys, stable=True).values)
 
 
+def test_radix_unique_on_the_card(dev, gen):
+    """``radix_unique`` launches K5 once and gives ``torch.unique``'s keys."""
+    from sparsebase_tpu_torch.ops.kernels.radix import bits_below, radix_unique
+
+    keys = torch.randint(0, 1 << 20, (300_000,), generator=gen, device=dev)
+    before = _build.launch_counts()["radix_rank"]
+    got = radix_unique(keys, key_bits=bits_below(1 << 20))
+    assert _build.launch_counts()["radix_rank"] == before + 1
+    assert torch.equal(got, torch.unique(keys))
+
+
 def count_syncs(fn):
     """Synchronising CUDA operations in one call of ``fn``."""
     torch.cuda.synchronize()
@@ -1802,3 +1813,67 @@ def test_bench_suite_run_distributed_on_card_equals_cpu(dev, monkeypatch):
 
     assert without_times(card) == without_times(host)
     assert card["rand-20k"]["ring_mxu"]["triangles_match_host"] and card["rand-20k"]["ring_mxu"]["jaccard_match_host"]
+
+
+def _group_on_card(tmp_path, backend: str, per_process: int):
+    """Two processes of ``tests/torch_multiproc_child.py`` on the card(s):
+    each rank's saved results."""
+    import sys
+
+    import torch_multiproc_child as child
+    from sparsebase_tpu_torch.parallel import multihost
+
+    multihost.launch([sys.executable, child.__file__, "--out", str(tmp_path), "--device", "cuda", "--shards",
+                      str(per_process), "--backend", backend], 2, timeout=300)
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+def _assert_group_equals_one_process(ranks, per_process, mesh, dev):
+    """Every rank's shards and replicated results equal the single-process
+    ``mesh``'s bit for bit."""
+    import torch_multiproc_child as child
+
+    for graph in child.GRAPHS:
+        want = child.run_path(mesh, graph, dev)
+        for res in ranks:
+            got = res[per_process][graph]
+            for name in child.FIELDS:
+                for k, (g, w) in enumerate(zip(got[name], want[name])):
+                    if g is not None:
+                        assert g.dtype == w.dtype and torch.equal(g.to(w.device), w), (graph, name, k)
+            for name in ("stats", "nnz_counts", "nnz", "width", "halo_width", "halo_bytes"):
+                assert got[name] == want[name], (graph, name)
+            for name in ("y", "order", "levels", "degrees", "degree_order"):
+                assert torch.equal(got[name].to(want[name].device), want[name]), (graph, name)
+            assert all(said.startswith("NotImplementedError") for said in res[per_process]["guards"].values())
+
+
+def test_two_gloo_processes_sharing_the_card_equal_one_process(tmp_path, dev):
+    from sparsebase_tpu_torch.parallel import make_mesh
+
+    ranks = _group_on_card(tmp_path, "gloo", 2)
+    assert [r["backend"] for r in ranks] == ["gloo", "gloo"]
+    assert all(r[2]["traffic"]["staged_bytes"] > 0 for r in ranks)  # gloo stages the card's tensors
+    _assert_group_equals_one_process(ranks, 2, make_mesh(devices=[dev] * 4), dev)
+
+
+@pytest.mark.skipif("torch.cuda.device_count() < 2", reason="the NCCL route needs a card a process, two cards")
+def test_two_nccl_processes_a_card_each_equal_one_process(tmp_path, dev):
+    from sparsebase_tpu_torch.parallel import make_mesh
+
+    ranks = _group_on_card(tmp_path, "nccl", 2)
+    assert [r["backend"] for r in ranks] == ["nccl", "nccl"]
+    assert all(r[2]["traffic"]["staged_bytes"] == 0 for r in ranks)
+    mesh = make_mesh(devices=[torch.device("cuda", 0)] * 2 + [torch.device("cuda", 1)] * 2)
+    _assert_group_equals_one_process(ranks, 2, mesh, dev)
+
+
+def test_scaling_row_on_the_card():
+    from sparsebase_tpu_torch.parallel import scaling
+
+    rows = scaling.run_weak_scaling(base_n=4096, avg_deg=8, device_counts=[2], reps=1, device="cuda", timeout=300)
+    want = scaling.run_one_row("random", 2, base_n=4096, avg_deg=8, reps=1, device="cpu")
+    got = rows[2]
+    assert got["devices"] == (["cuda:0", "cuda:0"] if torch.cuda.device_count() == 1 else ["cuda:0", "cuda:1"])
+    for name in ("n", "nnz", "halo_bytes_per_step", "bfs_depth", "rcm_steps"):
+        assert got[name] == want[name], name

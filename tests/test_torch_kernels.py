@@ -625,6 +625,14 @@ def test_radix_scratch_is_sized_per_tile():
     assert scratch_bytes(6_250_000) == radix_module.HEADER_BYTES + 2048 * 1526
 
 
+@pytest.mark.parametrize("n,bound", [(0, 10), (1, 10), (1000, 7), (5000, 1 << 40)])
+def test_radix_unique_matches_numpy(n, bound):
+    """The distinct keys in ascending order, as ``np.unique`` gives them."""
+    keys = np.random.default_rng(n).integers(0, bound, n)
+    got = radix_module.radix_unique(torch.from_numpy(keys), key_bits=bits_below(bound))
+    assert got.dtype == torch.int64 and np.array_equal(got.numpy(), np.unique(keys))
+
+
 def _packed(rng, n, nseg, ncols):
     return (rng.integers(0, nseg, n).astype(np.int64) << 32) | rng.integers(0, ncols, n)
 
@@ -1158,3 +1166,29 @@ def test_chip_smoke_path_l_on_the_cpu(monkeypatch, capsys, one_thread):
     assert "4480 triangles, every weight 14/16" in out and "d=1 raised: 'ring.triangle_count" in out
     assert out.count("equal to K6, the weights equal to K6's bit for bit") == 2
     assert out.count("phase 5 path L ") == 20 and out.count(", dense: ") == 5
+
+
+def test_chip_smoke_path_m_on_the_cpu(monkeypatch, capsys, one_thread):
+    """``chip_smoke.path_m`` rehearsed on the CPU at a small size (the tool's
+    graph at 4,096 vertices; two gloo processes of the script on the CPU,
+    under its time limit; weak-scaling rows at d = 1 and 2 of 1,024 and 256
+    vertices a shard), with the card's clocks and launch counts stubbed:
+    every field of the two processes equals the single-process mesh's, and
+    phase 5 prints each phase, the exchange, the link figures and the rows."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(smoke, "read_launches", lambda path, required: {})
+    monkeypatch.setattr(smoke, "require_launches", lambda path, counts, required: None)  # nothing launches here
+    monkeypatch.setattr(smoke, "SCALING_RANDOM_BASE_N", 1 << 10)
+    monkeypatch.setattr(smoke, "SCALING_STENCIL_BASE_N", 1 << 8)
+    monkeypatch.setattr(smoke, "SCALING_COUNTS", [1, 2])
+    launches, err = smoke.path_m(torch.device("cpu"), 0, n=1 << 12)
+    assert launches == {} and err == 0.0
+    out = capsys.readouterr().out
+    assert "phase 4 path M gloo: 2 processes x 2 shards equal to the single-process mesh of 4 shards bit for bit" in out
+    assert "path M dist.rcm_reorder vs the plain (level, degree, id) rank: n=4096 equal=True" in out
+    for name in ("from_coo_sharded", "with_halo", "halo.spmv", "dist.rcm_reorder"):
+        assert f"phase 5 path M {name}: one process " in out and "bytes to the other process" in out
+    assert "phase 3 path M NCCL route: skipped" in out and "phase 5 path M link figures for the projection" in out
+    assert out.count("phase 5 path M weak scaling random base_n=1024 d=") == 2
+    assert out.count("phase 5 path M weak scaling stencil base_n=256 d=") == 2

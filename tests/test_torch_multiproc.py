@@ -1,0 +1,157 @@
+"""The distributed tier on a mesh that spans two processes, on the CPU.
+
+One group of two gloo processes (``tests/torch_multiproc_child.py``,
+started once for the module by ``multihost.launch`` under a time limit)
+builds ``global_mesh(devices=["cpu"] * S)`` for S = 2 and 4 (4 and 8
+shards) and runs every collective, the host read, the distributed ingest's
+path (``from_coo_sharded`` → ``with_halo`` → ``halo.spmv`` →
+``dist.rcm_reorder``, with ``to_csr``, ``bfs_levels``, ``degrees`` and
+``degree_reorder``) and the guard of every function that does not run
+across processes. Each process's results must equal the single-process
+mesh of as many CPU shards on the same inputs bit for bit, field by field;
+on ``tools/multiproc_dcn.py``'s graph the path must also give the JAX
+package's results on 4 and 8 virtual CPU devices: y within rtol 1e-5, atol
+1e-5 (as ``test_torch_halo.py``), the RCM order exactly.
+"""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import torch_multiproc_child as child
+from sparsebase_tpu_torch.parallel import make_mesh, multihost
+
+CHILD = str(Path(child.__file__).resolve())
+PER_PROCESS = (2, 4)
+GROUP_TIME_LIMIT = 240  # seconds for the whole group; it takes about 10
+
+
+@pytest.fixture(scope="module")
+def group(tmp_path_factory):
+    """Each rank's saved results."""
+    out = tmp_path_factory.mktemp("group")
+    multihost.launch([sys.executable, CHILD, "--out", str(out), "--shards", ",".join(map(str, PER_PROCESS))], 2,
+                     timeout=GROUP_TIME_LIMIT)
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+
+@pytest.fixture(scope="module", params=PER_PROCESS, ids=lambda s: f"2x{s}")
+def per_process(request):
+    return request.param
+
+
+def single(s: int):
+    """The single-process mesh of the group's 2·s shards."""
+    return make_mesh(devices=["cpu"] * (2 * s))
+
+
+def assert_same(got, want, what):
+    """``got`` (one process's) equal to ``want`` (the single process's):
+    tensors bit for bit with their dtypes, remote slots None."""
+    if isinstance(want, torch.Tensor):
+        assert isinstance(got, torch.Tensor) and got.dtype == want.dtype and got.shape == want.shape, what
+        assert torch.equal(got, want), what
+    elif isinstance(want, (tuple, list)):
+        assert len(got) == len(want), what
+        for k, (g, w) in enumerate(zip(got, want)):
+            if g is None:
+                continue  # another process's shard
+            assert_same(g, w, f"{what}[{k}]")
+    else:
+        assert got == want, what
+
+
+def assert_local(got, want, local, what):
+    """A sharded field: this process's shards equal, the others None."""
+    assert len(got) == len(want), what
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert (g is None) == (k not in local), f"{what}[{k}]"
+        if g is not None:
+            assert_same(g, w, f"{what}[{k}]")
+
+
+def test_group(group, per_process):
+    for rank, res in enumerate(group):
+        assert res["rank"] == rank and res["backend"] == "gloo"
+        size, local, owners, first = res[per_process]["mesh"]
+        d = 2 * per_process
+        assert size == d and owners == (0,) * per_process + (1,) * per_process
+        assert local == tuple(range(rank * per_process, (rank + 1) * per_process)) and first == "cpu"
+    assert [res["local_entry_counts"] for res in group] == [(0, 500), (500, 500)]
+    traffic = group[0][per_process]["traffic"]
+    assert traffic["crossed_bytes"] > 0 and traffic["exchanges"] > 0 and traffic["staged_bytes"] == 0
+
+
+@pytest.mark.parametrize("name", child.COLLECTIVES)
+def test_collective(group, per_process, name):
+    want = child.run_collectives(single(per_process), torch.device("cpu"))[name]
+    for res in group:
+        local = res[per_process]["mesh"][1]
+        got = res[per_process]["collectives"][name]
+        if name in ("host_fetch", "gather ragged"):
+            assert_same(got, want, name)  # every process reads every shard's values
+        else:
+            assert_local(got, want, local, name)
+
+
+@pytest.fixture(scope="module")
+def single_paths():
+    """The path on the single-process meshes, once."""
+    return {(s, g): child.run_path(single(s), g, torch.device("cpu")) for s in PER_PROCESS for g in child.GRAPHS}
+
+
+@pytest.mark.parametrize("graph", list(child.GRAPHS))
+def test_path_equals_single_process(group, per_process, single_paths, graph):
+    want = single_paths[per_process, graph]
+    for res in group:
+        local = res[per_process]["mesh"][1]
+        got = res[per_process][graph]
+        for name in child.FIELDS:
+            assert_local(got[name], want[name], local, f"{graph} {name}")
+        for name in ("stats", "nnz_counts", "nnz", "width", "halo_width", "halo_bytes", "step_comm_bytes", "y",
+                     "order", "levels", "degrees", "degree_order", "csr"):
+            assert_same(got[name], want[name], f"{graph} {name}")
+
+
+@pytest.mark.parametrize("name", child.GUARDED)
+def test_guard(group, per_process, name):
+    for res in group:
+        said = res[per_process]["guards"][name]
+        assert said.startswith("NotImplementedError: ") and "ROADMAP.md, item 10" in said, said
+
+
+@pytest.fixture(scope="module")
+def jax_tool_path():
+    """The JAX package's path on the tool's graph on 4 and 8 virtual CPU
+    devices: ``{d: (y, order)}``."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from sparsebase_tpu.parallel import dist as ref_dist
+    from sparsebase_tpu.parallel import halo as ref_halo
+    from sparsebase_tpu.parallel import make_mesh as ref_make_mesh
+    from sparsebase_tpu.parallel.sharded import ShardedCSR as RefShardedCSR
+
+    row, col, vals, shape = child.tool_graph()
+    x = np.random.default_rng(7).standard_normal(shape[0]).astype(np.float32)
+    out = {}
+    for s in PER_PROCESS:
+        assert len(jax.devices()) >= 2 * s, "conftest must provide 8 virtual devices"
+        mesh = ref_make_mesh(2 * s)
+        sh = RefShardedCSR.from_coo_sharded(jnp.asarray(row), jnp.asarray(col), jnp.asarray(vals), shape,
+                                            mesh).with_halo()
+        y = np.asarray(ref_halo.spmv(sh, jnp.asarray(x), mesh)).reshape(-1)[: shape[0]]
+        out[s] = (y, np.asarray(ref_dist.rcm_reorder(sh, mesh)).reshape(-1)[: shape[0]], int(sh.nnz))
+    return out
+
+
+def test_path_equals_jax(group, per_process, jax_tool_path):
+    y, order, nnz = jax_tool_path[per_process]
+    for res in group:
+        got = res[per_process]["tool"]
+        assert got["nnz"] == nnz
+        np.testing.assert_allclose(got["y"].numpy(), y, rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(got["order"].numpy(), order)

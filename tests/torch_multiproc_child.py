@@ -1,0 +1,218 @@
+"""One process of a group that the multi-process tests start with
+``multihost.launch``: it joins the group (``multihost.initialize()`` from
+torch's standard variables, gloo), builds ``global_mesh(devices=[device] *
+S)`` for each S of ``--shards``, and runs on it the collectives, the host
+read and the distributed ingest's path (``from_coo_sharded`` →
+``with_halo`` → ``halo.spmv`` → ``dist.rcm_reorder``) on the graphs of
+:data:`GRAPHS`, then the guard of every function that does not run across
+processes. It saves what it holds to ``--out/rank{R}.pt``; the tests hold
+it to the single-process mesh (:func:`run_collectives`, :func:`run_path`
+on ``make_mesh``).
+
+    python tests/torch_multiproc_child.py --out DIR [--device cpu|cuda] [--shards 2,4] [--backend gloo|nccl]
+
+Under NCCL each process takes the card of its rank.
+"""
+
+import argparse
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from sparsebase_tpu_torch.context import MeshContext  # noqa: E402
+from sparsebase_tpu_torch.parallel import (  # noqa: E402
+    ShardedCSR, collectives, dist, halo, make_mesh_2d, multihost, ring, sharded2d,
+)
+
+TOOL_N = 999
+FIELDS = ("indptr", "indices", "vals", "nnz_local", "halo_send", "halo_counts", "halo_map")
+
+
+def tool_graph(n: int = TOOL_N, avg_deg: int = 8, seed: int = 42):
+    """``tools/multiproc_dcn.py``'s graph: symmetric, no self-loops, unique
+    pairs, row-major, float32 values."""
+    rng = np.random.default_rng(seed)
+    pairs = n * avg_deg // 2
+    r, c = rng.integers(0, n, pairs), rng.integers(0, n, pairs)
+    keep = r != c
+    r, c = r[keep], c[keep]
+    keys = np.unique(np.concatenate([r, c]).astype(np.int64) * n + np.concatenate([c, r]))
+    row, col = (keys // n).astype(np.int32), (keys % n).astype(np.int32)
+    return row, col, rng.standard_normal(len(row)).astype(np.float32), (n, n)
+
+
+def wide_graph(n: int = 37, m: int = 61, nnz: int = 400, seed: int = 5):
+    """More columns than rows, and a quarter of the entries on rows at or
+    past n (ROADMAP.md §3, faults 3.4 and 3.5), in no order."""
+    rng = np.random.default_rng(seed)
+    row, col = rng.integers(0, n, nnz), rng.integers(0, m, nnz)
+    past = rng.random(nnz) < 0.25
+    row[past] = n + rng.integers(0, 2 * n, int(past.sum()))
+    return row.astype(np.int32), col.astype(np.int32), rng.random(nnz).astype(np.float32), (n, m)
+
+
+GRAPHS = {"tool": tool_graph, "wide": wide_graph}
+COLLECTIVES = ("psum", "pmax", "pmin", "all_gather", "psum_scatter", "all_to_all", "all_to_all axes", "ppermute",
+               "ppermute reversed", "host_fetch", "gather ragged")
+# what must raise NotImplementedError on a mesh that spans processes
+GUARDED = tuple(f"dist.{f}" for f in ("spmv", "edge_cut", "label_prop_partition", "refine_partition",
+                                      "structure_features", "reorder_heatmap")) + tuple(
+    f"halo.{f}" for f in ("bfs_levels", "label_prop_partition", "connected_components", "rcm_reorder", "edge_cut",
+                          "refine_partition", "heavy_edge_matching", "coarsen", "bfs_levels_multilevel",
+                          "rcm_reorder_ml", "multilevel_partition", "slashburn_reorder")) + tuple(
+    f"ring.{f}" for f in ("triangle_count", "jaccard_weights", "triangle_count_sparse", "jaccard_weights_sparse",
+                          "jaccard_flat")) + (
+    "sharded2d.Sharded2DCSR.from_csr", "ShardedCSR.from_csr", "ShardedCSR.stacked", "ShardedCSR.to",
+    "sharded2d.spmv", "sharded2d.degrees")
+
+
+def parts_of(d: int, shape, dtype, seed: int, local) -> list:
+    """Shard k's input to a collective (a tensor drawn from ``seed + k``),
+    or None for a shard of another process."""
+    out = []
+    for k in range(d):
+        a = np.random.default_rng(seed + k).standard_normal(shape) * 1000
+        out.append(torch.as_tensor(a).to(dtype) if k in local else None)
+    return out
+
+
+def run_collectives(mesh, device) -> dict:
+    """Every collective and the host read on inputs drawn per shard; each
+    result is this process's shards' (remote slots None)."""
+    d, owners, local = mesh.size, mesh.axis_owners("x"), mesh.local
+
+    def on(parts):
+        return [None if p is None else p.to(device) for p in parts]
+
+    f32 = on(parts_of(d, (5,), torch.float32, 10, local))
+    i32 = on(parts_of(d, (2 * d, 3), torch.int32, 20, local))
+    shift = [(s, (s + 1) % d) for s in range(d - 1)]  # shard 0 receives nothing
+    ragged = [None if k not in local else torch.arange(k + 1, device=device) * (k + 1) for k in range(d)]
+    out = {
+        "psum": collectives.psum(f32, owners),
+        "pmax": collectives.pmax(f32, owners),
+        "pmin": collectives.pmin(i32, owners),
+        "all_gather": collectives.all_gather(f32, owners),
+        "psum_scatter": collectives.psum_scatter(on(parts_of(d, (3 * d,), torch.float32, 30, local)),
+                                                 owners=owners),
+        "all_to_all": collectives.all_to_all(i32, owners=owners),
+        "all_to_all axes": collectives.all_to_all(i32, 0, 1, owners=owners),
+        "ppermute": collectives.ppermute(f32, shift, owners),
+        "ppermute reversed": collectives.ppermute(i32, [(s, d - 1 - s) for s in range(d)], owners),
+        "host_fetch": collectives.host_fetch(on(parts_of(d, (3,), torch.int64, 40, local)), owners),
+        "gather ragged": collectives.gather(ragged, owners),
+    }
+    assert tuple(out) == COLLECTIVES
+    return out
+
+
+def run_path(mesh, graph: str, device) -> dict:
+    """The distributed ingest's path on ``graph``: the container's fields
+    (this process's shards), its counts and widths, y, the RCM order and
+    the other replicated results, and ``to_csr``."""
+    row, col, vals, shape = GRAPHS[graph]()
+    x = np.random.default_rng(7).standard_normal(shape[0]).astype(np.float32)
+
+    def put(a):
+        return torch.as_tensor(a).to(device)
+
+    stats = {}
+    sh = ShardedCSR.from_coo_sharded(put(row), put(col), put(vals), shape, mesh, stats=stats).with_halo()
+    back = sh.to_csr()
+    out = {name: getattr(sh, name) for name in FIELDS}
+    out.update(
+        stats=stats, nnz_counts=sh.nnz_counts, nnz=sh.nnz, width=sh.width, halo_width=sh.halo_width,
+        halo_bytes=sh.halo_bytes_per_exchange, step_comm_bytes=halo.step_comm_bytes(sh),
+        y=halo.spmv(sh, put(x), mesh), order=dist.rcm_reorder(sh, mesh), levels=dist.bfs_levels(sh, 0, mesh),
+        degrees=dist.degrees(sh, mesh), degree_order=dist.degree_reorder(sh, mesh),
+        csr=(back.indptr, back.indices, back.vals),
+    )
+    return out
+
+
+def run_guards(mesh, device) -> dict:
+    """Each function that does not run across processes, called on a
+    container on the spanning mesh: the name of what it raised."""
+    row, col, vals, shape = tool_graph(64)
+    sh = ShardedCSR.from_coo_sharded(*(torch.as_tensor(a).to(device) for a in (row, col, vals)), shape,
+                                     mesh).with_halo()
+    n, back = shape[0], sh.to_csr()
+    tiles = sharded2d.Sharded2DCSR.from_csr(back, make_mesh_2d((1, 1), devices=[device]))
+    labels = torch.zeros((n,), dtype=torch.int32, device=device)
+    calls = {
+        "dist.spmv": lambda: dist.spmv(sh, torch.ones(n, device=device), mesh),
+        "dist.edge_cut": lambda: dist.edge_cut(sh, labels, mesh),
+        "dist.label_prop_partition": lambda: dist.label_prop_partition(sh, 2, mesh),
+        "dist.refine_partition": lambda: dist.refine_partition(sh, labels, 2, mesh),
+        "dist.structure_features": lambda: dist.structure_features(sh, mesh),
+        "dist.reorder_heatmap": lambda: dist.reorder_heatmap(sh, labels, labels, mesh),
+        "halo.bfs_levels": lambda: halo.bfs_levels(sh, 0, mesh),
+        "halo.label_prop_partition": lambda: halo.label_prop_partition(sh, 2, mesh),
+        "halo.connected_components": lambda: halo.connected_components(sh, mesh),
+        "halo.rcm_reorder": lambda: halo.rcm_reorder(sh, mesh),
+        "halo.edge_cut": lambda: halo.edge_cut(sh, labels, mesh),
+        "halo.refine_partition": lambda: halo.refine_partition(sh, labels, 2, mesh),
+        "halo.heavy_edge_matching": lambda: halo.heavy_edge_matching(sh, mesh),
+        "halo.coarsen": lambda: halo.coarsen(sh, torch.arange(n, device=device), mesh),
+        "halo.bfs_levels_multilevel": lambda: halo.bfs_levels_multilevel(sh, 0, mesh),
+        "halo.rcm_reorder_ml": lambda: halo.rcm_reorder_ml(sh, mesh),
+        "halo.multilevel_partition": lambda: halo.multilevel_partition(sh, 2, mesh),
+        "halo.slashburn_reorder": lambda: halo.slashburn_reorder(sh, mesh),
+        "ring.triangle_count": lambda: ring.triangle_count(sh, mesh),
+        "ring.jaccard_weights": lambda: ring.jaccard_weights(sh, mesh),
+        "ring.triangle_count_sparse": lambda: ring.triangle_count_sparse(sh, mesh),
+        "ring.jaccard_weights_sparse": lambda: ring.jaccard_weights_sparse(sh, mesh),
+        "ring.jaccard_flat": lambda: ring.jaccard_flat(sh, mesh),
+        "sharded2d.Sharded2DCSR.from_csr": lambda: sharded2d.Sharded2DCSR.from_csr(back, mesh),
+        "ShardedCSR.from_csr": lambda: ShardedCSR.from_csr(back, mesh),
+        "ShardedCSR.stacked": lambda: sh.stacked("indptr"),
+        "ShardedCSR.to": lambda: sh.to(MeshContext(mesh)),
+        "sharded2d.spmv": lambda: sharded2d.spmv(tiles, torch.ones(n, device=device), mesh),
+        "sharded2d.degrees": lambda: sharded2d.degrees(tiles, mesh),
+    }
+    assert tuple(calls) == GUARDED
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            out[name] = "returned"
+        except Exception as e:  # the test names what each raised
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--shards", default="2,4", help="shards per process, one mesh each")
+    ap.add_argument("--backend", default="gloo")
+    args = ap.parse_args()
+    torch.set_num_threads(1)
+    assert multihost.initialize(backend=args.backend, timeout=60), "no process group"
+    import torch.distributed as tdist
+
+    device = torch.device(args.device)
+    if args.backend == "nccl":
+        device = torch.device("cuda", tdist.get_rank())
+    out = {"rank": tdist.get_rank(), "backend": tdist.get_backend(), "local_entry_counts":
+           multihost.local_entry_counts(1000)}
+    for s in (int(v) for v in args.shards.split(",")):
+        mesh = multihost.global_mesh(devices=[device] * s)
+        collectives.reset_traffic()
+        res = {"mesh": (mesh.size, mesh.local, mesh.axis_owners("x"), str(mesh.first_device)),
+               "collectives": run_collectives(mesh, device)}
+        res.update({graph: run_path(mesh, graph, device) for graph in GRAPHS})
+        res["guards"] = run_guards(mesh, device)
+        res["traffic"] = collectives.traffic()
+        out[s] = res
+    torch.save(out, Path(args.out) / f"rank{out['rank']}.pt")
+    tdist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

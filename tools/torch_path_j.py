@@ -1,15 +1,17 @@
-"""Paths J, K and L of ``chip_smoke.py`` alone, at their full size, on one
+"""Paths J, K, L and M of ``chip_smoke.py`` alone, at their full size, on one
 card: the kernels' build, path A's COO and source CSR (``--nnz`` entries,
 ``--seed``), path G's 32,768-vertex power-law graph (the halo check's), then
 ``chip_smoke.path_j`` (its phases 3, 4 and 5 and its profiles; the
 components check's 8-block graph drawn last) and ``chip_smoke.path_k`` on
 path J's meshes (its graphs drawn after path J's; path B's band of
 ``--band-nnz`` entries), then ``chip_smoke.path_l`` (its own meshes and
-graphs). ``--paths`` picks some of ``j``, ``k`` and ``l``; ``--paths l``
-makes none of path A's graphs. The draws differ from the whole script's,
-which makes other graphs first.
+graphs), then ``chip_smoke.path_m`` (its own graph from ``--seed``, its two
+processes and the weak-scaling rows). ``--paths`` picks some of ``j``,
+``k``, ``l`` and ``m``; ``--paths l`` or ``m`` makes none of path A's
+graphs. The draws differ from the whole script's, which makes other graphs
+first; path M's graph is the same.
 
-    python3 tools/torch_path_j.py [--nnz 100e6] [--band-nnz 64e6] [--paths jkl] [--seed 0]
+    python3 tools/torch_path_j.py [--nnz 100e6] [--band-nnz 64e6] [--paths jklm] [--seed 0]
 
 Exits non-zero if any check fails; the last line is the paths' launch
 counts and K2's largest difference from the plain SpMV on path J.
@@ -29,11 +31,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nnz", type=float, default=100e6)
     ap.add_argument("--band-nnz", type=float, default=64e6)
-    ap.add_argument("--paths", default="jkl", help="some of j, k and l (default jkl)")
+    ap.add_argument("--paths", default="jklm", help="some of j, k, l and m (default jklm)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    if not args.paths or set(args.paths) - set("jkl"):
-        ap.error(f"--paths {args.paths!r}: some of j, k and l")
+    if not args.paths or set(args.paths) - set("jklm"):
+        ap.error(f"--paths {args.paths!r}: some of j, k, l and m")
     from sparsebase_tpu_torch import CSR
     from sparsebase_tpu_torch.ops.kernels import indptr_plain
 
@@ -60,6 +62,8 @@ def main() -> None:
         del j, coo, x, src, host_graph
     if "l" in args.paths:
         out["L"] = cs.path_l(g, dev)
+    if "m" in args.paths:
+        out["M"], out["max_abs_err M"] = cs.path_m(dev, args.seed)
     print(f"tools/torch_path_j.py: {time.perf_counter() - t0:.1f} s in all")
     print(out)
 
