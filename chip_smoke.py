@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch + CUDA port (``sparsebase_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--nnz 100e6] [--band-nnz 64e6] [--rcm-n 131072] [--ingest-nnz 32e6]
+    python3 chip_smoke.py [--nnz 100e6] [--band-nnz 64e6] [--rcm-n 65536] [--ingest-nnz 32e6]
                           [--feature-n 4000000] [--seed 0]
 
 (``--path-m-child DIR`` makes the script one process of path M's group;
@@ -142,11 +142,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    script (``--path-m-child``, started by ``multihost.launch`` under a
    time limit) that share the card, each driving two shards of
    ``multihost.global_mesh(devices=[cuda:0] * 2)``; with two or more cards
-   also on two NCCL processes with a card each; then
-   ``scaling.run_weak_scaling`` on the card at 1, 2 and 4 shards, the
-   random kind at 2^20 vertices a shard and the stencil at 2^12, each row
-   in a process of its own. Every kernel of each path must have launched,
-   in each process of path M too;
+   also on two NCCL processes with a card each; path N, inside path M's
+   processes, the twelve functions of ``dist`` and ``halo`` that run
+   across processes since then (``dist.spmv``, K2 per shard;
+   ``label_prop_partition``, ``edge_cut``, ``refine_partition``, K5;
+   ``structure_features``, ``reorder_heatmap``; ``halo.bfs_levels``,
+   ``label_prop_partition``, ``connected_components``, ``rcm_reorder`` and
+   ``refine_partition``, K5 and K3 in each counting rank and admission;
+   ``edge_cut``) on path M's container, first in the one process of four
+   shards, then in both processes; then ``scaling.run_weak_scaling`` on
+   the card at 1, 2 and 4 shards, the random kind at 2^20 vertices a shard
+   and the stencil at 2^12, each row in a process of its own. Every kernel
+   of each path must have launched, in each process of paths M and N too;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
    the plain SpMV of the permuted matrix), of path B (K1 against K2 and
@@ -262,7 +269,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``indptr``, ``indices``, ``vals``, ``nnz_local``, ``halo_send``,
    ``halo_counts`` and ``halo_map``, and its y and RCM order equal to the
    one process's bit for bit; a process that fails or passes the time
-   limit fails the run);
+   limit fails the run); of path N (one process's ``dist.spmv`` against the
+   plain SpMV, ``halo.bfs_levels`` equal to ``dist.bfs_levels``,
+   ``halo.edge_cut`` to ``dist.edge_cut`` of the same labels and
+   ``dist.edge_cut`` to a plain count, the structure features to the host
+   features, the heatmap to ``ReorderBase.heatmap``, the components to the
+   plain fixpoint, the RCM order reversed level-major from the plain
+   peripheral root, every refinement of a labelling within the cap kept
+   within it at no higher cut; each process's every result, floats with
+   ``torch.equal``, and ``stats`` equal to the one process's bit for bit);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -339,7 +354,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    host memory and the exchanges; one ``halo._exchange`` across processes
    beside the one process's, and a (D, 1) ``all_to_all`` (the latency),
    from which the link figures of the weak-scaling projection come; the
-   group's wall and peak memory; each weak-scaling row; K1's tiled
+   group's wall and peak memory; each weak-scaling row; path N: each
+   function's wall on the one process and on each of the two, with the
+   bytes sent, staged and the exchanges, and its ``stats``; K1's tiled
    layout alone;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
@@ -359,7 +376,8 @@ path F, path H its phases 3, 4 and 5 after path G, path I its phases
 3, 4 and 5 after path H, path J its phases 3, 4 and 5 and its
 profile after path I, path K its phases 3, 4 and 5 after path J, and
 path L its phases 3, 4 and 5 after path K, and path M its phases 3, 4
-and 5 after path L.
+and 5 after path L, path N's inside path M's (each process runs path N
+after path M's phases, before the weak-scaling rows).
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -3605,9 +3623,9 @@ SCALING_COUNTS = [1, 2, 4]
 SCALING_AVG_DEG = 8
 SCALING_RANDOM_BASE_N = 1 << 20  # 4M vertices and about 33.5M entries at d = 4
 # the stencil's exact BFS takes about n / 8 levels, one host read each
-# (4,097 at d = 4); its three rows took 35.5 s on the card, within the
-# script's 700 s budget
-SCALING_STENCIL_BASE_N = 1 << 13
+# (2,049 at d = 4); cut from 2^13 a shard to keep the script within its
+# 700 s budget once path N ran inside path M's group
+SCALING_STENCIL_BASE_N = 1 << 12
 SCALING_ROW_TIME_LIMIT = 180  # seconds for each row's process
 
 
@@ -3688,12 +3706,138 @@ def path_m_exchange(sh, x, barrier=lambda: None) -> dict:
             "tiny_ms": tiny_ms, "tiny_bytes": tiny_sent["crossed_bytes"]}
 
 
+# -- path N: the rest of dist and halo's flat half across processes ----------
+PATH_N_KERNELS = ("indptr", "radix_rank", "csr_spmv")  # K3, K5, K2
+
+
+def path_n_run(sh, mesh, x, barrier=lambda: None) -> tuple:
+    """Path N: the twelve functions of ``dist`` and ``halo`` that path M's
+    processes did not run yet, with path J's arguments, on path M's
+    container ``sh`` (``halo.refine_partition`` also refines the contiguous
+    chunks, as path J does). Each starts after ``barrier`` and keeps its
+    wall, what crossed a process boundary and its ``stats``. Returns
+    ``(results, phases)``."""
+    from sparsebase_tpu_torch.parallel import collectives, dist, halo
+
+    n, dev = sh.shape[0], mesh.first_device
+    ident = torch.arange(n, dtype=torch.int32, device=dev)
+    chunks = (torch.arange(n, device=dev) * PARTITION_K // n).to(torch.int32)  # within the cap
+    results, phases = {}, {}
+
+    def phase(name, fn):
+        stats = {}
+        barrier()
+        sync(dev)
+        collectives.reset_traffic()
+        t0 = time.perf_counter()
+        results[name] = out = fn(stats)
+        sync(dev)
+        phases[name] = {"ms": (time.perf_counter() - t0) * 1e3, **collectives.traffic(), "stats": stats}
+        return out
+
+    phase("dist.spmv", lambda st: dist.spmv(sh, x, mesh))
+    lp = phase("dist.label_prop_partition",
+               lambda st: dist.label_prop_partition(sh, PARTITION_K, mesh, num_iters=PARTITION_ROUNDS))
+    phase("dist.edge_cut", lambda st: dist.edge_cut(sh, lp, mesh))
+    phase("dist.refine_partition", lambda st: dist.refine_partition(sh, lp, PARTITION_K, mesh, rounds=REFINE_ROUNDS))
+    phase("dist.structure_features", lambda st: dist.structure_features(sh, mesh))
+    phase("dist.reorder_heatmap", lambda st: dist.reorder_heatmap(sh, ident, ident, mesh, num_parts=HEATMAP_PARTS))
+    phase("halo.bfs_levels", lambda st: halo.bfs_levels(sh, 0, mesh, stats=st))
+    hlp = phase("halo.label_prop_partition",
+                lambda st: halo.label_prop_partition(sh, PARTITION_K, mesh, num_iters=PARTITION_ROUNDS))
+    phase("halo.connected_components", lambda st: halo.connected_components(sh, mesh, stats=st))
+    phase("halo.rcm_reorder", lambda st: halo.rcm_reorder(sh, mesh, stats=st))
+    phase("halo.edge_cut", lambda st: halo.edge_cut(sh, hlp, mesh))
+    phase("halo.refine_partition", lambda st: halo.refine_partition(sh, hlp, PARTITION_K, mesh, rounds=REFINE_ROUNDS))
+    phase("halo.refine_partition of chunks",
+          lambda st: halo.refine_partition(sh, chunks, PARTITION_K, mesh, rounds=REFINE_ROUNDS))
+    return results, phases
+
+
+def on_host(result):
+    """A result (a tensor, or a dict of them) copied to host memory."""
+    return {k: v.cpu() for k, v in result.items()} if isinstance(result, dict) else result.cpu()
+
+
+def path_n_checks(sh, mesh, src, x, res) -> float:
+    """Path N's results on one process held to references that do not lean
+    on the port's multi-shard route; returns ``dist.spmv``'s largest
+    difference from the plain SpMV."""
+    from sparsebase_tpu_torch import ReorderBase
+    from sparsebase_tpu_torch.ops.feature.structure import Bandwidth, Profile
+    from sparsebase_tpu_torch.ops.kernels import csr_spmv_plain
+    from sparsebase_tpu_torch.parallel import dist
+
+    n, deg = src.nrows, src.degrees()
+    print(f"phase 4 path N checks: the twelve functions on one process of {PATH_M_SHARDS} shards, n={n} nnz={src.nnz}")
+    err = check_rows("path N dist.spmv (K2 per shard) vs plain SpMV of the whole CSR", res["dist.spmv"],
+                     csr_spmv_plain(src, x), deg, csr_spmv_plain(abs_csr(src), x.abs()))
+    check_equal("path N halo.bfs_levels vs dist.bfs_levels", res["halo.bfs_levels"], dist.bfs_levels(sh, 0, mesh))
+    check_equal("path N halo.edge_cut vs dist.edge_cut of the same labels", res["halo.edge_cut"],
+                dist.edge_cut(sh, res["halo.label_prop_partition"], mesh))
+    rows, cols = src.row_of_nnz().long(), src.indices.long()
+    cut = lambda lab: (lab[rows] != lab[cols]).sum()  # noqa: E731
+    check_equal("path N dist.edge_cut vs a plain count", res["dist.edge_cut"], cut(res["dist.label_prop_partition"]))
+    feats = res["dist.structure_features"]
+    want = {"bandwidth": Bandwidth().get_bandwidth(src), "profile": Profile().get_profile(src), "nnz": src.nnz,
+            "min_degree": deg.min(), "max_degree": deg.max()}
+    for name, w in want.items():
+        check(int(feats[name]) == int(w), f"path N structure {name}: {int(feats[name])} against {int(w)}")
+    ident = torch.arange(n, dtype=torch.int32, device=x.device)
+    grid = ReorderBase.heatmap(src, ident, ident, num_parts=HEATMAP_PARTS).vals.reshape(HEATMAP_PARTS, -1)
+    check(torch.allclose(res["dist.reorder_heatmap"], grid.to(torch.float32), rtol=1e-6, atol=0),
+          "path N dist.reorder_heatmap vs ReorderBase.heatmap")
+    check_equal("path N halo.connected_components vs the plain fixpoint", res["halo.connected_components"],
+                plain_components(src))
+    root, levels = plain_peripheral_root(src, deg)
+    check_reversed_level_major("path N halo.rcm_reorder", res["halo.rcm_reorder"], root, levels)
+    cap = 1.1 * n / PARTITION_K
+    chunks = (torch.arange(n, device=x.device) * PARTITION_K // n).to(torch.int32)
+    for name, before, after in (("dist.refine_partition", res["dist.label_prop_partition"], res["dist.refine_partition"]),
+                                ("halo.refine_partition", res["halo.label_prop_partition"], res["halo.refine_partition"]),
+                                ("halo.refine_partition of chunks", chunks, res["halo.refine_partition of chunks"])):
+        for lab in (before, after):
+            check(lab.dtype == torch.int32 and int(lab.min()) >= 0 and int(lab.max()) < PARTITION_K,
+                  f"path N {name}: labels outside [0, {PARTITION_K})")
+        sizes_in, sizes_out = (torch.bincount(lab.long(), minlength=PARTITION_K) for lab in (before, after))
+        fits = float(sizes_in.max()) <= cap
+        if fits:  # a refinement keeps a labelling within the cap there and lowers no cut
+            check(float(sizes_out.max()) <= cap and int(cut(after)) <= int(cut(before)),
+                  f"path N {name}: cut {int(cut(before))} -> {int(cut(after))}, largest part {int(sizes_out.max())} "
+                  f"against the cap {cap:.1f}")
+        print(f"  path N {name}: edge cut {int(cut(before))} -> {int(cut(after))}, part sizes {sizes_in.tolist()} -> "
+              f"{sizes_out.tolist()}, cap {cap:.1f}{'' if fits else ' (the input is over the cap: not held)'}")
+    print(f"  path N structure features {({k: float(v) for k, v in feats.items()})}; components "
+          f"{int(torch.unique(res['halo.connected_components']).numel())}; the RCM root {root}, "
+          f"{int(levels.max()) + 1} levels")
+    return err
+
+
+def phase_path_n_group_checks(label: str, results, phases, kids) -> None:
+    """Every process's path N results (floats with ``torch.equal``) and
+    ``stats`` equal to the single-process mesh's bit for bit."""
+    for kid in kids:
+        got = kid["path_n"]
+        for name, want in results.items():
+            g = got["results"][name]
+            pairs = [(g[k], want[k]) for k in want] if isinstance(want, dict) else [(g, want)]
+            for a, b in pairs:
+                same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.to(b.device), b)
+                check(same, f"path N {label} rank {kid['rank']}: {name} differs from the single-process mesh")
+            check(got["phases"][name]["stats"] == phases[name]["stats"],
+                  f"path N {label} rank {kid['rank']}: {name} stats {got['phases'][name]['stats']} against "
+                  f"{phases[name]['stats']}")
+    print(f"phase 4 path N {label}: {len(kids)} processes equal to the single-process mesh of {PATH_M_SHARDS} shards "
+          f"bit for bit in every result and stats: {', '.join(results)}")
+
+
 def path_m_child(out: str, n: int, seed: int, backend: str, device: str) -> None:
     """One process of path M's group (``chip_smoke.py --path-m-child DIR``,
     started by ``multihost.launch``): joins the group, runs the tool's path
-    on its two shards of ``global_mesh`` and saves its shards' fields, y,
-    the order, the phases, one exchange and its launches to ``DIR``. It
-    loads the kernels that the parent built and builds nothing."""
+    on its two shards of ``global_mesh``, one exchange and path N, and saves
+    its shards' fields, y, the order, the phases, path N's results and
+    phases, and the launches of path M and of path N to ``DIR``. It loads
+    the kernels that the parent built and builds nothing."""
     import torch.distributed as tdist
 
     from sparsebase_tpu_torch import _build
@@ -3715,12 +3859,18 @@ def path_m_child(out: str, n: int, seed: int, backend: str, device: str) -> None
     sync(dev)
     launches = _build.launch_counts()
     exchange = path_m_exchange(sh, x, tdist.barrier)
+    _build.reset_launch_counts()
+    results_n, phases_n = path_n_run(sh, mesh, x, tdist.barrier)
+    sync(dev)
+    path_n = {"results": {k: on_host(v) for k, v in results_n.items()}, "phases": phases_n,
+              "launches": _build.launch_counts()}
+    del results_n
     torch.save({
         "rank": rank, "backend": tdist.get_backend(), "mesh": repr(mesh), "local": sh.local, "start_s": start_s,
         "fields": {name: {k: getattr(sh, name)[k].cpu() for k in sh.local} for name in PATH_M_FIELDS},
         "nnz_counts": sh.nnz_counts, "stats": stats, "width": sh.width, "halo_width": sh.halo_width,
         "halo_bytes": sh.halo_bytes_per_exchange, "y": y.cpu(), "order": order.cpu(), "phases": phases,
-        "exchange": exchange, "launches": launches,
+        "exchange": exchange, "launches": launches, "path_n": path_n,
         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0,
     }, Path(out) / f"rank{rank}.pt")
     tdist.barrier()
@@ -3788,13 +3938,15 @@ def path_m_scaling(link: Optional[dict], device: str) -> None:
 
 
 def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
-    """Path M's phases 3, 4 and 5, after path L: the tool's graph on a
-    single-process mesh of ``PATH_M_SHARDS`` shards of the card, then on two
-    gloo processes that share the card with two shards each, every field
-    held bit for bit; with two or more cards, on two NCCL processes with a
-    card each; then the weak-scaling harness on the card. Returns the
-    launch counts (the single-process run's and the processes') and K2's
-    largest difference from the plain SpMV."""
+    """Path M's phases 3, 4 and 5, after path L, with path N's inside: the
+    tool's graph on a single-process mesh of ``PATH_M_SHARDS`` shards of the
+    card, then on two gloo processes that share the card with two shards
+    each, every field held bit for bit; after path M's phases each runs
+    path N (:func:`path_n_run`) on its container, every result held bit for
+    bit; with two or more cards, on two NCCL processes with a card each;
+    then the weak-scaling harness on the card. Returns path M's launch
+    counts and path N's (each the single-process run's and the processes')
+    and K2's largest difference from the plain SpMV."""
     from sparsebase_tpu_torch import CSR, _build
     from sparsebase_tpu_torch.ops.kernels import csr_spmv_plain, indptr_plain
     from sparsebase_tpu_torch.parallel import make_mesh
@@ -3810,6 +3962,9 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
     sh, y, order, stats, phases = path_m_run(mesh, row, col, vals, x)
     launches = read_launches(f"M, one process of {PATH_M_SHARDS} shards", ("indptr", "radix_rank", "csr_spmv"))
     exchange = path_m_exchange(sh, x)
+    _build.reset_launch_counts()
+    results_n, phases_n = path_n_run(sh, mesh, x)
+    launches_n = read_launches(f"N, one process of {PATH_M_SHARDS} shards", PATH_N_KERNELS)
 
     src = CSR(indptr_plain(row, n), col, vals, (n, n))
     err = check_rows("path M halo.spmv, one process, vs plain SpMV of the whole CSR", y, csr_spmv_plain(src, x),
@@ -3818,6 +3973,7 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
                 plain_rcm(plain_bfs_levels(src, 0), src.degrees()))
     natural, rcm = bandwidth(row, col), bandwidth(row, col, order)
     print(f"phase 4 path M RCM bandwidth {rcm} against the natural {natural}")
+    err = max(err, path_n_checks(sh, mesh, src, x, results_n))
     del src
     # the group's processes and the rows' share the card: give back what the
     # earlier paths left in this process's allocator cache
@@ -3830,6 +3986,11 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
         print(f"phase 3 path M rank {kid['rank']} ({kid['mesh']}): launches {kid['launches']}")
         require_launches(f"M, rank {kid['rank']}", kid["launches"], ("indptr", "radix_rank", "csr_spmv"))
         launches = {k: launches[k] + kid["launches"][k] for k in launches}
+    phase_path_n_group_checks("gloo", results_n, phases_n, kids)
+    for kid in kids:
+        print(f"phase 3 path N rank {kid['rank']}: launches {kid['path_n']['launches']}")
+        require_launches(f"N, rank {kid['rank']}", kid["path_n"]["launches"], PATH_N_KERNELS)
+        launches_n = {k: launches_n[k] + kid["path_n"]["launches"][k] for k in launches_n}
 
     # phase 5: each phase for both runs, the exchange, the link figures
     starts = ", ".join("rank %d reached its path after %.1f s" % (k["rank"], k["start_s"]) for k in kids)
@@ -3853,20 +4014,30 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
     link = {"gb_s": min(per_s) / 1e9, "alpha_s": alpha}
     print(f"phase 5 path M link figures for the projection: {link['gb_s']:.4f} GB/s and {alpha * 1e6:.1f} us a step, "
           "from this machine's gloo path between two processes on one card (not a link between cards)")
+    for name, one in phases_n.items():
+        line = [f"phase 5 path N {name}: one process {one['ms']:.3f} ms"]
+        for kid in kids:
+            p = kid["path_n"]["phases"][name]
+            line.append(f"rank {kid['rank']} {p['ms']:.3f} ms, {p['crossed_bytes']} bytes to the other process, "
+                        f"{p['staged_bytes']} staged, {p['exchanges']} exchanges")
+        print("; ".join(line) + (f"; stats {one['stats']}" if one["stats"] else ""))
+    print(f"phase 5 path N in all: one process {sum(p['ms'] for p in phases_n.values()):.1f} ms; "
+          + "; ".join(f"rank {k['rank']} {sum(p['ms'] for p in k['path_n']['phases'].values()):.1f} ms" for k in kids))
 
     if torch.cuda.device_count() >= PATH_M_PROCESSES:
         kids_nccl, wall = path_m_group(dev, n, seed, "nccl")
         phase_path_m_checks("nccl", sh, y, order, stats, kids_nccl)
+        phase_path_n_group_checks("nccl", results_n, phases_n, kids_nccl)
         times = "; ".join(f"rank {k['rank']} {name} {k['phases'][name]['ms']:.3f} ms" for k in kids_nccl for name in phases)
         print(f"phase 5 path M group of {PATH_M_PROCESSES} NCCL processes, a card each: {wall:.1f} s; {times}")
     else:
         print(f"phase 3 path M NCCL route: skipped, {torch.cuda.device_count()} card visible; it needs one card "
               f"a process ({PATH_M_PROCESSES}), and NCCL refuses two ranks on one card")
-    del sh, y, order, row, col, vals, x, kids
+    del sh, y, order, row, col, vals, x, kids, results_n
     torch.cuda.empty_cache()
     path_m_scaling(link, dev.type)
-    print(f"phase 5 path M wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
-    return launches, err
+    print(f"phase 5 path M wall (phases 3, 4 and 5, path N's included): {time.perf_counter() - t0:.1f} s")
+    return launches, launches_n, err
 
 
 def read_launches(path: str, required) -> dict:
@@ -3888,7 +4059,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nnz", type=float, default=100e6, help="path A and C entries (default 100M)")
     ap.add_argument("--band-nnz", type=float, default=64e6, help="path B stored band entries (default 64M)")
-    ap.add_argument("--rcm-n", type=int, default=131_072, help="path D rows of the scrambled band (default 131,072)")
+    # 131,072 until path N joined the script: 65,536 halves path D's level
+    # steps, one host read each, to keep the script within its 700 s budget
+    ap.add_argument("--rcm-n", type=int, default=65_536, help="path D rows of the scrambled band (default 65,536)")
     ap.add_argument("--ingest-nnz", type=float, default=32e6,
                     help="path E and I source entries, written as a symmetric MTX file (default 32M, n = nnz/16)")
     ap.add_argument("--feature-n", type=int, default=4_000_000,
@@ -4098,10 +4271,11 @@ def main() -> None:
     launches_k = path_k(g, dev, path_j_state, n_p, src.nnz // 2, coo_b.nrows)
     del path_j_state
     launches_l = path_l(g, dev)
-    launches_m, err_k2_m = path_m(dev, args.seed)
-    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] + launches_d[k] + launches_e[k] + launches_f[k]
-                + launches_g[k] + launches_h[k] + launches_i[k] + launches_j[k] + launches_k[k] + launches_l[k]
-                + launches_m[k] for k in launches_a}
+    launches_m, launches_n, err_k2_m = path_m(dev, args.seed)
+    by_path = {"A": launches_a, "B": launches_b, "C": launches_c, "D": launches_d, "E": launches_e, "F": launches_f,
+               "G": launches_g, "H": launches_h, "I": launches_i, "J": launches_j, "K": launches_k, "L": launches_l,
+               "M": launches_m, "N": launches_n}
+    launches = {k: sum(counts[k] for counts in by_path.values()) for k in launches_a}
 
     shapes = {
         "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],
@@ -4119,7 +4293,8 @@ def main() -> None:
         print(f"phase 5 {name}: {ms:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}), "
               f"{bound_ms / ms:.1%} of it")
         return {"name": name, "route": "cuda", "source": f"sparsebase_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches[name], "max_abs_err": err, "ms": ms,
+                "replaces": replaces, "launches": launches[name],
+                "launches_by_path": {p: counts[name] for p, counts in by_path.items()}, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
     k1_bound, k1_by = bound("banded_spmv", **shapes["banded_spmv"])

@@ -11,11 +11,13 @@ spans its processes (``global_mesh``), each process driving its own
 shards. On such a mesh these run, each giving every process the
 single-process mesh's result: ``ShardedCSR.from_coo_sharded``,
 ``with_halo``, ``nnz``, ``nnz_counts``, ``halo_bytes_per_exchange`` and
-``to_csr``; ``dist.degrees``, ``degree_reorder``, ``bfs_levels`` and
-``rcm_reorder``; ``halo.spmv`` and ``step_comm_bytes``; and every
-collective. Every other function of ``dist``, ``halo``, ``ring`` and
-``sharded2d`` (and ``ShardedCSR.from_csr``, ``stacked`` and ``to``) raises
-``NotImplementedError`` there, naming its ROADMAP.md item (10f-10i).
+``to_csr``; every function of ``dist``; ``halo.spmv``,
+``step_comm_bytes``, ``bfs_levels``, ``label_prop_partition``,
+``connected_components``, ``rcm_reorder``, ``edge_cut`` and
+``refine_partition``; and every collective. ``halo``'s multilevel functions
+and SlashBurn, ``ring``, ``sharded2d`` and ``ShardedCSR.from_csr``,
+``stacked`` and ``to`` raise ``NotImplementedError`` there, naming their
+ROADMAP.md item (10g-10i).
 """
 
 from . import collectives, halo, multihost, ring, scaling, sharded2d

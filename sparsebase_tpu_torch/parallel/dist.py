@@ -27,10 +27,12 @@ here would all add into one cell. The JAX ``while_loop`` of the BFS is a
 Python loop; the ``fori_loop`` s of refinement and label propagation have a
 fixed trip count and read nothing back.
 
-On a mesh that spans processes, :func:`degrees`, :func:`degree_reorder`,
-:func:`bfs_levels` and :func:`rcm_reorder` run, each process working on its
-own shards and holding the replicated results on its first shard's device;
-every other function raises ``NotImplementedError`` (ROADMAP.md, item 10f).
+Every function runs on a mesh that spans processes: each process works on
+its own shards (``None`` in a remote shard's slot), its collectives name the
+shards' owners, and it holds the replicated results on its first shard's
+device, equal bit for bit to the single-process mesh's. A vector joined
+from the shards (y, a round's labels, the gains) is gathered from the other
+processes, never ``torch.cat`` ed from this process's pieces alone.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import torch
 from ..ops.kernels.csr_spmv import csr_spmv
 from ..ops.kernels.radix import bits_below, radix_argsort, radix_rank
 from .collectives import host_fetch, join, pmax, pmin, psum
-from .mesh import Mesh, replicated, single_process
+from .mesh import Mesh, replicated
 from .sharded import ShardedCSR
 
 _INT32_MAX = 2**31 - 1
@@ -55,11 +57,6 @@ def _local_row_of(indptr_local, width: int) -> torch.Tensor:
     marks = torch.zeros((width + 1,), dtype=torch.int64, device=indptr_local.device)
     marks.index_add_(0, torch.clamp(indptr_local[:-1], max=width), torch.ones_like(indptr_local[:-1]))
     return torch.cumsum(marks[:width], 0) - 1
-
-
-# ROADMAP.md's item for this module's functions that do not run on a mesh
-# that spans processes yet
-_ACROSS_ITEM = "10f"
 
 
 def _shards(sh: ShardedCSR, mesh: Mesh):
@@ -79,6 +76,12 @@ def _entries(sh: ShardedCSR, k: int, n: int):
     return grow, grow < n, sh.indices[k][:cnt].long()
 
 
+def _local_entries(sh: ShardedCSR, n: int) -> list:
+    """:func:`_entries` of this process's shards, ``None`` in a remote
+    shard's slot."""
+    return [_entries(sh, k, n) if k in sh.local else None for k in range(sh.n_shards)]
+
+
 def _max0(t: torch.Tensor) -> torch.Tensor:
     """``t.max()``, 0 for a shard with no entries (the JAX bodies take the
     max over masked slots)."""
@@ -88,12 +91,12 @@ def _max0(t: torch.Tensor) -> torch.Tensor:
 def spmv(sh: ShardedCSR, x, mesh: Mesh):
     """y = A @ x with A row-sharded and x replicated: K2 on each shard's
     local CSR; y joined in row order on the mesh's first device."""
-    single_process(mesh, "dist.spmv", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
-    first = mesh.first_device
     xs = replicated(mesh).put(x)
-    ys = [csr_spmv(sh.shard_csr(k), xs[k]).to(first) for k in range(d)]
-    return torch.cat(ys)[:n]
+    ys = [None] * d
+    for k in sh.local:
+        ys[k] = csr_spmv(sh.shard_csr(k), xs[k])
+    return join(ys, sh.owners, mesh.first_device)[:n]
 
 
 def degrees(sh: ShardedCSR, mesh: Mesh):
@@ -180,9 +183,13 @@ def _rcm_rank(levels, deg, n: int) -> torch.Tensor:
 
 def _cut_parts(labels, n: int, slots):
     """Per-shard counts of entries whose row and column labels differ
-    (``labels``: one copy per shard)."""
+    (``labels``: one copy per shard; ``None`` for a remote shard)."""
     parts = []
-    for lab, (grow, valid, idx) in zip(labels, slots):
+    for lab, slot in zip(labels, slots):
+        if slot is None:
+            parts.append(None)
+            continue
+        grow, valid, idx = slot
         crossing = valid & (lab[torch.clamp(grow, 0, n - 1)] != lab[torch.clamp(idx, 0, n - 1)])
         parts.append(crossing.sum())
     return parts
@@ -196,10 +203,9 @@ def _on_first(t, mesh: Mesh) -> torch.Tensor:
 def edge_cut(sh: ShardedCSR, labels, mesh: Mesh):
     """Total directed edge cut of a labelling: a ``psum`` of per-shard
     counts of entries whose row and column labels differ (int64)."""
-    single_process(mesh, "dist.edge_cut", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     labels = replicated(mesh).put(_on_first(labels, mesh))
-    return psum(_cut_parts(labels, n, [_entries(sh, k, n) for k in range(d)]))[0]
+    return psum(_cut_parts(labels, n, _local_entries(sh, n)), sh.owners)[sh.local[0]]
 
 
 def _label_counts(sh: ShardedCSR, k: int, lab, n: int, parts: int):
@@ -217,11 +223,23 @@ def _label_counts(sh: ShardedCSR, k: int, lab, n: int, parts: int):
     return counts.view(rows, parts), grows, cur
 
 
-def _part_sizes(local, n: int, parts: int):
+def _shard_label_counts(sh: ShardedCSR, lab, n: int, parts: int) -> list:
+    """:func:`_label_counts` of this process's shards under the labels
+    ``lab`` (replicated), ``None`` in a remote shard's slot."""
+    return [None if labs is None else _label_counts(sh, j, labs, n, parts)
+            for j, labs in enumerate(replicated(sh.mesh).put(lab))]
+
+
+def _part_sizes(local, n: int, parts: int, owners):
     """Each part's row count, float32, ``psum``'d over the shards' ``local``
     counts (rows past n left out)."""
-    return psum([torch.zeros((parts,), dtype=torch.float32, device=cur.device).index_add_(
-        0, cur, (grows < n).to(torch.float32)) for _, grows, cur in local])
+    sizes = [None] * len(local)
+    for j, loc in enumerate(local):
+        if loc is not None:
+            _, grows, cur = loc
+            sizes[j] = torch.zeros((parts,), dtype=torch.float32, device=cur.device).index_add_(
+                0, cur, (grows < n).to(torch.float32))
+    return psum(sizes, owners)
 
 
 def _float_order_key(f: torch.Tensor) -> torch.Tensor:
@@ -237,30 +255,32 @@ def refine_partition(sh: ShardedCSR, labels, k: int, mesh: Mesh, rounds: int = 4
     positive-gain moves into parts with headroom are admitted in the order
     (target part, gain descending, id) up to each part's headroom. The
     best labelling seen (by edge cut) is returned, as int32."""
-    single_process(mesh, "dist.refine_partition", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
-    first = mesh.first_device
+    first, owners, l0 = mesh.first_device, sh.owners, sh.local[0]
     cap = torch.full((), balance * n / k, dtype=torch.float32, device=first)
-    slots = [_entries(sh, j, n) for j in range(d)]
+    slots = _local_entries(sh, n)
     lab = _on_first(labels, mesh).to(torch.int32)
-    best_lab, best_cut = lab, psum(_cut_parts(replicated(mesh).put(lab), n, slots))[0]
+    best_lab, best_cut = lab, psum(_cut_parts(replicated(mesh).put(lab), n, slots), owners)[l0]
     inf = torch.full((), float("inf"), device=first)
     pos = torch.arange(n, dtype=torch.int64, device=first)
     key_bits = [(0, 32), (32, 32 + bits_below(k))]
     for _ in range(rounds):
-        local = [_label_counts(sh, j, labs, n, k) for j, labs in enumerate(replicated(mesh).put(lab))]
-        sizes = _part_sizes(local, n, k)
-        gains, bests = [], []
-        for j, (counts, grows, cur) in enumerate(local):
+        local = _shard_label_counts(sh, lab, n, k)
+        sizes = _part_sizes(local, n, k, owners)
+        gains, bests = [None] * d, [None] * d
+        for j in sh.local:
+            counts, grows, cur = local[j]
             full = sizes[j] >= cap.to(sizes[j].device)
             ar = torch.arange(rows, device=counts.device)
             cur_aff = counts[ar, cur]
             masked = torch.where(full[None, :], -inf.to(counts.device), counts)
             masked[ar, cur] = -inf.to(counts.device)
-            bests.append(torch.argmax(masked, dim=1).to(torch.int32).to(first))
-            gains.append(torch.where(grows < n, masked.max(dim=1).values - cur_aff, -inf.to(counts.device)).to(first))
-        gain, best = torch.cat(gains)[:n], torch.cat(bests)[:n]
-        headroom = torch.clamp(torch.floor(cap - sizes[0]), min=0.0)
+            bests[j] = torch.argmax(masked, dim=1).to(torch.int32)
+            gains[j] = torch.where(grows < n, masked.max(dim=1).values - cur_aff, -inf.to(counts.device))
+        # every process holds every row's gain and best part: they rank the
+        # same moves in the same K5 sort
+        gain, best = join(gains, owners, first)[:n], join(bests, owners, first)[:n]
+        headroom = torch.clamp(torch.floor(cap - sizes[l0]), min=0.0)
         # lexsort((id, -gain, best)): one stable sort of (best, -gain)
         order = radix_argsort((best.to(torch.int64) << 32) | _float_order_key(-gain), key_bits=key_bits).long()
         best_s = best[order].long()
@@ -272,7 +292,7 @@ def refine_partition(sh: ShardedCSR, labels, k: int, mesh: Mesh, rounds: int = 4
         new_lab = torch.where(admit, best, lab)
         # simultaneous moves can conflict and raise the cut; keep the best
         # labelling seen so the result is monotone against the input
-        new_cut = psum(_cut_parts(replicated(mesh).put(new_lab), n, slots))[0]
+        new_cut = psum(_cut_parts(replicated(mesh).put(new_lab), n, slots), owners)[l0]
         better = new_cut < best_cut
         best_lab = torch.where(better, new_lab, best_lab)
         best_cut = torch.where(better, new_cut, best_cut)
@@ -285,34 +305,33 @@ def structure_features(sh: ShardedCSR, mesh: Mesh):
     pass: per-shard reductions combined with ``psum``/``pmax``/``pmin``.
     Returns a dict of 0-d tensors on the mesh's first device. The profile
     is an exact int64 sum (the JAX package sums it in float32)."""
-    single_process(mesh, "dist.structure_features", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
-    first = mesh.first_device
-    bw, prof, nnz, min_deg, max_deg = [], [], [], [], []
-    for k in range(d):
+    first, owners, l0 = mesh.first_device, sh.owners, sh.local[0]
+    bw, prof, nnz, min_deg, max_deg = ([None] * d for _ in range(5))
+    for k in sh.local:
         ip = sh.indptr[k]
         dev = ip.device
         grow, valid, idx = _entries(sh, k, n)
         lrow = grow - k * rows
-        bw.append(_max0(torch.where(valid, (grow - idx).abs() + 1, 0)))
+        bw[k] = _max0(torch.where(valid, (grow - idx).abs() + 1, 0))
         # profile: sum over rows of (row - min col) for rows with entries
         mincol = torch.full((rows,), _INT32_MAX, dtype=torch.int64, device=dev)
         mincol.scatter_reduce_(0, lrow, torch.where(valid, idx, _INT32_MAX), "amin")
         grows = k * rows + torch.arange(rows, device=dev)
         deg = ip[1:] - ip[:-1]
         has = (deg > 0) & (grows < n)
-        prof.append(torch.where(has, torch.clamp(grows - mincol, min=0), 0).sum())
-        nnz.append(sh.nnz_local[k])
+        prof[k] = torch.where(has, torch.clamp(grows - mincol, min=0), 0).sum()
+        nnz[k] = sh.nnz_local[k]
         # pad rows (global id >= n) are left out of the min and max
-        min_deg.append(torch.where(grows < n, deg, _INT32_MAX).min())
-        max_deg.append(torch.where(grows < n, deg, 0).max())
-    nnz = psum(nnz)[0].to(first)
+        min_deg[k] = torch.where(grows < n, deg, _INT32_MAX).min()
+        max_deg[k] = torch.where(grows < n, deg, 0).max()
+    nnz = psum(nnz, owners)[l0].to(first)
     return {
-        "bandwidth": pmax(bw)[0].to(first),
-        "profile": psum(prof)[0].to(first),
+        "bandwidth": pmax(bw, owners)[l0].to(first),
+        "profile": psum(prof, owners)[l0].to(first),
         "nnz": nnz,
-        "min_degree": pmin(min_deg)[0].to(first),
-        "max_degree": pmax(max_deg)[0].to(first),
+        "min_degree": pmin(min_deg, owners)[l0].to(first),
+        "max_degree": pmax(max_deg, owners)[l0].to(first),
         "avg_degree": nnz.to(torch.float32) / torch.full((), max(n, 1), dtype=torch.float32, device=first),
     }
 
@@ -326,19 +345,19 @@ def label_prop_partition(sh: ShardedCSR, k: int, mesh: Mesh, num_iters: int = 10
     weight's ``sizes / cap`` is a product with cap's float32 reciprocal
     (XLA's rewrite of a division by a constant), so near-ties fall as they
     do there."""
-    single_process(mesh, "dist.label_prop_partition", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
-    first = mesh.first_device
+    first, owners = mesh.first_device, sh.owners
     labels = ((torch.arange(n, dtype=torch.int64, device=first) * k) // max(n, 1)).to(torch.int32)
     cap = torch.full((), balance * n / k, dtype=torch.float32, device=first)
     inv_cap = torch.full((), 1.0, dtype=torch.float32, device=first) / cap
     margin = torch.full((), 1.000001, dtype=torch.float32, device=first)
     eps = torch.full((), 1e-6, dtype=torch.float32, device=first)
     for it in range(num_iters):
-        local = [_label_counts(sh, j, labs, n, k) for j, labs in enumerate(replicated(mesh).put(labels))]
-        sizes = _part_sizes(local, n, k)
-        new = []
-        for j, (counts, grows, cur) in enumerate(local):
+        local = _shard_label_counts(sh, labels, n, k)
+        sizes = _part_sizes(local, n, k, owners)
+        new = [None] * d
+        for j in sh.local:
+            counts, grows, cur = local[j]
             dev = counts.device
             weight = torch.clamp(1.0 - sizes[j] * inv_cap.to(dev), min=0.0)
             scores = counts * weight[None, :]
@@ -350,8 +369,9 @@ def label_prop_partition(sh: ShardedCSR, k: int, mesh: Mesh, num_iters: int = 10
             # never empty a part
             keeps_alive = sizes[j][torch.clamp(cur, 0, k - 1)] > 1.5
             move = active & keeps_alive & (best_score > cur_score * margin.to(dev) + eps.to(dev))
-            new.append(torch.where(move, best, cur).to(torch.int32).to(first))
-        labels = torch.cat(new)[:n]
+            new[j] = torch.where(move, best, cur).to(torch.int32)
+        # the replicated labels: every shard's rows, gathered across processes
+        labels = join(new, owners, first)[:n]
     return labels
 
 
@@ -359,15 +379,14 @@ def reorder_heatmap(sh: ShardedCSR, order_r, order_c, mesh: Mesh, num_parts: int
     """Distributed b×b block-density heatmap of a reordered sharded matrix:
     per-shard histograms combined with a (b²,) ``psum``. Returns the (b, b)
     float32 grid (counts / nnz)."""
-    single_process(mesh, "dist.reorder_heatmap", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     m = sh.shape[1]
     b = int(num_parts)
     bsize = max(n // b, 1)
     rows_order = replicated(mesh).put(_on_first(order_r, mesh))
     cols_order = replicated(mesh).put(_on_first(order_c, mesh))
-    hists = []
-    for k in range(d):
+    hists = [None] * d
+    for k in sh.local:
         dev = sh.devices[k]
         grow, valid, idx = _entries(sh, k, n)
         u = rows_order[k][torch.clamp(grow, 0, n - 1)].long()
@@ -375,8 +394,8 @@ def reorder_heatmap(sh: ShardedCSR, order_r, order_c, mesh: Mesh, num_parts: int
         bu = torch.clamp(u // bsize, max=b - 1)
         bv = torch.clamp(v // bsize, max=b - 1)
         flat = torch.where(valid, bu * b + bv, b * b)  # b * b: the discard cell
-        hists.append(torch.zeros((b * b + 1,), dtype=torch.int64, device=dev)
-                     .index_add_(0, flat, torch.ones_like(flat))[: b * b])
-    counts = psum(hists)[0].to(mesh.first_device)
+        hists[k] = torch.zeros((b * b + 1,), dtype=torch.int64, device=dev).index_add_(
+            0, flat, torch.ones_like(flat))[: b * b]
+    counts = psum(hists, sh.owners)[sh.local[0]].to(mesh.first_device)
     nnz = torch.full((), max(sh.nnz, 1), dtype=torch.float32, device=counts.device)
     return counts.reshape(b, b).to(torch.float32) / nnz

@@ -58,10 +58,17 @@ multilevel functions and SlashBurn read back what sizes their next step (a
 coarse size, a route's loads, a round's largest degree, the host's share of
 SlashBurn) and count it in ``stats=``.
 
-On a mesh that spans processes, :func:`spmv` and :func:`step_comm_bytes`
-run, each process working on its own shards (the exchange moves only
-values); every other function raises ``NotImplementedError`` (ROADMAP.md,
-item 10g).
+On a mesh that spans processes, :func:`spmv`, :func:`step_comm_bytes`,
+:func:`bfs_levels`, :func:`label_prop_partition`,
+:func:`connected_components`, :func:`rcm_reorder`, :func:`edge_cut` and
+:func:`refine_partition` run, each process working on its own shards
+(``None`` in a remote shard's slot; a loop over the local shards keeps the
+global shard index) and every collective naming the shards' owners. Each
+gives every process the single-process mesh's result and ``stats`` bit for
+bit: a "go on?" flag is global (one ``pmax`` a BFS level), and a
+replicated vector (the components' labels) is joined from every process's
+shards. The multilevel functions and SlashBurn raise
+``NotImplementedError`` there (ROADMAP.md, item 10g).
 """
 
 from __future__ import annotations
@@ -108,6 +115,12 @@ def _exchange(x_local: Sequence[torch.Tensor], halo_send_l: Sequence[torch.Tenso
              for x, hs in zip(x_local, halo_send_l)]
     return tuple(None if x is None else torch.cat([x, r.reshape(-1)])
                  for x, r in zip(x_local, all_to_all(sends, owners=owners)))
+
+
+def _each(fn, *parts) -> list:
+    """``fn`` of each shard's items of ``parts`` (sequences in shard order),
+    ``None`` in a remote shard's slot (where the first part holds ``None``)."""
+    return [None if items[0] is None else fn(*items) for items in zip(*parts)]
 
 
 def _wide(sh: ShardedCSR) -> bool:
@@ -162,26 +175,27 @@ def _join(parts, mesh: Mesh, n: int) -> torch.Tensor:
 
 
 def _gids(sh: ShardedCSR) -> tuple:
-    """Each shard's global row ids (int64)."""
-    rows = sh.rows_per_shard
-    return tuple(k * rows + torch.arange(rows, device=dev) for k, dev in enumerate(sh.devices))
+    """Each shard's global row ids (int64), ``None`` for a remote shard."""
+    rows, local = sh.rows_per_shard, sh.local
+    return tuple(k * rows + torch.arange(rows, device=dev) if k in local else None for k, dev in enumerate(sh.devices))
 
 
 def _slots(sh: ShardedCSR, drop: bool = False) -> list:
     """Each shard's true entries: ``(local row, slot in the extended
-    vector)``, int64. A slot past the extended vector (a column past the
-    last shard's rows) becomes its last slot, as a gather clamps it, or
-    with ``drop`` one past it, a discard slot for a scatter."""
+    vector)``, int64; ``None`` for a remote shard. A slot past the extended
+    vector (a column past the last shard's rows) becomes its last slot, as
+    a gather clamps it, or with ``drop`` one past it, a discard slot for a
+    scatter."""
     _, n, d, rows, _, s = _statics(sh)
     ext_len = rows + d * s
     wide = _wide(sh)
-    out = []
-    for k in range(d):
+    out = [None] * d
+    for k in sh.local:
         cnt = sh.nnz_counts[k]
         slot = sh.halo_map[k][:cnt].long()
         if wide:
             slot = slot.clamp(max=ext_len if drop else ext_len - 1)
-        out.append((_local_row_of(sh.indptr[k], cnt), slot))
+        out[k] = (_local_row_of(sh.indptr[k], cnt), slot)
     return out
 
 
@@ -201,10 +215,10 @@ def _weights(sh: ShardedCSR, vertex_weights, mesh: Mesh):
     return _put(sh, vw), float(vw.sum())
 
 
-def _sizes(labels, weights, gids, n: int, k: int) -> tuple:
+def _sizes(labels, weights, gids, n: int, k: int, owners) -> tuple:
     """Each part's weight (float32), ``psum``'d over the shards' rows below n."""
-    return psum([torch.zeros((k,), dtype=torch.float32, device=lab.device).index_add_(
-        0, lab.long(), torch.where(g < n, w, 0.0)) for lab, w, g in zip(labels, weights, gids)])
+    return psum(_each(lambda lab, w, g: torch.zeros((k,), dtype=torch.float32, device=lab.device).index_add_(
+        0, lab.long(), torch.where(g < n, w, 0.0)), labels, weights, gids), owners)
 
 
 # -- SpMV -----------------------------------------------------------------------
@@ -239,27 +253,33 @@ def _bfs_sharded(sh: ShardedCSR, root, mesh: Mesh, max_iters: Optional[int] = No
     n, d, rows, _ = _shards(sh, mesh)
     ext_len = rows + d * sh.halo_width
     iters = max_iters or n
+    owners, local = sh.owners, sh.local
     slots = _slots(sh, drop=True)
-    sends = [hs.long() for hs in sh.halo_send]
-    frontier = [g == (root.to(g.device) if isinstance(root, torch.Tensor) else root) for g in _gids(sh)]
-    levels = [torch.where(f, 0, -1).to(torch.int32) for f in frontier]
+    sends = _each(torch.Tensor.long, sh.halo_send)
+    frontier = _each(lambda g: g == (root.to(g.device) if isinstance(root, torch.Tensor) else root), _gids(sh))
+    levels = _each(lambda f: torch.where(f, 0, -1).to(torch.int32), frontier)
     it = reads = 0
     while it < iters:
         reads += 1
-        if not bool(torch.stack([f.any().to(mesh.first_device) for f in frontier]).any()):
+        # "any frontier left?" over every shard of every process: one flag
+        # (a pmax of the shards' flags), read once
+        flags = pmax(_each(lambda f: f.any().to(torch.int32), frontier), owners)
+        if not bool(flags[local[0]]):
             break
         # active rows mark their neighbours' slots (a discard slot at the end)
-        ext = []
-        for f, (lrow, slot) in zip(frontier, slots):
+        ext = [None] * d
+        for k in local:
+            f, (lrow, slot) = frontier[k], slots[k]
             e = torch.zeros((ext_len + 1,), dtype=torch.bool, device=f.device)
-            ext.append(e.index_fill_(0, torch.where(f[lrow], slot, ext_len), True))
+            ext[k] = e.index_fill_(0, torch.where(f[lrow], slot, ext_len), True)
         # the marks on owner o's vertices go back to o, which marks its rows
-        recv = all_to_all([e[rows:ext_len].view(d, sh.halo_width) for e in ext])
-        nxt = []
-        for e, r, hs, lev in zip(ext, recv, sends, levels):
-            e.index_fill_(0, torch.where(r & (hs < rows), hs, ext_len).reshape(-1), True)
-            nxt.append(e[:rows] & (lev < 0))
-        levels = [torch.where(x, it + 1, lev) for x, lev in zip(nxt, levels)]
+        recv = all_to_all(_each(lambda e: e[rows:ext_len].view(d, sh.halo_width), ext), owners=owners)
+        nxt = [None] * d
+        for k in local:
+            e, hs = ext[k], sends[k]
+            e.index_fill_(0, torch.where(recv[k] & (hs < rows), hs, ext_len).reshape(-1), True)
+            nxt[k] = e[:rows] & (levels[k] < 0)
+            levels[k] = torch.where(nxt[k], it + 1, levels[k])
         frontier = nxt
         it += 1
     if stats is not None:
@@ -273,7 +293,6 @@ def bfs_levels(sh: ShardedCSR, root, mesh: Mesh, max_iters: Optional[int] = None
     each level exchanges only halo marks. Returns the (n,) int32 levels (-1
     = unreached); ``stats``, a dict, receives ``levels`` and
     ``host_reads``."""
-    single_process(mesh, "halo.bfs_levels", _ACROSS_ITEM)
     _require_halo(sh)
     levels, _ = _bfs_sharded(sh, root, mesh, max_iters, stats)
     return _join(levels, mesh, sh.shape[0])
@@ -287,22 +306,21 @@ def label_prop_partition(sh: ShardedCSR, k: int, mesh: Mesh, num_iters: int = 10
     ``vertex_weights`` (n,) measures the parts by weight. The float32
     arithmetic is the JAX body's as XLA compiles it: ``sizes / cap`` is a
     product with cap's float32 reciprocal. Returns the (n,) int32 labels."""
-    single_process(mesh, "halo.label_prop_partition", _ACROSS_ITEM)
     _require_halo(sh)
     n, d, rows, _ = _shards(sh, mesh)
-    first = mesh.first_device
+    first, owners = mesh.first_device, sh.owners
     weights, total = _weights(sh, vertex_weights, mesh)
     cap = _f32(balance * total / k, first)
     inv_cap, margin, eps = _f32(1.0, first) / cap, _f32(1.000001, first), _f32(1e-6, first)
     gids, slots, sends = _gids(sh), _slots(sh), _sends(sh)
     degs = _degrees(sh)
-    labels = [torch.clamp(g * k // max(n, 1), max=k - 1).to(torch.int32) for g in gids]
+    labels = _each(lambda g: torch.clamp(g * k // max(n, 1), max=k - 1).to(torch.int32), gids)
     for it in range(num_iters):
-        ext = _exchange(labels, sends, sh.axis)
-        sizes = _sizes(labels, weights, gids, n, k)
-        new = []
-        for j, dev in enumerate(sh.devices):
-            lrow, slot = slots[j]
+        ext = _exchange(labels, sends, sh.axis, owners)
+        sizes = _sizes(labels, weights, gids, n, k, owners)
+        new = [None] * d
+        for j in sh.local:
+            dev, (lrow, slot) = sh.devices[j], slots[j]
             counts = torch.zeros((rows * k,), dtype=torch.float32, device=dev).index_add_(
                 0, lrow * k + ext[j][slot].long(), torch.ones_like(lrow, dtype=torch.float32)).view(rows, k)
             scores = counts * torch.clamp(1.0 - sizes[j] * inv_cap.to(dev), min=0.0)[None, :]
@@ -313,7 +331,7 @@ def label_prop_partition(sh: ShardedCSR, k: int, mesh: Mesh, num_iters: int = 10
             # a part must never empty: an emptied part stays empty
             keeps_alive = sizes[j][cur.clamp(0, k - 1)] - weights[j] > eps.to(dev)
             move = active & keeps_alive & (scores.max(dim=1).values > cur_score * margin.to(dev) + eps.to(dev))
-            new.append(torch.where(move, best, cur).to(torch.int32))
+            new[j] = torch.where(move, best, cur).to(torch.int32)
         labels = new
     return _join(labels, mesh, n)
 
@@ -342,28 +360,31 @@ def connected_components(sh: ShardedCSR, mesh: Mesh, alive=None, max_iters: Opti
     (n,) bool mask, restricts to the induced subgraph; masked-out vertices
     get -1. ``stats``, a dict, receives ``rounds``, ``jumps`` and
     ``host_reads`` (one a round and one a jump)."""
-    single_process(mesh, "halo.connected_components", _ACROSS_ITEM)
     _require_halo(sh)
     n, d, rows, _ = _shards(sh, mesh)
-    first = mesh.first_device
+    first, owners, local = mesh.first_device, sh.owners, sh.local
     iters = int(max_iters) if max_iters is not None else n
     if alive is None:
         alive = torch.ones((n,), dtype=torch.bool, device=first)
     alive_flat = _pad_vec(torch.as_tensor(alive, dtype=torch.bool).to(first), d, rows, n, fill=False).view(-1)
-    alive_l = tuple(a.to(dev) for a, dev in zip(alive_flat.view(d, rows), sh.devices))
+    alive_l = tuple(a.to(dev) if k in local else None
+                    for k, (a, dev) in enumerate(zip(alive_flat.view(d, rows), sh.devices)))
     slots, sends = _slots(sh), _sends(sh)
     top = d * rows - 1
     labels = torch.where(alive_flat, torch.arange(d * rows, dtype=torch.int32, device=first), _BIG)
     changed, rounds, jumps = True, 0, 0
     while changed and rounds < iters:
-        masked = [torch.where(a, lab.to(dev), _BIG) for a, lab, dev in zip(alive_l, labels.view(d, rows), sh.devices)]
-        ext = _exchange(masked, sends, sh.axis)
-        new = []
-        for j, (lrow, slot) in enumerate(slots):
+        masked = _each(lambda a, lab: torch.where(a, lab.to(a.device), _BIG), alive_l, labels.view(d, rows))
+        ext = _exchange(masked, sends, sh.axis, owners)
+        new = [None] * d
+        for j in local:
+            lrow, slot = slots[j]
             nbr_min = torch.full((rows,), _BIG, dtype=torch.int32, device=masked[j].device).scatter_reduce_(
                 0, lrow, ext[j][slot], "amin")
-            new.append(torch.where(alive_l[j], torch.minimum(masked[j], nbr_min), _BIG).to(first))
-        nf = torch.cat(new)
+            new[j] = torch.where(alive_l[j], torch.minimum(masked[j], nbr_min), _BIG)
+        # every process holds the whole (d·R,) vector and runs the same
+        # hooking and jumps on it: no further collective, the same reads
+        nf = join(new, owners, first)
         contrib = torch.where(labels == _BIG, _BIG, nf)
         upd = labels.clone().scatter_reduce_(0, labels.clamp(max=top).long(), contrib, "amin")
         new_labels, j = _compress(torch.minimum(nf, upd), top)
@@ -385,9 +406,11 @@ def _counting_rank(sh: ShardedCSR, bucket, valid, nb: int):
     the keys (``bits_below(nb)`` bits stated) and K3 over the sorted keys
     give each row's place in its bucket and the valid rows' histogram; one
     ``all_gather`` of the (D, nb) histograms gives the global offsets and
-    the earlier shards' counts. Invalid rows rank as INT32_MAX."""
-    local = []
-    for b, v in zip(bucket, valid):
+    the earlier shards' counts. Invalid rows rank as INT32_MAX. ``None``
+    in a remote shard's slot, in and out."""
+    local = [None] * len(bucket)
+    for k in sh.local:
+        b, v = bucket[k], valid[k]
         perm, b_s = radix_argsort(b, key_bits=bits_below(nb), return_keys=True)
         perm = perm.long()
         starts = indptr_from_sorted_rows(b_s, nb)
@@ -395,16 +418,17 @@ def _counting_rank(sh: ShardedCSR, bucket, valid, nb: int):
         hist = (seen[starts[1:]] - seen[starts[:-1]]).to(torch.int32)
         local_rank = torch.empty_like(perm)
         local_rank[perm] = torch.arange(perm.shape[0], device=perm.device) - starts[b_s.long()]
-        local.append((hist, local_rank))
-    gathered = all_gather([hist for hist, _ in local])
-    ranks = []
-    for k, (b, v, g, (_, local_rank)) in enumerate(zip(bucket, valid, gathered, local)):
+        local[k] = (hist, local_rank)
+    gathered = all_gather(_each(lambda loc: loc[0], local), sh.owners)
+    ranks = [None] * len(bucket)
+    for k in sh.local:
+        # k is the global shard index: g[:k] are the earlier shards' counts
+        b, v, g, local_rank = bucket[k].long(), valid[k], gathered[k], local[k][1]
         ghist = g.sum(0)
         goffset = torch.cumsum(ghist, 0) - ghist
-        b = b.long()
         pos = goffset[b] + g[:k].sum(0)[b] + local_rank
-        ranks.append(torch.where(v, pos, _BIG).to(torch.int32))
-    return tuple(ranks), gathered[0].sum(0)
+        ranks[k] = torch.where(v, pos, _BIG).to(torch.int32)
+    return tuple(ranks), gathered[sh.local[0]].sum(0)
 
 
 def _parent_bucket(sh: ShardedCSR, sends, slots, parents, levels, rank, level_start, pb_count: int):
@@ -414,32 +438,34 @@ def _parent_bucket(sh: ShardedCSR, sends, slots, parents, levels, rank, level_st
     entries join a row to a vertex one level up (the levels do not change,
     so their exchange is made once by the caller)."""
     rows = sh.rows_per_shard
-    ext_rank = _exchange(rank, sends, sh.axis)
-    out = []
-    for (lrow, slot), par, lev, er in zip(slots, parents, levels, ext_rank):
+    ext_rank = _exchange(rank, sends, sh.axis, sh.owners)
+    out = [None] * sh.n_shards
+    for k in sh.local:
+        (lrow, slot), par, lev, er = slots[k], parents[k], levels[k], ext_rank[k]
         cand = torch.where(par, er[slot], _BIG)
         pmin = torch.full((rows,), _BIG, dtype=torch.int32, device=lev.device).scatter_reduce_(0, lrow, cand, "amin")
         start = level_start.to(lev.device)
         parent_lev = torch.clamp(lev.long() - 1, 0, start.shape[0] - 1)
-        out.append(torch.clamp(pmin.long() - start[parent_lev], 0, pb_count - 1))
+        out[k] = torch.clamp(pmin.long() - start[parent_lev], 0, pb_count - 1)
     return tuple(out)
 
 
 def _degrees(sh: ShardedCSR) -> tuple:
-    return tuple(ip[1:] - ip[:-1] for ip in sh.indptr)
+    return tuple(_each(lambda ip: ip[1:] - ip[:-1], sh.indptr))
 
 
 def _min_degree_last_level(sh: ShardedCSR, levels) -> torch.Tensor:
     """The least id among the least-degree vertices of the last BFS level,
     a 0-d tensor on the first shard's device (INT32_MAX when no vertex was
     reached): three reductions, no host read."""
-    n = sh.shape[0]
+    n, owners = sh.shape[0], sh.owners
     gids, degs = _gids(sh), _degrees(sh)
-    valid = [g < n for g in gids]
-    lev_max = pmax([torch.where(v, lev, -1).max() for v, lev in zip(valid, levels)])
-    on_last = [v & (lev == m) for v, lev, m in zip(valid, levels, lev_max)]
-    min_deg = pmin([torch.where(o, dg, _BIG).min() for o, dg in zip(on_last, degs)])
-    return pmin([torch.where(o & (dg == m), g, _BIG).min() for o, dg, m, g in zip(on_last, degs, min_deg, gids)])[0]
+    valid = _each(lambda g: g < n, gids)
+    lev_max = pmax(_each(lambda v, lev: torch.where(v, lev, -1).max(), valid, levels), owners)
+    on_last = _each(lambda v, lev, m: v & (lev == m), valid, levels, lev_max)
+    min_deg = pmin(_each(lambda o, dg: torch.where(o, dg, _BIG).min(), on_last, degs), owners)
+    return pmin(_each(lambda o, dg, m, g: torch.where(o & (dg == m), g, _BIG).min(), on_last, degs, min_deg, gids),
+                owners)[sh.local[0]]
 
 
 def rcm_reorder(sh: ShardedCSR, mesh: Mesh, root: int = 0, max_iters: Optional[int] = None, peripheral_iters: int = 2,
@@ -457,7 +483,6 @@ def rcm_reorder(sh: ShardedCSR, mesh: Mesh, root: int = 0, max_iters: Optional[i
     reads nothing back), ``refine_iters`` and ``rank_buckets``, the
     histogram width of a refinement pass (each ``all_gather`` stacks D of
     them)."""
-    single_process(mesh, "halo.rcm_reorder", _ACROSS_ITEM)
     _require_halo(sh)
     _shards(sh, mesh)
     for _ in range(max(peripheral_iters, 1)):
@@ -483,44 +508,41 @@ def _rcm_rank_orchestrator(sh: ShardedCSR, levels, L: int, B: int, PB: int, iter
     """The ranks of :func:`rcm_reorder` from the BFS levels, per shard:
     ``iters`` refinement passes, no host read."""
     n = sh.shape[0]
-    valid = [g < n for g in _gids(sh)]
-    lev_c = [torch.where(lev < 0, L, torch.clamp(lev, max=L - 1)).to(torch.int32) for lev in levels]
-    db = [torch.clamp(dg, max=B - 1).to(torch.int32) for dg in _degrees(sh)]
-    rank, ghist = _counting_rank(sh, [lc * B + d for lc, d in zip(lev_c, db)], valid, (L + 1) * B)
+    valid = _each(lambda g: g < n, _gids(sh))
+    lev_c = _each(lambda lev: torch.where(lev < 0, L, torch.clamp(lev, max=L - 1)).to(torch.int32), levels)
+    db = _each(lambda dg: torch.clamp(dg, max=B - 1).to(torch.int32), _degrees(sh))
+    rank, ghist = _counting_rank(sh, _each(lambda lc, d: lc * B + d, lev_c, db), valid, (L + 1) * B)
     # the ranks are level-major: each level's start in rank space, from the
     # valid rows' (level, degree bucket) histogram
     lev_counts = ghist.view(L + 1, B).sum(1)
     level_start = torch.cat([lev_counts.new_zeros((1,)), torch.cumsum(lev_counts, 0)])
     reached = lev_counts[:L].sum()
     slots, sends = _slots(sh), _sends(sh)
-    ext_lev = _exchange(levels, sends, sh.axis)
-    parents = [(el[slot] == lev[lrow] - 1) & (lev[lrow] > 0) for (lrow, slot), el, lev in zip(slots, ext_lev, levels)]
+    ext_lev = _exchange(levels, sends, sh.axis, sh.owners)
+    parents = _each(lambda s, el, lev: (el[s[1]] == lev[s[0]] - 1) & (lev[s[0]] > 0), slots, ext_lev, levels)
     for _ in range(iters):
         pb = _parent_bucket(sh, sends, slots, parents, levels, rank, level_start, PB)
-        key2 = [((lc * PB + p) * B + d).to(torch.int32) for lc, p, d in zip(lev_c, pb, db)]
+        key2 = _each(lambda p, lc, d: ((lc * PB + p) * B + d).to(torch.int32), pb, lev_c, db)
         rank, _ = _counting_rank(sh, key2, valid, (L + 1) * PB * B)
-    out = []
-    for r in rank:
-        rc = reached.to(r.device)
-        out.append(torch.where(r < rc, rc - 1 - r, r).to(torch.int32))
-    return tuple(out)
+    return tuple(_each(lambda r: torch.where(r < reached.to(r.device), reached.to(r.device) - 1 - r, r)
+                       .to(torch.int32), rank))
 
 
 # -- edge cut and refinement ----------------------------------------------------
-def _cut(labels, ext, slots) -> torch.Tensor:
+def _cut(labels, ext, slots, owners) -> torch.Tensor:
     """The ``psum`` of the shards' entries whose row and column labels
-    differ (int64), on the first shard's device."""
-    return psum([(lab[lrow] != e[slot]).sum() for lab, e, (lrow, slot) in zip(labels, ext, slots)])[0]
+    differ (int64), on this process's first shard's device."""
+    parts = _each(lambda lab, e, s: (lab[s[0]] != e[s[1]]).sum(), labels, ext, slots)
+    return next(p for p in psum(parts, owners) if p is not None)
 
 
 def edge_cut(sh: ShardedCSR, labels, mesh: Mesh):
     """Directed edge cut with sharded labels: one halo exchange of the
     labels and a scalar ``psum`` (int64, on the mesh's first device)."""
-    single_process(mesh, "halo.edge_cut", _ACROSS_ITEM)
     _require_halo(sh)
     _shards(sh, mesh)
     lab = _put(sh, labels, dtype=torch.int32)
-    return _cut(lab, _exchange(lab, _sends(sh), sh.axis), _slots(sh)).to(mesh.first_device)
+    return _cut(lab, _exchange(lab, _sends(sh), sh.axis, sh.owners), _slots(sh), sh.owners).to(mesh.first_device)
 
 
 def _wrap_int32(t: torch.Tensor) -> torch.Tensor:
@@ -531,11 +553,11 @@ def _wrap_int32(t: torch.Tensor) -> torch.Tensor:
 def _refine_round(sh, slots, lab, ext, sizes, weights, gids, k: int, cap, G: int) -> list:
     """One round of :func:`refine_partition` on the labels ``lab`` (their
     halo exchange ``ext``, their part sizes ``sizes``): the new labels."""
-    n, rows = sh.shape[0], sh.rows_per_shard
+    n, rows, d = sh.shape[0], sh.rows_per_shard, sh.n_shards
     nbk = k * (G + 1)
-    state, whists = [], []
-    for j, dev in enumerate(sh.devices):
-        lrow, slot = slots[j]
+    state, whists = [None] * d, [None] * d
+    for j in sh.local:
+        dev, (lrow, slot) = sh.devices[j], slots[j]
         counts = torch.zeros((rows * k,), dtype=torch.int32, device=dev).index_add_(
             0, lrow * k + ext[j][slot].long(), torch.ones_like(lrow, dtype=torch.int32)).view(rows, k)
         cur, w, in_range = lab[j].long(), weights[j], gids[j] < n
@@ -548,15 +570,17 @@ def _refine_round(sh, slots, lab, ext, sizes, weights, gids, k: int, cap, G: int
         keeps_alive = size[cur.clamp(0, k - 1)] - w > _f32(1e-6, dev)
         mover = in_range & keeps_alive & (gain > 0)
         bucket = torch.where(mover, best * (G + 1) + torch.clamp(gain, 0, G), nbk).to(torch.int32)
-        whists.append(torch.zeros((nbk + 1,), dtype=torch.float32, device=dev).index_add_(
-            0, bucket.long(), torch.where(mover, w, 0.0))[:nbk])
-        state.append((cur, w, best, mover, bucket, torch.clamp(cap_j - size, min=0.0)))
+        whists[j] = torch.zeros((nbk + 1,), dtype=torch.float32, device=dev).index_add_(
+            0, bucket.long(), torch.where(mover, w, 0.0))[:nbk]
+        state[j] = (cur, w, best, mover, bucket, torch.clamp(cap_j - size, min=0.0))
     # admission in weight units: a mover's place is the weight of higher-gain
     # movers into its part, of its bucket's movers on earlier shards, and of
     # those before it in its bucket on its shard
-    gathered = all_gather(whists)
-    new = []
-    for j, (g, (cur, w, best, mover, bucket, headroom)) in enumerate(zip(gathered, state)):
+    gathered = all_gather(whists, sh.owners)
+    new = [None] * d
+    for j in sh.local:
+        # j is the global shard index: g[:j] are the earlier shards' weights
+        g, (cur, w, best, mover, bucket, headroom) = gathered[j], state[j]
         ghist = g.sum(0).view(k, G + 1)
         rev = torch.cumsum(ghist.flip(1), 1).flip(1)
         higher = torch.cat([rev[:, 1:], torch.zeros_like(rev[:, :1])], 1).reshape(-1)
@@ -574,7 +598,7 @@ def _refine_round(sh, slots, lab, ext, sizes, weights, gids, k: int, cap, G: int
         flat = torch.clamp(bucket.long(), 0, nbk - 1)
         wpos = higher[flat] + g[:j].sum(0)[flat] + local_prefix
         admit = mover & (wpos + w <= headroom[best.clamp(0, k - 1)] + _f32(1e-6, w.device))
-        new.append(torch.where(admit, best, cur).to(torch.int32))
+        new[j] = torch.where(admit, best, cur).to(torch.int32)
     return new
 
 
@@ -588,27 +612,27 @@ def refine_partition(sh: ShardedCSR, labels, k: int, mesh: Mesh, rounds: int = 4
     ``vertex_weights`` (n,) measures the parts by weight. The best labelling
     seen is kept, feasibility first, then cut, chosen on the device. Returns
     the (n,) int32 labels."""
-    single_process(mesh, "halo.refine_partition", _ACROSS_ITEM)
     _require_halo(sh)
     n, d, rows, _ = _shards(sh, mesh)
-    first = mesh.first_device
+    first, owners, l0 = mesh.first_device, sh.owners, sh.local[0]
     weights, total = _weights(sh, vertex_weights, mesh)
     cap = _f32(balance * total / k, first)
     gids, slots, sends = _gids(sh), _slots(sh), _sends(sh)
     lab = _put(sh, labels, dtype=torch.int32)
-    ext = _exchange(lab, sends, sh.axis)
-    sizes = _sizes(lab, weights, gids, n, k)
-    best_lab, best_cut, best_over = lab, _cut(lab, ext, slots), (sizes[0] - cap).max()
+    ext = _exchange(lab, sends, sh.axis, owners)
+    sizes = _sizes(lab, weights, gids, n, k, owners)
+    # the cut and the sizes are replicated: every process keeps the same best
+    best_lab, best_cut, best_over = lab, _cut(lab, ext, slots, owners), (sizes[l0] - cap).max()
     tol = _f32(1e-4, first)
     for _ in range(rounds):
         lab = _refine_round(sh, slots, lab, ext, sizes, weights, gids, k, cap, int(gain_buckets))
-        ext = _exchange(lab, sends, sh.axis)
-        sizes = _sizes(lab, weights, gids, n, k)
-        cut, over = _cut(lab, ext, slots), (sizes[0] - cap).max()
+        ext = _exchange(lab, sends, sh.axis, owners)
+        sizes = _sizes(lab, weights, gids, n, k, owners)
+        cut, over = _cut(lab, ext, slots, owners), (sizes[l0] - cap).max()
         # feasibility first (a lower cut must not excuse a cap violation), then cut
         feas_new, feas_best = over <= tol, best_over <= tol
         better = (feas_new & ~feas_best) | ((feas_new == feas_best) & ((cut < best_cut) | (~feas_new & (over < best_over))))
-        best_lab = [torch.where(better.to(a.device), a, b) for a, b in zip(lab, best_lab)]
+        best_lab = _each(lambda a, b: torch.where(better.to(a.device), a, b), lab, best_lab)
         best_cut = torch.where(better, cut, best_cut)
         best_over = torch.where(better, over, best_over)
     return _join(best_lab, mesh, n)

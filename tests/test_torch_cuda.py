@@ -1829,8 +1829,9 @@ def _group_on_card(tmp_path, backend: str, per_process: int):
 
 
 def _assert_group_equals_one_process(ranks, per_process, mesh, dev):
-    """Every rank's shards and replicated results equal the single-process
-    ``mesh``'s bit for bit."""
+    """Every rank's shards and replicated results, the ingest's path's and
+    the functions' (``child.FUNCTIONS``, with their ``stats``), equal the
+    single-process ``mesh``'s bit for bit."""
     import torch_multiproc_child as child
 
     for graph in child.GRAPHS:
@@ -1846,6 +1847,15 @@ def _assert_group_equals_one_process(ranks, per_process, mesh, dev):
             for name in ("y", "order", "levels", "degrees", "degree_order"):
                 assert torch.equal(got[name].to(want[name].device), want[name]), (graph, name)
             assert all(said.startswith("NotImplementedError") for said in res[per_process]["guards"].values())
+        want = child.run_functions(mesh, graph, dev)
+        for res in ranks:
+            for name, (result, stats) in res[per_process]["functions"][graph].items():
+                want_result, want_stats = want[name]
+                pairs = [(result[k], want_result[k]) for k in want_result] if isinstance(want_result, dict) else \
+                    [(result, want_result)]
+                for g, w in pairs:
+                    assert g.dtype == w.dtype and torch.equal(g.to(w.device), w), (graph, name)
+                assert stats == want_stats, (graph, name)
 
 
 def test_two_gloo_processes_sharing_the_card_equal_one_process(tmp_path, dev):

@@ -6,12 +6,16 @@ builds ``global_mesh(devices=["cpu"] * S)`` for S = 2 and 4 (4 and 8
 shards) and runs every collective, the host read, the distributed ingest's
 path (``from_coo_sharded`` → ``with_halo`` → ``halo.spmv`` →
 ``dist.rcm_reorder``, with ``to_csr``, ``bfs_levels``, ``degrees`` and
-``degree_reorder``) and the guard of every function that does not run
-across processes. Each process's results must equal the single-process
-mesh of as many CPU shards on the same inputs bit for bit, field by field;
-on ``tools/multiproc_dcn.py``'s graph the path must also give the JAX
-package's results on 4 and 8 virtual CPU devices: y within rtol 1e-5, atol
-1e-5 (as ``test_torch_halo.py``), the RCM order exactly.
+``degree_reorder``), the twelve functions of ``child.FUNCTIONS`` (the rest
+of ``dist`` and ``halo``'s flat half) and the guard of every function that
+does not run across processes. Each process's results, and the ``stats``
+the functions keep, must equal the single-process mesh of as many CPU
+shards on the same inputs bit for bit, field by field; on
+``tools/multiproc_dcn.py``'s graph the path and the functions must also
+give the JAX package's results on 4 and 8 virtual CPU devices: y within
+rtol 1e-5, atol 1e-5 (as ``test_torch_halo.py``), the profile and the
+heatmap within rtol 1e-6 (as ``test_torch_parallel.py``), every integer
+result exactly.
 """
 
 import sys
@@ -26,7 +30,7 @@ from sparsebase_tpu_torch.parallel import make_mesh, multihost
 
 CHILD = str(Path(child.__file__).resolve())
 PER_PROCESS = (2, 4)
-GROUP_TIME_LIMIT = 240  # seconds for the whole group; it takes about 10
+GROUP_TIME_LIMIT = 240  # seconds for the whole group; it takes about 15
 
 
 @pytest.fixture(scope="module")
@@ -155,3 +159,97 @@ def test_path_equals_jax(group, per_process, jax_tool_path):
         assert got["nnz"] == nnz
         np.testing.assert_allclose(got["y"].numpy(), y, rtol=1e-5, atol=1e-5)
         np.testing.assert_array_equal(got["order"].numpy(), order)
+
+
+@pytest.fixture(scope="module")
+def single_functions():
+    """The functions on the single-process meshes, once."""
+    return {(s, g): child.run_functions(single(s), g, torch.device("cpu")) for s in PER_PROCESS for g in child.GRAPHS}
+
+
+@pytest.mark.parametrize("graph", list(child.GRAPHS))
+@pytest.mark.parametrize("name", child.FUNCTIONS)
+def test_function_equals_single_process(group, per_process, single_functions, name, graph):
+    want, want_stats = single_functions[per_process, graph][name]
+    for res in group:
+        got, stats = res[per_process]["functions"][graph][name]
+        if isinstance(want, dict):  # structure_features
+            assert set(got) == set(want), name
+            for key in want:
+                assert_same(got[key], want[key], f"{graph} {name} {key}")
+        else:
+            assert_same(got, want, f"{graph} {name}")
+        assert stats == want_stats, f"{graph} {name} stats"
+
+
+def jax_calls(sh, mesh, inputs) -> dict:
+    """The JAX package's counterpart of ``child.function_calls``."""
+    from sparsebase_tpu.parallel import dist as ref_dist
+    from sparsebase_tpu.parallel import halo as ref_halo
+
+    x, labels, weights, order_r, order_c = (inputs[k] for k in ("x", "labels", "weights", "order_r", "order_c"))
+    k = child.PARTS
+    calls = {
+        "dist.spmv": lambda: ref_dist.spmv(sh, x, mesh),
+        "dist.edge_cut": lambda: ref_dist.edge_cut(sh, labels, mesh),
+        "dist.structure_features": lambda: ref_dist.structure_features(sh, mesh),
+        "dist.label_prop_partition": lambda: ref_dist.label_prop_partition(sh, k, mesh, num_iters=8),
+        "dist.refine_partition": lambda: ref_dist.refine_partition(sh, labels, k, mesh),
+        "dist.reorder_heatmap": lambda: ref_dist.reorder_heatmap(sh, order_r, order_c, mesh, child.HEATMAP_PARTS),
+        "halo.bfs_levels": lambda: ref_halo.bfs_levels(sh, 0, mesh),
+        "halo.label_prop_partition": lambda: ref_halo.label_prop_partition(sh, k, mesh, num_iters=8,
+                                                                           vertex_weights=weights),
+        "halo.connected_components": lambda: ref_halo.connected_components(sh, mesh),
+        "halo.rcm_reorder": lambda: ref_halo.rcm_reorder(sh, mesh),
+        "halo.edge_cut": lambda: ref_halo.edge_cut(sh, labels, mesh),
+        "halo.refine_partition": lambda: ref_halo.refine_partition(sh, labels, k, mesh),
+    }
+    assert tuple(calls) == child.FUNCTIONS
+    return calls
+
+
+@pytest.fixture(scope="module")
+def jax_tool_functions():
+    """The JAX package's functions on the tool's graph on 4 and 8 virtual
+    CPU devices: ``{(shards per process, name): result}``."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from sparsebase_tpu.parallel import make_mesh as ref_make_mesh
+    from sparsebase_tpu.parallel.sharded import ShardedCSR as RefShardedCSR
+
+    row, col, vals, shape = child.tool_graph()
+    inputs = {k: jnp.asarray(v) for k, v in child.function_inputs(shape).items()}
+    out = {}
+    for s in PER_PROCESS:
+        assert len(jax.devices()) >= 2 * s, "conftest must provide 8 virtual devices"
+        mesh = ref_make_mesh(2 * s)
+        sh = RefShardedCSR.from_coo_sharded(jnp.asarray(row), jnp.asarray(col), jnp.asarray(vals), shape,
+                                            mesh).with_halo()
+        for name, fn in jax_calls(sh, mesh, inputs).items():
+            got = fn()
+            if isinstance(got, dict):
+                out[s, name] = {key: np.asarray(v) for key, v in got.items()}
+            else:  # a vector cut to n; a scalar or the heatmap's grid as it is
+                got = np.asarray(got)
+                out[s, name] = got.reshape(-1)[: shape[0]] if got.ndim == 1 else got
+    return out
+
+
+@pytest.mark.parametrize("name", child.FUNCTIONS)
+def test_function_equals_jax(group, per_process, jax_tool_functions, name):
+    want = jax_tool_functions[per_process, name]
+    for res in group:
+        got, _ = res[per_process]["functions"]["tool"][name]
+        if name == "dist.structure_features":
+            assert set(got) == set(want)
+            for key in ("bandwidth", "nnz", "min_degree", "max_degree", "avg_degree"):
+                assert got[key].item() == want[key].item(), key
+            np.testing.assert_allclose(got["profile"].item(), float(want["profile"]), rtol=1e-6)
+        elif name == "dist.spmv":
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        elif name == "dist.reorder_heatmap":
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+        else:
+            assert got.shape == want.shape, name
+            np.testing.assert_array_equal(got.numpy(), want)

@@ -2,12 +2,13 @@
 ``multihost.launch``: it joins the group (``multihost.initialize()`` from
 torch's standard variables, gloo), builds ``global_mesh(devices=[device] *
 S)`` for each S of ``--shards``, and runs on it the collectives, the host
-read and the distributed ingest's path (``from_coo_sharded`` →
-``with_halo`` → ``halo.spmv`` → ``dist.rcm_reorder``) on the graphs of
-:data:`GRAPHS`, then the guard of every function that does not run across
-processes. It saves what it holds to ``--out/rank{R}.pt``; the tests hold
-it to the single-process mesh (:func:`run_collectives`, :func:`run_path`
-on ``make_mesh``).
+read, the distributed ingest's path (``from_coo_sharded`` →
+``with_halo`` → ``halo.spmv`` → ``dist.rcm_reorder``) and the functions of
+:data:`FUNCTIONS` on the graphs of :data:`GRAPHS`, then the guard of every
+function that does not run across processes. It saves what it holds to
+``--out/rank{R}.pt``; the tests hold it to the single-process mesh
+(:func:`run_collectives`, :func:`run_path`, :func:`run_functions` on
+``make_mesh``).
 
     python tests/torch_multiproc_child.py --out DIR [--device cpu|cuda] [--shards 2,4] [--backend gloo|nccl]
 
@@ -58,12 +59,17 @@ def wide_graph(n: int = 37, m: int = 61, nnz: int = 400, seed: int = 5):
 GRAPHS = {"tool": tool_graph, "wide": wide_graph}
 COLLECTIVES = ("psum", "pmax", "pmin", "all_gather", "psum_scatter", "all_to_all", "all_to_all axes", "ppermute",
                "ppermute reversed", "host_fetch", "gather ragged")
-# what must raise NotImplementedError on a mesh that spans processes
-GUARDED = tuple(f"dist.{f}" for f in ("spmv", "edge_cut", "label_prop_partition", "refine_partition",
-                                      "structure_features", "reorder_heatmap")) + tuple(
+# the functions that run across processes, beside the ingest's path
+FUNCTIONS = tuple(f"dist.{f}" for f in ("spmv", "edge_cut", "structure_features", "label_prop_partition",
+                                        "refine_partition", "reorder_heatmap")) + tuple(
     f"halo.{f}" for f in ("bfs_levels", "label_prop_partition", "connected_components", "rcm_reorder", "edge_cut",
-                          "refine_partition", "heavy_edge_matching", "coarsen", "bfs_levels_multilevel",
-                          "rcm_reorder_ml", "multilevel_partition", "slashburn_reorder")) + tuple(
+                          "refine_partition"))
+PARTS = 4  # the partitions' k
+HEATMAP_PARTS = 3
+# what must raise NotImplementedError on a mesh that spans processes
+GUARDED = tuple(
+    f"halo.{f}" for f in ("heavy_edge_matching", "coarsen", "bfs_levels_multilevel", "rcm_reorder_ml",
+                          "multilevel_partition", "slashburn_reorder")) + tuple(
     f"ring.{f}" for f in ("triangle_count", "jaccard_weights", "triangle_count_sparse", "jaccard_weights_sparse",
                           "jaccard_flat")) + (
     "sharded2d.Sharded2DCSR.from_csr", "ShardedCSR.from_csr", "ShardedCSR.stacked", "ShardedCSR.to",
@@ -134,6 +140,59 @@ def run_path(mesh, graph: str, device) -> dict:
     return out
 
 
+def function_inputs(shape, seed: int = 11):
+    """The functions' inputs as numpy arrays: x (m,), a labelling into
+    :data:`PARTS` parts (blocks, a third of the rows moved at random),
+    integer vertex weights (exact float32 sums), and a row and a column
+    order."""
+    n, m = shape
+    rng = np.random.default_rng(seed)
+    labels = (np.arange(n) * PARTS // n).astype(np.int32)
+    moved = rng.integers(0, n, n // 3)
+    labels[moved] = rng.integers(0, PARTS, len(moved))
+    return {"x": rng.standard_normal(m).astype(np.float32), "labels": labels,
+            "weights": rng.integers(1, 4, n).astype(np.float32), "order_r": rng.permutation(n).astype(np.int32),
+            "order_c": rng.permutation(m).astype(np.int32)}
+
+
+def function_calls(sh, mesh, inputs) -> dict:
+    """Each function of :data:`FUNCTIONS` on the container ``sh``, as a call
+    that takes a ``stats`` dict (filled by the functions that keep stats)."""
+    x, labels, weights, order_r, order_c = (inputs[k] for k in ("x", "labels", "weights", "order_r", "order_c"))
+    calls = {
+        "dist.spmv": lambda st: dist.spmv(sh, x, mesh),
+        "dist.edge_cut": lambda st: dist.edge_cut(sh, labels, mesh),
+        "dist.structure_features": lambda st: dist.structure_features(sh, mesh),
+        "dist.label_prop_partition": lambda st: dist.label_prop_partition(sh, PARTS, mesh, num_iters=8),
+        "dist.refine_partition": lambda st: dist.refine_partition(sh, labels, PARTS, mesh),
+        "dist.reorder_heatmap": lambda st: dist.reorder_heatmap(sh, order_r, order_c, mesh, HEATMAP_PARTS),
+        "halo.bfs_levels": lambda st: halo.bfs_levels(sh, 0, mesh, stats=st),
+        "halo.label_prop_partition": lambda st: halo.label_prop_partition(sh, PARTS, mesh, num_iters=8,
+                                                                          vertex_weights=weights),
+        "halo.connected_components": lambda st: halo.connected_components(sh, mesh, stats=st),
+        "halo.rcm_reorder": lambda st: halo.rcm_reorder(sh, mesh, stats=st),
+        "halo.edge_cut": lambda st: halo.edge_cut(sh, labels, mesh),
+        "halo.refine_partition": lambda st: halo.refine_partition(sh, labels, PARTS, mesh),
+    }
+    assert tuple(calls) == FUNCTIONS
+    return calls
+
+
+def run_functions(mesh, graph: str, device) -> dict:
+    """Each function of :data:`FUNCTIONS` on ``graph``'s container:
+    ``{name: (result, stats)}``, every process holding the replicated
+    result."""
+    row, col, vals, shape = GRAPHS[graph]()
+    sh = ShardedCSR.from_coo_sharded(*(torch.as_tensor(a).to(device) for a in (row, col, vals)), shape,
+                                     mesh).with_halo()
+    inputs = {k: torch.as_tensor(v).to(device) for k, v in function_inputs(shape).items()}
+    out = {}
+    for name, fn in function_calls(sh, mesh, inputs).items():
+        stats = {}
+        out[name] = (fn(stats), stats)
+    return out
+
+
 def run_guards(mesh, device) -> dict:
     """Each function that does not run across processes, called on a
     container on the spanning mesh: the name of what it raised."""
@@ -142,20 +201,7 @@ def run_guards(mesh, device) -> dict:
                                      mesh).with_halo()
     n, back = shape[0], sh.to_csr()
     tiles = sharded2d.Sharded2DCSR.from_csr(back, make_mesh_2d((1, 1), devices=[device]))
-    labels = torch.zeros((n,), dtype=torch.int32, device=device)
     calls = {
-        "dist.spmv": lambda: dist.spmv(sh, torch.ones(n, device=device), mesh),
-        "dist.edge_cut": lambda: dist.edge_cut(sh, labels, mesh),
-        "dist.label_prop_partition": lambda: dist.label_prop_partition(sh, 2, mesh),
-        "dist.refine_partition": lambda: dist.refine_partition(sh, labels, 2, mesh),
-        "dist.structure_features": lambda: dist.structure_features(sh, mesh),
-        "dist.reorder_heatmap": lambda: dist.reorder_heatmap(sh, labels, labels, mesh),
-        "halo.bfs_levels": lambda: halo.bfs_levels(sh, 0, mesh),
-        "halo.label_prop_partition": lambda: halo.label_prop_partition(sh, 2, mesh),
-        "halo.connected_components": lambda: halo.connected_components(sh, mesh),
-        "halo.rcm_reorder": lambda: halo.rcm_reorder(sh, mesh),
-        "halo.edge_cut": lambda: halo.edge_cut(sh, labels, mesh),
-        "halo.refine_partition": lambda: halo.refine_partition(sh, labels, 2, mesh),
         "halo.heavy_edge_matching": lambda: halo.heavy_edge_matching(sh, mesh),
         "halo.coarsen": lambda: halo.coarsen(sh, torch.arange(n, device=device), mesh),
         "halo.bfs_levels_multilevel": lambda: halo.bfs_levels_multilevel(sh, 0, mesh),
@@ -207,6 +253,7 @@ def main() -> None:
         res = {"mesh": (mesh.size, mesh.local, mesh.axis_owners("x"), str(mesh.first_device)),
                "collectives": run_collectives(mesh, device)}
         res.update({graph: run_path(mesh, graph, device) for graph in GRAPHS})
+        res["functions"] = {graph: run_functions(mesh, graph, device) for graph in GRAPHS}
         res["guards"] = run_guards(mesh, device)
         res["traffic"] = collectives.traffic()
         out[s] = res

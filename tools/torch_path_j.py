@@ -6,7 +6,8 @@ components check's 8-block graph drawn last) and ``chip_smoke.path_k`` on
 path J's meshes (its graphs drawn after path J's; path B's band of
 ``--band-nnz`` entries), then ``chip_smoke.path_l`` (its own meshes and
 graphs), then ``chip_smoke.path_m`` (its own graph from ``--seed``, its two
-processes and the weak-scaling rows). ``--paths`` picks some of ``j``,
+processes, path N's twelve functions in one process and in both, and the
+weak-scaling rows). ``--paths`` picks some of ``j``,
 ``k``, ``l`` and ``m``; ``--paths l`` or ``m`` makes none of path A's
 graphs. The draws differ from the whole script's, which makes other graphs
 first; path M's graph is the same.
@@ -63,7 +64,7 @@ def main() -> None:
     if "l" in args.paths:
         out["L"] = cs.path_l(g, dev)
     if "m" in args.paths:
-        out["M"], out["max_abs_err M"] = cs.path_m(dev, args.seed)
+        out["M"], out["N"], out["max_abs_err M"] = cs.path_m(dev, args.seed)
     print(f"tools/torch_path_j.py: {time.perf_counter() - t0:.1f} s in all")
     print(out)
 
