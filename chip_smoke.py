@@ -114,10 +114,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    multilevel half of ``halo`` on path J's meshes, at d = 4 and d = 1:
    ``heavy_edge_matching`` (weighted and on the pattern), ``coarsen`` with
    its map (the route: K5, K3) and ``multilevel_partition`` (k = 8) on path
-   A's generator over 8 disjoint blocks, mirrored;
+   A's generator over 8 disjoint blocks (a quarter of path A's entries
+   before mirroring; half until path O joined the script), mirrored;
    ``bfs_levels_multilevel`` from 0 and ``rcm_reorder_ml`` (K5) on path B's
    band scrambled; ``slashburn_reorder`` (K5 and K3 in each counting rank)
-   on ``POWER_LAW_CARD``'s graph mirrored without repeats, k = 0.5% of its
+   on ``POWER_LAW_CARD``'s graph mirrored without repeats, k = 1% of its
    vertices, ``hub_order`` off and on, and on ``POWER_LAW_HOST``'s with its
    defaults and with every host tier and compaction off; path L, the rings
    (``parallel.ring``) on a mesh of four shards of the card and on d = 1,
@@ -150,10 +151,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``label_prop_partition``, ``connected_components``, ``rcm_reorder`` and
    ``refine_partition``, K5 and K3 in each counting rank and admission;
    ``edge_cut``) on path M's container, first in the one process of four
-   shards, then in both processes; then ``scaling.run_weak_scaling`` on
+   shards, then in both processes; path O, after path N in the same
+   processes, ``halo``'s multilevel half, SlashBurn and the containers cut
+   from a CSR: ``heavy_edge_matching`` (weighted) and ``coarsen`` with its
+   map (the route: K5, K3; ``with_halo``) on path M's container,
+   ``ShardedCSR.from_csr`` and ``from_csr_balanced`` (K5 in the deal, K4
+   in the permutation) of path M's CSR, ``bfs_levels_multilevel`` from 0
+   and ``rcm_reorder_ml`` down to ``PATH_O_COARSEN_UNTIL`` vertices and
+   ``multilevel_partition`` (k = 8, its defaults) on ``tool_graph`` at
+   ``PATH_O_N`` = 2^17 vertices (from ``--seed`` + 1), and
+   ``slashburn_reorder`` (k = ``PATH_O_SLASHBURN_K``, ``host_tail_nnz=0``,
+   ``hub_order`` off and on: rounds on the mesh, compactions through
+   ``from_csr``, graphkit's host tail) on ``POWER_LAW_HOST``'s graph
+   mirrored without repeats, first in the one process, then in both; then
+   ``scaling.run_weak_scaling`` on
    the card at 1, 2 and 4 shards, the random kind at 2^20 vertices a shard
    and the stencil at 2^12, each row in a process of its own. Every kernel
-   of each path must have launched, in each process of paths M and N too;
+   of each path must have launched, in each process of paths M, N and O
+   too;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
    the plain SpMV of the permuted matrix), of path B (K1 against K2 and
@@ -278,6 +293,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    peripheral root, every refinement of a labelling within the cap kept
    within it at no higher cut; each process's every result, floats with
    ``torch.equal``, and ``stats`` equal to the one process's bit for bit);
+   of path O (one process's matching an involution along entries, the
+   coarse CSR equal to a plain contraction by the map in canonical order,
+   ``from_csr(...).to_csr()`` equal to the source CSR and
+   ``from_csr_balanced``'s to ``ReorderBase.permute2d(order, src)``, the
+   multilevel BFS reaching the plain BFS's vertices, the multilevel RCM a
+   permutation, the partition's labels in [0, 8) within the cap, SlashBurn's
+   orders equal to ``native.slashburn(greedy=False)``; each process's every
+   result, its own shards of every container field by field, and
+   ``stats`` equal to the one process's bit for bit);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -356,8 +380,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    from which the link figures of the weak-scaling projection come; the
    group's wall and peak memory; each weak-scaling row; path N: each
    function's wall on the one process and on each of the two, with the
-   bytes sent, staged and the exchanges, and its ``stats``; K1's tiled
-   layout alone;
+   bytes sent, staged and the exchanges, and its ``stats``; path O: the
+   same for each of its calls; K1's tiled layout alone;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -376,8 +400,9 @@ path F, path H its phases 3, 4 and 5 after path G, path I its phases
 3, 4 and 5 after path H, path J its phases 3, 4 and 5 and its
 profile after path I, path K its phases 3, 4 and 5 after path J, and
 path L its phases 3, 4 and 5 after path K, and path M its phases 3, 4
-and 5 after path L, path N's inside path M's (each process runs path N
-after path M's phases, before the weak-scaling rows).
+and 5 after path L, those of paths N and O inside path M's (each process
+runs path N after path M's phases, then path O, before the weak-scaling
+rows).
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -3125,10 +3150,11 @@ def path_j(g, dev, coo, src, x, host_graph):
     return launches, err, j
 
 
-# slashburn_reorder's k_size on POWER_LAW_CARD's graph: 0.5% of its vertices.
-# At the default 64 a round would take 64 hubs of 10^6 vertices, each of
-# which keeps its 16 uniform columns on average: thousands of rounds
-SLASHBURN_CARD_K = POWER_LAW_CARD[0] // 200
+# slashburn_reorder's k_size on POWER_LAW_CARD's graph: 1% of its vertices
+# (0.5%, 45 rounds, until path O joined the script and it passed its 700 s
+# budget). At the default 64 a round would take 64 hubs of 10^6 vertices,
+# each of which keeps its 16 uniform columns on average: thousands of rounds
+SLASHBURN_CARD_K = POWER_LAW_CARD[0] // 100
 SLASHBURN_K = 64  # the default, on POWER_LAW_HOST's graph
 
 
@@ -3154,7 +3180,7 @@ def bandwidth(row, col, order=None) -> int:
 class PathK:
     """Path K: the multilevel half of ``halo`` on path J's meshes, four
     shards that share the one card and d = 1. On path A's generator over 8
-    disjoint blocks, mirrored (100M entries, ``components_graph``):
+    disjoint blocks, mirrored (50M entries, ``components_graph``):
     ``heavy_edge_matching`` weighted and on the pattern, one ``coarsen``
     with its map (K5 and K3 in the route), ``multilevel_partition`` (k = 8:
     the ladder, label propagation on the coarsest graph, refinement at every
@@ -3755,8 +3781,12 @@ def path_n_run(sh, mesh, x, barrier=lambda: None) -> tuple:
 
 
 def on_host(result):
-    """A result (a tensor, or a dict of them) copied to host memory."""
-    return {k: v.cpu() for k, v in result.items()} if isinstance(result, dict) else result.cpu()
+    """A result (a tensor, or dicts and tuples of them) copied to host memory."""
+    if isinstance(result, dict):
+        return {k: on_host(v) for k, v in result.items()}
+    if isinstance(result, tuple):
+        return tuple(on_host(v) for v in result)
+    return result.cpu() if isinstance(result, torch.Tensor) else result
 
 
 def path_n_checks(sh, mesh, src, x, res) -> float:
@@ -3813,34 +3843,231 @@ def path_n_checks(sh, mesh, src, x, res) -> float:
     return err
 
 
-def phase_path_n_group_checks(label: str, results, phases, kids) -> None:
-    """Every process's path N results (floats with ``torch.equal``) and
-    ``stats`` equal to the single-process mesh's bit for bit."""
+# -- path O: halo's multilevel half, SlashBurn and the containers across processes
+# the ladders' graph: tools/multiproc_dcn.py's at 2^17 vertices, average
+# degree 8 (2^18 until the first whole run of the script passed 700 s)
+PATH_O_N = 1 << 17
+PATH_O_COARSEN_UNTIL = PATH_O_N // 16  # where the ladders stop contracting (or at their 24 levels)
+# on POWER_LAW_HOST's graph with host_tail_nnz=0: 14 rounds on the mesh, 2
+# compactions, then graphkit's host tail of about 62,000 vertices (a CPU
+# probe of the same generator); k = 64 takes about 180 rounds
+PATH_O_SLASHBURN_K = 1024
+PATH_O_KERNELS = ("indptr", "radix_rank", "relocate_csr")  # K3, K5, K4
+
+
+def path_o_sizes() -> tuple:
+    """Path O's sizes, which the parent passes to the group's processes
+    (``--path-o-sizes``): the ladders' vertices and ``coarsen_until``,
+    SlashBurn's graph (vertices, entries before mirroring) and its
+    ``k_size``."""
+    return (PATH_O_N, PATH_O_COARSEN_UNTIL, *POWER_LAW_HOST, PATH_O_SLASHBURN_K)
+
+
+def path_o_inputs(dev, mesh, seed: int, sizes: tuple) -> dict:
+    """Path O's own graphs at ``sizes`` (:func:`path_o_sizes`), the same on
+    every process: the ladders' (``tool_graph`` from ``seed + 1``) as a
+    container with halo lists and as a CSR, and SlashBurn's
+    (``power_law_pattern`` from ``seed``, mirrored, repeats dropped) as a
+    CSR and its container (``ShardedCSR.from_csr``), with the ladders'
+    ``coarsen_until`` and SlashBurn's k."""
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.ops.kernels import indptr_plain
+    from sparsebase_tpu_torch.parallel import ShardedCSR
+
+    n, until, sb_n, sb_nnz, k = sizes
+    row, col, vals, _ = tool_graph(dev, n, PATH_M_AVG_DEG, seed + 1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    sb = unique_pattern(power_law_pattern(g, dev, sb_n, sb_nnz))
+    return {"ladder": ShardedCSR.from_coo_sharded(row, col, vals, (n, n), mesh).with_halo(),
+            "ladder csr": CSR(indptr_plain(row, n), col, vals, (n, n)),
+            "slashburn": ShardedCSR.from_csr(sb, mesh), "slashburn csr": sb, "coarsen until": until,
+            "slashburn k": k}
+
+
+def path_o_run(sh, src, inputs, mesh, barrier=lambda: None) -> tuple:
+    """Path O: on path M's container ``sh`` and its CSR ``src``,
+    ``heavy_edge_matching`` (weighted), ``coarsen`` of that matching with
+    its map, ``ShardedCSR.from_csr`` and ``from_csr_balanced``; on the
+    ladders' graph (:func:`path_o_inputs`), ``bfs_levels_multilevel`` from 0
+    and ``rcm_reorder_ml`` down to its ``coarsen_until`` and
+    ``multilevel_partition`` (k = ``PARTITION_K``, its defaults); SlashBurn
+    (its k, ``host_tail_nnz=0``) with ``hub_order`` off and on. Each starts
+    after ``barrier`` and keeps its wall, what crossed a process boundary
+    and its ``stats``. Returns ``(results, phases)``."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR, collectives, halo
+
+    dev = mesh.first_device
+    results, phases = {}, {}
+
+    def phase(name, fn):
+        stats = {}
+        barrier()
+        sync(dev)
+        collectives.reset_traffic()
+        t0 = time.perf_counter()
+        results[name] = fn(stats)
+        sync(dev)
+        phases[name] = {"ms": (time.perf_counter() - t0) * 1e3, **collectives.traffic(), "stats": stats}
+
+    phase("halo.heavy_edge_matching", lambda st: halo.heavy_edge_matching(sh, mesh))
+    phase("halo.coarsen", lambda st: halo.coarsen(sh, results["halo.heavy_edge_matching"], mesh, return_mapping=True,
+                                                  stats=st))
+    phase("ShardedCSR.from_csr", lambda st: ShardedCSR.from_csr(src, mesh))
+    phase("ShardedCSR.from_csr_balanced", lambda st: ShardedCSR.from_csr_balanced(src, mesh))
+    lad, sb, until, k_size = (inputs[k] for k in ("ladder", "slashburn", "coarsen until", "slashburn k"))
+    phase("halo.bfs_levels_multilevel", lambda st: halo.bfs_levels_multilevel(lad, 0, mesh, coarsen_until=until,
+                                                                              stats=st))
+    phase("halo.rcm_reorder_ml", lambda st: halo.rcm_reorder_ml(lad, mesh, coarsen_until=until, stats=st))
+    phase("halo.multilevel_partition", lambda st: halo.multilevel_partition(lad, PARTITION_K, mesh, stats=st))
+    for hub_order in (False, True):
+        phase(f"halo.slashburn_reorder hub_order={hub_order}", lambda st, h=hub_order: halo.slashburn_reorder(
+            sb, mesh, k_size=k_size, hub_order=h, host_tail_nnz=0, stats=st))
+    return results, phases
+
+
+def sharded_record(sh) -> dict:
+    """A container as :func:`same` compares it: this process's shards'
+    fields, the counts, shape and widths."""
+    fields = [name for name in PATH_M_FIELDS if getattr(sh, name) is not None]
+    return {"shards": {k: {name: getattr(sh, name)[k] for name in fields} for k in sh.local},
+            "nnz_counts": sh.nnz_counts, "shape": sh.shape, "width": sh.width, "halo_width": sh.halo_width}
+
+
+def path_o_record(results):
+    """Path O's results with every container as its :func:`sharded_record`."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR
+
+    if isinstance(results, ShardedCSR):
+        return sharded_record(results)
+    if isinstance(results, dict):
+        return {k: path_o_record(v) for k, v in results.items()}
+    if isinstance(results, tuple):
+        return tuple(path_o_record(r) for r in results)
+    return results
+
+
+def same(got, want, local) -> bool:
+    """``got`` (a process's) equal to ``want`` (the one process's) bit for
+    bit: tensors with their dtypes and shapes, dicts key by key, tuples item
+    by item; of a container's shards exactly the process's own (``local``)."""
+    if isinstance(want, torch.Tensor):
+        return (isinstance(got, torch.Tensor) and got.dtype == want.dtype and got.shape == want.shape
+                and torch.equal(got.to(want.device), want))
+    if isinstance(want, dict):
+        if "shards" in want:
+            rest = lambda r: {k: v for k, v in r.items() if k != "shards"}  # noqa: E731
+            return (sorted(got["shards"]) == list(local) and same(rest(got), rest(want), local)
+                    and all(same(got["shards"][k], want["shards"][k], local) for k in local))
+        return set(got) == set(want) and all(same(got[k], want[k], local) for k in want)
+    if isinstance(want, tuple):
+        return isinstance(got, tuple) and len(got) == len(want) and all(same(g, w, local) for g, w in zip(got, want))
+    return got == want
+
+
+def path_o_checks(src, inputs, res) -> None:
+    """Path O's results on one process held to references that do not lean
+    on the multi-shard route (path K's checks)."""
+    from sparsebase_tpu_torch import ReorderBase, native
+    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs_plain
+
+    n, lad = src.nrows, inputs["ladder csr"]
+    print(f"phase 4 path O checks on one process of {PATH_M_SHARDS} shards: path M's graph (n={n}, {src.nnz} "
+          f"entries), the ladders' (n={lad.nrows}, {lad.nnz} entries), SlashBurn's "
+          f"(n={inputs['slashburn csr'].nrows}, {inputs['slashburn csr'].nnz} entries)")
+    match = res["halo.heavy_edge_matching"]
+    check_matching("path O heavy_edge_matching", src, match)
+    coarse, cid = res["halo.coarsen"]
+    coarse, cid = coarse.to_csr(), cid.long()
+    rows, cols = src.row_of_nnz().long(), src.indices.long()
+    cu, cv = cid[rows], cid[cols]
+    keep = cu != cv
+    want = canonical_entries(*sort_by_pairs_plain(cu[keep].to(torch.int32), cv[keep].to(torch.int32), src.vals[keep]))
+    got = canonical_entries(coarse.row_of_nnz().to(torch.int32), coarse.indices, coarse.vals)
+    check(coarse.nrows == int(cid.max()) + 1, "path O coarsen: the coarse size is not the map's")
+    for name, a, b in zip(("rows", "columns", "values"), got, want):
+        check_equal(f"path O coarsen {name} vs a plain contraction by the map", a, b)
+    print(f"  path O: {int((match.long() != torch.arange(n, device=match.device)).sum())} vertices matched; "
+          f"coarsen {coarse.nrows} coarse vertices, {coarse.nnz} entries")
+    back = res["ShardedCSR.from_csr"].to_csr()
+    for name in ("indptr", "indices", "vals"):
+        want = getattr(src, name)
+        check_equal(f"path O from_csr(...).to_csr() {name} vs the source", getattr(back, name).to(want.dtype), want)
+    balanced, order = res["ShardedCSR.from_csr_balanced"]
+    back, want = balanced.to_csr(), ReorderBase.permute2d(order, src)
+    for name in ("indptr", "indices", "vals"):
+        check_equal(f"path O from_csr_balanced(...).to_csr() {name} vs ReorderBase.permute2d(order, src)",
+                    getattr(back, name).to(getattr(want, name).dtype), getattr(want, name))
+    print(f"  path O padded width ratio: from_csr {res['ShardedCSR.from_csr'].padded_width_ratio():.4f}, "
+          f"from_csr_balanced {balanced.padded_width_ratio():.4f}")
+    levels, steps = res["halo.bfs_levels_multilevel"]
+    plain = plain_bfs_levels(lad, 0)
+    check_equal("path O bfs_levels_multilevel: the vertices reached vs plain_bfs_levels", levels >= 0, plain >= 0)
+    order, rcm_steps = res["halo.rcm_reorder_ml"]
+    check(steps == rcm_steps and bool((torch.bincount(order.long(), minlength=lad.nrows) == 1).all()),
+          "path O rcm_reorder_ml: not a permutation, or its steps differ from the BFS's")
+    lab = res["halo.multilevel_partition"]
+    sizes = torch.bincount(lab.long(), minlength=PARTITION_K)
+    cap = 1.1 * lad.nrows / PARTITION_K
+    check(lab.dtype == torch.int32 and int(lab.min()) >= 0 and int(lab.max()) < PARTITION_K
+          and float(sizes.max()) <= cap,
+          f"path O multilevel_partition: part sizes {sizes.tolist()} against the cap {cap:.1f}")
+    lrows, lcols = lad.row_of_nnz().long(), lad.indices.long()
+    print(f"  path O ladders: levels up to {int(levels.max())} against the exact {int(plain.max())}, {steps} "
+          f"synchronous steps against the exact BFS's {int(plain.max()) + 1} levels; rcm_reorder_ml a permutation; "
+          f"multilevel_partition parts {sizes.tolist()} (cap {cap:.1f}), edge cut "
+          f"{int((lab.long()[lrows] != lab.long()[lcols]).sum())}")
+    host, k_size = inputs["slashburn csr"], inputs["slashburn k"]
+    for hub_order in (False, True):
+        want = native.slashburn(host.nrows, host.indptr.cpu(), host.indices.cpu(), k_size, False, hub_order)
+        check_equal(f"path O slashburn_reorder (hub_order={hub_order}) vs native.slashburn(greedy=False)",
+                    res[f"halo.slashburn_reorder hub_order={hub_order}"].cpu(), want.to(torch.int32))
+
+
+def phase_group_checks(path: str, label: str, results, phases, kids) -> None:
+    """Every process's results of path ``path`` (N or O: tensors with their
+    dtypes, containers shard by shard, its own shards exactly) and ``stats``
+    equal to the one process's bit for bit."""
     for kid in kids:
-        got = kid["path_n"]
+        got = kid[f"path_{path.lower()}"]
         for name, want in results.items():
-            g = got["results"][name]
-            pairs = [(g[k], want[k]) for k in want] if isinstance(want, dict) else [(g, want)]
-            for a, b in pairs:
-                same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.to(b.device), b)
-                check(same, f"path N {label} rank {kid['rank']}: {name} differs from the single-process mesh")
+            check(same(got["results"][name], want, kid["local"]),
+                  f"path {path} {label} rank {kid['rank']}: {name} differs from the single-process mesh")
             check(got["phases"][name]["stats"] == phases[name]["stats"],
-                  f"path N {label} rank {kid['rank']}: {name} stats {got['phases'][name]['stats']} against "
+                  f"path {path} {label} rank {kid['rank']}: {name} stats {got['phases'][name]['stats']} against "
                   f"{phases[name]['stats']}")
-    print(f"phase 4 path N {label}: {len(kids)} processes equal to the single-process mesh of {PATH_M_SHARDS} shards "
-          f"bit for bit in every result and stats: {', '.join(results)}")
+    print(f"phase 4 path {path} {label}: {len(kids)} processes equal to the single-process mesh of {PATH_M_SHARDS} "
+          f"shards bit for bit in every result and stats: {', '.join(results)}")
 
 
-def path_m_child(out: str, n: int, seed: int, backend: str, device: str) -> None:
+def print_phases(path: str, phases, kids) -> None:
+    """Phase 5 of path ``path`` (N or O): each function's wall on the one
+    process and on each process of the group, with the bytes sent, staged
+    and the exchanges, and its ``stats``."""
+    key = f"path_{path.lower()}"
+    for name, one in phases.items():
+        line = [f"phase 5 path {path} {name}: one process {one['ms']:.3f} ms"]
+        for kid in kids:
+            p = kid[key]["phases"][name]
+            line.append(f"rank {kid['rank']} {p['ms']:.3f} ms, {p['crossed_bytes']} bytes to the other process, "
+                        f"{p['staged_bytes']} staged, {p['exchanges']} exchanges")
+        print("; ".join(line) + (f"; stats {one['stats']}" if one["stats"] else ""))
+    print(f"phase 5 path {path} in all: one process {sum(p['ms'] for p in phases.values()):.1f} ms; "
+          + "; ".join(f"rank {k['rank']} {sum(p['ms'] for p in k[key]['phases'].values()):.1f} ms" for k in kids))
+
+
+def path_m_child(out: str, n: int, seed: int, backend: str, device: str, o_sizes: tuple) -> None:
     """One process of path M's group (``chip_smoke.py --path-m-child DIR``,
     started by ``multihost.launch``): joins the group, runs the tool's path
-    on its two shards of ``global_mesh``, one exchange and path N, and saves
-    its shards' fields, y, the order, the phases, path N's results and
-    phases, and the launches of path M and of path N to ``DIR``. It loads
-    the kernels that the parent built and builds nothing."""
+    on its two shards of ``global_mesh``, one exchange, path N and path O,
+    and saves its shards' fields, y, the order, the phases, the results and
+    phases of paths N and O, and the launches of paths M, N and O to
+    ``DIR``. It loads the kernels that the parent built and builds
+    nothing."""
     import torch.distributed as tdist
 
-    from sparsebase_tpu_torch import _build
+    from sparsebase_tpu_torch import CSR, _build
+    from sparsebase_tpu_torch.ops.kernels import indptr_plain
     from sparsebase_tpu_torch.parallel import multihost
 
     if device == "cuda":
@@ -3862,15 +4089,22 @@ def path_m_child(out: str, n: int, seed: int, backend: str, device: str) -> None
     _build.reset_launch_counts()
     results_n, phases_n = path_n_run(sh, mesh, x, tdist.barrier)
     sync(dev)
-    path_n = {"results": {k: on_host(v) for k, v in results_n.items()}, "phases": phases_n,
-              "launches": _build.launch_counts()}
+    path_n = {"results": on_host(results_n), "phases": phases_n, "launches": _build.launch_counts()}
     del results_n
+    src = CSR(indptr_plain(row, n), col, vals, (n, n))
+    inputs_o = path_o_inputs(dev, mesh, seed, o_sizes)
+    sync(dev)
+    _build.reset_launch_counts()
+    results_o, phases_o = path_o_run(sh, src, inputs_o, mesh, tdist.barrier)
+    sync(dev)
+    path_o = {"results": on_host(path_o_record(results_o)), "phases": phases_o, "launches": _build.launch_counts()}
+    del results_o, inputs_o, src
     torch.save({
         "rank": rank, "backend": tdist.get_backend(), "mesh": repr(mesh), "local": sh.local, "start_s": start_s,
         "fields": {name: {k: getattr(sh, name)[k].cpu() for k in sh.local} for name in PATH_M_FIELDS},
         "nnz_counts": sh.nnz_counts, "stats": stats, "width": sh.width, "halo_width": sh.halo_width,
         "halo_bytes": sh.halo_bytes_per_exchange, "y": y.cpu(), "order": order.cpu(), "phases": phases,
-        "exchange": exchange, "launches": launches, "path_n": path_n,
+        "exchange": exchange, "launches": launches, "path_n": path_n, "path_o": path_o,
         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0,
     }, Path(out) / f"rank{rank}.pt")
     tdist.barrier()
@@ -3886,7 +4120,8 @@ def path_m_group(dev, n: int, seed: int, backend: str) -> list:
     try:
         t0 = time.perf_counter()
         multihost.launch([sys.executable, str(REPO / "chip_smoke.py"), "--path-m-child", out, "--path-m-n", str(n),
-                          "--seed", str(seed), "--path-m-backend", backend, "--path-m-device", dev.type],
+                          "--seed", str(seed), "--path-m-backend", backend, "--path-m-device", dev.type,
+                          "--path-o-sizes", ",".join(map(str, path_o_sizes()))],
                          PATH_M_PROCESSES, timeout=PATH_M_TIME_LIMIT, cwd=str(REPO))
         wall = time.perf_counter() - t0
         return [torch.load(Path(out) / f"rank{r}.pt", weights_only=False) for r in range(PATH_M_PROCESSES)], wall
@@ -3938,15 +4173,17 @@ def path_m_scaling(link: Optional[dict], device: str) -> None:
 
 
 def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
-    """Path M's phases 3, 4 and 5, after path L, with path N's inside: the
-    tool's graph on a single-process mesh of ``PATH_M_SHARDS`` shards of the
-    card, then on two gloo processes that share the card with two shards
-    each, every field held bit for bit; after path M's phases each runs
-    path N (:func:`path_n_run`) on its container, every result held bit for
-    bit; with two or more cards, on two NCCL processes with a card each;
-    then the weak-scaling harness on the card. Returns path M's launch
-    counts and path N's (each the single-process run's and the processes')
-    and K2's largest difference from the plain SpMV."""
+    """Path M's phases 3, 4 and 5, after path L, with paths N and O inside:
+    the tool's graph on a single-process mesh of ``PATH_M_SHARDS`` shards of
+    the card, then on two gloo processes that share the card with two
+    shards each, every field held bit for bit; after path M's phases each
+    runs path N (:func:`path_n_run`) on its container, then path O
+    (:func:`path_o_run`) on it, on its CSR and on path O's own graphs,
+    every result held bit for bit; with two or more cards, on two NCCL
+    processes with a card each; then the weak-scaling harness on the card.
+    Returns the launch counts of paths M, N and O (each the single-process
+    run's and the processes') and K2's largest difference from the plain
+    SpMV."""
     from sparsebase_tpu_torch import CSR, _build
     from sparsebase_tpu_torch.ops.kernels import csr_spmv_plain, indptr_plain
     from sparsebase_tpu_torch.parallel import make_mesh
@@ -3965,8 +4202,13 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
     _build.reset_launch_counts()
     results_n, phases_n = path_n_run(sh, mesh, x)
     launches_n = read_launches(f"N, one process of {PATH_M_SHARDS} shards", PATH_N_KERNELS)
-
     src = CSR(indptr_plain(row, n), col, vals, (n, n))
+    inputs_o = path_o_inputs(dev, mesh, seed, path_o_sizes())
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    results_o, phases_o = path_o_run(sh, src, inputs_o, mesh)
+    launches_o = read_launches(f"O, one process of {PATH_M_SHARDS} shards", PATH_O_KERNELS)
+
     err = check_rows("path M halo.spmv, one process, vs plain SpMV of the whole CSR", y, csr_spmv_plain(src, x),
                      src.degrees(), csr_spmv_plain(abs_csr(src), x.abs()))
     check_equal("path M dist.rcm_reorder vs the plain (level, degree, id) rank", order,
@@ -3974,7 +4216,9 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
     natural, rcm = bandwidth(row, col), bandwidth(row, col, order)
     print(f"phase 4 path M RCM bandwidth {rcm} against the natural {natural}")
     err = max(err, path_n_checks(sh, mesh, src, x, results_n))
-    del src
+    path_o_checks(src, inputs_o, results_o)
+    results_o = path_o_record(results_o)
+    del src, inputs_o
     # the group's processes and the rows' share the card: give back what the
     # earlier paths left in this process's allocator cache
     torch.cuda.empty_cache()
@@ -3986,11 +4230,16 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
         print(f"phase 3 path M rank {kid['rank']} ({kid['mesh']}): launches {kid['launches']}")
         require_launches(f"M, rank {kid['rank']}", kid["launches"], ("indptr", "radix_rank", "csr_spmv"))
         launches = {k: launches[k] + kid["launches"][k] for k in launches}
-    phase_path_n_group_checks("gloo", results_n, phases_n, kids)
+    phase_group_checks("N", "gloo", results_n, phases_n, kids)
     for kid in kids:
         print(f"phase 3 path N rank {kid['rank']}: launches {kid['path_n']['launches']}")
         require_launches(f"N, rank {kid['rank']}", kid["path_n"]["launches"], PATH_N_KERNELS)
         launches_n = {k: launches_n[k] + kid["path_n"]["launches"][k] for k in launches_n}
+    phase_group_checks("O", "gloo", results_o, phases_o, kids)
+    for kid in kids:
+        print(f"phase 3 path O rank {kid['rank']}: launches {kid['path_o']['launches']}")
+        require_launches(f"O, rank {kid['rank']}", kid["path_o"]["launches"], PATH_O_KERNELS)
+        launches_o = {k: launches_o[k] + kid["path_o"]["launches"][k] for k in launches_o}
 
     # phase 5: each phase for both runs, the exchange, the link figures
     starts = ", ".join("rank %d reached its path after %.1f s" % (k["rank"], k["start_s"]) for k in kids)
@@ -4014,30 +4263,25 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
     link = {"gb_s": min(per_s) / 1e9, "alpha_s": alpha}
     print(f"phase 5 path M link figures for the projection: {link['gb_s']:.4f} GB/s and {alpha * 1e6:.1f} us a step, "
           "from this machine's gloo path between two processes on one card (not a link between cards)")
-    for name, one in phases_n.items():
-        line = [f"phase 5 path N {name}: one process {one['ms']:.3f} ms"]
-        for kid in kids:
-            p = kid["path_n"]["phases"][name]
-            line.append(f"rank {kid['rank']} {p['ms']:.3f} ms, {p['crossed_bytes']} bytes to the other process, "
-                        f"{p['staged_bytes']} staged, {p['exchanges']} exchanges")
-        print("; ".join(line) + (f"; stats {one['stats']}" if one["stats"] else ""))
-    print(f"phase 5 path N in all: one process {sum(p['ms'] for p in phases_n.values()):.1f} ms; "
-          + "; ".join(f"rank {k['rank']} {sum(p['ms'] for p in k['path_n']['phases'].values()):.1f} ms" for k in kids))
+    print_phases("N", phases_n, kids)
+    print_phases("O", phases_o, kids)
 
     if torch.cuda.device_count() >= PATH_M_PROCESSES:
         kids_nccl, wall = path_m_group(dev, n, seed, "nccl")
         phase_path_m_checks("nccl", sh, y, order, stats, kids_nccl)
-        phase_path_n_group_checks("nccl", results_n, phases_n, kids_nccl)
+        phase_group_checks("N", "nccl", results_n, phases_n, kids_nccl)
+        phase_group_checks("O", "nccl", results_o, phases_o, kids_nccl)
         times = "; ".join(f"rank {k['rank']} {name} {k['phases'][name]['ms']:.3f} ms" for k in kids_nccl for name in phases)
         print(f"phase 5 path M group of {PATH_M_PROCESSES} NCCL processes, a card each: {wall:.1f} s; {times}")
     else:
         print(f"phase 3 path M NCCL route: skipped, {torch.cuda.device_count()} card visible; it needs one card "
               f"a process ({PATH_M_PROCESSES}), and NCCL refuses two ranks on one card")
-    del sh, y, order, row, col, vals, x, kids, results_n
+    del sh, y, order, row, col, vals, x, kids, results_n, results_o
     torch.cuda.empty_cache()
     path_m_scaling(link, dev.type)
-    print(f"phase 5 path M wall (phases 3, 4 and 5, path N's included): {time.perf_counter() - t0:.1f} s")
-    return launches, launches_n, err
+    print(f"phase 5 path M wall (phases 3, 4 and 5, those of paths N and O included): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches, launches_n, launches_o, err
 
 
 def read_launches(path: str, required) -> dict:
@@ -4071,9 +4315,11 @@ def main() -> None:
     ap.add_argument("--path-m-n", type=int, default=PATH_M_N, help=argparse.SUPPRESS)
     ap.add_argument("--path-m-backend", default="gloo", help=argparse.SUPPRESS)
     ap.add_argument("--path-m-device", default="cuda", help=argparse.SUPPRESS)
+    ap.add_argument("--path-o-sizes", default=",".join(map(str, path_o_sizes())), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.path_m_child:
-        path_m_child(args.path_m_child, args.path_m_n, args.seed, args.path_m_backend, args.path_m_device)
+        path_m_child(args.path_m_child, args.path_m_n, args.seed, args.path_m_backend, args.path_m_device,
+                     tuple(int(v) for v in args.path_o_sizes.split(",")))
         return
 
     dev = phase_device()
@@ -4268,13 +4514,16 @@ def main() -> None:
     del coo_p, x_p, planted
     launches_i, err_k2_i = path_i(g, dev, int(args.ingest_nnz))
     launches_j, err_k2_j, path_j_state = path_j(g, dev, coo_a, src, x_a, host_graph)
-    launches_k = path_k(g, dev, path_j_state, n_p, src.nnz // 2, coo_b.nrows)
+    # the 8-block graph: a quarter of path A's entries before mirroring
+    # (half until path O ran inside path M's group, to keep the script
+    # within its 700 s budget)
+    launches_k = path_k(g, dev, path_j_state, n_p, src.nnz // 4, coo_b.nrows)
     del path_j_state
     launches_l = path_l(g, dev)
-    launches_m, launches_n, err_k2_m = path_m(dev, args.seed)
+    launches_m, launches_n, launches_o, err_k2_m = path_m(dev, args.seed)
     by_path = {"A": launches_a, "B": launches_b, "C": launches_c, "D": launches_d, "E": launches_e, "F": launches_f,
                "G": launches_g, "H": launches_h, "I": launches_i, "J": launches_j, "K": launches_k, "L": launches_l,
-               "M": launches_m, "N": launches_n}
+               "M": launches_m, "N": launches_n, "O": launches_o}
     launches = {k: sum(counts[k] for counts in by_path.values()) for k in launches_a}
 
     shapes = {

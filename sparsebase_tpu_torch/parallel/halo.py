@@ -58,17 +58,16 @@ multilevel functions and SlashBurn read back what sizes their next step (a
 coarse size, a route's loads, a round's largest degree, the host's share of
 SlashBurn) and count it in ``stats=``.
 
-On a mesh that spans processes, :func:`spmv`, :func:`step_comm_bytes`,
-:func:`bfs_levels`, :func:`label_prop_partition`,
-:func:`connected_components`, :func:`rcm_reorder`, :func:`edge_cut` and
-:func:`refine_partition` run, each process working on its own shards
-(``None`` in a remote shard's slot; a loop over the local shards keeps the
-global shard index) and every collective naming the shards' owners. Each
-gives every process the single-process mesh's result and ``stats`` bit for
-bit: a "go on?" flag is global (one ``pmax`` a BFS level), and a
-replicated vector (the components' labels) is joined from every process's
-shards. The multilevel functions and SlashBurn raise
-``NotImplementedError`` there (ROADMAP.md, item 10g).
+On a mesh that spans processes every function runs, each process working
+on its own shards (``None`` in a remote shard's slot; a loop over the
+local shards keeps the global shard index) and every collective naming the
+shards' owners. Each gives every process the single-process mesh's result
+and ``stats`` bit for bit: a "go on?" flag is global (one ``pmax`` a BFS
+level, one read of a ``pmax`` and a ``psum`` a SlashBurn round), a
+replicated vector (the components' labels, a matching, a coarse map) is
+joined from every process's shards, and the host steps (the coarsest
+graph's partition, the balance pass, SlashBurn's bookkeeping and graphkit
+tail) run on every process on the same gathered data.
 """
 
 from __future__ import annotations
@@ -86,12 +85,8 @@ from ..ops.kernels.radix import bits_below, radix_argsort
 from ..utils.logger import Logger
 from .collectives import all_gather, all_to_all, join, pmax, pmin, psum
 from .dist import _local_row_of, _rcm_rank, _shards, degrees
-from .mesh import Mesh, single_process
+from .mesh import Mesh
 from .sharded import ShardedCSR
-
-# ROADMAP.md's item for this module's functions that do not run on a mesh
-# that spans processes yet
-_ACROSS_ITEM = "10g"
 
 _BIG = 2**31 - 1
 
@@ -650,8 +645,8 @@ def _nbr_ids(sh: ShardedCSR, slots, sends) -> list:
     read them: the global row ids shipped through the halo once, read at
     the entries' slots (a column past the shards' rows reads its clamped
     slot's id)."""
-    ext = _exchange(_gids(sh), sends, sh.axis)
-    return [e[slot] for e, (_, slot) in zip(ext, slots)]
+    ext = _exchange(_gids(sh), sends, sh.axis, sh.owners)
+    return _each(lambda e, s: e[s[1]], ext, slots)
 
 
 # -- heavy-edge matching --------------------------------------------------------
@@ -672,10 +667,11 @@ def _matching_round(sh: ShardedCSR, slots, sends, nb, weights, gids, match, it: 
     broken by the highest Luby hash of the neighbour id, then the least
     id), and mutual proposals match. Two exchanges: the match state, then
     the proposals. Returns the new match."""
-    n, rows = sh.shape[0], sh.rows_per_shard
-    ext_match = _exchange(match, sends, sh.axis)
-    proposals = []
-    for (lrow, slot), em, b, w, g, m in zip(slots, ext_match, nb, weights, gids, match):
+    n, rows, d, owners = sh.shape[0], sh.rows_per_shard, sh.n_shards, sh.owners
+    ext_match = _exchange(match, sends, sh.axis, owners)
+    proposals = [None] * d
+    for k in sh.local:
+        (lrow, slot), em, b, w, g, m = slots[k], ext_match[k], nb[k], weights[k], gids[k], match[k]
         unmatched = (m == g) & (g < n)
         cand = unmatched[lrow] & (em[slot] == b) & (b != g[lrow])
         w = torch.where(cand, w, float("-inf"))
@@ -686,14 +682,15 @@ def _matching_round(sh: ShardedCSR, slots, sends, nb, weights, gids, match, it: 
         primax = torch.full((rows,), -1, dtype=torch.int64, device=w.device).scatter_reduce_(0, lrow, pri, "amax")
         best = torch.full((rows,), _BIG, dtype=torch.int64, device=w.device).scatter_reduce_(
             0, lrow, torch.where(tie & (pri == primax[lrow]), b, _BIG), "amin")
-        proposals.append(torch.where(unmatched & (best < _BIG), best, _BIG))
-    ext_prop = _exchange(proposals, sends, sh.axis)
-    new = []
-    for (lrow, slot), ep, b, g, m, p in zip(slots, ext_prop, nb, gids, match, proposals):
+        proposals[k] = torch.where(unmatched & (best < _BIG), best, _BIG)
+    ext_prop = _exchange(proposals, sends, sh.axis, owners)
+    new = [None] * d
+    for k in sh.local:
+        (lrow, slot), ep, b, g, m, p = slots[k], ext_prop[k], nb[k], gids[k], match[k], proposals[k]
         mutual_e = (b == p[lrow]) & (ep[slot] == g[lrow])
         mutual = torch.zeros((rows + 1,), dtype=torch.bool, device=m.device).index_fill_(
             0, torch.where(mutual_e, lrow, rows), True)[:rows]
-        new.append(torch.where(mutual, torch.clamp(p, max=_BIG - 1), m))
+        new[k] = torch.where(mutual, torch.clamp(p, max=_BIG - 1), m)
     return new
 
 
@@ -706,15 +703,14 @@ def heavy_edge_matching(sh: ShardedCSR, mesh: Mesh, rounds: int = 4, weighted: b
     weights locally dominant edges need not be mutual and the handshake can
     stall). Returns the (n,) int32 ``match[v]``: v's partner, or v when
     unmatched. Reads nothing back."""
-    single_process(mesh, "halo.heavy_edge_matching", _ACROSS_ITEM)
     _require_halo(sh)
     n = _shards(sh, mesh)[0]
     slots, sends, gids = _slots(sh), _sends(sh), _gids(sh)
     nb = _nbr_ids(sh, slots, sends)
     if weighted and sh.vals is not None:
-        weights = [sh.vals[k][: sh.nnz_counts[k]].abs().to(torch.float32) for k in range(sh.n_shards)]
+        weights = _each(lambda v, c: v[:c].abs().to(torch.float32), sh.vals, sh.nnz_counts)
     else:
-        weights = [torch.ones(lrow.shape, dtype=torch.float32, device=lrow.device) for lrow, _ in slots]
+        weights = _each(lambda s: torch.ones(s[0].shape, dtype=torch.float32, device=s[0].device), slots)
     match = list(gids)
     for it in range(int(rounds)):
         match = _matching_round(sh, slots, sends, nb, weights, gids, match, it)
@@ -739,29 +735,33 @@ def coarsen(sh: ShardedCSR, match, mesh: Mesh, halo: bool = True, return_mapping
     Returns the coarse ``ShardedCSR`` (with halo lists when ``halo``), and
     with ``return_mapping`` the (n,) int32 fine-to-coarse map. ``stats``, a
     dict, receives ``host_reads``."""
-    single_process(mesh, "halo.coarsen", _ACROSS_ITEM)
     _require_halo(sh)
     n, d, rows, width = _shards(sh, mesh)
     slots, sends, gids = _slots(sh), _sends(sh), _gids(sh)
     nb = _nbr_ids(sh, slots, sends)
     match_l = _put(sh, match, dtype=torch.int64)
-    rep = [(g < n) & (g <= m) for g, m in zip(gids, match_l)]
-    counts = all_gather([r.sum() for r in rep])
-    cid = []
-    for k, (r, c) in enumerate(zip(rep, counts)):
+    owners, local = sh.owners, sh.local
+    rep = _each(lambda g, m: (g < n) & (g <= m), gids, match_l)
+    counts = all_gather(_each(torch.Tensor.sum, rep), owners)
+    cid = [None] * d
+    for k in local:
+        # k is the global shard index: c[:k] are the earlier shards' counts
+        r, c = rep[k], counts[k]
         prefix = torch.cumsum(r, 0) - r.long()
-        cid.append(torch.where(r, c[:k].sum() + prefix, -1))
-    nc = int(counts[0].sum())
+        cid[k] = torch.where(r, c[:k].sum() + prefix, -1)
+    nc = int(counts[local[0]].sum())
     # a non-representative's partner is a neighbour: its coarse id arrives
     # on the entry that points at it
-    ext = _exchange(cid, sends, sh.axis)
-    for k, ((lrow, slot), e, b, m) in enumerate(zip(slots, ext, nb, match_l)):
+    ext = _exchange(cid, sends, sh.axis, owners)
+    for k in local:
+        (lrow, slot), e, b, m = slots[k], ext[k], nb[k], match_l[k]
         partner = torch.full((rows,), _BIG, dtype=torch.int64, device=b.device).scatter_reduce_(
             0, lrow, torch.where(b == m[lrow], e[slot], _BIG), "amin")
         cid[k] = torch.where(rep[k], cid[k], torch.where(partner < _BIG, partner, -1))
-    ext = _exchange(cid, sends, sh.axis)
-    blocks = ([], [], [])
-    for k, ((lrow, slot), e, c) in enumerate(zip(slots, ext, cid)):
+    ext = _exchange(cid, sends, sh.axis, owners)
+    blocks = ([None] * d, [None] * d, [None] * d)
+    for k in local:
+        (lrow, slot), e, c = slots[k], ext[k], cid[k]
         cnt, dev = sh.nnz_counts[k], c.device
         cu, cv = c[lrow], e[slot]
         keep = (cu >= 0) & (cv >= 0) & (cu != cv)
@@ -769,9 +769,9 @@ def coarsen(sh: ShardedCSR, match, mesh: Mesh, halo: bool = True, return_mapping
         for out, fill, dtype, part in ((blocks[0], nc, torch.int32, torch.where(keep, cu, nc)),
                                        (blocks[1], 0, torch.int32, torch.where(keep, cv, 0)),
                                        (blocks[2], 0, torch.float32, torch.where(keep, vals, 0.0))):
-            out.append(torch.cat([part.to(dtype), torch.full((width - cnt,), fill, dtype=dtype, device=dev)]))
+            out[k] = torch.cat([part.to(dtype), torch.full((width - cnt,), fill, dtype=dtype, device=dev)])
     route = {}
-    out = ShardedCSR._from_blocks(*blocks, True, (nc, nc), sh.devices, sh.axis, stats=route)
+    out = ShardedCSR._from_blocks(*blocks, True, (nc, nc), sh.devices, sh.axis, stats=route, mesh=mesh)
     reads = 1 + route["host_reads"]
     if halo:
         out = out.with_halo()
@@ -787,15 +787,15 @@ def _level_correct(sh: ShardedCSR, levels, mesh: Mesh, rounds: int) -> torch.Ten
     a round; -1 (unreached) stays -1. Reads nothing back."""
     rows = sh.rows_per_shard
     slots, sends = _slots(sh), _sends(sh)
+
+    def relax(s, e, mk, lv):
+        nmin = torch.full((rows,), _BIG, dtype=torch.int32, device=lv.device).scatter_reduce_(0, s[0], e[s[1]], "amin")
+        return torch.where(lv < 0, -1, torch.minimum(mk, torch.clamp(nmin, max=_BIG - 1) + 1))
+
     lev = _put(sh, levels, fill=-1, dtype=torch.int32)
     for _ in range(int(rounds)):
-        masked = [torch.where(lv < 0, _BIG, lv) for lv in lev]
-        ext = _exchange(masked, sends, sh.axis)
-        new = []
-        for (lrow, slot), e, mk, lv in zip(slots, ext, masked, lev):
-            nmin = torch.full((rows,), _BIG, dtype=torch.int32, device=lv.device).scatter_reduce_(0, lrow, e[slot], "amin")
-            new.append(torch.where(lv < 0, -1, torch.minimum(mk, torch.clamp(nmin, max=_BIG - 1) + 1)))
-        lev = new
+        masked = _each(lambda lv: torch.where(lv < 0, _BIG, lv), lev)
+        lev = _each(relax, slots, _exchange(masked, sends, sh.axis, sh.owners), masked, lev)
     return _join(lev, mesh, sh.shape[0])
 
 
@@ -824,7 +824,6 @@ def bfs_levels_multilevel(sh: ShardedCSR, root: int, mesh: Mesh, coarsen_until: 
     the coarse BFS's levels, ``correction_rounds`` a level back up).
     ``stats``, a dict, receives ``levels`` (contractions kept), ``sizes``
     (n down the ladder), ``coarse_depth`` and ``host_reads``."""
-    single_process(mesh, "halo.bfs_levels_multilevel", _ACROSS_ITEM)
     _require_halo(sh)
     _shards(sh, mesh)
     reads = {}
@@ -860,7 +859,6 @@ def rcm_reorder_ml(sh: ShardedCSR, mesh: Mesh, root: int = 0, coarsen_until: int
     (:func:`.dist._rcm_rank`, K5), the variant for graphs whose diameter
     is large. Returns ``(the (n,) int32 inverse permutation, steps)``;
     ``stats`` as :func:`bfs_levels_multilevel`'s, with the rank's read."""
-    single_process(mesh, "halo.rcm_reorder_ml", _ACROSS_ITEM)
     levels, steps = bfs_levels_multilevel(sh, root, mesh, coarsen_until=coarsen_until,
                                           correction_rounds=correction_rounds, stats=stats)
     order = _rcm_rank(levels, degrees(sh, mesh), sh.shape[0])
@@ -917,7 +915,6 @@ def multilevel_partition(sh: ShardedCSR, k: int, mesh: Mesh, coarsen_until: int 
     Returns the (n,) int32 labels on the mesh's first device. ``stats``, a
     dict, receives ``levels``, ``sizes``, ``host_reads`` and
     ``host_writes``."""
-    single_process(mesh, "halo.multilevel_partition", _ACROSS_ITEM)
     _require_halo(sh)
     n = _shards(sh, mesh)[0]
     counts = {}
@@ -996,21 +993,22 @@ def _active_degree(sh: ShardedCSR, alive) -> tuple:
     """Each row's degree (int32) in the subgraph induced by ``alive`` (the
     shards' (R,) bool pieces): one exchange of the mask, then each row's
     count of live entries from a running count read at its bounds."""
-    ext = _exchange([a.to(torch.int32) for a in alive], _sends(sh), sh.axis)
-    out = []
-    for (lrow, slot), a, e, ip in zip(_slots(sh), alive, ext, sh.indptr):
-        seen = torch.cumsum(F.pad(a[lrow] & (e[slot] > 0), (1, 0)), 0)
-        out.append((seen[ip[1:]] - seen[ip[:-1]]).to(torch.int32))
-    return tuple(out)
+    ext = _exchange(_each(lambda a: a.to(torch.int32), alive), _sends(sh), sh.axis, sh.owners)
+
+    def degree(s, a, e, ip):
+        seen = torch.cumsum(F.pad(a[s[0]] & (e[s[1]] > 0), (1, 0)), 0)
+        return (seen[ip[1:]] - seen[ip[:-1]]).to(torch.int32)
+
+    return tuple(_each(degree, _slots(sh), alive, ext, sh.indptr))
 
 
 def _nbr_min(sh: ShardedCSR, vals) -> tuple:
     """Each row's least neighbour value (the shards' (R,) int32 ``vals``,
     one exchange and a scatter-min); a row without entries gets
     INT32_MAX."""
-    ext = _exchange(vals, _sends(sh), sh.axis)
-    return tuple(torch.full((sh.rows_per_shard,), _BIG, dtype=torch.int32, device=e.device).scatter_reduce_(
-        0, lrow, e[slot], "amin") for (lrow, slot), e in zip(_slots(sh), ext))
+    ext = _exchange(vals, _sends(sh), sh.axis, sh.owners)
+    return tuple(_each(lambda s, e: torch.full((sh.rows_per_shard,), _BIG, dtype=torch.int32, device=e.device)
+                       .scatter_reduce_(0, s[0], e[s[1]], "amin"), _slots(sh), ext))
 
 
 def slashburn_reorder(sh: ShardedCSR, mesh: Mesh, k_size: int = 64, hub_order: bool = False, bucket_cap: int = 4096,
@@ -1039,7 +1037,6 @@ def slashburn_reorder(sh: ShardedCSR, mesh: Mesh, k_size: int = 64, hub_order: b
     ``stats``, a dict, receives ``rounds`` (on the mesh), ``phases``,
     ``compactions``, ``host_tail`` (the vertices finished on the host),
     ``host_reads`` and ``host_writes`` (the masks copied to the card)."""
-    single_process(mesh, "halo.slashburn_reorder", _ACROSS_ITEM)
     from .. import native
     from ..ops.reorder.slashburn import SlashburnReorderParams, _place_spokes, _slashburn_host
 
@@ -1130,8 +1127,9 @@ def slashburn_reorder(sh: ShardedCSR, mesh: Mesh, k_size: int = 64, hub_order: b
             deg = _active_degree(cur, alive)
             # one read for both: the histogram's size and the live entries
             # that decide compaction
-            dmax, nnz_act = (int(v) for v in read(torch.stack([pmax([dg.max() for dg in deg])[0].long(),
-                                                                psum([dg.sum() for dg in deg])[0]])))
+            owners, l0 = cur.owners, cur.local[0]
+            dmax, nnz_act = (int(v) for v in read(torch.stack([pmax(_each(torch.Tensor.max, deg), owners)[l0].long(),
+                                                                psum(_each(torch.Tensor.sum, deg), owners)[l0]])))
             if 0 < host_tail_nnz >= nnz_act:
                 host_finish = True
                 continue
@@ -1143,7 +1141,7 @@ def slashburn_reorder(sh: ShardedCSR, mesh: Mesh, k_size: int = 64, hub_order: b
             nb = max(nb_min, 1 << (dmax + 1).bit_length())
             # descending degree, ascending id among ties (the stable rank);
             # bucket nb - 1 holds the inactive rows
-            key = [torch.where(a, dmax - dg, nb - 1).to(torch.int32) for a, dg in zip(alive, deg)]
+            key = _each(lambda a, dg: torch.where(a, dmax - dg, nb - 1).to(torch.int32), alive, deg)
             rank, _ = _counting_rank(cur, key, alive, nb)
             ranks = read(_join(rank, mesh, n)).astype(np.int64)
             hubs_mask = active & (ranks < k)

@@ -33,11 +33,11 @@ back to the host once, as the JAX module reads it.
 
 On a mesh that spans processes (``multihost.global_mesh``) the container
 keeps its mesh, and each field holds this process's shards' tensors and
-``None`` in a remote shard's slot. ``from_coo_sharded``, ``with_halo``,
-``nnz``, ``halo_bytes_per_exchange`` and ``to_csr`` run there, every
-process making the same calls: every host read of values from several
-shards goes through ``collectives.host_fetch``, which gathers the remote
-ones first. ``from_csr``, ``stacked`` and ``to`` raise there.
+``None`` in a remote shard's slot. ``from_coo_sharded``, ``from_csr``,
+``from_csr_balanced``, ``with_halo``, ``nnz``, ``halo_bytes_per_exchange``
+and ``to_csr`` run there, every process making the same calls: every host
+read of values from several shards goes through ``collectives.host_fetch``,
+which gathers the remote ones first. ``stacked`` and ``to`` raise there.
 """
 
 from __future__ import annotations
@@ -202,10 +202,11 @@ class ShardedCSR(Format):
     def from_csr(csr: CSR, mesh: Mesh, axis: str = "x", halo: bool = True) -> "ShardedCSR":
         """Partition a CSR into row blocks over ``mesh``: sliced on the CSR's
         device, each shard then moved to its own (one host read: the shards'
-        entry counts, which size the padded width)."""
-        single_process(mesh, "ShardedCSR.from_csr", "10i")
+        entry counts, which size the padded width). On a mesh that spans
+        processes every process passes the same CSR (on its own device) and
+        cuts only its own shards."""
         n, m = csr.shape
-        devices = mesh.axis_devices(axis)
+        devices, owners = mesh.axis_devices(axis), mesh.axis_owners(axis)
         d = len(devices)
         rows = -(-n // d)  # rows per shard (ceil)
         indptr = csr.indptr.to(torch.int64)
@@ -215,16 +216,19 @@ class ShardedCSR(Format):
         starts = starts_t.tolist()
         shard_nnz = [starts[k + 1] - starts[k] for k in range(d)]
         width = max(max(shard_nnz), 1)
-        lp, li, lv, cnts = [], [], [], []
+        lp, li, lv, cnts = ([None] * d for _ in range(4))
         for k, dev in enumerate(devices):
+            if owners[k] != mesh.rank:
+                continue  # another process's shard
             lo, hi, base, cnt = bounds[k], bounds[k + 1], starts[k], shard_nnz[k]
             seg = indptr[lo : hi + 1] - base
-            lp.append(F.pad(seg, (0, rows - (hi - lo)), value=cnt).to(dev))
-            li.append(F.pad(indices[base : base + cnt], (0, width - cnt)).to(dev))
+            lp[k] = F.pad(seg, (0, rows - (hi - lo)), value=cnt).to(dev)
+            li[k] = F.pad(indices[base : base + cnt], (0, width - cnt)).to(dev)
             if csr.vals is not None:
-                lv.append(F.pad(csr.vals[base : base + cnt], (0, width - cnt)).to(dev))
-            cnts.append((starts_t[k + 1] - starts_t[k]).to(dev))
-        sh = ShardedCSR(tuple(lp), tuple(li), None if csr.vals is None else tuple(lv), tuple(cnts), (n, m), axis)
+                lv[k] = F.pad(csr.vals[base : base + cnt], (0, width - cnt)).to(dev)
+            cnts[k] = (starts_t[k + 1] - starts_t[k]).to(dev)
+        sh = ShardedCSR(tuple(lp), tuple(li), None if csr.vals is None else tuple(lv), tuple(cnts), (n, m), axis,
+                        _mesh=mesh if mesh.spans_processes else None)
         sh.__dict__["nnz_counts"] = tuple(shard_nnz)
         return sh.with_halo() if halo else sh
 
@@ -235,7 +239,9 @@ class ShardedCSR(Format):
         so every equal-row block carries near-equal nnz and the padded width
         no longer follows the worst shard on row-skewed graphs. The
         balancing is a layout permutation, so every sharded function runs
-        unchanged on the result.
+        unchanged on the result. On a mesh that spans processes every
+        process passes the same CSR and computes the same order (K5) and
+        permutation (K4) on its own copy.
 
         Returns ``(sharded, order)`` where ``order[old] = new`` is the
         applied relabelling (also the map back: a result ``r`` about new

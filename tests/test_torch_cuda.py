@@ -1829,10 +1829,13 @@ def _group_on_card(tmp_path, backend: str, per_process: int):
 
 
 def _assert_group_equals_one_process(ranks, per_process, mesh, dev):
-    """Every rank's shards and replicated results, the ingest's path's and
-    the functions' (``child.FUNCTIONS``, with their ``stats``), equal the
+    """Every rank's shards and replicated results, the ingest's path's, the
+    functions' (``child.FUNCTIONS``) and the multilevel calls'
+    (``child.MULTILEVEL``, containers shard by shard, the same error where
+    the one process's call raises), with their ``stats``, equal the
     single-process ``mesh``'s bit for bit."""
     import torch_multiproc_child as child
+    from test_torch_multiproc import assert_result
 
     for graph in child.GRAPHS:
         want = child.run_path(mesh, graph, dev)
@@ -1855,6 +1858,13 @@ def _assert_group_equals_one_process(ranks, per_process, mesh, dev):
                     [(result, want_result)]
                 for g, w in pairs:
                     assert g.dtype == w.dtype and torch.equal(g.to(w.device), w), (graph, name)
+                assert stats == want_stats, (graph, name)
+        want = child.run_multilevel(mesh, graph, dev)
+        for res in ranks:
+            local = res[per_process]["mesh"][1]
+            for name, (result, stats) in res[per_process]["multilevel"][graph].items():
+                want_result, want_stats = want[name]
+                assert_result(result, want_result, local, f"{graph} {name}")
                 assert stats == want_stats, (graph, name)
 
 

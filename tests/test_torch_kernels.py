@@ -1171,11 +1171,13 @@ def test_chip_smoke_path_l_on_the_cpu(monkeypatch, capsys, one_thread):
 def test_chip_smoke_path_m_on_the_cpu(monkeypatch, capsys, one_thread):
     """``chip_smoke.path_m`` rehearsed on the CPU at a small size (the tool's
     graph at 4,096 vertices; two gloo processes of the script on the CPU,
-    under its time limit; weak-scaling rows at d = 1 and 2 of 1,024 and 256
-    vertices a shard), with the card's clocks and launch counts stubbed:
-    every field of the two processes equals the single-process mesh's, so
-    do path N's results and stats, and phase 5 prints each phase of both
-    paths, the exchange, the link figures and the rows."""
+    under its time limit; path O's ladders on 2,048 vertices down to 1,024,
+    SlashBurn on a power-law graph of 2,000; weak-scaling rows at d = 1 and
+    2 of 1,024 and 256 vertices a shard), with the card's clocks and launch
+    counts stubbed: every field of the two processes equals the
+    single-process mesh's, so do the results and stats of paths N and O,
+    and phase 5 prints each phase of the three paths, the exchange, the
+    link figures and the rows."""
     smoke = _chip_smoke()
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(smoke, "read_launches", lambda path, required: {})
@@ -1183,8 +1185,12 @@ def test_chip_smoke_path_m_on_the_cpu(monkeypatch, capsys, one_thread):
     monkeypatch.setattr(smoke, "SCALING_RANDOM_BASE_N", 1 << 10)
     monkeypatch.setattr(smoke, "SCALING_STENCIL_BASE_N", 1 << 8)
     monkeypatch.setattr(smoke, "SCALING_COUNTS", [1, 2])
-    launches, launches_n, err = smoke.path_m(torch.device("cpu"), 0, n=1 << 12)
-    assert launches == {} and launches_n == {} and err == 0.0
+    monkeypatch.setattr(smoke, "PATH_O_N", 1 << 11)
+    monkeypatch.setattr(smoke, "PATH_O_COARSEN_UNTIL", 1 << 10)
+    monkeypatch.setattr(smoke, "POWER_LAW_HOST", (2_000, 16_000))
+    monkeypatch.setattr(smoke, "PATH_O_SLASHBURN_K", 64)
+    launches, launches_n, launches_o, err = smoke.path_m(torch.device("cpu"), 0, n=1 << 12)
+    assert launches == {} and launches_n == {} and launches_o == {} and err == 0.0
     out = capsys.readouterr().out
     assert "phase 4 path M gloo: 2 processes x 2 shards equal to the single-process mesh of 4 shards bit for bit" in out
     assert "path M dist.rcm_reorder vs the plain (level, degree, id) rank: n=4096 equal=True" in out
@@ -1193,6 +1199,9 @@ def test_chip_smoke_path_m_on_the_cpu(monkeypatch, capsys, one_thread):
     assert "phase 3 path M NCCL route: skipped" in out and "phase 5 path M link figures for the projection" in out
     assert "phase 4 path N gloo: 2 processes equal to the single-process mesh of 4 shards bit for bit" in out
     assert "path N halo.bfs_levels vs dist.bfs_levels: n=4096 equal=True" in out
-    assert out.count("phase 5 path N ") == 14 and out.count("bytes to the other process") == 2 * (4 + 13)
+    assert out.count("phase 5 path N ") == 14 and out.count("bytes to the other process") == 2 * (4 + 13 + 9)
+    assert "phase 4 path O gloo: 2 processes equal to the single-process mesh of 4 shards bit for bit" in out
+    assert "path O coarsen values vs a plain contraction by the map: n=" in out and out.count("phase 5 path O ") == 10
+    assert "path O slashburn_reorder (hub_order=True) vs native.slashburn(greedy=False): n=2000 equal=True" in out
     assert out.count("phase 5 path M weak scaling random base_n=1024 d=") == 2
     assert out.count("phase 5 path M weak scaling stencil base_n=256 d=") == 2

@@ -7,15 +7,20 @@ shards) and runs every collective, the host read, the distributed ingest's
 path (``from_coo_sharded`` → ``with_halo`` → ``halo.spmv`` →
 ``dist.rcm_reorder``, with ``to_csr``, ``bfs_levels``, ``degrees`` and
 ``degree_reorder``), the twelve functions of ``child.FUNCTIONS`` (the rest
-of ``dist`` and ``halo``'s flat half) and the guard of every function that
-does not run across processes. Each process's results, and the ``stats``
-the functions keep, must equal the single-process mesh of as many CPU
-shards on the same inputs bit for bit, field by field; on
-``tools/multiproc_dcn.py``'s graph the path and the functions must also
-give the JAX package's results on 4 and 8 virtual CPU devices: y within
-rtol 1e-5, atol 1e-5 (as ``test_torch_halo.py``), the profile and the
-heatmap within rtol 1e-6 (as ``test_torch_parallel.py``), every integer
-result exactly.
+of ``dist`` and ``halo``'s flat half), the eight calls of
+``child.MULTILEVEL`` (``halo``'s multilevel half and SlashBurn,
+``ShardedCSR.from_csr`` and ``from_csr_balanced``) and the guard of every
+function that does not run across processes. Each process's results, and
+the ``stats`` the functions keep, must equal the single-process mesh of as
+many CPU shards on the same inputs bit for bit, field by field; where the
+single-process call raises (on the wide graph), every process must raise
+the same error. On ``tools/multiproc_dcn.py``'s graph the path and the
+functions must also give the JAX package's results on 4 and 8 virtual CPU
+devices: y within rtol 1e-5, atol 1e-5 (as ``test_torch_halo.py``), the
+profile and the heatmap within rtol 1e-6 (as ``test_torch_parallel.py``),
+every integer result exactly; so must the matching, the coarse map and
+counts, SlashBurn's orders (against the JAX host SlashBurn) and
+``from_csr``'s fields.
 """
 
 import sys
@@ -30,7 +35,7 @@ from sparsebase_tpu_torch.parallel import make_mesh, multihost
 
 CHILD = str(Path(child.__file__).resolve())
 PER_PROCESS = (2, 4)
-GROUP_TIME_LIMIT = 240  # seconds for the whole group; it takes about 15
+GROUP_TIME_LIMIT = 240  # seconds for the whole group; it takes about 25
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +62,7 @@ def assert_same(got, want, what):
     tensors bit for bit with their dtypes, remote slots None."""
     if isinstance(want, torch.Tensor):
         assert isinstance(got, torch.Tensor) and got.dtype == want.dtype and got.shape == want.shape, what
-        assert torch.equal(got, want), what
+        assert torch.equal(got.to(want.device), want), what
     elif isinstance(want, (tuple, list)):
         assert len(got) == len(want), what
         for k, (g, w) in enumerate(zip(got, want)):
@@ -128,25 +133,39 @@ def test_guard(group, per_process, name):
 
 
 @pytest.fixture(scope="module")
-def jax_tool_path():
-    """The JAX package's path on the tool's graph on 4 and 8 virtual CPU
-    devices: ``{d: (y, order)}``."""
+def jax_tool_sharded():
+    """The JAX package's ingest of the tool's graph on 4 and 8 virtual CPU
+    devices, once (about 10 s each): ``{shards per process: (mesh,
+    sharded)}``."""
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
 
-    from sparsebase_tpu.parallel import dist as ref_dist
-    from sparsebase_tpu.parallel import halo as ref_halo
     from sparsebase_tpu.parallel import make_mesh as ref_make_mesh
     from sparsebase_tpu.parallel.sharded import ShardedCSR as RefShardedCSR
 
     row, col, vals, shape = child.tool_graph()
-    x = np.random.default_rng(7).standard_normal(shape[0]).astype(np.float32)
     out = {}
     for s in PER_PROCESS:
         assert len(jax.devices()) >= 2 * s, "conftest must provide 8 virtual devices"
         mesh = ref_make_mesh(2 * s)
-        sh = RefShardedCSR.from_coo_sharded(jnp.asarray(row), jnp.asarray(col), jnp.asarray(vals), shape,
-                                            mesh).with_halo()
+        out[s] = mesh, RefShardedCSR.from_coo_sharded(jnp.asarray(row), jnp.asarray(col), jnp.asarray(vals), shape,
+                                                      mesh).with_halo()
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_tool_path(jax_tool_sharded):
+    """The JAX package's path on the tool's graph on 4 and 8 virtual CPU
+    devices: ``{d: (y, order)}``."""
+    import jax.numpy as jnp
+
+    from sparsebase_tpu.parallel import dist as ref_dist
+    from sparsebase_tpu.parallel import halo as ref_halo
+
+    shape = child.tool_graph()[3]
+    x = np.random.default_rng(7).standard_normal(shape[0]).astype(np.float32)
+    out = {}
+    for s, (mesh, sh) in jax_tool_sharded.items():
         y = np.asarray(ref_halo.spmv(sh, jnp.asarray(x), mesh)).reshape(-1)[: shape[0]]
         out[s] = (y, np.asarray(ref_dist.rcm_reorder(sh, mesh)).reshape(-1)[: shape[0]], int(sh.nnz))
     return out
@@ -209,23 +228,15 @@ def jax_calls(sh, mesh, inputs) -> dict:
 
 
 @pytest.fixture(scope="module")
-def jax_tool_functions():
+def jax_tool_functions(jax_tool_sharded):
     """The JAX package's functions on the tool's graph on 4 and 8 virtual
     CPU devices: ``{(shards per process, name): result}``."""
-    jax = pytest.importorskip("jax")
     import jax.numpy as jnp
 
-    from sparsebase_tpu.parallel import make_mesh as ref_make_mesh
-    from sparsebase_tpu.parallel.sharded import ShardedCSR as RefShardedCSR
-
-    row, col, vals, shape = child.tool_graph()
+    shape = child.tool_graph()[3]
     inputs = {k: jnp.asarray(v) for k, v in child.function_inputs(shape).items()}
     out = {}
-    for s in PER_PROCESS:
-        assert len(jax.devices()) >= 2 * s, "conftest must provide 8 virtual devices"
-        mesh = ref_make_mesh(2 * s)
-        sh = RefShardedCSR.from_coo_sharded(jnp.asarray(row), jnp.asarray(col), jnp.asarray(vals), shape,
-                                            mesh).with_halo()
+    for s, (mesh, sh) in jax_tool_sharded.items():
         for name, fn in jax_calls(sh, mesh, inputs).items():
             got = fn()
             if isinstance(got, dict):
@@ -253,3 +264,100 @@ def test_function_equals_jax(group, per_process, jax_tool_functions, name):
         else:
             assert got.shape == want.shape, name
             np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def single_multilevel():
+    """The multilevel calls on the single-process meshes, once."""
+    return {(s, g): child.run_multilevel(single(s), g, torch.device("cpu")) for s in PER_PROCESS for g in child.GRAPHS}
+
+
+def assert_result(got, want, local, what):
+    """A multilevel call's result: a container's fields (dicts of
+    :func:`child.container`) held shard by shard, tuples item by item."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), what
+        for key, w in want.items():
+            if key in child.FIELDS and w is not None:
+                assert_local(got[key], w, local, f"{what} {key}")
+            else:
+                assert_same(got[key], w, f"{what} {key}")
+    elif isinstance(want, tuple):
+        assert isinstance(got, tuple) and len(got) == len(want), what
+        for k, (g, w) in enumerate(zip(got, want)):
+            assert_result(g, w, local, f"{what}[{k}]")
+    else:
+        assert_same(got, want, what)  # a tensor, or the error raised
+
+
+# on the tool graph each call reaches the branch it is there for
+BRANCHES = {
+    "halo.bfs_levels_multilevel": lambda st: st["levels"] >= 2,
+    "halo.rcm_reorder_ml": lambda st: st["levels"] >= 2,
+    "halo.multilevel_partition": lambda st: st["sizes"][-1] <= 4096,  # the coarsest graph on the host
+    "halo.slashburn_reorder": lambda st: st["on the mesh"]["compactions"] >= 1 and st["host tail"]["host_tail"] > 0,
+}
+
+
+@pytest.mark.parametrize("graph", list(child.GRAPHS))
+@pytest.mark.parametrize("name", child.MULTILEVEL)
+def test_multilevel_equals_single_process(group, per_process, single_multilevel, name, graph):
+    want, want_stats = single_multilevel[per_process, graph][name]
+    if graph == "tool":
+        assert not isinstance(want, str), want
+        assert BRANCHES.get(name, lambda st: True)(want_stats), want_stats
+    for res in group:
+        local = res[per_process]["mesh"][1]
+        got, stats = res[per_process]["multilevel"][graph][name]
+        assert_result(got, want, local, f"{graph} {name}")
+        assert stats == want_stats, f"{graph} {name} stats"
+
+
+@pytest.fixture(scope="module")
+def jax_tool_multilevel(jax_tool_sharded):
+    """The JAX package on the tool's graph on 4 and 8 virtual CPU devices:
+    ``{shards per process: {name: result}}``, with the JAX host SlashBurn's
+    two orders (``hub_order`` on, then off)."""
+    from sparsebase_tpu.formats.csr import CSR as RefCSR
+    from sparsebase_tpu.ops.reorder.slashburn import SlashburnReorderParams, _slashburn_host
+    from sparsebase_tpu.parallel import halo as ref_halo
+    from sparsebase_tpu.parallel.sharded import ShardedCSR as RefShardedCSR
+
+    row, col, vals, shape = child.tool_graph()
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(row, minlength=shape[0]))]).astype(np.int32)
+    k_size = child.MULTILEVEL_ARGS["tool"][1]
+    orders = tuple(np.asarray(_slashburn_host(RefCSR(indptr, col, None, shape),
+                                              SlashburnReorderParams(k_size=k_size, greedy=False, hub_order=h)))
+                   for h in (True, False))
+    out = {}
+    for s, (mesh, sh) in jax_tool_sharded.items():
+        match = ref_halo.heavy_edge_matching(sh, mesh)
+        coarse, cid = ref_halo.coarsen(sh, match, mesh, return_mapping=True)
+        cut = RefShardedCSR.from_csr(RefCSR(indptr, col, vals, shape), mesh)
+        out[s] = {"halo.heavy_edge_matching": np.asarray(match), "halo.coarsen": (np.asarray(coarse.nnz_local),
+                                                                                  np.asarray(cid)),
+                  "halo.slashburn_reorder": orders,
+                  "ShardedCSR.from_csr": {name: np.asarray(getattr(cut, name)) for name in child.FIELDS}}
+    return out
+
+
+@pytest.mark.parametrize("name", ["halo.heavy_edge_matching", "halo.coarsen", "halo.slashburn_reorder",
+                                  "ShardedCSR.from_csr"])
+def test_multilevel_equals_jax(group, per_process, jax_tool_multilevel, name):
+    want = jax_tool_multilevel[per_process][name]
+    for res in group:
+        local = res[per_process]["mesh"][1]
+        got, _ = res[per_process]["multilevel"]["tool"][name]
+        if name == "halo.coarsen":
+            coarse, cid = got
+            assert list(coarse["nnz_counts"]) == want[0].reshape(-1).tolist()
+            np.testing.assert_array_equal(cid.numpy(), want[1].reshape(-1)[: cid.shape[0]])
+        elif name == "halo.slashburn_reorder":
+            for order, w in zip(got, want):
+                np.testing.assert_array_equal(order.numpy(), w)
+        elif name == "ShardedCSR.from_csr":
+            for field, w in want.items():
+                for k in local:
+                    np.testing.assert_array_equal(got[field][k].numpy(), w[k], err_msg=f"{field}[{k}]")
+        else:
+            np.testing.assert_array_equal(got.numpy(), want.reshape(-1)[: got.shape[0]])

@@ -3,12 +3,12 @@
 torch's standard variables, gloo), builds ``global_mesh(devices=[device] *
 S)`` for each S of ``--shards``, and runs on it the collectives, the host
 read, the distributed ingest's path (``from_coo_sharded`` →
-``with_halo`` → ``halo.spmv`` → ``dist.rcm_reorder``) and the functions of
-:data:`FUNCTIONS` on the graphs of :data:`GRAPHS`, then the guard of every
-function that does not run across processes. It saves what it holds to
-``--out/rank{R}.pt``; the tests hold it to the single-process mesh
-(:func:`run_collectives`, :func:`run_path`, :func:`run_functions` on
-``make_mesh``).
+``with_halo`` → ``halo.spmv`` → ``dist.rcm_reorder``), the functions of
+:data:`FUNCTIONS` and the calls of :data:`MULTILEVEL` on the graphs of
+:data:`GRAPHS`, then the guard of every function that does not run across
+processes. It saves what it holds to ``--out/rank{R}.pt``; the tests hold
+it to the single-process mesh (:func:`run_collectives`, :func:`run_path`,
+:func:`run_functions`, :func:`run_multilevel` on ``make_mesh``).
 
     python tests/torch_multiproc_child.py --out DIR [--device cpu|cuda] [--shards 2,4] [--backend gloo|nccl]
 
@@ -64,15 +64,21 @@ FUNCTIONS = tuple(f"dist.{f}" for f in ("spmv", "edge_cut", "structure_features"
                                         "refine_partition", "reorder_heatmap")) + tuple(
     f"halo.{f}" for f in ("bfs_levels", "label_prop_partition", "connected_components", "rcm_reorder", "edge_cut",
                           "refine_partition"))
+# halo's multilevel half and SlashBurn, and the containers cut from a CSR
+MULTILEVEL = tuple(f"halo.{f}" for f in ("heavy_edge_matching", "coarsen", "bfs_levels_multilevel", "rcm_reorder_ml",
+                                         "multilevel_partition", "slashburn_reorder")) + (
+    "ShardedCSR.from_csr", "ShardedCSR.from_csr_balanced")
+# each graph's (coarsen_until, SlashBurn's k_size): the tool graph's ladders
+# contract many times, its SlashBurn compacts and, with a host tail,
+# finishes on the host; the wide graph's as tests/test_torch_halo_multilevel.py
+MULTILEVEL_ARGS = {"tool": (64, 8), "wide": (10, 2)}
 PARTS = 4  # the partitions' k
 HEATMAP_PARTS = 3
 # what must raise NotImplementedError on a mesh that spans processes
 GUARDED = tuple(
-    f"halo.{f}" for f in ("heavy_edge_matching", "coarsen", "bfs_levels_multilevel", "rcm_reorder_ml",
-                          "multilevel_partition", "slashburn_reorder")) + tuple(
     f"ring.{f}" for f in ("triangle_count", "jaccard_weights", "triangle_count_sparse", "jaccard_weights_sparse",
                           "jaccard_flat")) + (
-    "sharded2d.Sharded2DCSR.from_csr", "ShardedCSR.from_csr", "ShardedCSR.stacked", "ShardedCSR.to",
+    "sharded2d.Sharded2DCSR.from_csr", "ShardedCSR.stacked", "ShardedCSR.to",
     "sharded2d.spmv", "sharded2d.degrees")
 
 
@@ -193,6 +199,66 @@ def run_functions(mesh, graph: str, device) -> dict:
     return out
 
 
+def container(sh) -> dict:
+    """A ``ShardedCSR``'s fields (this process's shards, ``None`` in a remote
+    shard's slot), its counts, shape and widths."""
+    out = {name: getattr(sh, name) for name in FIELDS}
+    out.update(nnz_counts=sh.nnz_counts, shape=sh.shape, width=sh.width, halo_width=sh.halo_width)
+    return out
+
+
+def multilevel_calls(sh, csr, mesh, graph: str) -> dict:
+    """Each call of :data:`MULTILEVEL` on the container ``sh`` and its CSR
+    ``csr``, taking a ``stats`` dict; a container comes back as
+    :func:`container`'s dict. SlashBurn runs twice, on the mesh's tiers
+    alone with ``hub_order`` and with a host tail, its stats under each."""
+    until, k_size = MULTILEVEL_ARGS[graph]
+
+    def coarsen(st):
+        coarse, cid = halo.coarsen(sh, halo.heavy_edge_matching(sh, mesh), mesh, return_mapping=True, stats=st)
+        return container(coarse), cid
+
+    def balanced(st):
+        out, order = ShardedCSR.from_csr_balanced(csr, mesh)
+        return container(out), order
+
+    tiers = (("on the mesh", dict(hub_order=True, host_tail=0, host_tail_nnz=0)),
+             ("host tail", dict(host_tail=256, host_tail_nnz=0)))
+    calls = {
+        "halo.heavy_edge_matching": lambda st: halo.heavy_edge_matching(sh, mesh),
+        "halo.coarsen": coarsen,
+        "halo.bfs_levels_multilevel": lambda st: halo.bfs_levels_multilevel(sh, 0, mesh, coarsen_until=until,
+                                                                            stats=st),
+        "halo.rcm_reorder_ml": lambda st: halo.rcm_reorder_ml(sh, mesh, coarsen_until=until, stats=st),
+        "halo.multilevel_partition": lambda st: halo.multilevel_partition(sh, PARTS, mesh, coarsen_until=until,
+                                                                          stats=st),
+        "halo.slashburn_reorder": lambda st: tuple(halo.slashburn_reorder(
+            sh, mesh, k_size=k_size, stats=st.setdefault(tier, {}), **kw) for tier, kw in tiers),
+        "ShardedCSR.from_csr": lambda st: container(ShardedCSR.from_csr(csr, mesh)),
+        "ShardedCSR.from_csr_balanced": balanced,
+    }
+    assert tuple(calls) == MULTILEVEL
+    return calls
+
+
+def run_multilevel(mesh, graph: str, device) -> dict:
+    """Each call of :data:`MULTILEVEL` on ``graph``'s container: ``{name:
+    (result, stats)}``, the result ``"Class: message"`` where the call
+    raised (every process raises at the same host step, on the same
+    gathered data)."""
+    row, col, vals, shape = GRAPHS[graph]()
+    sh = ShardedCSR.from_coo_sharded(*(torch.as_tensor(a).to(device) for a in (row, col, vals)), shape,
+                                     mesh).with_halo()
+    out = {}
+    for name, fn in multilevel_calls(sh, sh.to_csr(), mesh, graph).items():
+        stats = {}
+        try:
+            out[name] = (fn(stats), stats)
+        except Exception as e:  # the tests compare what each process raised
+            out[name] = (f"{type(e).__name__}: {e}", stats)
+    return out
+
+
 def run_guards(mesh, device) -> dict:
     """Each function that does not run across processes, called on a
     container on the spanning mesh: the name of what it raised."""
@@ -202,19 +268,12 @@ def run_guards(mesh, device) -> dict:
     n, back = shape[0], sh.to_csr()
     tiles = sharded2d.Sharded2DCSR.from_csr(back, make_mesh_2d((1, 1), devices=[device]))
     calls = {
-        "halo.heavy_edge_matching": lambda: halo.heavy_edge_matching(sh, mesh),
-        "halo.coarsen": lambda: halo.coarsen(sh, torch.arange(n, device=device), mesh),
-        "halo.bfs_levels_multilevel": lambda: halo.bfs_levels_multilevel(sh, 0, mesh),
-        "halo.rcm_reorder_ml": lambda: halo.rcm_reorder_ml(sh, mesh),
-        "halo.multilevel_partition": lambda: halo.multilevel_partition(sh, 2, mesh),
-        "halo.slashburn_reorder": lambda: halo.slashburn_reorder(sh, mesh),
         "ring.triangle_count": lambda: ring.triangle_count(sh, mesh),
         "ring.jaccard_weights": lambda: ring.jaccard_weights(sh, mesh),
         "ring.triangle_count_sparse": lambda: ring.triangle_count_sparse(sh, mesh),
         "ring.jaccard_weights_sparse": lambda: ring.jaccard_weights_sparse(sh, mesh),
         "ring.jaccard_flat": lambda: ring.jaccard_flat(sh, mesh),
         "sharded2d.Sharded2DCSR.from_csr": lambda: sharded2d.Sharded2DCSR.from_csr(back, mesh),
-        "ShardedCSR.from_csr": lambda: ShardedCSR.from_csr(back, mesh),
         "ShardedCSR.stacked": lambda: sh.stacked("indptr"),
         "ShardedCSR.to": lambda: sh.to(MeshContext(mesh)),
         "sharded2d.spmv": lambda: sharded2d.spmv(tiles, torch.ones(n, device=device), mesh),
@@ -254,6 +313,7 @@ def main() -> None:
                "collectives": run_collectives(mesh, device)}
         res.update({graph: run_path(mesh, graph, device) for graph in GRAPHS})
         res["functions"] = {graph: run_functions(mesh, graph, device) for graph in GRAPHS}
+        res["multilevel"] = {graph: run_multilevel(mesh, graph, device) for graph in GRAPHS}
         res["guards"] = run_guards(mesh, device)
         res["traffic"] = collectives.traffic()
         out[s] = res
