@@ -130,10 +130,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    oriented by a coin, ``triangle_count(directed=True)`` at d = 4, and at
    d = 1 its ``ValueError``), a uniform simple graph of 65,536 vertices (16
    pairs a vertex, mirrored; both rings' four functions at d = 4, the
-   guard's sparse route at d = 1), a uniform simple graph of 2^20 vertices
-   and ``POWER_LAW_CARD``'s graph mirrored without repeats
-   (``triangle_count`` and ``jaccard_flat`` at d = 4 and d = 1, the
-   sparse ring), and ``bench_suite.run_distributed(shards=4)``; path M,
+   guard's sparse route at d = 1), ``POWER_LAW_CARD``'s graph mirrored
+   without repeats (``triangle_count`` and ``jaccard_flat`` at d = 4 and
+   d = 1, the sparse ring; a uniform graph of 2^20 vertices went when path
+   P took the sparse ring at 2^22 across processes), and
+   ``bench_suite.run_distributed(shards=4)``; path M,
    the distributed ingest's path across processes: ``tools/multiproc_dcn.py``'s
    graph at 2^22 vertices, average degree 8 (made on the card from
    ``--seed`` by a generator of its own, so every process makes the same)
@@ -163,12 +164,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``slashburn_reorder`` (k = ``PATH_O_SLASHBURN_K``, ``host_tail_nnz=0``,
    ``hub_order`` off and on: rounds on the mesh, compactions through
    ``from_csr``, graphkit's host tail) on ``POWER_LAW_HOST``'s graph
-   mirrored without repeats, first in the one process, then in both; then
-   ``scaling.run_weak_scaling`` on
-   the card at 1, 2 and 4 shards, the random kind at 2^20 vertices a shard
-   and the stencil at 2^12, each row in a process of its own. Every kernel
-   of each path must have launched, in each process of paths M, N and O
-   too;
+   mirrored without repeats, first in the one process, then in both; path
+   P, after path O in the same processes, the rings, ``sharded2d``, the
+   containers and the harness: the dense ring (``triangle_count``,
+   ``jaccard_flat``; ``triangle_count(directed=True)`` on the cliques with
+   each pair oriented by a coin; bfloat16 tiles cross the processes) on 32
+   disjoint cliques K_512 (``PATH_P_CLIQUES``, from ``--seed`` + 2, by
+   ``from_coo_sharded``: K5, K3), the sparse ring (``triangle_count`` and
+   ``jaccard_flat``; the owner sort K5, the segments K3) on path M's
+   container, ``Sharded2DCSR.from_csr`` (K5, K3 per tile) of path M's CSR
+   on a 2×2 mesh (``multihost.global_mesh_2d`` in the group) with its axes
+   either way round, its ``spmv`` (K2 per tile) and ``degrees``,
+   ``ShardedCSR.stacked`` of ``indptr`` and ``nnz_local`` and ``to`` the
+   mesh and the card's context, the suite's ``run_distributed`` (in the
+   group only) and an experiment of ``load_sharded_csr``,
+   ``distributed_reorder("rcm")`` and ``distributed_spmv_kernel`` (K2) on
+   rand-20k, written by the parent as an MTX file into the group's
+   directory, first in the one process, then in both; then
+   ``scaling.run_weak_scaling`` on the card at 1, 2 and 4 shards, the
+   random kind at 2^19 vertices a shard and the stencil at 2^12, each row
+   in a process of its own. Every kernel of each path must have launched,
+   in each process of paths M, N, O and P too;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
    the plain SpMV of the permuted matrix), of path B (K1 against K2 and
@@ -301,7 +317,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    permutation, the partition's labels in [0, 8) within the cap, SlashBurn's
    orders equal to ``native.slashburn(greedy=False)``; each process's every
    result, its own shards of every container field by field, and
-   ``stats`` equal to the one process's bit for bit);
+   ``stats`` equal to the one process's bit for bit); of path P (one
+   process's counts and weights equal to K6's on the whole CSR, the
+   cliques' count to its closed form, both orientations' y against the
+   plain SpMV of path M's CSR and their degrees equal to
+   ``dist.degrees``, the stacked fields and both moves equal to the
+   container's fields, the experiment's y against the plain SpMV of its
+   file and its order a permutation; each process's every result, its own
+   shards and tiles, by the SHA-256 of their bytes, equal to the one
+   process's, and its ``run_distributed`` table, but for its times, equal
+   to path L's);
 5. times: paths A and C end to end (median of 5 after one warm-up), and
    each kernel beside its plain version, its bound and, where one PyTorch
    call computes the same function, that call (``library_ms``), at the
@@ -380,8 +405,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    from which the link figures of the weak-scaling projection come; the
    group's wall and peak memory; each weak-scaling row; path N: each
    function's wall on the one process and on each of the two, with the
-   bytes sent, staged and the exchanges, and its ``stats``; path O: the
-   same for each of its calls; K1's tiled layout alone;
+   bytes sent, staged and the exchanges, and its ``stats``; paths O and
+   P: the same for each of their calls; K1's tiled layout alone;
 6. ``torch.profiler`` over 3 runs of path A (device
    time per kernel, the device's idle share, the largest idle gaps), the
    device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
@@ -400,9 +425,9 @@ path F, path H its phases 3, 4 and 5 after path G, path I its phases
 3, 4 and 5 after path H, path J its phases 3, 4 and 5 and its
 profile after path I, path K its phases 3, 4 and 5 after path J, and
 path L its phases 3, 4 and 5 after path K, and path M its phases 3, 4
-and 5 after path L, those of paths N and O inside path M's (each process
-runs path N after path M's phases, then path O, before the weak-scaling
-rows).
+and 5 after path L, those of paths N, O and P inside path M's (each
+process runs path N after path M's phases, then path O, then path P,
+before the weak-scaling rows).
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -426,6 +451,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import shutil
 import statistics
@@ -3385,7 +3411,6 @@ def path_k(g, dev, j: PathJ, n_blocks: int, nnz_blocks: int, band_n: int):
 # shard's tile is 16,384 × 65,536 = 2^30 cells, MAX_DENSE_ELEMS exactly
 PATH_L_CLIQUES = (128, 512)
 PATH_L_N = 65_536  # (b): the uniform graph where dense and sparse meet
-PATH_L_BIG_N = 1 << 20  # (c): the sparse ring at scale
 PATH_L_PAIRS = 16  # uniform pairs per vertex before mirroring
 
 
@@ -3436,11 +3461,11 @@ class PathL:
     by a coin, ``triangle_count(directed=True)`` at d = 4 and its
     ``ValueError`` at d = 1. (b) A uniform simple graph of 65,536 vertices:
     both rings' four functions at d = 4; at d = 1, where the guard routes to
-    the sparse ring, ``triangle_count`` and ``jaccard_flat``. (c) A uniform
-    simple graph of 2^20 vertices and ``POWER_LAW_CARD``'s graph mirrored
-    without repeats: ``triangle_count`` and ``jaccard_flat`` at d = 4 and
-    d = 1, both on the sparse ring. (d) ``bench_suite.run_distributed(shards
-    =4)`` on rand-20k."""
+    the sparse ring, ``triangle_count`` and ``jaccard_flat``. (c)
+    ``POWER_LAW_CARD``'s graph mirrored without repeats: ``triangle_count``
+    and ``jaccard_flat`` at d = 4 and d = 1, both on the sparse ring (path
+    P runs a uniform graph of 2^22 vertices across processes). (d)
+    ``bench_suite.run_distributed(shards=4)`` on rand-20k."""
 
     def __init__(self, g, dev):
         from sparsebase_tpu_torch.parallel import make_mesh
@@ -3453,7 +3478,6 @@ class PathL:
             "cliques": (clique_entries(g, dev, *PATH_L_CLIQUES), n_cliques),
             "cliques directed": (clique_entries(g, dev, *PATH_L_CLIQUES, directed=True), n_cliques),
             "uniform 65,536": (uniform_simple(g, dev, PATH_L_N, PATH_L_PAIRS), PATH_L_N),
-            "uniform 2^20": (uniform_simple(g, dev, PATH_L_BIG_N, PATH_L_PAIRS), PATH_L_BIG_N),
             "power law": ((card.row_of_nnz(), card.indices), card.nrows),
         }
         del card
@@ -3489,7 +3513,6 @@ class PathL:
             "uniform 65,536": [(MESH_SHARDS, "triangle_count"), (MESH_SHARDS, "jaccard_weights"),
                                (MESH_SHARDS, "triangle_count_sparse"), (MESH_SHARDS, "jaccard_weights_sparse"),
                                (1, "triangle_count"), (1, "jaccard_flat")],
-            "uniform 2^20": [(d, f) for d in (MESH_SHARDS, 1) for f in ("triangle_count", "jaccard_flat")],
             "power law": [(d, f) for d in (MESH_SHARDS, 1) for f in ("triangle_count", "jaccard_flat")],
         }
         functions = {
@@ -3566,7 +3589,7 @@ def phase_path_l_checks(p: PathL, out) -> None:
         check_equal(f"path L (b) {label} vs K6 JaccardWeights", got, b["K6 jaccard"])
     print(f"phase 4 path L (b) uniform (n={b['csr'].nrows}, {b['csr'].nnz} entries): {tri[0]} triangles, dense, "
           f"sparse and d=1 equal to K6; the weights of both rings and of d=1 equal to K6's bit for bit")
-    for name in ("uniform 2^20", "power law"):
+    for name in ("power law",):
         c = out[name]
         tri = [c[(d, "triangle_count")] for d in (d4, 1)]
         check(tri == [c["K6 triangles"]] * 2, f"path L (c) {name}: {tri} against K6's {c['K6 triangles']}")
@@ -3621,7 +3644,8 @@ def phase_path_l_times(p: PathL) -> None:
 
 def path_l(g, dev):
     """Path L's phases 3, 4 and 5, after path K (the graphs draw from
-    ``g``). Returns its launch counts."""
+    ``g``). Returns its launch counts and (d)'s table, which path P holds
+    the processes' tables to."""
     from sparsebase_tpu_torch import _build
 
     t0 = time.perf_counter()
@@ -3631,10 +3655,11 @@ def path_l(g, dev):
     out = p.run()
     launches = read_launches("L", ("indptr", "radix_rank", "common_neighbors"))
     phase_path_l_checks(p, out)
+    suite = out["suite"]
     del out
     phase_path_l_times(p)
     print(f"phase 5 path L wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, suite
 
 
 # -- path M: the distributed ingest's path across processes --------------------
@@ -3647,7 +3672,9 @@ PATH_M_EXCHANGE_REPS = 5
 PATH_M_FIELDS = ("indptr", "indices", "vals", "nnz_local", "halo_send", "halo_counts", "halo_map")
 SCALING_COUNTS = [1, 2, 4]
 SCALING_AVG_DEG = 8
-SCALING_RANDOM_BASE_N = 1 << 20  # 4M vertices and about 33.5M entries at d = 4
+# 2M vertices and about 16.8M entries at d = 4; 2^20 a shard until path P
+# ran inside path M's group and the script passed its 700 s budget
+SCALING_RANDOM_BASE_N = 1 << 19
 # the stencil's exact BFS takes about n / 8 levels, one host read each
 # (2,049 at d = 4); cut from 2^13 a shard to keep the script within its
 # 700 s budget once path N ran inside path M's group
@@ -4024,6 +4051,231 @@ def path_o_checks(src, inputs, res) -> None:
                     res[f"halo.slashburn_reorder hub_order={hub_order}"].cpu(), want.to(torch.int32))
 
 
+# -- path P: the rings, sharded2d, the containers and the harness across processes
+# (a): 32 disjoint cliques K_512 (n = 16,384): at d = 4 a shard's tile is
+# 4,096 × 16,384 cells, 134.2 MB in bfloat16, and Σ A²·A = 4.27e9 > 2^31
+PATH_P_CLIQUES = (32, 512)
+PATH_P_KERNELS = ("indptr", "radix_rank", "csr_spmv")  # K3, K5, K2
+PATH_P_ORIENTATIONS = {"x,y": ("x", "y"), "y,x": ("y", "x")}  # (c): a row of tiles on one process; across both
+PATH_P_MTX = "rand-20k.mtx"  # (e): the experiment's file, written by the parent into the group's directory
+
+
+def path_p_sizes() -> tuple:
+    """Path P's sizes, which the parent passes to the group's processes
+    (``--path-p-sizes``): the cliques' count and size."""
+    return PATH_P_CLIQUES
+
+
+def path_p_inputs(dev, seed: int, sizes: tuple, directory) -> dict:
+    """Path P's own inputs, the same on every process: the cliques
+    (``clique_entries`` from ``seed + 2``) as ``(row, col)``, then with each
+    pair oriented by a coin, their vertex count, and the experiment's MTX
+    file in ``directory``."""
+    count, size = sizes
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    return {"cliques": clique_entries(g, dev, count, size), "cliques directed": clique_entries(g, dev, count, size,
+                                                                                             directed=True),
+            "sizes": sizes, "n": count * size, "mtx": str(Path(directory) / PATH_P_MTX)}
+
+
+def write_path_p_mtx(dev, directory) -> None:
+    """The suite's rand-20k as a general real MTX file in ``directory``."""
+    from sparsebase_tpu_torch import IOBase, bench_suite
+
+    IOBase.write_csr_to_mtx(bench_suite.MATRICES["rand-20k"](dev), str(Path(directory) / PATH_P_MTX))
+
+
+def path_p_run(sh, src, x, inputs, mesh, mesh_2d, suite_shards: Optional[int], barrier=lambda: None) -> tuple:
+    """Path P: (a) the dense ring on the cliques (``ring.triangle_count``,
+    ``jaccard_flat``, and ``triangle_count(directed=True)`` on the oriented
+    ones), each ingested by ``from_coo_sharded``; (b) the sparse ring on
+    path M's container ``sh`` (``triangle_count`` and ``jaccard_flat``,
+    past ``MAX_DENSE_ELEMS``); (c) ``Sharded2DCSR.from_csr`` of path M's CSR
+    ``src`` on ``mesh_2d`` with its axes either way round, ``spmv`` of x and
+    ``degrees``; (d) ``sh.stacked("indptr")``, ``stacked("nnz_local")``,
+    ``sh.to(MeshContext(mesh))`` and ``sh.to`` the device's context; (e)
+    where ``suite_shards`` is given, ``bench_suite.run_distributed`` on
+    that many shards (a process, in a group), and an experiment of
+    ``load_sharded_csr(mesh)``, ``distributed_reorder("rcm")`` and
+    ``distributed_spmv_kernel`` on the MTX file. Each starts after
+    ``barrier`` and keeps its wall and what crossed a process boundary.
+    Returns ``(results, phases)``."""
+    from sparsebase_tpu_torch import bench_suite, experiment
+    from sparsebase_tpu_torch.context import MeshContext, context_for
+    from sparsebase_tpu_torch.parallel import ShardedCSR, collectives, ring, sharded2d
+
+    dev = mesh.first_device
+    results, phases = {}, {}
+
+    def phase(name, fn):
+        barrier()
+        sync(dev)
+        collectives.reset_traffic()
+        t0 = time.perf_counter()
+        results[name] = fn()
+        sync(dev)
+        phases[name] = {"ms": (time.perf_counter() - t0) * 1e3, **collectives.traffic(), "stats": {}}
+
+    n_c = inputs["n"]
+    cliques, directed = (ShardedCSR.from_coo_sharded(*inputs[name], None, (n_c, n_c), mesh)
+                         for name in ("cliques", "cliques directed"))
+    phase("(a) ring.triangle_count", lambda: ring.triangle_count(cliques, mesh))
+    phase("(a) ring.jaccard_flat", lambda: ring.jaccard_flat(cliques, mesh))
+    phase("(a) ring.triangle_count directed", lambda: ring.triangle_count(directed, mesh, directed=True))
+    del cliques, directed
+    phase("(b) ring.triangle_count", lambda: ring.triangle_count(sh, mesh))
+    phase("(b) ring.jaccard_flat", lambda: ring.jaccard_flat(sh, mesh))
+    for o, axes in PATH_P_ORIENTATIONS.items():
+        phase(f"(c) Sharded2DCSR.from_csr {o}", lambda axes=axes: sharded2d.Sharded2DCSR.from_csr(src, mesh_2d, axes))
+        tiles = results[f"(c) Sharded2DCSR.from_csr {o}"]
+        phase(f"(c) sharded2d.spmv {o}", lambda tiles=tiles: sharded2d.spmv(tiles, x, mesh_2d))
+        phase(f"(c) sharded2d.degrees {o}", lambda tiles=tiles: sharded2d.degrees(tiles, mesh_2d))
+    for name in ("indptr", "nnz_local"):
+        phase(f"(d) ShardedCSR.stacked {name}", lambda name=name: sh.stacked(name))
+    phase("(d) ShardedCSR.to mesh", lambda: sh.to(MeshContext(mesh)))
+    phase("(d) ShardedCSR.to device", lambda: sh.to(context_for(dev)))
+    if suite_shards is not None:
+        phase("(e) run_distributed", lambda: bench_suite.run_distributed(device=dev.type, shards=suite_shards))
+
+    def run_experiment():
+        exp = experiment.ConcreteExperiment()
+        exp.add_data_loader(experiment.load_sharded_csr(mesh), [([inputs["mtx"]], None)])
+        exp.add_preprocess("rcm", experiment.distributed_reorder("rcm"))
+        exp.add_kernel("spmv", experiment.distributed_spmv_kernel)
+        exp.run(times=1, store_auxiliary=True)
+        data = exp.get_auxiliary()[f"preprocess,rcm,{inputs['mtx']}"]
+        return {"order": data[2], "y": exp.get_results(), "n": data[0].shape[0]}
+
+    phase("(e) experiment", run_experiment)
+    return results, phases
+
+
+def fingerprint(x):
+    """``x`` with each tensor replaced by its dtype, shape and the SHA-256
+    of its bytes (equal fingerprints: equal bit for bit), through dicts,
+    tuples and lists."""
+    if isinstance(x, torch.Tensor):
+        raw = x.detach().contiguous().reshape(-1).cpu()
+        return ("tensor", str(x.dtype), tuple(x.shape), hashlib.sha256(raw.view(torch.uint8).numpy().tobytes()
+                                                                         if raw.numel() else b"").hexdigest())
+    if isinstance(x, dict):
+        return {k: fingerprint(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return tuple(fingerprint(v) for v in x)
+    return x
+
+
+def path_p_record(results):
+    """Path P's results as :func:`same` compares them, every tensor as its
+    :func:`fingerprint`: a ``ShardedCSR`` as its :func:`sharded_record`, a
+    ``Sharded2DCSR`` as the fields of its own tiles (flat (i, j) index)
+    with its counts and widths."""
+    from sparsebase_tpu_torch.parallel import Sharded2DCSR, ShardedCSR
+
+    def record(r):
+        if isinstance(r, ShardedCSR):
+            return sharded_record(r)
+        if isinstance(r, Sharded2DCSR):
+            dc = r.grid[1]
+            fields = [name for name in r._FIELDS if getattr(r, name) is not None]
+            return {"shards": {i * dc + j: {name: getattr(r, name)[i][j] for name in fields} for i, j in r.local},
+                    "nnz_counts": r.nnz_counts, "grid": r.grid, "rows": r.rows_per_tile, "width": r.width}
+        return r
+
+    return fingerprint({name: record(r) for name, r in results.items()})
+
+
+def path_p_checks(src, x, sh, mesh, inputs, res) -> float:
+    """Path P's results on one process held to references that do not lean
+    on the multi-shard route: (a) K6 on the whole cliques' CSR and the
+    closed forms; (b) K6 on path M's CSR; (c) y against the plain SpMV of
+    path M's CSR, the degrees equal to ``dist.degrees``; (d) the stacked
+    fields and both moves equal to the container's fields; (e) the
+    experiment's y against the plain SpMV of its file's CSR, its order a
+    permutation. Returns (e)'s largest difference, K2's on whole rows ((c)
+    adds each row's partial sums over the tiles in another order than the
+    plain SpMV, so it is held to the bound only)."""
+    from sparsebase_tpu_torch import COO, CSR, IOBase
+    from sparsebase_tpu_torch.ops.feature import JaccardWeights, TriangleCount
+    from sparsebase_tpu_torch.ops.kernels import csr_spmv_plain
+    from sparsebase_tpu_torch.parallel import dist
+
+    (count, size), n_c = inputs["sizes"], inputs["n"]
+    csr = COO.new(*inputs["cliques"], None, (n_c, n_c)).convert(CSR)
+    want = TriangleCount().get_triangle_count(csr)
+    tri = res["(a) ring.triangle_count"]
+    check(tri == want == count * (size * (size - 1) * (size - 2) // 6),
+          f"path P (a): {tri} triangles on the cliques, K6 {want}")
+    check_equal("path P (a) jaccard_flat vs K6 JaccardWeights", res["(a) ring.jaccard_flat"],
+                JaccardWeights().get_jaccard_weights(csr).vals)
+    directed = COO.new(*inputs["cliques directed"], None, (n_c, n_c)).convert(CSR)
+    want_d = TriangleCount(True).get_triangle_count(directed)
+    check(res["(a) ring.triangle_count directed"] == want_d,
+          f"path P (a): directed {res['(a) ring.triangle_count directed']} against K6's {want_d}")
+    del csr, directed
+    print(f"phase 4 path P (a) the cliques (n={n_c}, {inputs['cliques'][0].numel()} entries): {tri} triangles and "
+          f"the weights equal to K6's; directed {want_d} 3-cycles equal to K6's")
+    want = TriangleCount().get_triangle_count(src)
+    check(res["(b) ring.triangle_count"] == want,
+          f"path P (b): {res['(b) ring.triangle_count']} triangles on path M's graph, K6 {want}")
+    check_equal("path P (b) jaccard_flat vs K6 JaccardWeights", res["(b) ring.jaccard_flat"],
+                JaccardWeights().get_jaccard_weights(src).vals)
+    print(f"phase 4 path P (b) the sparse ring on path M's graph (n={src.nrows}, {src.nnz} entries): {want} "
+          "triangles and the weights equal to K6's")
+    y_ref, absdot, deg = csr_spmv_plain(src, x), csr_spmv_plain(abs_csr(src), x.abs()), src.degrees()
+    deg_d = dist.degrees(sh, mesh)
+    for o in PATH_P_ORIENTATIONS:
+        check_rows(f"path P (c) sharded2d.spmv {o} (K2 per tile) vs plain SpMV of the whole CSR",
+                   res[f"(c) sharded2d.spmv {o}"], y_ref, deg, absdot)
+        check_equal(f"path P (c) sharded2d.degrees {o} vs dist.degrees", res[f"(c) sharded2d.degrees {o}"], deg_d)
+    for name in ("indptr", "nnz_local"):
+        check_equal(f"path P (d) stacked({name!r})", res[f"(d) ShardedCSR.stacked {name}"],
+                    torch.stack(list(getattr(sh, name))))
+    for label in ("mesh", "device"):
+        moved = res[f"(d) ShardedCSR.to {label}"]
+        check(moved.nnz_counts == sh.nnz_counts and moved._mesh is None, f"path P (d) to {label}: counts or mesh")
+        for name in PATH_M_FIELDS:
+            for k in range(sh.n_shards):
+                check(torch.equal(getattr(moved, name)[k], getattr(sh, name)[k]),
+                      f"path P (d) to {label}: shard {k}'s {name} differs")
+    e = res["(e) experiment"]
+    file_csr = IOBase.read_mtx_to_csr(inputs["mtx"], device=x.device)
+    ones = torch.ones((file_csr.ncols,), dtype=torch.float32, device=x.device)
+    (y,) = e["y"].values()
+    err = check_rows("path P (e) the experiment's halo.spmv vs plain SpMV of its file", y,
+                     csr_spmv_plain(file_csr, ones), file_csr.degrees(), csr_spmv_plain(abs_csr(file_csr), ones))
+    check(bool((torch.bincount(e["order"].long(), minlength=file_csr.nrows) == 1).all()),
+          "path P (e) the experiment's order is not a permutation")
+    print(f"phase 4 path P (c), (d), (e): y of both orientations within the bound, the degrees, stacked fields and "
+          f"moved shards equal; the experiment on {PATH_P_MTX} (n={file_csr.nrows}, {file_csr.nnz} entries) within "
+          "the bound, its RCM order a permutation")
+    return err
+
+
+def path_p_group_checks(label: str, results, kids, suite) -> None:
+    """Every process's path P results equal to the one process's bit for
+    bit (its own shards and tiles exactly: a row of tiles with the axes
+    ("x", "y"), a column with ("y", "x"); every shard after ``to`` the
+    device), and its ``run_distributed`` table, but for its times, equal
+    to ``suite``."""
+    per = PATH_M_SHARDS // PATH_M_PROCESSES
+    for kid in kids:
+        rank, got = kid["rank"], kid["path_p"]["results"]
+        owned = {"(c) Sharded2DCSR.from_csr x,y": tuple(range(rank * per, (rank + 1) * per)),
+                 "(c) Sharded2DCSR.from_csr y,x": tuple(range(rank, PATH_M_SHARDS, PATH_M_PROCESSES)),
+                 "(d) ShardedCSR.to device": tuple(range(PATH_M_SHARDS))}
+        for name, want in results.items():
+            check(same(got[name], want, owned.get(name, kid["local"])),
+                  f"path P {label} rank {rank}: {name} differs from the single-process mesh")
+        table = got["(e) run_distributed"]
+        check(without_times(table) == without_times(suite),
+              f"path P {label} rank {rank}: run_distributed {table} against the one process's {suite}")
+    print(f"phase 4 path P {label}: {len(kids)} processes equal to the single-process mesh of {PATH_M_SHARDS} shards "
+          f"bit for bit in every result: {', '.join(results)}; run_distributed equal but for its times to one "
+          "process's")
+
+
 def phase_group_checks(path: str, label: str, results, phases, kids) -> None:
     """Every process's results of path ``path`` (N or O: tensors with their
     dtypes, containers shard by shard, its own shards exactly) and ``stats``
@@ -4041,29 +4293,34 @@ def phase_group_checks(path: str, label: str, results, phases, kids) -> None:
 
 
 def print_phases(path: str, phases, kids) -> None:
-    """Phase 5 of path ``path`` (N or O): each function's wall on the one
+    """Phase 5 of path ``path`` (N, O or P): each function's wall on the one
     process and on each process of the group, with the bytes sent, staged
-    and the exchanges, and its ``stats``."""
+    and the exchanges, and its ``stats``; a call that only the group makes
+    (path P's ``run_distributed``) shows the one process as not run."""
     key = f"path_{path.lower()}"
-    for name, one in phases.items():
-        line = [f"phase 5 path {path} {name}: one process {one['ms']:.3f} ms"]
+    names = list(phases) + [name for name in kids[0][key]["phases"] if name not in phases]
+    for name in names:
+        one = phases.get(name)
+        line = [f"phase 5 path {path} {name}: " + ("one process (not run)" if one is None else
+                                                   f"one process {one['ms']:.3f} ms")]
         for kid in kids:
             p = kid[key]["phases"][name]
             line.append(f"rank {kid['rank']} {p['ms']:.3f} ms, {p['crossed_bytes']} bytes to the other process, "
                         f"{p['staged_bytes']} staged, {p['exchanges']} exchanges")
-        print("; ".join(line) + (f"; stats {one['stats']}" if one["stats"] else ""))
+        print("; ".join(line) + (f"; stats {one['stats']}" if one and one["stats"] else ""))
     print(f"phase 5 path {path} in all: one process {sum(p['ms'] for p in phases.values()):.1f} ms; "
           + "; ".join(f"rank {k['rank']} {sum(p['ms'] for p in k[key]['phases'].values()):.1f} ms" for k in kids))
 
 
-def path_m_child(out: str, n: int, seed: int, backend: str, device: str, o_sizes: tuple) -> None:
+def path_m_child(out: str, n: int, seed: int, backend: str, device: str, o_sizes: tuple, p_sizes: tuple) -> None:
     """One process of path M's group (``chip_smoke.py --path-m-child DIR``,
     started by ``multihost.launch``): joins the group, runs the tool's path
-    on its two shards of ``global_mesh``, one exchange, path N and path O,
-    and saves its shards' fields, y, the order, the phases, the results and
-    phases of paths N and O, and the launches of paths M, N and O to
-    ``DIR``. It loads the kernels that the parent built and builds
-    nothing."""
+    on its two shards of ``global_mesh``, one exchange, path N, path O and
+    path P (on ``global_mesh_2d`` too, and the experiment's file in
+    ``DIR``), and saves its shards' fields, y, the order, the phases, the
+    results and phases of paths N, O and P, and the launches of paths M, N,
+    O and P to ``DIR``. It loads the kernels that the parent built and
+    builds nothing."""
     import torch.distributed as tdist
 
     from sparsebase_tpu_torch import CSR, _build
@@ -4098,35 +4355,47 @@ def path_m_child(out: str, n: int, seed: int, backend: str, device: str, o_sizes
     results_o, phases_o = path_o_run(sh, src, inputs_o, mesh, tdist.barrier)
     sync(dev)
     path_o = {"results": on_host(path_o_record(results_o)), "phases": phases_o, "launches": _build.launch_counts()}
-    del results_o, inputs_o, src
+    del results_o, inputs_o
+    inputs_p = path_p_inputs(dev, seed, p_sizes, out)
+    per = PATH_M_SHARDS // PATH_M_PROCESSES
+    mesh_2d = multihost.global_mesh_2d((PATH_M_PROCESSES, per), devices=[dev] * per)
+    sync(dev)
+    _build.reset_launch_counts()
+    results_p, phases_p = path_p_run(sh, src, x, inputs_p, mesh, mesh_2d, per, tdist.barrier)
+    sync(dev)
+    path_p = {"results": path_p_record(results_p), "phases": phases_p, "launches": _build.launch_counts()}
+    del results_p, inputs_p, src
     torch.save({
         "rank": rank, "backend": tdist.get_backend(), "mesh": repr(mesh), "local": sh.local, "start_s": start_s,
         "fields": {name: {k: getattr(sh, name)[k].cpu() for k in sh.local} for name in PATH_M_FIELDS},
         "nnz_counts": sh.nnz_counts, "stats": stats, "width": sh.width, "halo_width": sh.halo_width,
         "halo_bytes": sh.halo_bytes_per_exchange, "y": y.cpu(), "order": order.cpu(), "phases": phases,
-        "exchange": exchange, "launches": launches, "path_n": path_n, "path_o": path_o,
+        "exchange": exchange, "launches": launches, "path_n": path_n, "path_o": path_o, "path_p": path_p,
         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0,
     }, Path(out) / f"rank{rank}.pt")
     tdist.barrier()
     tdist.destroy_process_group()
 
 
-def path_m_group(dev, n: int, seed: int, backend: str) -> list:
-    """Path M's two processes (``multihost.launch``, ``PATH_M_TIME_LIMIT``):
-    each rank's saved results, and the group's wall."""
+def path_m_group(dev, n: int, seed: int, backend: str, out: str) -> list:
+    """Path M's two processes (``multihost.launch``, ``PATH_M_TIME_LIMIT``)
+    in the directory ``out`` (which holds path P's MTX file): each rank's
+    saved results, and the group's wall."""
     from sparsebase_tpu_torch.parallel import multihost
 
-    out = tempfile.mkdtemp(prefix="path_m_")
+    files = [Path(out) / f"rank{r}.pt" for r in range(PATH_M_PROCESSES)]
     try:
         t0 = time.perf_counter()
         multihost.launch([sys.executable, str(REPO / "chip_smoke.py"), "--path-m-child", out, "--path-m-n", str(n),
                           "--seed", str(seed), "--path-m-backend", backend, "--path-m-device", dev.type,
-                          "--path-o-sizes", ",".join(map(str, path_o_sizes()))],
+                          "--path-o-sizes", ",".join(map(str, path_o_sizes())),
+                          "--path-p-sizes", ",".join(map(str, path_p_sizes()))],
                          PATH_M_PROCESSES, timeout=PATH_M_TIME_LIMIT, cwd=str(REPO))
         wall = time.perf_counter() - t0
-        return [torch.load(Path(out) / f"rank{r}.pt", weights_only=False) for r in range(PATH_M_PROCESSES)], wall
+        return [torch.load(f, weights_only=False) for f in files], wall
     finally:
-        shutil.rmtree(out, ignore_errors=True)
+        for f in files:
+            f.unlink(missing_ok=True)
 
 
 def phase_path_m_checks(label: str, sh, y, order, stats, kids) -> None:
@@ -4172,21 +4441,33 @@ def path_m_scaling(link: Optional[dict], device: str) -> None:
               "a process of its own (shards that share the card share its silicon)")
 
 
-def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
-    """Path M's phases 3, 4 and 5, after path L, with paths N and O inside:
-    the tool's graph on a single-process mesh of ``PATH_M_SHARDS`` shards of
-    the card, then on two gloo processes that share the card with two
-    shards each, every field held bit for bit; after path M's phases each
-    runs path N (:func:`path_n_run`) on its container, then path O
-    (:func:`path_o_run`) on it, on its CSR and on path O's own graphs,
-    every result held bit for bit; with two or more cards, on two NCCL
-    processes with a card each; then the weak-scaling harness on the card.
-    Returns the launch counts of paths M, N and O (each the single-process
-    run's and the processes') and K2's largest difference from the plain
-    SpMV."""
-    from sparsebase_tpu_torch import CSR, _build
+def path_m(dev, seed: int, n: int = PATH_M_N, suite: Optional[dict] = None) -> tuple:
+    """Path M's phases 3, 4 and 5, after path L, with paths N, O and P
+    inside: the tool's graph on a single-process mesh of ``PATH_M_SHARDS``
+    shards of the card, then on two gloo processes that share the card with
+    two shards each, every field held bit for bit; after path M's phases
+    each runs path N (:func:`path_n_run`) on its container, then path O
+    (:func:`path_o_run`) on it, on its CSR and on path O's own graphs, then
+    path P (:func:`path_p_run`) on the cliques, on the container and its
+    CSR, the suite and the experiment, every result held bit for bit (the
+    processes' ``run_distributed`` tables to ``suite``, path L's, or where
+    path L did not run to the one process's made here); with two or more
+    cards, on two NCCL processes with a card each; then the weak-scaling
+    harness on the card. Returns the launch counts of paths M, N, O and P
+    (each the single-process run's and the processes') and K2's largest
+    difference from the plain SpMV."""
+    group_dir = tempfile.mkdtemp(prefix="path_m_")  # the group's results and path P's MTX file
+    try:
+        return _path_m(dev, seed, n, suite, group_dir)
+    finally:
+        shutil.rmtree(group_dir, ignore_errors=True)
+
+
+def _path_m(dev, seed: int, n: int, suite: Optional[dict], group_dir: str) -> tuple:
+    """:func:`path_m` in the group's directory ``group_dir``."""
+    from sparsebase_tpu_torch import CSR, _build, bench_suite
     from sparsebase_tpu_torch.ops.kernels import csr_spmv_plain, indptr_plain
-    from sparsebase_tpu_torch.parallel import make_mesh
+    from sparsebase_tpu_torch.parallel import make_mesh, make_mesh_2d
 
     t0 = time.perf_counter()
     row, col, vals, x = tool_graph(dev, n, PATH_M_AVG_DEG, seed)
@@ -4208,6 +4489,13 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
     _build.reset_launch_counts()
     results_o, phases_o = path_o_run(sh, src, inputs_o, mesh)
     launches_o = read_launches(f"O, one process of {PATH_M_SHARDS} shards", PATH_O_KERNELS)
+    write_path_p_mtx(dev, group_dir)
+    inputs_p = path_p_inputs(dev, seed, path_p_sizes(), group_dir)
+    mesh_2d = make_mesh_2d((PATH_M_PROCESSES, PATH_M_SHARDS // PATH_M_PROCESSES), devices=[dev] * PATH_M_SHARDS)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    results_p, phases_p = path_p_run(sh, src, x, inputs_p, mesh, mesh_2d, None)
+    launches_p = read_launches(f"P, one process of {PATH_M_SHARDS} shards", PATH_P_KERNELS)
 
     err = check_rows("path M halo.spmv, one process, vs plain SpMV of the whole CSR", y, csr_spmv_plain(src, x),
                      src.degrees(), csr_spmv_plain(abs_csr(src), x.abs()))
@@ -4218,12 +4506,16 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
     err = max(err, path_n_checks(sh, mesh, src, x, results_n))
     path_o_checks(src, inputs_o, results_o)
     results_o = path_o_record(results_o)
-    del src, inputs_o
+    err = max(err, path_p_checks(src, x, sh, mesh, inputs_p, results_p))
+    results_p = path_p_record(results_p)
+    if suite is None:  # path L did not run: the one process's table, made here
+        suite = bench_suite.run_distributed(device=dev.type, shards=PATH_M_SHARDS)
+    del src, inputs_o, inputs_p
     # the group's processes and the rows' share the card: give back what the
     # earlier paths left in this process's allocator cache
     torch.cuda.empty_cache()
 
-    kids, wall = path_m_group(dev, n, seed, "gloo")
+    kids, wall = path_m_group(dev, n, seed, "gloo", group_dir)
     phase_path_m_checks("gloo", sh, y, order, stats, kids)
     for kid in kids:
         check(kid["backend"] == "gloo", f"path M: backend {kid['backend']}")
@@ -4240,6 +4532,11 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
         print(f"phase 3 path O rank {kid['rank']}: launches {kid['path_o']['launches']}")
         require_launches(f"O, rank {kid['rank']}", kid["path_o"]["launches"], PATH_O_KERNELS)
         launches_o = {k: launches_o[k] + kid["path_o"]["launches"][k] for k in launches_o}
+    path_p_group_checks("gloo", results_p, kids, suite)
+    for kid in kids:
+        print(f"phase 3 path P rank {kid['rank']}: launches {kid['path_p']['launches']}")
+        require_launches(f"P, rank {kid['rank']}", kid["path_p"]["launches"], PATH_P_KERNELS)
+        launches_p = {k: launches_p[k] + kid["path_p"]["launches"][k] for k in launches_p}
 
     # phase 5: each phase for both runs, the exchange, the link figures
     starts = ", ".join("rank %d reached its path after %.1f s" % (k["rank"], k["start_s"]) for k in kids)
@@ -4265,23 +4562,25 @@ def path_m(dev, seed: int, n: int = PATH_M_N) -> tuple:
           "from this machine's gloo path between two processes on one card (not a link between cards)")
     print_phases("N", phases_n, kids)
     print_phases("O", phases_o, kids)
+    print_phases("P", phases_p, kids)
 
     if torch.cuda.device_count() >= PATH_M_PROCESSES:
-        kids_nccl, wall = path_m_group(dev, n, seed, "nccl")
+        kids_nccl, wall = path_m_group(dev, n, seed, "nccl", group_dir)
         phase_path_m_checks("nccl", sh, y, order, stats, kids_nccl)
         phase_group_checks("N", "nccl", results_n, phases_n, kids_nccl)
         phase_group_checks("O", "nccl", results_o, phases_o, kids_nccl)
+        path_p_group_checks("nccl", results_p, kids_nccl, suite)
         times = "; ".join(f"rank {k['rank']} {name} {k['phases'][name]['ms']:.3f} ms" for k in kids_nccl for name in phases)
         print(f"phase 5 path M group of {PATH_M_PROCESSES} NCCL processes, a card each: {wall:.1f} s; {times}")
     else:
         print(f"phase 3 path M NCCL route: skipped, {torch.cuda.device_count()} card visible; it needs one card "
               f"a process ({PATH_M_PROCESSES}), and NCCL refuses two ranks on one card")
-    del sh, y, order, row, col, vals, x, kids, results_n, results_o
+    del sh, y, order, row, col, vals, x, kids, results_n, results_o, results_p
     torch.cuda.empty_cache()
     path_m_scaling(link, dev.type)
-    print(f"phase 5 path M wall (phases 3, 4 and 5, those of paths N and O included): "
+    print(f"phase 5 path M wall (phases 3, 4 and 5, those of paths N, O and P included): "
           f"{time.perf_counter() - t0:.1f} s")
-    return launches, launches_n, launches_o, err
+    return launches, launches_n, launches_o, launches_p, err
 
 
 def read_launches(path: str, required) -> dict:
@@ -4316,10 +4615,12 @@ def main() -> None:
     ap.add_argument("--path-m-backend", default="gloo", help=argparse.SUPPRESS)
     ap.add_argument("--path-m-device", default="cuda", help=argparse.SUPPRESS)
     ap.add_argument("--path-o-sizes", default=",".join(map(str, path_o_sizes())), help=argparse.SUPPRESS)
+    ap.add_argument("--path-p-sizes", default=",".join(map(str, path_p_sizes())), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.path_m_child:
         path_m_child(args.path_m_child, args.path_m_n, args.seed, args.path_m_backend, args.path_m_device,
-                     tuple(int(v) for v in args.path_o_sizes.split(",")))
+                     tuple(int(v) for v in args.path_o_sizes.split(",")),
+                     tuple(int(v) for v in args.path_p_sizes.split(",")))
         return
 
     dev = phase_device()
@@ -4519,11 +4820,11 @@ def main() -> None:
     # within its 700 s budget)
     launches_k = path_k(g, dev, path_j_state, n_p, src.nnz // 4, coo_b.nrows)
     del path_j_state
-    launches_l = path_l(g, dev)
-    launches_m, launches_n, launches_o, err_k2_m = path_m(dev, args.seed)
+    launches_l, suite = path_l(g, dev)
+    launches_m, launches_n, launches_o, launches_p, err_k2_m = path_m(dev, args.seed, suite=suite)
     by_path = {"A": launches_a, "B": launches_b, "C": launches_c, "D": launches_d, "E": launches_e, "F": launches_f,
                "G": launches_g, "H": launches_h, "I": launches_i, "J": launches_j, "K": launches_k, "L": launches_l,
-               "M": launches_m, "N": launches_n, "O": launches_o}
+               "M": launches_m, "N": launches_n, "O": launches_o, "P": launches_p}
     launches = {k: sum(counts[k] for counts in by_path.values()) for k in launches_a}
 
     shapes = {

@@ -233,12 +233,19 @@ def _dist_mesh(device, shards):
     """The distributed table's 1-D mesh: every card where ``shards`` is None
     (None where there are fewer than 2), else ``shards`` shards over the
     first cards, naming ``device`` again where there are fewer cards (the
-    CPU: always)."""
-    from .parallel import make_mesh
+    CPU: always). In a joined process group of more than one process it
+    spans the processes (``multihost.global_mesh``): ``shards`` shards of
+    ``device`` a process, else each process's visible cards (on the CPU,
+    one shard a process)."""
+    from .parallel import make_mesh, multihost
 
     dev = target_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    if multihost._group()[0] > 1:
+        if shards is not None:
+            return multihost.global_mesh(devices=[dev] * shards)
+        return multihost.global_mesh(devices=None if dev.type == "cuda" else [dev])
     cards = torch.cuda.device_count() if dev.type == "cuda" else 1
     if shards is None:
         return make_mesh(cards) if cards >= 2 else None
@@ -247,7 +254,9 @@ def _dist_mesh(device, shards):
 
 def run_distributed(device: str = DEFAULT_DEVICE, shards=None, ash958=None, names=None):
     """Distributed reorder/partition quality against the host algorithms, on
-    a mesh of ``shards`` shards (:func:`_dist_mesh`): RCM, label propagation
+    a mesh of ``shards`` shards (:func:`_dist_mesh`; a process, where the
+    mesh spans the processes of a group, each of which then returns the
+    single-process table but for its times): RCM, label propagation
     with refinement, SlashBurn's parity with the host order and, on matrices
     of at most 2,048 vertices, the ring's triangles and Jaccard weights
     against the host's. The matrices are ``names`` (default: ash958 where

@@ -246,15 +246,17 @@ def reorder_csr(reorderer_factory):
 def load_sharded_csr(mesh=None, axis: str = "x", halo: bool = True):
     """Returns a loader producing ``(ShardedCSR, mesh)`` over ``mesh``
     (default: ``make_mesh(axis=axis)``, the visible cards; it raises with
-    none): the MTX file is read onto the mesh's first device along
-    ``axis`` and sharded from there."""
+    none): the MTX file is read onto this process's first device of the
+    mesh and sharded from there. On a mesh that spans processes
+    (``multihost.global_mesh``) every process reads the file and keeps its
+    own shards."""
 
     def fn(file_names):
         from .bases import IOBase
         from .parallel import ShardedCSR, make_mesh
 
         m = mesh if mesh is not None else make_mesh(axis=axis)
-        csr = IOBase.read_mtx_to_csr(file_names[0], device=m.axis_devices(axis)[0])
+        csr = IOBase.read_mtx_to_csr(file_names[0], device=m.first_device)
         return ShardedCSR.from_csr(csr, m, axis=axis, halo=halo), m
 
     return fn

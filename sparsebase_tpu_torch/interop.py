@@ -82,7 +82,7 @@ def _sharded_from_reference(fmt, mesh):
                 raise TypeMismatchError(f"{name} has a grid of {arr.shape[:2]}; the mesh has {devices.shape}")
             fields[name] = tuple(tuple(_SHARDED_FIELDS[name](arr[i, j], devices[i, j]) for j in range(arr.shape[1]))
                                  for i in range(arr.shape[0]))
-    return Sharded2DCSR(_shape=shape, _axes=tuple(fmt._axes), **fields)
+    return Sharded2DCSR(_shape=shape, _axes=tuple(fmt._axes), _mesh=mesh, **fields)
 
 
 def from_reference(fmt, device):

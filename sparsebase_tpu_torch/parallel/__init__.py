@@ -7,17 +7,15 @@ boundary-proportional functions, the multilevel ones and SlashBurn;
 weights; ``scaling`` the weak-scaling harness.
 
 ``multihost`` joins a ``torch.distributed`` group and builds a mesh that
-spans its processes (``global_mesh``), each process driving its own
-shards. On such a mesh these run, each giving every process the
-single-process mesh's result: ``ShardedCSR.from_coo_sharded``,
-``with_halo``, ``nnz``, ``nnz_counts``, ``halo_bytes_per_exchange`` and
-``to_csr``; every function of ``dist``; ``halo.spmv``,
-``step_comm_bytes``, ``bfs_levels``, ``label_prop_partition``,
-``connected_components``, ``rcm_reorder``, ``edge_cut`` and
-``refine_partition``; and every collective. ``halo``'s multilevel functions
-and SlashBurn, ``ring``, ``sharded2d`` and ``ShardedCSR.from_csr``,
-``stacked`` and ``to`` raise ``NotImplementedError`` there, naming their
-ROADMAP.md item (10g-10i).
+spans its processes (``global_mesh``, and ``global_mesh_2d`` for
+``sharded2d``), each process driving its own shards. Every function of the
+tier runs on such a mesh and gives every process the single-process mesh's
+result bit for bit: the containers' constructors, reads and moves
+(``ShardedCSR``: ``from_coo_sharded``, ``from_csr``, ``from_csr_balanced``,
+``with_halo``, ``stacked``, ``to``, ``to_csr``; ``Sharded2DCSR``:
+``from_csr``, ``stacked``), every function of ``dist``, ``halo``,
+``ring`` and ``sharded2d``, and every collective. Each process makes the
+same calls in the same order and passes ``None`` in a remote shard's slot.
 """
 
 from . import collectives, halo, multihost, ring, scaling, sharded2d

@@ -189,6 +189,41 @@ def host_fetch(parts: Sequence[Optional[torch.Tensor]], owners=None) -> list:
     return torch.stack(gather(parts, owners)).tolist()
 
 
+def share(parts: Sequence[Optional[tuple]], owners, readers: Sequence, device: torch.device) -> list:
+    """Shard k's part, a tuple of tensors (as many for every shard), on
+    every process of ``readers[k]`` (a set of ranks): ``out[k]`` is this
+    process's own part, or the part received on ``device``, where it is a
+    reader of shard k, else None; a received tensor owns its memory. One
+    exchange moves every part whose owner and reader differ, so groups of
+    shards that span different processes share theirs in one call, which
+    every process of the group makes. Off a spanning mesh it returns
+    ``parts`` as they are."""
+    if not _spans(owners):
+        return list(parts)
+    import torch.distributed as tdist
+
+    me = tdist.get_rank()
+
+    def moved(p, q):  # the shards that p sends to q, in shard order
+        return [k for k, o in enumerate(owners) if o == p and q in readers[k]]
+
+    sends = {q: [t for k in moved(me, q) for t in parts[k]] for q in range(tdist.get_world_size()) if q != me}
+    out = [parts[k] if o == me else None for k, o in enumerate(owners)]
+    for p, tensors in _swap(sends, device).items():
+        ks = moved(p, me)
+        width = len(tensors) // max(len(ks), 1)
+        for at, k in enumerate(ks):
+            out[k] = tuple(_own(t, device) for t in tensors[at * width : (at + 1) * width])
+    return out
+
+
+def _own(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` (a view of a received buffer) on ``device`` in memory of its
+    own, so that a part kept does not hold the whole buffer."""
+    moved = _to(t, device)
+    return moved.clone() if moved is t else moved
+
+
 def _total(parts: Sequence[torch.Tensor], op) -> torch.Tensor:
     """``op`` folded over the shards in order, on the first shard's device."""
     acc = parts[0]

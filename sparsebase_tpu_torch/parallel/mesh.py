@@ -17,7 +17,8 @@ owner, the rank of the process that drives it, and a mesh is seen from one
 process (``rank``), which holds tensors only for its own shards
 (``local``); a sharded field then has ``None`` in a remote shard's slot.
 Two processes' ``cuda:0`` are two shards. A single-process mesh has rank 0
-everywhere.
+everywhere. Every function of the tier runs on such a mesh, each process
+driving its own shards (``parallel/__init__.py``).
 """
 
 from __future__ import annotations
@@ -94,13 +95,6 @@ class Mesh:
 def _along(arr: np.ndarray, k: int) -> np.ndarray:
     """The entries of ``arr`` along its axis ``k``, at index 0 of every other axis."""
     return np.moveaxis(arr, k, 0).reshape(arr.shape[k], -1)[:, 0]
-
-
-def single_process(mesh: Mesh, where: str, item: str) -> None:
-    """Raise ``NotImplementedError`` for ``where`` on a mesh that spans
-    processes: it does not run there yet (ROADMAP.md, item ``item``)."""
-    if mesh.spans_processes:
-        raise NotImplementedError(f"{where} does not run on a mesh that spans processes yet (ROADMAP.md, item {item})")
 
 
 def _devices(count: int, devices) -> list:

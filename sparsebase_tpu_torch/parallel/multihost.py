@@ -12,7 +12,7 @@ crosses a process boundary through the group.
   ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE``); a second
   call does nothing;
 * :func:`global_mesh` — the 1-D mesh over every process's shard devices,
-  in rank order;
+  in rank order; :func:`global_mesh_2d` the 2-D one, laid out row-major;
 * :func:`local_entry_counts` — this process's slice of a global entry
   list, for a per-process read of the input;
 * :func:`launch` — starts a group of local processes under a time limit.
@@ -26,6 +26,7 @@ a process boundary is staged through host memory.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import socket
 import subprocess
@@ -33,9 +34,10 @@ import tempfile
 import time
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from .mesh import Mesh, _devices
+from .mesh import Mesh, _devices, make_mesh_2d
 
 ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
 
@@ -103,17 +105,43 @@ def global_mesh(axis: str = "x", devices=None) -> Mesh:
     world, rank = _group()
     if world == 1:
         return Mesh(local, (axis,))
+    devs, owners = _every_process(local, "global_mesh")
+    return Mesh(devs, (axis,), owners=owners, rank=rank)
+
+
+def global_mesh_2d(shape: Sequence[int], axes: Sequence[str] = ("x", "y"), devices=None) -> Mesh:
+    """The 2-D mesh of ``shape`` over every process's shard devices, in
+    rank order laid out row-major, each owned by the process that gave it
+    (the counterpart of the JAX ``make_mesh_2d`` over every process's
+    ``jax.devices()``). Each process gives its own list, as to
+    :func:`global_mesh`; raises where the lists do not fill ``shape``. In a
+    single process this is ``make_mesh_2d(shape, axes, devices=...)``."""
+    shape = tuple(int(s) for s in shape)
+    world, rank = _group()
+    if world == 1:
+        return make_mesh_2d(shape, axes, devices=devices)
+    devs, owners = _every_process(_devices(None, devices), "global_mesh_2d")
+    if len(devs) != math.prod(shape):
+        raise ValueError(f"global_mesh_2d: {len(devs)} devices over the processes do not fill a mesh of {shape}")
+    grid = np.empty(len(devs), dtype=object)
+    grid[:] = devs
+    return Mesh(grid.reshape(shape), tuple(axes), owners=np.asarray(owners).reshape(shape), rank=rank)
+
+
+def _every_process(local: list, where: str) -> Tuple[list, list]:
+    """Every process's device names in rank order and each one's owner
+    rank: the lists are exchanged once."""
     import torch.distributed as tdist
 
-    lists = [None] * world
+    lists = [None] * tdist.get_world_size()
     tdist.all_gather_object(lists, [str(d) for d in local])
     devs, owners = [], []
     for r, names in enumerate(lists):
         if not names:
-            raise ValueError(f"global_mesh: rank {r} gave no devices")
+            raise ValueError(f"{where}: rank {r} gave no devices")
         devs += names
         owners += [r] * len(names)
-    return Mesh(devs, (axis,), owners=owners, rank=rank)
+    return devs, owners
 
 
 def local_entry_counts(total_nnz: int) -> Tuple[int, int]:

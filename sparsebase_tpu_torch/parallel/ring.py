@@ -42,6 +42,13 @@ sparse ring counts each stored entry (u, v) on its own. Triangle mode masks
 an entry with u == v and the candidates u and v; the dense triangle tile
 clears the global diagonal. Jaccard keeps self-loops. A column past the
 rows reads the last row of the ring (``d·R - 1``), as JAX's gathers clamp.
+
+On a mesh that spans processes (``multihost.global_mesh``) each process
+builds its own shards' tiles, segments and products, the visiting block
+crosses to the other process where the ring does (``ppermute`` with the
+shards' owners), and the totals, the degrees and the flat weights are
+gathered over the group: every process gets the single-process mesh's
+count and weights bit for bit.
 """
 
 from __future__ import annotations
@@ -54,14 +61,10 @@ from ..ops.kernels.common_neighbors import PLAIN_CHUNK_SLOTS, lower_bound, searc
 from ..ops.kernels.indptr import indptr_from_sorted_rows
 from ..ops.kernels.radix import bits_below, radix_argsort
 from ..utils.exceptions import TypeMismatchError
-from .collectives import all_gather, pmax, ppermute, psum
+from .collectives import all_gather, join, pmax, ppermute, psum
 from .dist import _local_row_of, _max0, _shards
-from .mesh import Mesh, single_process
+from .mesh import Mesh
 from .sharded import ShardedCSR
-
-# ROADMAP.md's item for this module's functions that do not run on a mesh
-# that spans processes yet
-_ACROSS_ITEM = "10h"
 
 MAX_DENSE_ELEMS = 1 << 30  # per-shard tile cells; past it the sparse ring
 SUM_BLOCK_CELLS = 1 << 24  # cells of a dense product taken to int64 at once
@@ -117,25 +120,34 @@ def _exact_sum(sq: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def _each(sh: ShardedCSR, fn) -> list:
+    """``fn(k)`` for each of this process's shards, None in a remote slot."""
+    return [fn(k) if k in sh.local else None for k in range(sh.n_shards)]
+
+
+def _total_count(sh: ShardedCSR, parts: list) -> int:
+    """The exact int64 sum of the shards' 0-d counts, on every process."""
+    return int(psum(parts, sh.owners)[sh.local[0]])
+
+
 def _triangle_ring(sh: ShardedCSR, d: int, rows: int, directed: bool) -> int:
     """Σ A²·A (undirected) or Σ A²·Aᵀ (directed) over the dense ring, A
     with its diagonal cleared (the JAX ``_triangle_runner``)."""
     np_pad = d * rows
-    tiles = [_densify(sh, k, np_pad, True) for k in range(d)]
-    sq = [torch.empty((rows, np_pad), dtype=torch.float32, device=t.device) for t in tiles]
-    at = [torch.zeros_like(t) for t in tiles] if directed else None
+    tiles = _each(sh, lambda k: _densify(sh, k, np_pad, True))
+    sq = _each(sh, lambda k: torch.empty((rows, np_pad), dtype=torch.float32, device=tiles[k].device))
+    at = _each(sh, lambda k: torch.zeros_like(tiles[k])) if directed else None
     blk = tiles
     for step in range(d):
-        for i in range(d):
+        for i in sh.local:
             src = (i + step) % d  # the owner of the visiting block
             _product(tiles[i][:, src * rows : (src + 1) * rows], blk[i], sq[i], add=step > 0)
             if directed:
                 at[i][:, src * rows : (src + 1) * rows].copy_(blk[i][:, i * rows : (i + 1) * rows].T)
         if step < d - 1:
-            blk = ppermute(blk, _ring(d))
+            blk = ppermute(blk, _ring(d), sh.owners)
     del blk
-    parts = [_exact_sum(sq[i], at[i] if directed else tiles[i]) for i in range(d)]
-    return int(psum(parts)[0])
+    return _total_count(sh, _each(sh, lambda i: _exact_sum(sq[i], at[i] if directed else tiles[i])))
 
 
 def triangle_count(sh: ShardedCSR, mesh: Mesh, directed: bool = False) -> int:
@@ -145,7 +157,6 @@ def triangle_count(sh: ShardedCSR, mesh: Mesh, directed: bool = False) -> int:
     A²·Aᵀ // 3). Self-loops are ignored (the diagonal cleared). Past
     ``MAX_DENSE_ELEMS`` tile cells per shard the undirected count is
     :func:`triangle_count_sparse`'s and the directed one raises."""
-    single_process(mesh, "ring.triangle_count", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     if rows * d * rows > MAX_DENSE_ELEMS:
         if directed:
@@ -169,16 +180,17 @@ def _jaccard(sh: ShardedCSR, d: int, rows: int, common: list) -> Tuple[torch.Ten
     """Per shard, the padded ``(width,)`` float32 weights ``c / max(deg u +
     deg v - c, 1)`` of its entries from their float32 counts ``common[k]``;
     the degrees are ``all_gather``'d."""
-    deg = [(ip[1:] - ip[:-1]).to(torch.float32) for ip in sh.indptr]
-    deg_all = all_gather(deg)
-    out = []
-    for k in range(d):
+    deg = _each(sh, lambda k: (sh.indptr[k][1:] - sh.indptr[k][:-1]).to(torch.float32))
+    deg_all = all_gather(deg, sh.owners)
+
+    def weights(k):
         lrow, col = _rows_cols(sh, k, d * rows)
         union = deg[k][lrow] + deg_all[k].reshape(-1)[col] - common[k]
         jac = torch.zeros((sh.width,), dtype=torch.float32, device=sh.devices[k])
         jac[: lrow.numel()] = common[k] / torch.clamp(union, min=1.0)
-        out.append(jac)
-    return tuple(out)
+        return jac
+
+    return tuple(_each(sh, weights))
 
 
 def jaccard_weights(sh: ShardedCSR, mesh: Mesh) -> Tuple[torch.Tensor, ...]:
@@ -186,27 +198,27 @@ def jaccard_weights(sh: ShardedCSR, mesh: Mesh) -> Tuple[torch.Tensor, ...]:
     |N(u)∪N(v)| over out-neighbourhoods: one ``(width,)`` float32 tensor
     per shard, parallel to ``sh.indices`` (pad slots 0). Past
     ``MAX_DENSE_ELEMS`` tile cells per shard, :func:`jaccard_weights_sparse`'s."""
-    single_process(mesh, "ring.jaccard_weights", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
     if rows * d * rows > MAX_DENSE_ELEMS:
         return jaccard_weights_sparse(sh, mesh)
     np_pad = d * rows
-    tiles = [_densify(sh, k, np_pad, False) for k in range(d)]
+    tiles = _each(sh, lambda k: _densify(sh, k, np_pad, False))
     # inter[k][b] = tile_k @ tile_bᵀ: column block b of shard k's rows of A·Aᵀ
-    inter = [torch.empty((d, rows, rows), dtype=torch.float32, device=t.device) for t in tiles]
+    inter = _each(sh, lambda k: torch.empty((d, rows, rows), dtype=torch.float32, device=tiles[k].device))
     blk = tiles
     for step in range(d):
-        for i in range(d):
+        for i in sh.local:
             src = (i + step) % d
             _product(tiles[i], blk[i].T, inter[i][src], add=False)
         if step < d - 1:
-            blk = ppermute(blk, _ring(d))
+            blk = ppermute(blk, _ring(d), sh.owners)
     del blk, tiles
-    common = []
-    for k in range(d):
+
+    def common(k):
         lrow, col = _rows_cols(sh, k, np_pad)
-        common.append(inter[k].reshape(-1)[(col // rows) * rows * rows + lrow * rows + col % rows])
-    return _jaccard(sh, d, rows, common)
+        return inter[k].reshape(-1)[(col // rows) * rows * rows + lrow * rows + col % rows]
+
+    return _jaccard(sh, d, rows, _each(sh, common))
 
 
 # -- the sparse ring ---------------------------------------------------------------
@@ -224,9 +236,10 @@ def _sparse_sizes(sh: ShardedCSR, mesh: Mesh) -> Tuple[int, int]:
     largest count of one shard's entries owned by one block, each rounded
     up to a power of two (one host read)."""
     n, d, rows, width = _shards(sh, mesh)
-    wmax = pmax([_max0(ip[1:] - ip[:-1]) for ip in sh.indptr])[0]
-    counts = [torch.bincount(_owners(sh, k, d, rows).long(), minlength=d).max() for k in range(d)]
-    bmax = pmax(counts)[0]
+    first = sh.local[0]
+    wmax = pmax(_each(sh, lambda k: _max0(sh.indptr[k][1:] - sh.indptr[k][:-1])), sh.owners)[first]
+    counts = _each(sh, lambda k: torch.bincount(_owners(sh, k, d, rows).long(), minlength=d).max())
+    bmax = pmax(counts, sh.owners)[first]
     w, b = torch.stack([wmax, bmax.to(wmax.device)]).tolist()
     return _pow2(w), _pow2(b)
 
@@ -273,17 +286,19 @@ def _sparse_common(sh: ShardedCSR, mesh: Mesh, triangles: bool) -> list:
     ``_sparse_common_runner``); in triangle mode an entry with u == v counts
     0 and the members u and v are left out."""
     n, d, rows, width = _shards(sh, mesh)
-    local = []
-    for k in range(d):
+
+    def sort(k):
         owner = _owners(sh, k, d, rows).to(torch.int32)
         order, owner_s = radix_argsort(owner, key_bits=bits_below(d), return_keys=True)
-        local.append((_local_row_of(sh.indptr[k], sh.nnz_counts[k]), order.long(),
-                      indptr_from_sorted_rows(owner_s, d)))
-    seg = torch.stack([s.to(mesh.first_device) for _, _, s in local]).tolist()  # one read
-    common = [torch.zeros((sh.nnz_counts[k],), dtype=torch.int64, device=sh.devices[k]) for k in range(d)]
+        return _local_row_of(sh.indptr[k], sh.nnz_counts[k]), order.long(), indptr_from_sorted_rows(owner_s, d)
+
+    local = _each(sh, sort)
+    # one read of this process's shards' segment starts: shard i uses only its own
+    seg = dict(zip(sh.local, torch.stack([local[k][2].to(mesh.first_device) for k in sh.local]).tolist()))
+    common = _each(sh, lambda k: torch.zeros((sh.nnz_counts[k],), dtype=torch.int64, device=sh.devices[k]))
     ip_v, ind_v = sh.indptr, sh.indices
     for step in range(d):
-        for i in range(d):
+        for i in sh.local:
             src = (i + step) % d
             lo, hi = seg[i][src], seg[i][src + 1]
             if hi == lo:
@@ -315,7 +330,7 @@ def _sparse_common(sh: ShardedCSR, mesh: Mesh, triangles: bool) -> list:
                 got -= torch.where(u_g == v, 0, both(u_g).long() + both(v).long())
             common[i][e] = got
         if step < d - 1:
-            ip_v, ind_v = ppermute(ip_v, _ring(d)), ppermute(ind_v, _ring(d))
+            ip_v, ind_v = ppermute(ip_v, _ring(d), sh.owners), ppermute(ind_v, _ring(d), sh.owners)
     return common
 
 
@@ -325,24 +340,23 @@ def triangle_count_sparse(sh: ShardedCSR, mesh: Mesh) -> int:
     Undirected semantics on a symmetric simple adjacency (each triangle
     once); self-loops are ignored and repeats within a list collapse, while
     a repeated entry counts again."""
-    single_process(mesh, "ring.triangle_count_sparse", _ACROSS_ITEM)
-    return int(psum([c.sum() for c in _sparse_common(sh, mesh, True)])[0]) // 6
+    common = _sparse_common(sh, mesh, True)
+    return _total_count(sh, _each(sh, lambda k: common[k].sum())) // 6
 
 
 def jaccard_weights_sparse(sh: ShardedCSR, mesh: Mesh) -> Tuple[torch.Tensor, ...]:
     """Distributed per-edge Jaccard without densification, laid out as
     :func:`jaccard_weights`' (one ``(width,)`` float32 tensor per shard, pad
     slots 0)."""
-    single_process(mesh, "ring.jaccard_weights_sparse", _ACROSS_ITEM)
     n, d, rows, width = _shards(sh, mesh)
-    return _jaccard(sh, d, rows, [c.to(torch.float32) for c in _sparse_common(sh, mesh, False)])
+    common = _sparse_common(sh, mesh, False)
+    return _jaccard(sh, d, rows, _each(sh, lambda k: common[k].to(torch.float32)))
 
 
 def jaccard_flat(sh: ShardedCSR, mesh: Mesh) -> torch.Tensor:
     """The Jaccard weights in the global CSR entry order: a float32 tensor on
-    the mesh's first device, as :meth:`ShardedCSR.to_csr` joins the shards
-    (the JAX function returns host numpy)."""
-    single_process(mesh, "ring.jaccard_flat", _ACROSS_ITEM)
+    this process's first device, the whole of it on every process, as
+    :meth:`ShardedCSR.to_csr` joins the shards (the JAX function returns
+    host numpy)."""
     padded = jaccard_weights(sh, mesh)
-    first = mesh.first_device
-    return torch.cat([padded[k][: sh.nnz_counts[k]].to(first) for k in range(len(padded))])
+    return join(_each(sh, lambda k: padded[k][: sh.nnz_counts[k]]), sh.owners, mesh.first_device)

@@ -37,7 +37,8 @@ keeps its mesh, and each field holds this process's shards' tensors and
 ``from_csr_balanced``, ``with_halo``, ``nnz``, ``halo_bytes_per_exchange``
 and ``to_csr`` run there, every process making the same calls: every host
 read of values from several shards goes through ``collectives.host_fetch``,
-which gathers the remote ones first. ``stacked`` and ``to`` raise there.
+which gathers the remote ones first. ``stacked`` gathers every shard, and
+``to`` moves the shards whose owner changes through the group.
 """
 
 from __future__ import annotations
@@ -57,8 +58,8 @@ from ..formats.csr import CSR
 from ..ops.kernels.indptr import indptr_from_sorted_rows
 from ..ops.kernels.radix import bits_below, radix_argsort
 from ..utils.typing import convert_array_dtype
-from .collectives import all_to_all, gather, host_fetch
-from .mesh import Mesh, shard_rows, single_process
+from .collectives import all_to_all, gather, host_fetch, share
+from .mesh import Mesh
 
 _INT32_MAX = 2**31 - 1
 
@@ -161,14 +162,13 @@ class ShardedCSR(Format):
         return 4 * sum(map(sum, host_fetch(self.halo_counts, self.owners)))
 
     def stacked(self, name: str) -> Optional[torch.Tensor]:
-        """The field ``name`` as one ``(D, ...)`` tensor on the first shard's
-        device (the JAX container's array), or None."""
-        single_process(self.mesh, "ShardedCSR.stacked", "10i")
+        """The field ``name`` as one ``(D, ...)`` tensor on this process's
+        first device (the JAX container's array: every shard, gathered over
+        the group on a mesh that spans processes), or None."""
         parts = getattr(self, name)
         if parts is None:
             return None
-        first = parts[0].device
-        return torch.stack([p.to(first) for p in parts])
+        return torch.stack(gather(parts, self.owners, self.mesh.first_device))
 
     def shard_csr(self, k: int) -> CSR:
         """Shard ``k``'s rows as a ``(R, m)`` CSR on its device, without the
@@ -184,18 +184,35 @@ class ShardedCSR(Format):
                      if t is not None)
 
     def to(self, context: Context) -> "ShardedCSR":
-        """A ``MeshContext`` places shard k on the k-th device along its axis
-        (``shard_rows``); a host or device context puts every shard there."""
-        single_process(self.mesh, "ShardedCSR.to", "10i")
+        """A ``MeshContext`` places shard k on the k-th device along its axis;
+        a host or device context puts every shard there. Where the shards
+        span processes they move through the group in one exchange: onto a
+        mesh, each process ends up with its own shards of the target (a
+        shard whose owner changes is sent to its new owner); onto a host or
+        device context, every process gets every shard, and the result
+        spans no process."""
+        names = [name for name in self._FIELDS if getattr(self, name) is not None]
+        d = self.n_shards
         if isinstance(context, MeshContext):
-            placement = shard_rows(context.mesh, context.axis)
-            move = placement.put
-            axis = context.axis
+            mesh, axis = context.mesh, context.axis
+            devices, owners = mesh.axis_devices(axis), mesh.axis_owners(axis)
+            if len(devices) != d:
+                raise ValueError(f"{d} shards for the {len(devices)} devices of {mesh!r} along {axis!r}")
+            span = mesh if mesh.spans_processes else None
+            rank = mesh.rank
         else:
-            move = lambda parts: tuple(p.to(context.device) for p in parts)  # noqa: E731
-            axis = self._axis
-        changes = {name: move(getattr(self, name)) for name in self._FIELDS if getattr(self, name) is not None}
-        return dataclasses.replace(self, _axis=axis, **changes)
+            axis, devices, owners, span, rank = self._axis, (context.device,) * d, (0,) * d, None, 0
+        # the ranks that hold shard k afterwards: its new owner on a spanning
+        # mesh, every process otherwise
+        everyone = set(self.owners)
+        readers = [{o} if span is not None else everyone for o in owners]
+        parts = [None if self.indptr[k] is None else tuple(getattr(self, name)[k] for name in names) for k in range(d)]
+        every = share(parts, self.owners, readers, self.mesh.first_device)
+        fields = {name: tuple(None if owners[k] != rank else every[k][f].to(devices[k]) for k in range(d))
+                  for f, name in enumerate(names)}
+        out = dataclasses.replace(self, _axis=axis, _mesh=span, **fields)
+        out.__dict__["nnz_counts"] = self.nnz_counts  # read once, kept
+        return out
 
     # -- construction --------------------------------------------------------
     @staticmethod

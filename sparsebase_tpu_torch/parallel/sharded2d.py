@@ -19,8 +19,16 @@ mesh's device (i, j), each of the JAX array's (i, j) shape
 :meth:`Sharded2DCSR.from_csr` builds the tiles with array ops on the CSR's
 device: a stable sort of the entries by tile (K5), then each tile's local
 columns and its ``indptr`` (K3); the JAX package loops over rows on the host.
-Nothing here runs on a mesh that spans processes yet: it raises
-``NotImplementedError`` (ROADMAP.md, item 10i).
+
+The container keeps the mesh it was built on. On a mesh that spans
+processes (``multihost.global_mesh_2d``) each field holds this process's
+tiles and ``None`` in a remote tile's slot: every process passes the same
+CSR to :meth:`~Sharded2DCSR.from_csr` and cuts only its own tiles, and
+:func:`spmv` and :func:`degrees` share each row of tiles' partial sums
+among the processes that hold a tile of that row in one exchange, then
+join the pieces over the group. On ``global_mesh_2d((P, S))`` with the
+axes ``("x", "y")`` a row of tiles belongs to one process and only the
+join crosses; with ``("y", "x")`` every row spans the processes.
 """
 
 from __future__ import annotations
@@ -38,8 +46,16 @@ from ..formats.csr import CSR
 from ..ops.kernels.csr_spmv import csr_spmv
 from ..ops.kernels.indptr import indptr_from_sorted_rows
 from ..ops.kernels.radix import bits_below, radix_argsort
-from .collectives import psum, psum_scatter
-from .mesh import Mesh, single_process
+from .collectives import _total, gather, host_fetch, join, share
+from .mesh import Mesh
+
+
+def _tile_grid(mesh: Mesh, axes) -> tuple:
+    """The mesh's devices and owners as ``(Dr, Dc)`` arrays in tile order:
+    transposed where ``axes`` take the mesh's axes the other way round."""
+    if mesh.axis_names.index(axes[0]) == 0:
+        return mesh.devices, mesh.owners
+    return mesh.devices.T, mesh.owners.T
 
 
 @register_format
@@ -53,6 +69,7 @@ class Sharded2DCSR(Format):
     nnz_local: tuple  # Dr × Dc × ()
     _shape: Tuple[int, int] = (0, 0)
     _axes: Tuple[str, str] = ("x", "y")
+    _mesh: Optional[Mesh] = None  # the mesh it was built on
 
     order = 2
     _FIELDS = ("indptr", "indices", "vals", "nnz_local")
@@ -70,18 +87,30 @@ class Sharded2DCSR(Format):
         return (len(self.indptr), len(self.indptr[0]))
 
     @property
+    def local(self) -> tuple:
+        """The ``(i, j)`` of the tiles whose tensors this process holds."""
+        return tuple((i, j) for i, row in enumerate(self.indptr) for j, t in enumerate(row) if t is not None)
+
+    @property
+    def owners(self):
+        """Each tile's owner rank, a ``(Dr, Dc)`` array (all 0 on one process)."""
+        return _tile_grid(self.mesh, self._axes)[1]
+
+    @property
     def rows_per_tile(self) -> int:
-        return int(self.indptr[0][0].shape[0]) - 1
+        i, j = self.local[0]
+        return int(self.indptr[i][j].shape[0]) - 1
 
     @property
     def width(self) -> int:
-        return int(self.indices[0][0].shape[0])
+        i, j = self.local[0]
+        return int(self.indices[i][j].shape[0])
 
     @functools.cached_property
     def nnz_counts(self) -> Tuple[Tuple[int, ...], ...]:
-        """Each tile's true nnz on the host (one read, kept)."""
-        first = self.indptr[0][0].device
-        flat = torch.stack([c.to(first) for row in self.nnz_local for c in row]).tolist()
+        """Each tile's true nnz on the host (one read, kept; the same on
+        every process)."""
+        flat = host_fetch([c for row in self.nnz_local for c in row], self.owners.reshape(-1).tolist())
         dc = self.grid[1]
         return tuple(tuple(flat[i * dc : (i + 1) * dc]) for i in range(self.grid[0]))
 
@@ -91,6 +120,8 @@ class Sharded2DCSR(Format):
 
     @property
     def mesh(self) -> Mesh:
+        if self._mesh is not None:
+            return self._mesh
         return Mesh([[t.device for t in row] for row in self.indptr], self._axes)
 
     @property
@@ -98,16 +129,20 @@ class Sharded2DCSR(Format):
         return MeshContext(self.mesh, self._axes[0])
 
     def stacked(self, name: str) -> Optional[torch.Tensor]:
-        """The field ``name`` as one ``(Dr, Dc, ...)`` tensor on the first
-        tile's device, or None."""
+        """The field ``name`` as one ``(Dr, Dc, ...)`` tensor on this
+        process's first device (every tile, gathered over the group on a
+        mesh that spans processes), or None."""
         parts = getattr(self, name)
         if parts is None:
             return None
-        first = parts[0][0].device
-        return torch.stack([torch.stack([t.to(first) for t in row]) for row in parts])
+        dr, dc = self.grid
+        flat = gather([t for row in parts for t in row], self.owners.reshape(-1).tolist(), self.mesh.first_device)
+        return torch.stack(flat).reshape(dr, dc, *flat[0].shape)
 
     def tile_csr(self, i: int, j: int) -> CSR:
         """Tile (i, j) as an ``(R, C)`` CSR on its device, without the padding."""
+        if self.indptr[i][j] is None:
+            raise ValueError(f"tile ({i}, {j}) lies on another process")
         cnt = self.nnz_counts[i][j]
         vals = None if self.vals is None else self.vals[i][j][:cnt]
         cols = -(-self._shape[1] // self.grid[1])
@@ -115,21 +150,21 @@ class Sharded2DCSR(Format):
 
     def _tensors(self):
         return tuple(t for name in self._FIELDS if getattr(self, name) is not None
-                     for row in getattr(self, name) for t in row)
+                     for row in getattr(self, name) for t in row if t is not None)
 
     @staticmethod
     def from_csr(csr: CSR, mesh: Mesh, axes: Tuple[str, str] = ("x", "y")) -> "Sharded2DCSR":
         """Tile a CSR over the 2-D ``mesh`` on the CSR's device (one host
-        read: the tiles' entry counts, which size the padded width)."""
+        read: the tiles' entry counts, which size the padded width). On a
+        mesh that spans processes every process passes the same CSR (on its
+        own device), sorts it the same way and cuts only its own tiles."""
         n, m = csr.shape
-        single_process(mesh, "Sharded2DCSR.from_csr", "10i")
         dr, dc = mesh.shape[axes[0]], mesh.shape[axes[1]]
-        devices = mesh.devices if mesh.axis_names.index(axes[0]) == 0 else mesh.devices.T
-        # rows per tile padded to a multiple of dc so psum_scatter tiles evenly
+        devices, owners = _tile_grid(mesh, axes)
+        # rows per tile padded to a multiple of dc so the row sums scatter evenly
         rows = -(-n // dr)
         rows = -(-rows // dc) * dc
         cols = -(-m // dc)
-        dev = csr.indptr.device
         row = csr.row_of_nnz().to(torch.int64)
         col = csr.indices.to(torch.int64)
         tile = (row // max(rows, 1)) * dc + torch.clamp(col // max(cols, 1), max=dc - 1)
@@ -143,25 +178,23 @@ class Sharded2DCSR(Format):
         for c in counts:
             starts.append(starts[-1] + c)
         width = max(max(counts), 1)
-        lp, li, lv, cnts = [], [], [], []
+        lp, li, lv, cnts = ([[None] * dc for _ in range(dr)] for _ in range(4))
         for i in range(dr):
-            lp_r, li_r, lv_r, cnt_r = [], [], [], []
             for j in range(dc):
+                if owners[i, j] != mesh.rank:
+                    continue  # another process's tile
                 t = i * dc + j
                 lo, hi = starts[t], starts[t + 1]
                 target = devices[i, j]
                 lrow = (row_s[lo:hi] - i * rows).to(torch.int32)
-                lp_r.append(indptr_from_sorted_rows(lrow, rows).to(target))
-                li_r.append(F.pad((col_s[lo:hi] - j * cols).to(torch.int32), (0, width - (hi - lo))).to(target))
+                lp[i][j] = indptr_from_sorted_rows(lrow, rows).to(target)
+                li[i][j] = F.pad((col_s[lo:hi] - j * cols).to(torch.int32), (0, width - (hi - lo))).to(target)
                 if vals_s is not None:
-                    lv_r.append(F.pad(vals_s[lo:hi], (0, width - (hi - lo))).to(target))
-                cnt_r.append(counts_t[t].to(target))
-            lp.append(tuple(lp_r))
-            li.append(tuple(li_r))
-            lv.append(tuple(lv_r))
-            cnts.append(tuple(cnt_r))
-        sh = Sharded2DCSR(tuple(lp), tuple(li), None if vals_s is None else tuple(lv), tuple(cnts), (n, m),
-                          tuple(axes))
+                    lv[i][j] = F.pad(vals_s[lo:hi], (0, width - (hi - lo))).to(target)
+                cnts[i][j] = counts_t[t].to(target)
+        grid = lambda rows_: tuple(tuple(r) for r in rows_)  # noqa: E731
+        sh = Sharded2DCSR(grid(lp), grid(li), None if vals_s is None else grid(lv), grid(cnts), (n, m), tuple(axes),
+                          _mesh=mesh)
         sh.__dict__["nnz_counts"] = tuple(tuple(counts[i * dc : (i + 1) * dc]) for i in range(dr))
         return sh
 
@@ -172,37 +205,54 @@ class Sharded2DCSR(Format):
         )
 
 
-def _check(sh: Sharded2DCSR, mesh: Mesh, where: str) -> None:
-    single_process(mesh, where, "10i")
+def _check(sh: Sharded2DCSR, mesh: Mesh) -> None:
     if mesh != sh.mesh:
         raise ValueError(f"the tiles lie on {sh.mesh!r}, not on {mesh!r}")
 
 
+def _row_sums(sh: Sharded2DCSR, mesh: Mesh, parts) -> torch.Tensor:
+    """``parts[i][j]``: tile (i, j)'s ``(R,)`` partial row sums (None for a
+    remote tile). Each row of tiles' sum, folded in tile order on a device
+    of a process that holds a tile of the row (``psum_scatter``'s fold),
+    then cut into Dc pieces: tile (i, j) keeps piece j, rows [i·R + j·R/Dc,
+    i·R + (j+1)·R/Dc), so the flat (i, j) order is ascending global row
+    order; the pieces are joined over the group on this process's first
+    device."""
+    dr, dc = sh.grid
+    owners = sh.owners
+    flat_owners = owners.reshape(-1).tolist()
+    first = mesh.first_device
+    readers = [set(owners[i].tolist()) for i in range(dr) for _ in range(dc)]
+    every = share([None if p is None else (p,) for row in parts for p in row], flat_owners, readers, first)
+    pieces = [None] * (dr * dc)
+    for i in range(dr):
+        mine = [j for j in range(dc) if parts[i][j] is not None]
+        if not mine:
+            continue
+        total = _total([every[i * dc + j][0] for j in range(dc)], torch.add).tensor_split(dc)
+        for j in mine:
+            pieces[i * dc + j] = total[j].to(parts[i][j].device)
+    return join(pieces, flat_owners, first)
+
+
 def spmv(sh: Sharded2DCSR, x, mesh: Mesh):
     """y = A @ x on the 2-D mesh: x split by column blocks, K2 per tile, the
-    partial sums of each row of tiles reduced with ``psum_scatter``; y
-    joined in row order on the mesh's first device."""
-    _check(sh, mesh, "sharded2d.spmv")
+    partial sums of each row of tiles reduced and scattered over the row
+    (``psum_scatter``); y joined in row order on this process's first
+    device."""
+    _check(sh, mesh)
     n, m = sh.shape
     dr, dc = sh.grid
     cols = -(-m // dc)
     xp = F.pad(x, (0, dc * cols - m))
-    first = mesh.first_device
-    ys = []
-    for i in range(dr):
-        parts = [csr_spmv(sh.tile_csr(i, j), xp[j * cols : (j + 1) * cols].to(sh.indptr[i][j].device))
-                 for j in range(dc)]
-        # tile (i, j) keeps rows [i*R + j*R/Dc, i*R + (j+1)*R/Dc): the flat
-        # (i, j) order is ascending global row order
-        ys.extend(y.to(first) for y in psum_scatter(parts))
-    return torch.cat(ys)[:n]
+    parts = [[None if t is None else csr_spmv(sh.tile_csr(i, j), xp[j * cols : (j + 1) * cols].to(t.device))
+              for j, t in enumerate(row)] for i, row in enumerate(sh.indptr)]
+    return _row_sums(sh, mesh, parts)[:n]
 
 
 def degrees(sh: Sharded2DCSR, mesh: Mesh):
-    """Per-row degree (int64): per-tile counts ``psum``'d over the column
-    axis, joined in row order."""
-    _check(sh, mesh, "sharded2d.degrees")
-    n = sh.shape[0]
-    first = mesh.first_device
-    out = [psum([ip[1:] - ip[:-1] for ip in row])[0].to(first) for row in sh.indptr]
-    return torch.cat(out)[:n]
+    """Per-row degree (int64): per-tile counts summed over the column axis,
+    joined in row order."""
+    _check(sh, mesh)
+    parts = [[None if ip is None else ip[1:] - ip[:-1] for ip in row] for row in sh.indptr]
+    return _row_sums(sh, mesh, parts)[: sh.shape[0]]

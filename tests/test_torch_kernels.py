@@ -1137,8 +1137,7 @@ def one_thread():
 
 def test_chip_smoke_path_l_on_the_cpu(monkeypatch, capsys, one_thread):
     """``chip_smoke.path_l`` rehearsed on the CPU at a small size (8 cliques
-    K_16, uniform graphs of 128 and 1,024 vertices, a power-law graph of
-    2,000; ``MAX_DENSE_ELEMS`` cut so that the cliques' tile at d = 4 sits on
+    K_16, a uniform graph of 128 vertices, a power-law graph of 2,000; ``MAX_DENSE_ELEMS`` cut so that the cliques' tile at d = 4 sits on
     it), with the card's clocks, memory counters and launch counts stubbed
     and the suite's table run on the CPU: every check of phase 4 holds and
     phase 5 times each ring call."""
@@ -1154,30 +1153,31 @@ def test_chip_smoke_path_l_on_the_cpu(monkeypatch, capsys, one_thread):
     monkeypatch.setattr(smoke, "cuda_ms", lambda fn, batch=1, reps=5: smoke.host_ms(fn, reps))
     monkeypatch.setattr(smoke, "PATH_L_CLIQUES", (8, 16))
     monkeypatch.setattr(smoke, "PATH_L_N", 128)
-    monkeypatch.setattr(smoke, "PATH_L_BIG_N", 1_024)
     monkeypatch.setattr(smoke, "POWER_LAW_CARD", (2_000, 16_000))
     monkeypatch.setattr(ring, "MAX_DENSE_ELEMS", 32 * 4 * 32)  # rows 32 at d = 4
     run_distributed = bench_suite.run_distributed
     monkeypatch.setattr(bench_suite, "run_distributed", lambda **kw: run_distributed(**{"device": "cpu", **kw}))
     monkeypatch.setitem(bench_suite.MATRICES, "rand-20k", lambda device: bench_suite.mesh_graph(30, device=device))
     g = torch.Generator().manual_seed(0)
-    assert smoke.path_l(g, torch.device("cpu")) == {}
+    launches, suite = smoke.path_l(g, torch.device("cpu"))
+    assert launches == {} and suite["devices"] == 4 and suite["rand-20k"]["n"] == 900
     out = capsys.readouterr().out
     assert "4480 triangles, every weight 14/16" in out and "d=1 raised: 'ring.triangle_count" in out
-    assert out.count("equal to K6, the weights equal to K6's bit for bit") == 2
-    assert out.count("phase 5 path L ") == 20 and out.count(", dense: ") == 5
+    assert out.count("equal to K6, the weights equal to K6's bit for bit") == 1
+    assert out.count("phase 5 path L ") == 16 and out.count(", dense: ") == 5
 
 
 def test_chip_smoke_path_m_on_the_cpu(monkeypatch, capsys, one_thread):
     """``chip_smoke.path_m`` rehearsed on the CPU at a small size (the tool's
     graph at 4,096 vertices; two gloo processes of the script on the CPU,
     under its time limit; path O's ladders on 2,048 vertices down to 1,024,
-    SlashBurn on a power-law graph of 2,000; weak-scaling rows at d = 1 and
-    2 of 1,024 and 256 vertices a shard), with the card's clocks and launch
-    counts stubbed: every field of the two processes equals the
-    single-process mesh's, so do the results and stats of paths N and O,
-    and phase 5 prints each phase of the three paths, the exchange, the
-    link figures and the rows."""
+    SlashBurn on a power-law graph of 2,000; path P's cliques 4 K_16; weak-
+    scaling rows at d = 1 and 2 of 1,024 and 256 vertices a shard), with
+    the card's clocks and launch counts stubbed: every field of the two
+    processes equals the single-process mesh's, so do the results and stats
+    of paths N, O and P and the processes' suite tables, and phase 5 prints
+    each phase of the four paths, the exchange, the link figures and the
+    rows."""
     smoke = _chip_smoke()
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(smoke, "read_launches", lambda path, required: {})
@@ -1189,8 +1189,9 @@ def test_chip_smoke_path_m_on_the_cpu(monkeypatch, capsys, one_thread):
     monkeypatch.setattr(smoke, "PATH_O_COARSEN_UNTIL", 1 << 10)
     monkeypatch.setattr(smoke, "POWER_LAW_HOST", (2_000, 16_000))
     monkeypatch.setattr(smoke, "PATH_O_SLASHBURN_K", 64)
-    launches, launches_n, launches_o, err = smoke.path_m(torch.device("cpu"), 0, n=1 << 12)
-    assert launches == {} and launches_n == {} and launches_o == {} and err == 0.0
+    monkeypatch.setattr(smoke, "PATH_P_CLIQUES", (4, 16))
+    launches, launches_n, launches_o, launches_p, err = smoke.path_m(torch.device("cpu"), 0, n=1 << 12)
+    assert launches == {} and launches_n == {} and launches_o == {} and launches_p == {} and err == 0.0
     out = capsys.readouterr().out
     assert "phase 4 path M gloo: 2 processes x 2 shards equal to the single-process mesh of 4 shards bit for bit" in out
     assert "path M dist.rcm_reorder vs the plain (level, degree, id) rank: n=4096 equal=True" in out
@@ -1199,9 +1200,13 @@ def test_chip_smoke_path_m_on_the_cpu(monkeypatch, capsys, one_thread):
     assert "phase 3 path M NCCL route: skipped" in out and "phase 5 path M link figures for the projection" in out
     assert "phase 4 path N gloo: 2 processes equal to the single-process mesh of 4 shards bit for bit" in out
     assert "path N halo.bfs_levels vs dist.bfs_levels: n=4096 equal=True" in out
-    assert out.count("phase 5 path N ") == 14 and out.count("bytes to the other process") == 2 * (4 + 13 + 9)
+    assert out.count("phase 5 path N ") == 14 and out.count("bytes to the other process") == 2 * (4 + 13 + 9 + 17)
     assert "phase 4 path O gloo: 2 processes equal to the single-process mesh of 4 shards bit for bit" in out
     assert "path O coarsen values vs a plain contraction by the map: n=" in out and out.count("phase 5 path O ") == 10
     assert "path O slashburn_reorder (hub_order=True) vs native.slashburn(greedy=False): n=2000 equal=True" in out
+    assert "phase 4 path P (a) the cliques (n=64, 960 entries): 2240 triangles" in out
+    assert "phase 4 path P gloo: 2 processes equal to the single-process mesh of 4 shards bit for bit" in out
+    assert "path P (c) sharded2d.spmv y,x (K2 per tile) vs plain SpMV of the whole CSR: rows=4096" in out
+    assert out.count("phase 5 path P ") == 18 and "phase 5 path P (e) run_distributed: one process (not run)" in out
     assert out.count("phase 5 path M weak scaling random base_n=1024 d=") == 2
     assert out.count("phase 5 path M weak scaling stencil base_n=256 d=") == 2

@@ -1,5 +1,6 @@
 """``parallel.multihost`` on the CPU: the single-process case (JAX
-``tests/test_parallel.py::TestMultihost``), ``local_entry_counts`` against
+``tests/test_parallel.py::TestMultihost``), ``global_mesh_2d`` in one
+process and in a group of two, ``local_entry_counts`` against
 the JAX function for each rank of several group sizes, joining a group
 from explicit arguments, and ``launch``'s time limit and failures."""
 
@@ -9,7 +10,7 @@ import sys
 import pytest
 import torch
 
-from sparsebase_tpu_torch.parallel import make_mesh, multihost
+from sparsebase_tpu_torch.parallel import make_mesh, make_mesh_2d, multihost
 
 LAUNCH_TIME_LIMIT = 60  # seconds for each launched group; each takes a few
 
@@ -22,6 +23,45 @@ def test_single_process(monkeypatch):
     mesh = multihost.global_mesh(devices=["cpu"] * 4)
     assert mesh.size == 4 and mesh == make_mesh(devices=["cpu"] * 4) and not mesh.spans_processes
     assert multihost.local_entry_counts(1000) == (0, 1000)
+
+
+@pytest.mark.parametrize("shape,axes", [((2, 2), ("x", "y")), ((1, 4), ("x", "y")), ((4, 2), ("y", "x"))])
+def test_global_mesh_2d_in_one_process_is_make_mesh_2d(monkeypatch, shape, axes):
+    for name in multihost.ENV:
+        monkeypatch.delenv(name, raising=False)
+    devices = ["cpu"] * (shape[0] * shape[1])
+    mesh = multihost.global_mesh_2d(shape, axes, devices=devices)
+    assert mesh == make_mesh_2d(shape, axes, devices=devices) and not mesh.spans_processes
+    assert mesh.shape == dict(zip(axes, shape))
+
+
+def test_global_mesh_2d_in_one_process_raises_where_the_devices_do_not_fill_it(monkeypatch):
+    for name in multihost.ENV:
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(ValueError, match="takes 6 devices, 4 were given"):
+        multihost.global_mesh_2d((2, 3), devices=["cpu"] * 4)
+
+
+MESH_2D = """
+import torch.distributed as tdist
+from sparsebase_tpu_torch.parallel import multihost
+assert multihost.initialize(backend="gloo", timeout=30)
+mesh = multihost.global_mesh_2d((2, 2), devices=["cpu"] * 2)
+print(mesh.owners.tolist(), mesh.rank, mesh.local, mesh.axis_names, mesh.spans_processes)
+try:
+    multihost.global_mesh_2d((3, 2), devices=["cpu"] * 2)
+except ValueError as e:
+    print("refused:", e)
+tdist.destroy_process_group()
+"""
+
+
+def test_global_mesh_2d_lays_the_processes_out_row_major():
+    out = multihost.launch([sys.executable, "-c", MESH_2D], 2, timeout=LAUNCH_TIME_LIMIT)
+    for rank, r in enumerate(out):
+        lines = r.stdout.splitlines()
+        assert lines[0] == f"[[0, 0], [1, 1]] {rank} {(2 * rank, 2 * rank + 1)} ('x', 'y') True"
+        assert lines[1] == "refused: global_mesh_2d: 4 devices over the processes do not fill a mesh of (3, 2)"
 
 
 def test_global_mesh_needs_a_card_or_devices(monkeypatch):

@@ -9,18 +9,25 @@ path (``from_coo_sharded`` → ``with_halo`` → ``halo.spmv`` →
 ``degree_reorder``), the twelve functions of ``child.FUNCTIONS`` (the rest
 of ``dist`` and ``halo``'s flat half), the eight calls of
 ``child.MULTILEVEL`` (``halo``'s multilevel half and SlashBurn,
-``ShardedCSR.from_csr`` and ``from_csr_balanced``) and the guard of every
-function that does not run across processes. Each process's results, and
-the ``stats`` the functions keep, must equal the single-process mesh of as
-many CPU shards on the same inputs bit for bit, field by field; where the
+``ShardedCSR.from_csr`` and ``from_csr_balanced``), the six rings of
+``child.RING``, the containers' calls of ``child.CONTAINERS``
+(``Sharded2DCSR.from_csr``, ``spmv`` and ``degrees`` on
+``global_mesh_2d((2, S))`` with its axes either way round,
+``ShardedCSR.stacked`` and ``to``), the suite's ``run_distributed`` and an
+experiment of ``load_sharded_csr`` and ``distributed_reorder("rcm")``. Each
+process's results, and the ``stats`` the functions keep, must equal the
+single-process mesh of as many CPU shards on the same inputs bit for bit,
+field by field (the suite's table but for its times); where the
 single-process call raises (on the wide graph), every process must raise
 the same error. On ``tools/multiproc_dcn.py``'s graph the path and the
 functions must also give the JAX package's results on 4 and 8 virtual CPU
 devices: y within rtol 1e-5, atol 1e-5 (as ``test_torch_halo.py``), the
 profile and the heatmap within rtol 1e-6 (as ``test_torch_parallel.py``),
 every integer result exactly; so must the matching, the coarse map and
-counts, SlashBurn's orders (against the JAX host SlashBurn) and
-``from_csr``'s fields.
+counts, SlashBurn's orders (against the JAX host SlashBurn),
+``from_csr``'s fields, the rings (counts exactly, weights bit for bit, as
+``test_torch_ring.py``) and ``sharded2d`` (the tiles exactly, y within
+rtol 1e-5, atol 1e-5, the degrees exactly).
 """
 
 import sys
@@ -31,20 +38,25 @@ import pytest
 import torch
 
 import torch_multiproc_child as child
-from sparsebase_tpu_torch.parallel import make_mesh, multihost
+from sparsebase_tpu_torch.parallel import make_mesh, make_mesh_2d, multihost
 
 CHILD = str(Path(child.__file__).resolve())
 PER_PROCESS = (2, 4)
-GROUP_TIME_LIMIT = 240  # seconds for the whole group; it takes about 25
+GROUP_TIME_LIMIT = 240  # seconds for the whole group; it takes about 40
 
 
 @pytest.fixture(scope="module")
-def group(tmp_path_factory):
+def group_dir(tmp_path_factory):
+    """Where the group saves its results and rank 0 writes the MTX file."""
+    return tmp_path_factory.mktemp("group")
+
+
+@pytest.fixture(scope="module")
+def group(group_dir):
     """Each rank's saved results."""
-    out = tmp_path_factory.mktemp("group")
-    multihost.launch([sys.executable, CHILD, "--out", str(out), "--shards", ",".join(map(str, PER_PROCESS))], 2,
-                     timeout=GROUP_TIME_LIMIT)
-    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    multihost.launch([sys.executable, CHILD, "--out", str(group_dir), "--shards", ",".join(map(str, PER_PROCESS))],
+                     2, timeout=GROUP_TIME_LIMIT)
+    return [torch.load(group_dir / f"rank{r}.pt", weights_only=False) for r in range(2)]
 
 
 @pytest.fixture(scope="module", params=PER_PROCESS, ids=lambda s: f"2x{s}")
@@ -57,9 +69,15 @@ def single(s: int):
     return make_mesh(devices=["cpu"] * (2 * s))
 
 
+def single_2d(s: int):
+    """The single-process 2-D mesh of the group's (2, s) shards."""
+    return make_mesh_2d((2, s), devices=["cpu"] * (2 * s))
+
+
 def assert_same(got, want, what):
     """``got`` (one process's) equal to ``want`` (the single process's):
-    tensors bit for bit with their dtypes, remote slots None."""
+    tensors bit for bit with their dtypes, remote slots None, dicts key by
+    key."""
     if isinstance(want, torch.Tensor):
         assert isinstance(got, torch.Tensor) and got.dtype == want.dtype and got.shape == want.shape, what
         assert torch.equal(got.to(want.device), want), what
@@ -69,6 +87,10 @@ def assert_same(got, want, what):
             if g is None:
                 continue  # another process's shard
             assert_same(g, w, f"{what}[{k}]")
+    elif isinstance(want, dict):
+        assert isinstance(got, dict) and set(got) == set(want), what
+        for key, w in want.items():
+            assert_same(got[key], w, f"{what} {key}")
     else:
         assert got == want, what
 
@@ -90,6 +112,8 @@ def test_group(group, per_process):
         assert size == d and owners == (0,) * per_process + (1,) * per_process
         assert local == tuple(range(rank * per_process, (rank + 1) * per_process)) and first == "cpu"
     assert [res["local_entry_counts"] for res in group] == [(0, 500), (500, 500)]
+    for res in group:  # global_mesh_2d lays the processes' devices out row-major
+        assert res[per_process]["mesh_2d"] == ([[0] * per_process, [1] * per_process], ("x", "y"))
     traffic = group[0][per_process]["traffic"]
     assert traffic["crossed_bytes"] > 0 and traffic["exchanges"] > 0 and traffic["staged_bytes"] == 0
 
@@ -123,13 +147,6 @@ def test_path_equals_single_process(group, per_process, single_paths, graph):
         for name in ("stats", "nnz_counts", "nnz", "width", "halo_width", "halo_bytes", "step_comm_bytes", "y",
                      "order", "levels", "degrees", "degree_order", "csr"):
             assert_same(got[name], want[name], f"{graph} {name}")
-
-
-@pytest.mark.parametrize("name", child.GUARDED)
-def test_guard(group, per_process, name):
-    for res in group:
-        said = res[per_process]["guards"][name]
-        assert said.startswith("NotImplementedError: ") and "ROADMAP.md, item 10" in said, said
 
 
 @pytest.fixture(scope="module")
@@ -361,3 +378,191 @@ def test_multilevel_equals_jax(group, per_process, jax_tool_multilevel, name):
                     np.testing.assert_array_equal(got[field][k].numpy(), w[k], err_msg=f"{field}[{k}]")
         else:
             np.testing.assert_array_equal(got.numpy(), want.reshape(-1)[: got.shape[0]])
+
+
+@pytest.fixture(scope="module")
+def single_rings():
+    """The rings on the single-process meshes, once."""
+    return {(s, g): child.run_ring(single(s), g, torch.device("cpu")) for s in PER_PROCESS for g in child.GRAPHS}
+
+
+def assert_ring(got, want, local, what):
+    """A ring's result: the padded weights shard by shard; a count, the
+    whole flat weights or the error raised as they are."""
+    if isinstance(want, tuple):
+        assert_local(got, want, local, what)
+    else:
+        assert type(got) is type(want), what
+        assert_same(got, want, what)
+
+
+@pytest.mark.parametrize("graph", list(child.GRAPHS))
+@pytest.mark.parametrize("name", child.RING)
+def test_ring_equals_single_process(group, per_process, single_rings, name, graph):
+    want = single_rings[per_process, graph][name]
+    if graph == "tool":
+        assert not isinstance(want, str), want
+    for res in group:
+        assert_ring(res[per_process]["ring"][graph][name], want, res[per_process]["mesh"][1], f"{graph} {name}")
+
+
+@pytest.fixture(scope="module")
+def single_containers():
+    """The containers' calls on the single-process meshes, once."""
+    return {(s, g): child.run_containers(single(s), single_2d(s), g, torch.device("cpu")) for s in PER_PROCESS
+            for g in child.GRAPHS}
+
+
+def assert_moved(got, want, local, what):
+    """A container after ``to``: its own shards' fields (those of the
+    target's shards it owns), counts and widths."""
+    assert got["local"] == tuple(local), what
+    for key, w in want.items():
+        if key in child.FIELDS and w is not None:
+            assert_local(got[key], w, local, f"{what} {key}")
+        elif key not in ("local", "spans"):
+            assert_same(got[key], w, f"{what} {key}")
+
+
+def assert_container(got, want, name, per_process, rank, what):
+    """A call of ``child.CONTAINERS`` on rank ``rank`` of the group of two
+    processes of ``per_process`` shards each: the tiles or shards it owns,
+    and every process's whole of the rest."""
+    d = 2 * per_process
+    if name.startswith("Sharded2DCSR.from_csr"):
+        # (2, S) tiles, a row on one process; or (S, 2), each row across both
+        rows_on_one = name.endswith("x,y")
+        tiles = [k for k in range(d) if (k // per_process if rows_on_one else k % 2) == rank]
+        assert got["local"] == tuple(tiles), what
+        for key, w in want.items():
+            if key in child.TILE_FIELDS and w is not None:
+                assert_local(got[key], w, tiles, f"{what} {key}")
+            elif key not in ("local", "stacked"):
+                assert_same(got[key], w, f"{what} {key}")
+        for key, w in want["stacked"].items():  # every tile, on every process
+            assert_same(got["stacked"][key], w, f"{what} stacked {key}")
+    elif name == "ShardedCSR.to mesh":
+        assert got["spans"] and not want["spans"], what
+        assert_moved(got, want, [k for k in range(d) if k % 2 == rank], what)
+    elif name == "ShardedCSR.to device":
+        assert not got["spans"] and not want["spans"], what
+        assert_moved(got, want, range(d), what)
+    else:  # y, the degrees and the stacked fields: the whole of them on every process
+        assert_same(got, want, what)
+
+
+@pytest.mark.parametrize("graph", list(child.GRAPHS))
+@pytest.mark.parametrize("name", child.CONTAINERS)
+def test_container_equals_single_process(group, per_process, single_containers, name, graph):
+    want = single_containers[per_process, graph][name]
+    assert not isinstance(want, str), want
+    for rank, res in enumerate(group):
+        assert_container(res[per_process]["containers"][graph][name], want, name, per_process, rank,
+                         f"{graph} {name} rank {rank}")
+
+
+def without_times(entry):
+    if isinstance(entry, dict):
+        return {k: without_times(v) for k, v in entry.items() if k != "seconds"}
+    return entry
+
+
+def test_suite_equals_single_process(group, per_process):
+    want = child.run_suite(torch.device("cpu"), 2 * per_process)
+    entry = want["rand-20k"]
+    assert want["devices"] == 2 * per_process and entry["n"] == child.SUITE_N
+    assert entry["ring_mxu"]["triangles_match_host"] and entry["ring_mxu"]["jaccard_match_host"]
+    for res in group:
+        assert without_times(res[per_process]["suite"]) == without_times(want)
+
+
+def test_experiment_equals_single_process(group, group_dir, per_process):
+    want = child.run_experiment(single(per_process), group_dir / "tool.mtx")
+    assert len(want["y"]) == 2
+    for res in group:
+        got = res[per_process]["experiment"]
+        assert_same(got["order"], want["order"], "order")
+        assert set(got["y"]) == set(want["y"])
+        for key, y in want["y"].items():
+            assert_same(got["y"][key], y, key)
+
+
+@pytest.fixture(scope="module")
+def jax_tool_rings(jax_tool_sharded):
+    """The JAX package's rings on the tool's graph on 4 and 8 virtual CPU
+    devices: ``{(shards per process, name): result}``."""
+    from sparsebase_tpu.parallel import ring as ref_ring
+
+    out = {}
+    for s, (mesh, sh) in jax_tool_sharded.items():
+        calls = {
+            "ring.triangle_count": lambda: ref_ring.triangle_count(sh, mesh),
+            "ring.triangle_count directed": lambda: ref_ring.triangle_count(sh, mesh, directed=True),
+            "ring.jaccard_weights": lambda: ref_ring.jaccard_weights(sh, mesh),
+            "ring.triangle_count_sparse": lambda: ref_ring.triangle_count_sparse(sh, mesh),
+            "ring.jaccard_weights_sparse": lambda: ref_ring.jaccard_weights_sparse(sh, mesh),
+            "ring.jaccard_flat": lambda: ref_ring.jaccard_flat(sh, mesh),
+        }
+        assert tuple(calls) == child.RING
+        for name, fn in calls.items():
+            got = fn()
+            out[s, name] = got if isinstance(got, int) else np.asarray(got)
+    return out
+
+
+@pytest.mark.parametrize("name", child.RING)
+def test_ring_equals_jax(group, per_process, jax_tool_rings, name):
+    want = jax_tool_rings[per_process, name]
+    for res in group:
+        local = res[per_process]["mesh"][1]
+        got = res[per_process]["ring"]["tool"][name]
+        if isinstance(want, int):
+            assert isinstance(got, int) and got == want, name
+        elif name == "ring.jaccard_flat":
+            assert got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:  # the padded (d, width) weights, pad slots 0
+            for k in local:
+                assert got[k].dtype == torch.float32 and got[k].shape == want[k].shape, k
+                np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=f"{name}[{k}]")
+
+
+@pytest.fixture(scope="module")
+def jax_tool_sharded2d():
+    """The JAX ``sharded2d`` on the tool's graph on (2, S) meshes of 4 and 8
+    virtual CPU devices, both orientations: ``{(shards per process,
+    orientation): (tile arrays, y, degrees)}``."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from sparsebase_tpu.formats.csr import CSR as RefCSR
+    from sparsebase_tpu.parallel import make_mesh_2d as ref_make_mesh_2d
+    from sparsebase_tpu.parallel import sharded2d as ref_sharded2d
+
+    row, col, vals, shape = child.tool_graph()
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(row, minlength=shape[0]))]).astype(np.int32)
+    x = jnp.asarray(child.function_inputs(shape)["x"])
+    out = {}
+    for s in PER_PROCESS:
+        assert len(jax.devices()) >= 2 * s, "conftest must provide 8 virtual devices"
+        mesh = ref_make_mesh_2d((2, s))
+        for o, axes in child.ORIENTATIONS.items():
+            t = ref_sharded2d.Sharded2DCSR.from_csr(RefCSR(indptr, col, vals, shape), mesh, axes)
+            out[s, o] = ({name: np.asarray(getattr(t, name)) for name in child.TILE_FIELDS},
+                         np.asarray(ref_sharded2d.spmv(t, x, mesh)), np.asarray(ref_sharded2d.degrees(t, mesh)))
+    return out
+
+
+@pytest.mark.parametrize("orientation", list(child.ORIENTATIONS))
+@pytest.mark.parametrize("name", ["Sharded2DCSR.from_csr", "sharded2d.spmv", "sharded2d.degrees"])
+def test_sharded2d_equals_jax(group, per_process, jax_tool_sharded2d, name, orientation):
+    fields, y, deg = jax_tool_sharded2d[per_process, orientation]
+    for res in group:
+        got = res[per_process]["containers"]["tool"][f"{name} {orientation}"]
+        if name == "Sharded2DCSR.from_csr":
+            for field, w in fields.items():
+                np.testing.assert_array_equal(got["stacked"][field].numpy(), w, err_msg=field)
+        elif name == "sharded2d.spmv":
+            np.testing.assert_allclose(got.numpy(), y, rtol=1e-5, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(got.numpy(), deg)

@@ -4,11 +4,17 @@ torch's standard variables, gloo), builds ``global_mesh(devices=[device] *
 S)`` for each S of ``--shards``, and runs on it the collectives, the host
 read, the distributed ingest's path (``from_coo_sharded`` →
 ``with_halo`` → ``halo.spmv`` → ``dist.rcm_reorder``), the functions of
-:data:`FUNCTIONS` and the calls of :data:`MULTILEVEL` on the graphs of
-:data:`GRAPHS`, then the guard of every function that does not run across
-processes. It saves what it holds to ``--out/rank{R}.pt``; the tests hold
-it to the single-process mesh (:func:`run_collectives`, :func:`run_path`,
-:func:`run_functions`, :func:`run_multilevel` on ``make_mesh``).
+:data:`FUNCTIONS`, the calls of :data:`MULTILEVEL`, the rings of
+:data:`RING` and the containers' calls of :data:`CONTAINERS` (``sharded2d``
+on ``global_mesh_2d((2, S))`` in both orientations) on the graphs of
+:data:`GRAPHS`, then the suite's ``run_distributed`` and an experiment of
+``load_sharded_csr``, ``distributed_reorder("rcm")`` and
+``distributed_spmv_kernel`` on the tool graph, written by rank 0 as an MTX
+file into ``--out``. It saves what it holds to ``--out/rank{R}.pt``; the
+tests hold it to the single-process mesh (:func:`run_collectives`,
+:func:`run_path`, :func:`run_functions`, :func:`run_multilevel`,
+:func:`run_ring`, :func:`run_containers`, :func:`run_suite` and
+:func:`run_experiment` on ``make_mesh`` and ``make_mesh_2d``).
 
     python tests/torch_multiproc_child.py --out DIR [--device cpu|cuda] [--shards 2,4] [--backend gloo|nccl]
 
@@ -24,9 +30,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from sparsebase_tpu_torch.context import MeshContext  # noqa: E402
+from sparsebase_tpu_torch import CSR, IOBase, bench_suite, experiment  # noqa: E402
+from sparsebase_tpu_torch.context import MeshContext, context_for  # noqa: E402
 from sparsebase_tpu_torch.parallel import (  # noqa: E402
-    ShardedCSR, collectives, dist, halo, make_mesh_2d, multihost, ring, sharded2d,
+    Mesh, ShardedCSR, collectives, dist, halo, multihost, ring, sharded2d,
 )
 
 TOOL_N = 999
@@ -74,12 +81,15 @@ MULTILEVEL = tuple(f"halo.{f}" for f in ("heavy_edge_matching", "coarsen", "bfs_
 MULTILEVEL_ARGS = {"tool": (64, 8), "wide": (10, 2)}
 PARTS = 4  # the partitions' k
 HEATMAP_PARTS = 3
-# what must raise NotImplementedError on a mesh that spans processes
-GUARDED = tuple(
-    f"ring.{f}" for f in ("triangle_count", "jaccard_weights", "triangle_count_sparse", "jaccard_weights_sparse",
-                          "jaccard_flat")) + (
-    "sharded2d.Sharded2DCSR.from_csr", "ShardedCSR.stacked", "ShardedCSR.to",
-    "sharded2d.spmv", "sharded2d.degrees")
+# the rings, and the containers' calls (``sharded2d`` on the 2-D mesh with
+# its axes either way round, ``ShardedCSR.stacked`` and ``to``)
+RING = tuple(f"ring.{f}" for f in ("triangle_count", "triangle_count directed", "jaccard_weights",
+                                   "triangle_count_sparse", "jaccard_weights_sparse", "jaccard_flat"))
+ORIENTATIONS = {"x,y": ("x", "y"), "y,x": ("y", "x")}
+CONTAINERS = tuple(f"{f} {o}" for f in ("Sharded2DCSR.from_csr", "sharded2d.spmv", "sharded2d.degrees")
+                   for o in ORIENTATIONS) + ("ShardedCSR.stacked", "ShardedCSR.to mesh", "ShardedCSR.to device")
+TILE_FIELDS = ("indptr", "indices", "vals", "nnz_local")
+SUITE_N = 500  # the suite's graph: at most 2,048 vertices, so that its ring runs
 
 
 def parts_of(d: int, shape, dtype, seed: int, local) -> list:
@@ -259,35 +269,117 @@ def run_multilevel(mesh, graph: str, device) -> dict:
     return out
 
 
-def run_guards(mesh, device) -> dict:
-    """Each function that does not run across processes, called on a
-    container on the spanning mesh: the name of what it raised."""
-    row, col, vals, shape = tool_graph(64)
-    sh = ShardedCSR.from_coo_sharded(*(torch.as_tensor(a).to(device) for a in (row, col, vals)), shape,
-                                     mesh).with_halo()
-    n, back = shape[0], sh.to_csr()
-    tiles = sharded2d.Sharded2DCSR.from_csr(back, make_mesh_2d((1, 1), devices=[device]))
+def caught(calls: dict) -> dict:
+    """Each call's result, or ``"Class: message"`` where it raised (every
+    process raises at the same step, on the same data)."""
+    out = {}
+    for name, fn in calls.items():
+        try:
+            out[name] = fn()
+        except Exception as e:  # the tests compare what each process raised
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def graph_container(mesh, graph: str, device):
+    """``graph``'s container on ``mesh`` (the ingest with halo lists)."""
+    row, col, vals, shape = GRAPHS[graph]()
+    return ShardedCSR.from_coo_sharded(*(torch.as_tensor(a).to(device) for a in (row, col, vals)), shape,
+                                       mesh).with_halo()
+
+
+def run_ring(mesh, graph: str, device) -> dict:
+    """Each ring of :data:`RING` on ``graph``'s container: ``{name:
+    result}``, the counts as ints and every process's whole weights."""
+    sh = graph_container(mesh, graph, device)
     calls = {
         "ring.triangle_count": lambda: ring.triangle_count(sh, mesh),
+        "ring.triangle_count directed": lambda: ring.triangle_count(sh, mesh, directed=True),
         "ring.jaccard_weights": lambda: ring.jaccard_weights(sh, mesh),
         "ring.triangle_count_sparse": lambda: ring.triangle_count_sparse(sh, mesh),
         "ring.jaccard_weights_sparse": lambda: ring.jaccard_weights_sparse(sh, mesh),
         "ring.jaccard_flat": lambda: ring.jaccard_flat(sh, mesh),
-        "sharded2d.Sharded2DCSR.from_csr": lambda: sharded2d.Sharded2DCSR.from_csr(back, mesh),
-        "ShardedCSR.stacked": lambda: sh.stacked("indptr"),
-        "ShardedCSR.to": lambda: sh.to(MeshContext(mesh)),
-        "sharded2d.spmv": lambda: sharded2d.spmv(tiles, torch.ones(n, device=device), mesh),
-        "sharded2d.degrees": lambda: sharded2d.degrees(tiles, mesh),
     }
-    assert tuple(calls) == GUARDED
-    out = {}
-    for name, fn in calls.items():
-        try:
-            fn()
-            out[name] = "returned"
-        except Exception as e:  # the test names what each raised
-            out[name] = f"{type(e).__name__}: {e}"
+    assert tuple(calls) == RING
+    return caught(calls)
+
+
+def tiles(t) -> dict:
+    """A ``Sharded2DCSR``: its tiles' fields flat in (i, j) order (this
+    process's, ``None`` in a remote tile's slot), the flat indices of its
+    own, its counts, grid, widths and every field's ``stacked``."""
+    dc = t.grid[1]
+    out = {name: None if getattr(t, name) is None else tuple(x for row in getattr(t, name) for x in row)
+           for name in TILE_FIELDS}
+    out.update(local=tuple(i * dc + j for i, j in t.local), nnz_counts=t.nnz_counts, grid=t.grid,
+               rows_per_tile=t.rows_per_tile, width=t.width, stacked={name: t.stacked(name) for name in TILE_FIELDS})
     return out
+
+
+def run_containers(mesh, mesh_2d, graph: str, device) -> dict:
+    """Each call of :data:`CONTAINERS` on ``graph``: ``sharded2d`` on
+    ``mesh_2d`` with its axes either way round (a ``Sharded2DCSR`` as
+    :func:`tiles`' dict), ``stacked`` of every field of the 1-D container
+    on ``mesh``, and ``to`` a mesh whose shards alternate between the
+    processes (every other shard changes owner) and to ``device``'s
+    context (as :func:`container`'s dicts with their ``local`` shards)."""
+    sh = graph_container(mesh, graph, device)
+    csr = sh.to_csr()
+    x = torch.as_tensor(function_inputs(sh.shape)["x"]).to(device)
+    built = {o: sharded2d.Sharded2DCSR.from_csr(csr, mesh_2d, axes) for o, axes in ORIENTATIONS.items()}
+    d = mesh.size
+    alternate = Mesh(list(mesh.devices), ("x",), owners=[k % 2 if mesh.spans_processes else 0 for k in range(d)],
+                     rank=mesh.rank)
+
+    def moved(context):
+        out = sh.to(context)
+        return {**container(out), "local": out.local, "spans": out._mesh is not None}
+
+    calls = {}
+    for o in ORIENTATIONS:
+        calls[f"Sharded2DCSR.from_csr {o}"] = lambda o=o: tiles(built[o])
+        calls[f"sharded2d.spmv {o}"] = lambda o=o: sharded2d.spmv(built[o], x, mesh_2d)
+        calls[f"sharded2d.degrees {o}"] = lambda o=o: sharded2d.degrees(built[o], mesh_2d)
+    calls["ShardedCSR.stacked"] = lambda: {name: sh.stacked(name) for name in FIELDS}
+    calls["ShardedCSR.to mesh"] = lambda: moved(MeshContext(alternate))
+    calls["ShardedCSR.to device"] = lambda: moved(context_for(device))
+    assert tuple(sorted(calls)) == tuple(sorted(CONTAINERS))
+    return caught({name: calls[name] for name in CONTAINERS})
+
+
+def suite_graph(device):
+    return bench_suite.synthetic_graph(SUITE_N, 6, device=device)
+
+
+def run_suite(device, shards: int) -> dict:
+    """``bench_suite.run_distributed`` on one graph of ``SUITE_N`` vertices
+    (the ring's block runs), ``shards`` shards (a process, in a group)."""
+    saved = dict(bench_suite.MATRICES)
+    bench_suite.MATRICES["rand-20k"] = suite_graph
+    try:
+        return bench_suite.run_distributed(device=str(device), shards=shards)
+    finally:
+        bench_suite.MATRICES.clear()
+        bench_suite.MATRICES.update(saved)
+
+
+def write_tool_mtx(path) -> None:
+    """The tool graph as a general real MTX file."""
+    row, col, vals, (n, m) = tool_graph()
+    indptr = torch.as_tensor(np.concatenate([[0], np.cumsum(np.bincount(row, minlength=n))]))
+    IOBase.write_csr_to_mtx(CSR(indptr, torch.as_tensor(col), torch.as_tensor(vals), (n, m)), str(path))
+
+
+def run_experiment(mesh, path) -> dict:
+    """A ``ConcreteExperiment`` of ``load_sharded_csr(mesh)``,
+    ``distributed_reorder("rcm")`` and ``distributed_spmv_kernel`` on the
+    MTX file ``path``, run twice: the order and each run's y."""
+    exp = experiment.ConcreteExperiment()
+    exp.add_data_loader(experiment.load_sharded_csr(mesh), [([str(path)], None)])
+    exp.add_preprocess("rcm", experiment.distributed_reorder("rcm"))
+    exp.add_kernel("spmv", experiment.distributed_spmv_kernel)
+    exp.run(times=2, store_auxiliary=True)
+    return {"order": exp.get_auxiliary()[f"preprocess,rcm,{path}"][2], "y": exp.get_results()}
 
 
 def main() -> None:
@@ -306,6 +398,10 @@ def main() -> None:
         device = torch.device("cuda", tdist.get_rank())
     out = {"rank": tdist.get_rank(), "backend": tdist.get_backend(), "local_entry_counts":
            multihost.local_entry_counts(1000)}
+    mtx = Path(args.out) / "tool.mtx"
+    if out["rank"] == 0:
+        write_tool_mtx(mtx)
+    tdist.barrier()
     for s in (int(v) for v in args.shards.split(",")):
         mesh = multihost.global_mesh(devices=[device] * s)
         collectives.reset_traffic()
@@ -314,7 +410,12 @@ def main() -> None:
         res.update({graph: run_path(mesh, graph, device) for graph in GRAPHS})
         res["functions"] = {graph: run_functions(mesh, graph, device) for graph in GRAPHS}
         res["multilevel"] = {graph: run_multilevel(mesh, graph, device) for graph in GRAPHS}
-        res["guards"] = run_guards(mesh, device)
+        res["ring"] = {graph: run_ring(mesh, graph, device) for graph in GRAPHS}
+        mesh_2d = multihost.global_mesh_2d((2, s), devices=[device] * s)
+        res["mesh_2d"] = (mesh_2d.owners.tolist(), mesh_2d.axis_names)
+        res["containers"] = {graph: run_containers(mesh, mesh_2d, graph, device) for graph in GRAPHS}
+        res["suite"] = run_suite(device, s)
+        res["experiment"] = run_experiment(mesh, mtx)
         res["traffic"] = collectives.traffic()
         out[s] = res
     torch.save(out, Path(args.out) / f"rank{out['rank']}.pt")

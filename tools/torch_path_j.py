@@ -6,9 +6,11 @@ components check's 8-block graph drawn last) and ``chip_smoke.path_k`` on
 path J's meshes (its graphs drawn after path J's; path B's band of
 ``--band-nnz`` entries), then ``chip_smoke.path_l`` (its own meshes and
 graphs), then ``chip_smoke.path_m`` (its own graph from ``--seed``, its two
-processes, path N's twelve functions and path O's multilevel calls,
-SlashBurn and containers in one process and in both, and the weak-scaling
-rows). ``--paths`` picks some of ``j``,
+processes, path N's twelve functions, path O's multilevel calls, SlashBurn
+and containers, and path P's rings, ``sharded2d``, containers, suite and
+experiment in one process and in both, and the weak-scaling rows; path P's
+processes hold their ``run_distributed`` tables to path L's where ``l`` runs
+too, else to one made in the parent). ``--paths`` picks some of ``j``,
 ``k``, ``l`` and ``m``; ``--paths l`` or ``m`` makes none of path A's
 graphs. The draws differ from the whole script's, which makes other graphs
 first; path M's graph is the same.
@@ -62,10 +64,11 @@ def main() -> None:
             out["K"] = cs.path_k(g, dev, j, n - n % cs.PARTITION_K, nnz // 4,
                                  int(args.band_nnz) // (2 * cs.BAND_HALF_WIDTH + 1))
         del j, coo, x, src, host_graph
+    suite = None
     if "l" in args.paths:
-        out["L"] = cs.path_l(g, dev)
+        out["L"], suite = cs.path_l(g, dev)
     if "m" in args.paths:
-        out["M"], out["N"], out["O"], out["max_abs_err M"] = cs.path_m(dev, args.seed)
+        out["M"], out["N"], out["O"], out["P"], out["max_abs_err M"] = cs.path_m(dev, args.seed, suite=suite)
     print(f"tools/torch_path_j.py: {time.perf_counter() - t0:.1f} s in all")
     print(out)
 
