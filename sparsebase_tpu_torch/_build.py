@@ -31,6 +31,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+from .utils.tracing import count, counters, reset_counters
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
@@ -170,13 +172,13 @@ def library() -> ctypes.CDLL:
 
 
 class Kernel:
-    """One C entry point of the library, with its launch count."""
+    """One C entry point of the library; each launch counts under
+    ``launch:<name>`` in ``utils.tracing``'s counters."""
 
     def __init__(self, name: str, symbol: str, argtypes):
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes)
-        self.launches = 0
         self._fn = None
         KERNELS[name] = self
 
@@ -190,16 +192,17 @@ class Kernel:
         if err != 0:
             msg = library().sb_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA launch failed: error {err} ({msg})")
-        self.launches += 1
+        count(f"launch:{self.name}")
 
 
 KERNELS: Dict[str, Kernel] = {}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    reset_counters("launch:")
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    """Launches of each kernel since the last reset, from the counters."""
+    seen = counters()
+    return {name: seen.get(f"launch:{name}", 0) for name in KERNELS}

@@ -9,7 +9,8 @@ to_ctx)``; a placement move (``Format.to``) runs before the chain, so each
 conversion runs where its result must live, unless a step of the chain
 needs the target context itself (:class:`ContextConversion`: CSR →
 ShardedCSR needs the mesh) and places its result. PyTorch runs eagerly, so
-a chain step is a direct call.
+a chain step is a direct call, inside the host span
+``sbtorch:convert:<From>-><To>`` (a move: ``sbtorch:convert:<From>:to_context``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Type
 from ..context import Context
 from ..formats.base import Format
 from ..utils.exceptions import ConversionError
+from ..utils.tracing import host_span
 
 ConversionFn = Callable[[Format], Format]
 Condition = Callable[[Optional[Context], Optional[Context]], bool]
@@ -50,6 +52,19 @@ class EagerConversion:
 
     def __call__(self, fmt):
         return self.fn(fmt)
+
+
+def apply_edge(fn: ConversionFn, fmt: Format, to_cls: Type[Format], context: Optional[Context] = None) -> Format:
+    """One step of a chain, ``fmt`` to ``to_cls``, inside its host span; a
+    :class:`ContextConversion` is handed ``context``."""
+    with host_span(f"sbtorch:convert:{type(fmt).__name__}->{to_cls.__name__}"):
+        return fn(fmt, context) if isinstance(fn, ContextConversion) else fn(fmt)
+
+
+def move(fmt: Format, context: Context) -> Format:
+    """``fmt.to(context)`` inside its host span."""
+    with host_span(f"sbtorch:convert:{type(fmt).__name__}:to_context"):
+        return fmt.to(context)
 
 
 class ConversionGraph:
@@ -133,10 +148,10 @@ class ConversionGraph:
         cur = fmt
         has_ctx_edge = any(isinstance(fn, ContextConversion) for fn, _ in chain)
         if context is not None and not from_ctx.is_equivalent(context) and not has_ctx_edge:
-            cur = cur.to(context)
+            cur = move(cur, context)
             out.append(cur)
-        for fn, _cls in chain:
-            cur = fn(cur, context) if isinstance(fn, ContextConversion) else fn(cur)
+        for fn, cls in chain:
+            cur = apply_edge(fn, cur, cls, context)
             out.append(cur)
         return out or [fmt]
 

@@ -27,6 +27,7 @@ from ..formats.csc import CSC
 from ..formats.csr import CSR
 from ..formats.dia import DIA
 from ..formats.ell import ELL
+from ..utils.tracing import host_span
 
 
 def indptr_from_sorted_rows(row: torch.Tensor, nrows: int) -> torch.Tensor:
@@ -167,17 +168,20 @@ def csr_to_dia(csr: CSR) -> DIA:
     """CSR → DIA. The present offsets (col - row) are found with one
     ``unique`` (a host sync: they size the band); the band fills with one
     accumulating scatter. Storage is O(diagonals · n): use on banded
-    matrices."""
+    matrices. The host spans ``sbtorch:csr_to_dia:offsets`` and ``:fill``
+    hold the two steps; the first ends in the host read."""
     n, m = csr.shape
-    row = csr.row_of_nnz()
-    off = csr.indices.to(torch.int32) - row.to(torch.int32)
-    offsets = torch.unique(off)
-    d_idx = torch.searchsorted(offsets, off)
-    vals = csr.vals
-    if vals is None:
-        vals = torch.ones((csr.nnz,), dtype=torch.float32, device=off.device)
-    data = torch.zeros((offsets.shape[0], n), dtype=vals.dtype, device=off.device)
-    data.index_put_((d_idx, row.long()), vals, accumulate=True)
+    with host_span("sbtorch:csr_to_dia:offsets"):
+        row = csr.row_of_nnz()
+        off = csr.indices.to(torch.int32) - row.to(torch.int32)
+        offsets = torch.unique(off)
+    with host_span("sbtorch:csr_to_dia:fill"):
+        d_idx = torch.searchsorted(offsets, off)
+        vals = csr.vals
+        if vals is None:
+            vals = torch.ones((csr.nnz,), dtype=torch.float32, device=off.device)
+        data = torch.zeros((offsets.shape[0], n), dtype=vals.dtype, device=off.device)
+        data.index_put_((d_idx, row.long()), vals, accumulate=True)
     return DIA(offsets, data, (n, m))
 
 

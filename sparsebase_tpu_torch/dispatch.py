@@ -6,7 +6,7 @@ an operation maps tuples of input format classes to implementations.
 Execution looks for an exact key first; failing that it asks the
 conversion graph for the cheapest chain to some registered key, applies
 it, and runs the matched function. Every dispatched op and every
-auto-conversion is a named ``torch.profiler`` span.
+auto-conversion is a named span while a profiler runs (``utils/tracing.py``).
 
 Also here: :class:`ClassMatcher`, the analogue of ``ClassMatcherMixin``
 (utils/class_matcher_mixin.h:12-170).
@@ -16,12 +16,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Type
 
-from torch.profiler import record_function
-
 from .context import Context
-from .convert.graph import ConversionGraph, default_graph
+from .convert.graph import ConversionGraph, apply_edge, default_graph, move
 from .formats.base import Format
 from .utils.exceptions import DirectExecutionNotAvailableError, FunctionNotFoundError
+from .utils.tracing import span
 
 Key = Tuple[Type[Format], ...]
 ImplFn = Callable[..., Any]
@@ -122,14 +121,12 @@ class Operation:
         for fmt, chain in zip(formats, chains):
             cur = fmt
             if context is not None and not cur.context.is_equivalent(context):
-                with record_function(f"sbtorch:convert:{type(cur).__name__}:to_context"):
-                    cur = cur.to(context)
+                cur = move(cur, context)
             for f, cls in chain or ():
-                with record_function(f"sbtorch:convert:{type(cur).__name__}->{cls.__name__}"):
-                    cur = f(cur)
+                cur = apply_edge(f, cur, cls)
             converted.append(None if cur is fmt else cur)
             final_inputs.append(cur)
-        with record_function(f"sbtorch:op:{self.name}"):
+        with span(f"sbtorch:op:{self.name}"):
             return converted, fn(final_inputs, params)
 
 

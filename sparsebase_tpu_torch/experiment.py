@@ -16,8 +16,10 @@ Over the reference:
   asynchronous CUDA error raised at the synchronise leaves :meth:`run`;
 * a warm-up run (default 1) absorbs kernel builds and allocator growth;
 * an optional ``torch.profiler`` trace per (preprocess, kernel, rep)
-  (``trace_dir``), in which the dispatch layer's ``sbtorch:op:*`` and
-  ``sbtorch:convert:*`` spans sit under a ``record_function`` of the run,
+  (``trace_dir``), in which the port's spans (``sbtorch:op:*``,
+  ``sbtorch:convert:*``, ``sbtorch:csr_to_dia:*``, ``sbtorch:pipeline:*``,
+  ``sbtorch:stage:*``, ``sbtorch:relocate:*``; ``utils/tracing.py``) sit
+  under a ``record_function`` of the run,
   and, on a card, the device's kernels; each traced run on a card holds
   the profiler open :data:`TRACE_MARGIN_S` seconds before and after it
   (:func:`trace_to`).

@@ -16,6 +16,9 @@ kernel on CUDA tensors (its plain version on CPU tensors):
 * relocation: kernel K4 moves each row as one block, relabels its columns
   through ``ro[col]`` and sorts them inside the row (``ops/permute.py``),
   so the permuted CSR equals ``permute_2d(csr, ro, ro)`` by construction.
+
+Each pipeline call runs in the span ``sbtorch:pipeline:<name>``, and each
+step in a span ``sbtorch:stage:<step>`` inside it (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..ops.kernels.banded_spmv import banded_spmv
 from ..ops.kernels.csr_spmv import check_real, csr_spmv
 from ..ops.permute import PermuteOrderTwoParams, _permute_csr
 from ..ops.reorder.base import ranks_from_sort_keys
+from ..utils.tracing import span
 
 
 def spmv_csr(csr: CSR, x: torch.Tensor, method: str = "auto") -> torch.Tensor:
@@ -62,10 +66,12 @@ def _permute_and_spmv(coo: COO, indptr: torch.Tensor, ro: torch.Tensor, x: torch
     CSR structure of the input, return the symmetrically permuted CSR and
     ``y = P·(A@x)``."""
     csr = CSR(indptr, coo.col, coo.vals, coo.shape)
-    y_old = spmv_csr(csr, x)
-    y = torch.empty_like(y_old)
-    y[ro] = y_old  # y[ro[i]] = (A@x)[i]
-    permuted = _permute_csr((csr,), PermuteOrderTwoParams(ro, ro))
+    with span("sbtorch:stage:spmv"):
+        y_old = spmv_csr(csr, x)
+        y = torch.empty_like(y_old)
+        y[ro] = y_old  # y[ro[i]] = (A@x)[i]
+    with span("sbtorch:stage:permute"):
+        permuted = _permute_csr((csr,), PermuteOrderTwoParams(ro, ro))
     return permuted, y
 
 
@@ -75,7 +81,8 @@ def preprocess_pipeline(coo: COO, x: torch.Tensor):
     Returns ``(permuted_csr, y)`` with ``y = P·(A@x)``, the permuted
     matrix applied to the permuted vector. The COO must be square and
     row-major sorted (its invariant)."""
-    return _preprocess(coo, x, donate=False)
+    with span("sbtorch:pipeline:preprocess"):
+        return _preprocess(coo, x, donate=False)
 
 
 def preprocess_pipeline_donating(coo: COO, x: torch.Tensor):
@@ -91,7 +98,8 @@ def preprocess_pipeline_donating(coo: COO, x: torch.Tensor):
     next use (a segmentation fault on the CPU, an illegal address that ends
     the CUDA context on the card), and storage that another tensor shares
     (``x``, a view) must stay."""
-    return _preprocess(coo, x, donate=True)
+    with span("sbtorch:pipeline:preprocess"):
+        return _preprocess(coo, x, donate=True)
 
 
 class _Consumed:
@@ -118,11 +126,13 @@ def _preprocess(coo: COO, x: torch.Tensor, donate: bool):
     if n != m:
         raise ValueError(f"preprocess_pipeline permutes rows and columns alike; shape {coo.shape} is not square")
     nnz = coo.nnz
-    indptr = indptr_from_sorted_rows(coo.row, n)
+    with span("sbtorch:stage:indptr"):
+        indptr = indptr_from_sorted_rows(coo.row, n)
     if donate:
         _drop(coo, "row")
     # ro[old] = new. A degree is at most nnz: K5 plans only the bytes nnz has.
-    ro = ranks_from_sort_keys(indptr[1:] - indptr[:-1], key_bits=nnz.bit_length())
+    with span("sbtorch:stage:rank"):
+        ro = ranks_from_sort_keys(indptr[1:] - indptr[:-1], key_bits=nnz.bit_length())
     permuted, y = _permute_and_spmv(coo, indptr, ro, x)
     if donate:
         _drop(coo, "col", "vals")
@@ -140,9 +150,12 @@ def rcm_pipeline(coo: COO, x: torch.Tensor):
     n, m = coo.shape
     if n != m:
         raise ValueError(f"rcm_pipeline permutes rows and columns alike; shape {coo.shape} is not square")
-    indptr = indptr_from_sorted_rows(coo.row, n)
-    ro = _rcm_device(CSR(indptr, coo.col, coo.vals, coo.shape))
-    return _permute_and_spmv(coo, indptr, ro, x)
+    with span("sbtorch:pipeline:rcm"):
+        with span("sbtorch:stage:indptr"):
+            indptr = indptr_from_sorted_rows(coo.row, n)
+        with span("sbtorch:stage:rcm"):
+            ro = _rcm_device(CSR(indptr, coo.col, coo.vals, coo.shape))
+        return _permute_and_spmv(coo, indptr, ro, x)
 
 
 def partition_pipeline(coo: COO, x: torch.Tensor, k: int = 8, num_iters: int = 10):
@@ -162,11 +175,16 @@ def partition_pipeline(coo: COO, x: torch.Tensor, k: int = 8, num_iters: int = 1
     n, m = coo.shape
     if n != m:
         raise ValueError(f"partition_pipeline permutes rows and columns alike; shape {coo.shape} is not square")
-    indptr = indptr_from_sorted_rows(coo.row, n)
-    csr = CSR(indptr, coo.col, coo.vals, coo.shape)
-    labels = _propagate(csr, _chunks(n, k, indptr.device), k, 1.1 * n / k, None, num_iters, stop_when_stable=False)
-    ro = ranks_from_sort_keys(labels, key_bits=bits_below(k))  # ro[old] = new, stable within a part
-    permuted, y = _permute_and_spmv(coo, indptr, ro, x)
+    with span("sbtorch:pipeline:partition"):
+        with span("sbtorch:stage:indptr"):
+            indptr = indptr_from_sorted_rows(coo.row, n)
+        csr = CSR(indptr, coo.col, coo.vals, coo.shape)
+        with span("sbtorch:stage:label_prop"):
+            labels = _propagate(csr, _chunks(n, k, indptr.device), k, 1.1 * n / k, None, num_iters,
+                                stop_when_stable=False)
+        with span("sbtorch:stage:rank"):
+            ro = ranks_from_sort_keys(labels, key_bits=bits_below(k))  # ro[old] = new, stable within a part
+        permuted, y = _permute_and_spmv(coo, indptr, ro, x)
     return permuted, y, labels
 
 

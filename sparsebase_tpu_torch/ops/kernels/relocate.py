@@ -19,6 +19,11 @@ the rows over ``BLOCK_MAX`` on a (row, new column) key. A call syncs with
 the host once, to read how many rows are over ``BLOCK_MAX`` (only when the
 matrix has enough entries to hold one); where there are such rows, their
 route reads their total length as well (K5 itself reads nothing back).
+The route runs in the span ``sbtorch:relocate:long_rows``; the counters
+``relocate.entries``, ``relocate.long_rows`` and
+``relocate.long_row_entries`` take the entries of each call on the card,
+the rows over ``BLOCK_MAX`` and their entries, from the values the host
+reads anyway.
 float32 values and pattern matrices ride in the kernel; for any other
 value dtype the kernel writes each entry's source position and the wrapper
 gathers ``vals[src]``. The kernel takes int64 offsets and int32 ids: other
@@ -41,6 +46,7 @@ from ..._build import Kernel
 from ...convert.kernels import expand_row_table, indptr_from_counts, sort_by_pairs_plain
 from ...formats.csr import CSR
 from ...utils.exceptions import TypeMismatchError
+from ...utils.tracing import count, span
 from ._args import kernel_ids, kernel_offsets
 from .radix import bits_below, radix_argsort
 
@@ -105,6 +111,7 @@ def relocate_csr(
         if order is not None and order.shape != (size,):
             raise ValueError(f"relocate_csr: {what} has shape {tuple(order.shape)}, expected ({size},)")
     dev, nnz = csr.indices.device, csr.nnz
+    count("relocate.entries", nnz)
     id_dtype = csr.indices.dtype
     ro = None if row_order is None else row_order.to(torch.int32).contiguous()
     co = None if col_order is None else col_order.to(torch.int32).contiguous()
@@ -136,9 +143,11 @@ def relocate_csr(
         )
     if over_cap:
         over = int(counts[1])  # the one host sync: rows over BLOCK_MAX
+        count("relocate.long_rows", over)
         if over:
-            _sort_rows_over_cap(rows[block_cap:block_cap + over], indptr, indices, vals, ro, co, new_indptr,
-                                out_indices, out_vals, out_src, csr.ncols)
+            with span("sbtorch:relocate:long_rows"):
+                _sort_rows_over_cap(rows[block_cap:block_cap + over], indptr, indices, vals, ro, co, new_indptr,
+                                    out_indices, out_vals, out_src, csr.ncols)
     if route == _SOURCE:
         out_vals = vals[out_src]
     return CSR(given_indptr, out_indices.to(id_dtype), out_vals, csr.shape)
@@ -153,6 +162,7 @@ def _sort_rows_over_cap(rows, indptr, indices, vals, ro, co, new_indptr, out_ind
     degs = indptr[rows.long() + 1] - starts
     seg_start = indptr_from_counts(degs)
     total = int(seg_start[-1])
+    count("relocate.long_row_entries", total)
     seg = torch.repeat_interleave(torch.arange(rows.numel(), device=rows.device), degs, output_size=total)
     local = torch.arange(total, device=rows.device) - seg_start[seg]
     src = starts[seg] + local

@@ -31,8 +31,10 @@ with a CLI::
 
 which reads the matrix onto the card unless given ``--device cpu``, writes
 the dashboard and (with ``--trace``) a ``torch.profiler`` Chrome trace whose
-spans carry the ``sbtorch:op:``/``sbtorch:convert:`` names emitted by the
-dispatch layer.
+spans carry the port's names (``utils/tracing.py``): ``sbtorch:op:`` and
+``sbtorch:convert:`` from the dispatch and the conversions, and
+``sbtorch:csr_to_dia:``, ``sbtorch:pipeline:``, ``sbtorch:stage:`` and
+``sbtorch:relocate:`` from the steps inside them.
 """
 
 from __future__ import annotations

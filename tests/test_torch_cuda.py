@@ -457,6 +457,88 @@ def test_relocate_syncs_the_host_once(dev, gen):
     assert torch.equal(got.indices, relocate_csr_plain(csr, ro, co).indices)
 
 
+def long_row_csr(gen, dev):
+    """``degrees_mix`` with five rows of 4,097 to 9,000 entries, past K4's
+    block tier, and its two orders."""
+    deg = degrees_set(gen, dev, 20_000, slice(1_000, 1_005), 4_097, 9_000)
+    csr = device_csr(gen, dev, deg, 30_000)
+    ro = torch.randperm(csr.nrows, generator=gen, device=dev).to(torch.int32)
+    co = torch.randperm(30_000, generator=gen, device=dev).to(torch.int32)
+    return deg, csr, ro, co
+
+
+def test_relocate_counts_the_rows_over_block_max(dev, gen):
+    """The long-row route's counters equal what the host computes from the
+    degrees: the call's entries, the rows over BLOCK_MAX and theirs."""
+    from sparsebase_tpu_torch.ops.kernels.relocate import BLOCK_MAX
+    from sparsebase_tpu_torch.utils import tracing
+
+    deg, csr, ro, co = long_row_csr(gen, dev)
+    names = ("relocate.entries", "relocate.long_rows", "relocate.long_row_entries")
+    before = tracing.counters()
+    got = relocate_csr(csr, ro, co)
+    after = tracing.counters()
+    over = deg > BLOCK_MAX
+    want = (int(deg.sum()), int(over.sum()), int(deg[over].sum()))
+    assert want[1] == 5
+    assert tuple(after.get(k, 0) - before.get(k, 0) for k in names) == want
+    assert torch.equal(got.indices, relocate_csr_plain(csr, ro, co).indices)
+
+
+def test_relocate_with_long_rows_syncs_twice_traced_or_not(dev, gen):
+    """Rows over BLOCK_MAX: a call reads back how many there are and their
+    total length, with or without a profiler running; traced, the route
+    runs inside its span on the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, csr, ro, co = long_row_csr(gen, dev)
+    relocate_csr(csr, ro, co)
+    torch.cuda.synchronize()
+
+    def syncs():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                relocate_csr(csr, ro, co)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+    assert syncs() == 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        assert syncs() == 2
+    device_spans = [ev for ev in prof.events() if ev.name == "sbtorch:relocate:long_rows"
+                    and ev.device_type != torch.autograd.DeviceType.CPU]
+    assert len(device_spans) == 1
+
+
+def test_a_callers_span_keeps_the_conversions_device_time(dev):
+    """The conversion's spans are host ranges: the caller's span around
+    ``convert(DIA)`` holds the conversion's kernels on the device, and the
+    stage spans have no device range of their own."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    n = 50_000
+    i = torch.arange(n, device=dev)
+    row = torch.cat([i, i[1:], i[:-1]]).to(torch.int32)
+    col = torch.cat([i, i[1:] - 1, i[:-1] + 1]).to(torch.int32)
+    row, col, vals = sort_by_pairs_plain(row, col, torch.ones(row.numel(), device=dev))
+    csr = COO(row, col, vals, (n, n)).convert(CSR)
+    csr.convert(DIA)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("caller"):
+            dia = csr.convert(DIA)
+        torch.cuda.synchronize()
+    on_device = {ev.name for ev in prof.events() if ev.device_type != torch.autograd.DeviceType.CPU}
+    on_host = {ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CPU}
+    assert "caller" in on_device and not any(name.startswith("sbtorch:") for name in on_device)
+    assert {"sbtorch:convert:CSR->DIA", "sbtorch:csr_to_dia:offsets", "sbtorch:csr_to_dia:fill"} <= on_host
+    assert dia.offsets.tolist() == [-1, 0, 1]
+
+
 def small_graph(gen, dev, n=20_000, nnz=300_000):
     row = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
     col = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
