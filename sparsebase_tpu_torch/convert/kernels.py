@@ -27,7 +27,7 @@ from ..formats.csc import CSC
 from ..formats.csr import CSR
 from ..formats.dia import DIA
 from ..formats.ell import ELL
-from ..utils.tracing import host_span
+from ..utils.tracing import count, host_span
 
 
 def indptr_from_sorted_rows(row: torch.Tensor, nrows: int) -> torch.Tensor:
@@ -166,23 +166,77 @@ def ell_to_csr(ell: ELL) -> CSR:
 
 def csr_to_dia(csr: CSR) -> DIA:
     """CSR → DIA. The present offsets (col - row) are found with one
-    ``unique`` (a host sync: they size the band); the band fills with one
-    accumulating scatter. Storage is O(diagonals · n): use on banded
-    matrices. The host spans ``sbtorch:csr_to_dia:offsets`` and ``:fill``
-    hold the two steps; the first ends in the host read."""
+    ``unique`` (a host sync: they size the band). Storage is O(diagonals ·
+    n): use on banded matrices. The band fills by one of two routes, picked
+    by the input alone:
+
+    * scatter, when every row's column ids strictly ascend (as ``CSR.new``
+      leaves them, unless a coordinate repeats): each entry has a (diagonal,
+      row) cell of its own, so one scatter without accumulation writes it,
+      and no position is sorted;
+    * accumulate, otherwise: one accumulating ``index_put_``, which sums
+      repeated coordinates in entry order.
+
+    Both give the same band bit for bit where both apply (an explicit -0.0
+    is stored as +0.0). The flag that picks the route is computed on the
+    device before ``unique`` and copied to pinned host memory without a
+    sync of its own: ``unique``'s host read completes the copy. The host
+    spans ``sbtorch:csr_to_dia:offsets`` and ``:fill`` hold the two steps;
+    the first ends in that host read. The counters ``csr_to_dia.scatter``
+    and ``csr_to_dia.accumulate`` count the calls on each route."""
     n, m = csr.shape
     with host_span("sbtorch:csr_to_dia:offsets"):
         row = csr.row_of_nnz()
         off = csr.indices.to(torch.int32) - row.to(torch.int32)
+        descends = _descent_in_a_row(off, csr.indptr)
         offsets = torch.unique(off)
     with host_span("sbtorch:csr_to_dia:fill"):
-        d_idx = torch.searchsorted(offsets, off)
+        dev = off.device
+        if bool(descends):
+            count("csr_to_dia.accumulate")
+            d_idx = torch.searchsorted(offsets, off)
+            vals = csr.vals
+            if vals is None:
+                vals = torch.ones((csr.nnz,), dtype=torch.float32, device=dev)
+            data = torch.zeros((offsets.shape[0], n), dtype=vals.dtype, device=dev)
+            data.index_put_((d_idx, row.long()), vals, accumulate=True)
+            return DIA(offsets, data, (n, m))
+        count("csr_to_dia.scatter")
+        # each entry's cell, diagonal * n + row, in int64; the diagonal in
+        # int32 (the sum then too) where no cell's position reaches 2^31
+        d_idx = torch.searchsorted(offsets, off, out_int32=offsets.shape[0] * n < 2**31)
+        del off
+        pos = d_idx if d_idx.dtype == torch.int64 else torch.empty((csr.nnz,), dtype=torch.int64, device=dev)
+        torch.add(row, d_idx, alpha=n, out=pos)
+        del row, d_idx
         vals = csr.vals
         if vals is None:
-            vals = torch.ones((csr.nnz,), dtype=torch.float32, device=off.device)
-        data = torch.zeros((offsets.shape[0], n), dtype=vals.dtype, device=off.device)
-        data.index_put_((d_idx, row.long()), vals, accumulate=True)
+            vals = torch.ones((csr.nnz,), dtype=torch.float32, device=dev)
+        elif vals.is_floating_point() or vals.is_complex():
+            vals = vals + 0  # -0.0 becomes +0.0, as in the accumulating sum
+        data = torch.zeros((offsets.shape[0], n), dtype=vals.dtype, device=dev)
+        data.view(-1)[pos] = vals
     return DIA(offsets, data, (n, m))
+
+
+def _descent_in_a_row(off: torch.Tensor, indptr: torch.Tensor) -> torch.Tensor:
+    """Whether some row's ``off`` (its column ids less the row) fails to
+    strictly ascend, as a one-element bool tensor on the host. From a card,
+    it is copied without waiting into pinned memory: read it only after a
+    sync of the stream."""
+    nnz = off.shape[0]
+    if nnz < 2:
+        return torch.zeros((), dtype=torch.bool)
+    # descent[k]: entries k - 1 and k lie in one row and do not ascend;
+    # indptr holds 0 and nnz, so both ends are cleared with the row starts
+    descent = torch.empty((nnz + 1,), dtype=torch.bool, device=off.device)
+    torch.le(off[1:], off[:-1], out=descent[1:nnz])
+    descent.index_fill_(0, indptr.long(), False)
+    flag = descent.any()
+    if flag.device.type != "cuda":
+        return flag
+    host = torch.empty((), dtype=torch.bool, pin_memory=True)
+    return host.copy_(flag, non_blocking=True)
 
 
 def dia_to_csr(dia: DIA) -> CSR:

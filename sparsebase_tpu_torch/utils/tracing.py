@@ -31,7 +31,8 @@ conversion in a span of its own keeps the conversion's device time in it.
 for each launch of a hand-written kernel (``_build.Kernel.launch``), and
 ``relocate.entries``, ``relocate.long_rows`` and
 ``relocate.long_row_entries`` for K4's CUDA route, counted from values the
-host already holds.
+host already holds, and ``csr_to_dia.scatter`` and ``csr_to_dia.accumulate``,
+one a call of the CSR to DIA conversion on each of its routes.
 """
 
 from __future__ import annotations

@@ -539,6 +539,68 @@ def test_a_callers_span_keeps_the_conversions_device_time(dev):
     assert dia.offsets.tolist() == [-1, 0, 1]
 
 
+def stencil27_coo(gen, dev, nx):
+    """HPCG's 27-point stencil on an ``nx``³ grid, rows in order and the
+    columns of each ascending, random values with every 97th a -0.0."""
+    n = nx ** 3
+    r = torch.arange(n, device=dev)
+    s = torch.arange(-1, 2, device=dev)
+    sz, sy, sx = (a.reshape(-1) for a in torch.meshgrid(s, s, s, indexing="ij"))
+    ok = torch.ones((n, 27), dtype=torch.bool, device=dev)
+    for i, sh in ((r % nx, sx), ((r // nx) % nx, sy), (r // (nx * nx), sz)):
+        ok &= ((i[:, None] + sh) >= 0) & ((i[:, None] + sh) < nx)
+    row = r[:, None].expand(-1, 27)[ok].to(torch.int32)
+    col = (r[:, None] + sz * nx * nx + sy * nx + sx)[ok].to(torch.int32)
+    vals = torch.randn((row.numel(),), generator=gen, device=dev)
+    vals[::97] = -0.0
+    return COO(row, col, vals, (n, n))
+
+
+def accumulated_band(csr):
+    """The band as one accumulating ``index_put_`` fills it."""
+    row = csr.row_of_nnz()
+    off = csr.indices.to(torch.int32) - row.to(torch.int32)
+    offsets = torch.unique(off)
+    data = torch.zeros((offsets.numel(), csr.nrows), dtype=csr.vals.dtype, device=csr.vals.device)
+    data.index_put_((torch.searchsorted(offsets, off), row.long()), csr.vals, accumulate=True)
+    return offsets, data
+
+
+def test_csr_to_dia_routes_on_card(dev, gen):
+    """A 27-point band at 1M rows, every row strictly ascending, takes the
+    scatter route: its band equals the accumulating expression bit for bit,
+    the signs of its zeros too, and ``convert(DIA)`` syncs the host once.
+    With repeated coordinates the band takes the accumulate route and gives
+    the same band as that expression."""
+    from sparsebase_tpu_torch.utils import tracing
+
+    coo = stencil27_coo(gen, dev, 100)
+    csr = coo.convert(CSR)
+    csr.convert(DIA)
+    before = tracing.counters()
+    syncs, dia = count_syncs(lambda: csr.convert(DIA))
+    after = tracing.counters()
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    assert after.get("csr_to_dia.scatter", 0) == before.get("csr_to_dia.scatter", 0) + 1
+    assert after.get("csr_to_dia.accumulate", 0) == before.get("csr_to_dia.accumulate", 0)
+    offsets, want = accumulated_band(csr)
+    assert dia.num_diagonals == 27 and torch.equal(dia.offsets, offsets)
+    assert torch.equal(dia.data, want) and torch.equal(torch.signbit(dia.data), torch.signbit(want))
+
+    pick = torch.arange(0, coo.nnz, 1_000, device=dev)  # every 1,000th entry once more, another value
+    extra = torch.randn((pick.numel(),), generator=gen, device=dev)
+    row, col, vals = sort_by_pairs_plain(torch.cat([coo.row, coo.row[pick]]), torch.cat([coo.col, coo.col[pick]]),
+                                         torch.cat([coo.vals, extra]))
+    twice = COO(row, col, vals, coo.shape).convert(CSR)
+    before = tracing.counters()
+    dia = twice.convert(DIA)
+    after = tracing.counters()
+    assert after.get("csr_to_dia.accumulate", 0) == before.get("csr_to_dia.accumulate", 0) + 1
+    offsets, want = accumulated_band(twice)
+    assert torch.equal(dia.offsets, offsets)
+    assert torch.equal(dia.data, want) and torch.equal(torch.signbit(dia.data), torch.signbit(want))
+
+
 def small_graph(gen, dev, n=20_000, nnz=300_000):
     row = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
     col = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)

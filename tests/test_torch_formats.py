@@ -466,3 +466,77 @@ def test_dtype_universes_match_jax(name):
 
     got = [str(d).removeprefix("torch.") for d in getattr(sbt.utils, name)]
     assert got == [np.dtype(d).name for d in getattr(ref_utils, name)]
+
+
+# case -> the route csr_to_dia takes; rows hold the columns {i - 2, i, i + 3}
+# in the matrix, ascending, unless the case changes them
+DIA_ROUTES = {
+    "ascending": "scatter", "repeated": "accumulate", "unordered": "accumulate", "pattern": "scatter",
+    "empty": "scatter", "empty-rows": "scatter", "one-entry": "scatter", "wide": "scatter", "tall": "scatter",
+    "float64": "scatter", "bfloat16": "scatter",
+}
+
+
+def dia_case(case):
+    """(indptr, indices, values as float32 or float64, shape); the first value
+    is an explicit -0.0."""
+    n, m = {"wide": (6, 15), "tall": (15, 6)}.get(case, (12, 12))
+    rows = [[c for c in (i - 2, i, i + 3) if 0 <= c < m] for i in range(n)]
+    if case == "empty":
+        rows = [[] for _ in range(n)]
+    if case == "one-entry":
+        rows = [[5] if i == 3 else [] for i in range(n)]
+    if case == "empty-rows":
+        rows[0] = rows[5] = rows[-1] = []
+    if case == "repeated":
+        rows[4] = [2, 4, 4, 7]
+    if case == "unordered":
+        rows[4] = rows[4][::-1]
+    indptr = np.cumsum([0] + [len(r) for r in rows]).astype(np.int64)
+    indices = np.array([c for r in rows for c in r], np.int32)
+    rng = np.random.default_rng(11)
+    if case == "bfloat16":
+        vals = (rng.integers(-8, 9, indices.size) / 2).astype(np.float32)  # exact in bfloat16
+    else:
+        vals = rng.standard_normal(indices.size).astype(np.float64 if case == "float64" else np.float32)
+    vals[:1] = -0.0
+    return indptr, indices, vals, (n, m)
+
+
+def value_bits(a):
+    """The bits of each value: an integer view of the same width."""
+    a = np.asarray(a)
+    return a.view({2: np.int16, 4: np.int32, 8: np.int64}[a.dtype.itemsize])
+
+
+@pytest.mark.parametrize("case", sorted(DIA_ROUTES))
+def test_csr_to_dia_routes_match_reference(case):
+    """Both routes of the port's ``csr_to_dia`` give the JAX package's band
+    bit for bit (an explicit -0.0 becomes +0.0 on both), and the route's
+    counter moves by one."""
+    import ml_dtypes
+
+    from sparsebase_tpu.convert.kernels import csr_to_dia as ref_csr_to_dia
+
+    from sparsebase_tpu_torch.convert.kernels import csr_to_dia
+    from sparsebase_tpu_torch.utils import tracing
+
+    indptr, indices, vals, shape = dia_case(case)
+    port_vals, ref_vals = t(vals), vals
+    if case == "pattern":
+        port_vals = ref_vals = None
+    elif case == "bfloat16":
+        port_vals, ref_vals = port_vals.to(torch.bfloat16), vals.astype(ml_dtypes.bfloat16)
+    before = tracing.counters()
+    got = csr_to_dia(CSR.new(t(indptr), t(indices), port_vals, shape, sort=False))
+    after = tracing.counters()
+    want = ref_csr_to_dia(ref.CSR.new(indptr, indices, ref_vals, shape, sort=False))
+    route = DIA_ROUTES[case]
+    other = {"scatter": "accumulate", "accumulate": "scatter"}[route]
+    assert after.get(f"csr_to_dia.{route}", 0) == before.get(f"csr_to_dia.{route}", 0) + 1
+    assert after.get(f"csr_to_dia.{other}", 0) == before.get(f"csr_to_dia.{other}", 0)
+    assert got.shape == shape and got.offsets.tolist() == np.asarray(want.offsets).tolist()
+    data = got.data.view(torch.int16) if got.data.dtype == torch.bfloat16 else got.data
+    assert got.data.dtype == (torch.float32 if ref_vals is None else port_vals.dtype)
+    np.testing.assert_array_equal(value_bits(data.numpy()), value_bits(want.data))
+    assert not (torch.signbit(got.data) & (got.data == 0)).any()  # no -0.0 stored
