@@ -11,10 +11,10 @@ spans its processes (``global_mesh``, and ``global_mesh_2d`` for
 ``sharded2d``), each process driving its own shards. Every function of the
 tier runs on such a mesh and gives every process the single-process mesh's
 result bit for bit: the containers' constructors, reads and moves
-(``ShardedCSR``: ``from_coo_sharded``, ``from_csr``, ``from_csr_balanced``,
-``with_halo``, ``stacked``, ``to``, ``to_csr``; ``Sharded2DCSR``:
-``from_csr``, ``stacked``), every function of ``dist``, ``halo``,
-``ring`` and ``sharded2d``, and every collective. Each process makes the
+(``ShardedCSR``: ``from_coo_sharded``, ``from_coo_blocks``, ``from_csr``,
+``from_csr_balanced``, ``with_halo``, ``stacked``, ``to``, ``to_csr``;
+``Sharded2DCSR``: ``from_csr``, ``stacked``), every function of ``dist``,
+``halo``, ``ring`` and ``sharded2d``, and every collective. Each process makes the
 same calls in the same order and passes ``None`` in a remote shard's slot.
 """
 

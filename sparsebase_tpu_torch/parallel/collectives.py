@@ -20,7 +20,9 @@ gathers every part and folds them in shard order 0..d-1 on the process's
 first shard's device, so its float sums equal the single-process mesh's
 bit for bit. With gloo a CUDA tensor is staged through host memory. The
 bytes sent to other processes and the bytes staged are counted
-(:func:`traffic`).
+(:func:`traffic`). Inside a process, the bytes that :func:`all_to_all`
+copies from one card to another go to the counter
+``collectives.card_bytes`` (``utils.tracing.count``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+
+from ..utils.tracing import count
 
 # bytes this process sent to other processes, bytes staged between a card
 # and host memory for gloo, and the exchanges made (reset_traffic, traffic)
@@ -68,7 +72,14 @@ def _layout(parts, owners):
         if (parts[k] is None) == (o == me):
             raise ValueError(f"shard {k} of rank {o}: rank {me} must pass a tensor for its own shards and None "
                              "for the others'")
-    return me, by_rank, parts[by_rank[me][0]].device
+    k = by_rank[me][0]
+    return me, by_rank, _device(parts[k], k)
+
+
+def _device(part, k: int) -> torch.device:
+    """Shard ``k``'s device: its tensor's, or that of its own piece where
+    the part is a sequence of pieces (:func:`all_to_all`)."""
+    return part.device if isinstance(part, torch.Tensor) else part[k].device
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -259,23 +270,21 @@ def all_gather(parts: Sequence[Optional[torch.Tensor]], owners=None) -> Tuple[Op
     return tuple(None if p is None else stacked.to(p.device) for p in parts)
 
 
-def all_to_all(parts: Sequence[Optional[torch.Tensor]], split_axis: int = 0, concat_axis: int = 0,
+def all_to_all(parts: Sequence, split_axis: int = 0, concat_axis: int = 0,
                owners=None) -> Tuple[Optional[torch.Tensor], ...]:
-    """Shard s cuts its tensor into d equal pieces along ``split_axis`` and
-    sends piece r to shard r, which joins what it receives along
-    ``concat_axis`` in shard order (``jax.lax.all_to_all``). Across
-    processes, the pieces between two processes travel in one exchange;
-    those that stay inside a process are copied as on one process."""
+    """Shard s sends its piece r to shard r, which joins what it receives
+    along ``concat_axis`` in shard order (``jax.lax.all_to_all``). A part is
+    a tensor, cut into d equal pieces along ``split_axis``, or a sequence of
+    d pieces whose sizes along ``concat_axis`` may differ (piece r of shard
+    r lies on its device): an all-to-all of true lengths, with no padded
+    bucket. Each piece is copied once, into its place in the joined tensor;
+    across processes, the pieces between two processes travel in one
+    exchange. A copy between two cards inside a process counts its bytes
+    in ``collectives.card_bytes``."""
     d = len(parts)
-    here = [p for p in parts if p is not None]
-    size = here[0].shape[split_axis]
-    if size % d:
-        raise ValueError(f"all_to_all: a split axis of {size} does not divide into {d} shards")
-    pieces = [None if p is None else p.tensor_split(d, dim=split_axis) for p in parts]
+    pieces = [None if p is None else _cut(p, d, split_axis) for p in parts]
     if not _spans(owners):
-        return tuple(
-            torch.cat([pieces[s][r].to(parts[r].device) for s in range(d)], dim=concat_axis) for r in range(d)
-        )
+        return tuple(_joined([pieces[s][r] for s in range(d)], _device(parts[r], r), concat_axis) for r in range(d))
     me, by_rank, first = _layout(parts, owners)
     got = _swap({q: [pieces[s][r] for s in by_rank[me] for r in ks] for q, ks in by_rank.items()}, first)
     recv = {}  # (s, r) -> the piece shard s sent to this process's shard r
@@ -283,11 +292,43 @@ def all_to_all(parts: Sequence[Optional[torch.Tensor]], split_axis: int = 0, con
         pairs = [(s, r) for s in by_rank[p] for r in by_rank[me]]
         recv.update(zip(pairs, tensors))
     return tuple(
-        None if parts[r] is None else torch.cat(
-            [_to(recv[s, r], parts[r].device) if parts[s] is None else pieces[s][r].to(parts[r].device)
-             for s in range(d)], dim=concat_axis)
+        None if parts[r] is None else _joined([recv[s, r] if parts[s] is None else pieces[s][r] for s in range(d)],
+                                              _device(parts[r], r), concat_axis)
         for r in range(d)
     )
+
+
+def _cut(part, d: int, axis: int) -> tuple:
+    """A shard's part as its d pieces."""
+    if isinstance(part, torch.Tensor):
+        if part.shape[axis] % d:
+            raise ValueError(f"all_to_all: a split axis of {part.shape[axis]} does not divide into {d} shards")
+        return part.tensor_split(d, dim=axis)
+    if len(part) != d:
+        raise ValueError(f"all_to_all: {len(part)} pieces for {d} shards")
+    return tuple(part)
+
+
+def _joined(pieces: Sequence[torch.Tensor], device: torch.device, axis: int) -> torch.Tensor:
+    """The pieces joined along ``axis`` on ``device``, each copied once into
+    its place: a copy from host memory to a card counts as staged, one
+    between two cards as ``collectives.card_bytes``."""
+    shape = list(pieces[0].shape)
+    shape[axis] = sum(p.shape[axis] for p in pieces)
+    out = torch.empty(shape, dtype=pieces[0].dtype, device=device)
+    at = 0
+    for p in pieces:
+        size = p.shape[axis]
+        if size:
+            out.narrow(axis, at, size).copy_(p)
+            if p.device != device:
+                nbytes = p.numel() * p.element_size()
+                if p.device.type == "cpu":
+                    _TRAFFIC["staged_bytes"] += nbytes
+                elif device.type == "cuda":
+                    count("collectives.card_bytes", nbytes)
+        at += size
+    return out
 
 
 def psum_scatter(parts: Sequence[Optional[torch.Tensor]], scatter_dimension: int = 0, tiled: bool = True,

@@ -83,6 +83,7 @@ from ..ops.kernels.csr_spmv import csr_spmv
 from ..ops.kernels.indptr import indptr_from_sorted_rows
 from ..ops.kernels.radix import bits_below, radix_argsort
 from ..utils.logger import Logger
+from ..utils.tracing import span
 from .collectives import all_gather, all_to_all, join, pmax, pmin, psum
 from .dist import _local_row_of, _rcm_rank, _shards, degrees
 from .mesh import Mesh
@@ -108,8 +109,9 @@ def _exchange(x_local: Sequence[torch.Tensor], halo_send_l: Sequence[torch.Tenso
     ``all_to_all`` of (D, S) values."""
     sends = [None if x is None else torch.index_select(x, 0, hs.reshape(-1)).view(hs.shape)
              for x, hs in zip(x_local, halo_send_l)]
-    return tuple(None if x is None else torch.cat([x, r.reshape(-1)])
-                 for x, r in zip(x_local, all_to_all(sends, owners=owners)))
+    with span("sbtorch:halo:exchange"):
+        recv = all_to_all(sends, owners=owners)
+    return tuple(None if x is None else torch.cat([x, r.reshape(-1)]) for x, r in zip(x_local, recv))
 
 
 def _each(fn, *parts) -> list:
@@ -728,8 +730,8 @@ def coarsen(sh: ShardedCSR, match, mesh: Mesh, halo: bool = True, return_mapping
     once; a non-representative takes its partner's coarse id through one
     exchange, the entries are relabelled through a second, and an entry
     inside a pair becomes the pad row nc. The shards' blocks of ``width``
-    slots (pads row nc) go through :meth:`ShardedCSR.from_coo_sharded`'s
-    route, so capacity and widths equal JAX's. Parallel edges are kept,
+    slots (pads row nc) go through :meth:`ShardedCSR.from_coo_blocks`, so
+    capacity and widths equal JAX's. Parallel edges are kept,
     their float32 values (ones for a pattern) as the coarse values.
 
     Returns the coarse ``ShardedCSR`` (with halo lists when ``halo``), and
@@ -771,7 +773,7 @@ def coarsen(sh: ShardedCSR, match, mesh: Mesh, halo: bool = True, return_mapping
                                        (blocks[2], 0, torch.float32, torch.where(keep, vals, 0.0))):
             out[k] = torch.cat([part.to(dtype), torch.full((width - cnt,), fill, dtype=dtype, device=dev)])
     route = {}
-    out = ShardedCSR._from_blocks(*blocks, True, (nc, nc), sh.devices, sh.axis, stats=route, mesh=mesh)
+    out = ShardedCSR.from_coo_blocks(*blocks, (nc, nc), mesh, sh.axis, stats=route)
     reads = 1 + route["host_reads"]
     if halo:
         out = out.with_halo()

@@ -26,19 +26,20 @@ remote vertices the reader touches:
 
 Each ``shard_map`` body of the JAX module is a per-shard function here,
 called for each shard on its device, followed by the collective
-(``parallel.collectives``). The sorts run on K5 (``sort_by_pairs``,
-``radix_argsort``) and the local ``indptr`` on K3 on CUDA tensors, on their
-plain versions on CPU tensors. A static width that sizes a buffer is read
-back to the host once, as the JAX module reads it.
+(``parallel.collectives``). The sorts run on K5 (``radix_argsort``) and
+the local ``indptr`` on K3 on CUDA tensors, on their plain versions on CPU
+tensors. A static width that sizes a buffer is read back to the host once,
+as the JAX module reads it.
 
 On a mesh that spans processes (``multihost.global_mesh``) the container
 keeps its mesh, and each field holds this process's shards' tensors and
-``None`` in a remote shard's slot. ``from_coo_sharded``, ``from_csr``,
-``from_csr_balanced``, ``with_halo``, ``nnz``, ``halo_bytes_per_exchange``
-and ``to_csr`` run there, every process making the same calls: every host
-read of values from several shards goes through ``collectives.host_fetch``,
-which gathers the remote ones first. ``stacked`` gathers every shard, and
-``to`` moves the shards whose owner changes through the group.
+``None`` in a remote shard's slot. ``from_coo_sharded``,
+``from_coo_blocks``, ``from_csr``, ``from_csr_balanced``, ``with_halo``,
+``nnz``, ``halo_bytes_per_exchange`` and ``to_csr`` run there, every
+process making the same calls: every host read of values from several
+shards goes through ``collectives.host_fetch``, which gathers the remote
+ones first. ``stacked`` gathers every shard, and ``to`` moves the shards
+whose owner changes through the group.
 """
 
 from __future__ import annotations
@@ -52,11 +53,11 @@ import torch
 import torch.nn.functional as F
 
 from ..context import Context, MeshContext
-from ..convert.kernels import sort_by_pairs
 from ..formats.base import Format, register_format
 from ..formats.csr import CSR
 from ..ops.kernels.indptr import indptr_from_sorted_rows
 from ..ops.kernels.radix import bits_below, radix_argsort
+from ..utils.tracing import count, span
 from ..utils.typing import convert_array_dtype
 from .collectives import all_to_all, gather, host_fetch, share
 from .mesh import Mesh
@@ -283,14 +284,17 @@ class ShardedCSR(Format):
         if self.has_halo:
             return self
         d, rows, width, owners = self.n_shards, self.rows_per_shard, self.width, self.owners
-        locs = [None if self.indices[k] is None else _halo_locals(self.indices[k][: self.nnz_counts[k]], rows, d, k)
-                for k in range(d)]
-        c_o = [None if loc is None else loc[-1] for loc in locs]
-        s = max(max(host_fetch([None if c is None else c.max() for c in c_o], owners)), 1)
-        built = [None if loc is None else _halo_build(loc, rows, d, width, s, k) for k, loc in enumerate(locs)]
-        # halo_counts[o][r] = reader r's request count to owner o
-        counts = all_to_all(c_o, owners=owners)
-        send = all_to_all([None if b is None else b[0] for b in built], owners=owners)
+        with span("sbtorch:shard:halo"):
+            locs = [None if self.indices[k] is None else
+                    _halo_locals(self.indices[k][: self.nnz_counts[k]], rows, d, k) for k in range(d)]
+            c_o = [None if loc is None else loc[-1] for loc in locs]
+            s = max(max(host_fetch([None if c is None else c.max() for c in c_o], owners)), 1)
+            built = [None if loc is None else _halo_build(loc, rows, d, width, s, k) for k, loc in enumerate(locs)]
+            del locs
+            with span("sbtorch:halo:exchange"):
+                # halo_counts[o][r] = reader r's request count to owner o
+                counts = all_to_all(c_o, owners=owners)
+                send = all_to_all([None if b is None else b[0] for b in built], owners=owners)
         out = dataclasses.replace(self, halo_send=send, halo_counts=counts,
                                   halo_map=tuple(None if b is None else b[1] for b in built))
         out.__dict__["nnz_counts"] = self.nnz_counts  # read once, kept
@@ -307,26 +311,18 @@ class ShardedCSR(Format):
         route_capacity: Optional[int] = None,
         stats: Optional[dict] = None,
     ) -> "ShardedCSR":
-        """Distributed COO→CSR ingest: the entries, in any order, are cut into
-        d equal blocks (shard k takes block k on its device) and routed to
-        their row-block owners with one ``all_to_all``, then sorted (K5) and
-        converted locally (K3) — no single device holds the matrix.
-
-        ``route_capacity`` is the per-(source, owner) bucket size. By default
-        a counting pass sizes it: the largest per-(source, owner) load, a
-        ``pmax``'d scalar read back and rounded up to a power of two (at
-        least 64). A load over an explicit capacity raises. After the route
-        each shard's columns are cut to the same kind of power of two over
-        the largest true load. An entry whose row is n or more takes a bucket
-        slot, as JAX's sentinel does, and is dropped after the route. Halo
-        metadata is not built here: call :meth:`with_halo`. ``stats``, a
-        dict, receives ``route_capacity``, ``compacted_width`` and
-        ``host_reads``.
+        """Distributed COO→CSR ingest of global ``row``, ``col`` and ``vals``,
+        in any order, on one device: they are cut into d equal blocks (the
+        last padded with the row n, which the route drops), block k copied
+        to shard k's device, and ingested by :meth:`from_coo_blocks`. That
+        device holds every entry; a matrix too large for one device is
+        loaded in blocks, each on its shard's device, and handed to
+        :meth:`from_coo_blocks` directly. ``route_capacity`` and ``stats``
+        as there.
 
         On a mesh that spans processes every process passes the same global
         ``row``, ``col`` and ``vals`` (on its own device), and cuts and routes
         only its own shards' blocks."""
-        n = shape[0]
         devices = mesh.axis_devices(axis)
         owners, rank = mesh.axis_owners(axis), mesh.rank
         d = len(devices)
@@ -334,88 +330,103 @@ class ShardedCSR(Format):
         e = -(-nnz // d)  # entries per shard (the last block padded)
         row = convert_array_dtype(row, torch.int32)
         col = convert_array_dtype(col, torch.int32)
-        has_vals = vals is not None
-        if not has_vals:
-            vals = torch.zeros((nnz,), dtype=torch.float32, device=row.device)
 
         def block(t, k, fill):
-            if owners[k] != rank:
+            if t is None or owners[k] != rank:
                 return None
             piece = t[min(k * e, nnz) : min((k + 1) * e, nnz)]
             return F.pad(piece, (0, e - piece.shape[0]), value=fill).to(devices[k])
 
         # pad entries: row n (a row past the matrix, dropped after the
         # route), column 0, value 0
-        return ShardedCSR._from_blocks([block(row, k, n) for k in range(d)], [block(col, k, 0) for k in range(d)],
-                                       [block(vals, k, 0) for k in range(d)], has_vals, shape, devices, axis,
-                                       route_capacity, stats, mesh=mesh)
+        return ShardedCSR.from_coo_blocks([block(row, k, shape[0]) for k in range(d)],
+                                          [block(col, k, 0) for k in range(d)],
+                                          None if vals is None else [block(vals, k, 0) for k in range(d)],
+                                          shape, mesh, axis, route_capacity, stats)
 
     @staticmethod
-    def _from_blocks(rowl, coll, vall, has_vals: bool, shape, devices, axis: str, route_capacity=None,
-                     stats: Optional[dict] = None, mesh: Optional[Mesh] = None) -> "ShardedCSR":
-        """:meth:`from_coo_sharded` on entries already cut into the shards'
-        equal blocks: ``rowl``, ``coll``, ``vall``, one int32 (int32, value)
-        tensor a shard on its device. An entry whose row is n or more is
-        routed as the pad row n, as JAX's sentinel: it fills a bucket slot,
-        counts toward the loads and the capacity, and is dropped after the
-        route. On a ``mesh`` that spans processes a remote shard's blocks
-        are ``None``."""
+    def from_coo_blocks(rowl, coll, vall, shape: Tuple[int, int], mesh: Mesh, axis: str = "x",
+                        route_capacity: Optional[int] = None, stats: Optional[dict] = None) -> "ShardedCSR":
+        """Distributed COO→CSR ingest of entries loaded in blocks: ``rowl``,
+        ``coll`` and ``vall`` hold one int32 (int32, value) tensor a shard,
+        on its device, of any lengths and in any order; ``vall`` is None for
+        a pattern. No device holds more than its own block and shard.
+
+        Each shard buckets its entries by owner (the row block of R =
+        ceil(n / d) rows that a row falls in) with a stable sort (K5) and
+        its bucket bounds (K3); the true entries travel to their owners in
+        one ``all_to_all`` a field, in pieces of their true lengths; each
+        owner sorts what it received by column and then, stably, by row
+        (K5), builds its ``indptr`` (K3) and gathers its columns and values.
+        The result equals :meth:`from_coo_sharded` of the blocks joined in
+        shard order, field for field.
+
+        An entry whose row is n or more is routed as the pad row n, as JAX's
+        sentinel: it counts toward its owner's load, and is dropped. The
+        sizes mirror the JAX module's static shapes: ``route_capacity`` is
+        the per-(source, owner) bucket size, by default the largest load,
+        ``pmax``'d, read back and rounded up to a power of two (at least
+        64); a load over it raises before any entry moves. Each shard's
+        columns and values are padded with 0 to the same kind of power of
+        two over the largest true count, at most d times the capacity.
+        Halo metadata is not built here: call :meth:`with_halo`. ``stats``,
+        a dict, receives ``route_capacity``, ``compacted_width`` and
+        ``host_reads`` (the capacity, unless given, and the loads). The
+        counters ``shard.routed_entries`` and ``shard.crossed_entries`` add
+        the true entries this process's shards routed, and those of them
+        whose owner is another shard.
+
+        On a mesh that spans processes a remote shard's blocks are
+        ``None``."""
         n, m = shape
+        devices = mesh.axis_devices(axis)
         d = len(devices)
         rows = -(-n // d)
-        span = mesh if mesh is not None and mesh.spans_processes else None
-        owners = (0,) * d if span is None else span.axis_owners(axis)
-
-        def each(fn, parts):
-            return [None if p is None else fn(p) for p in parts]
-
-        # the route's sort by (owner, row) comes first: its per-owner counts
-        # (K3 over the sorted owners) are the JAX counting pass
-        routed = [None if rowl[k] is None else _route_sort(rowl[k], coll[k], vall[k], n, rows, d) for k in range(d)]
-        reads = 0
-        if route_capacity:
-            cap = int(route_capacity)
-        else:
-            cap = _pow2_at_least_64(max(host_fetch(each(lambda r: torch.diff(r[4]).max(), routed), owners)))
-            reads += 1
-        sends = each(lambda r: _route_send(*r[:5], n, d, cap), routed)
-        recv = [all_to_all(each(lambda s: s[i], sends), owners=owners) for i in range(3)]
-
-        # one read: each source's overflow, its buckets' loads and their pad
-        # rows; the pad rows sort last in their owner's bucket, so its true
-        # entries are a prefix
-        def head_of(r):
-            load = torch.diff(r[4])
-            return torch.cat([torch.clamp(load - cap, min=0).sum().reshape(1), load, r[5]])
-
-        head = host_fetch(each(head_of, routed), owners)
-        reads += 1
-        if sum(h[0] for h in head) > 0:
-            raise ValueError(f"from_coo_sharded: routing bucket overflow — raise route_capacity (cap={cap})")
-        # sent[s][r]: the true entries from shard s to shard r
-        sent = [[head[s][1 + r] - head[s][1 + d + r] for r in range(d)] for s in range(d)]
-        counts = tuple(sum(sent[s][r] for s in range(d)) for r in range(d))
-        w_c = min(_pow2_at_least_64(max(counts)), d * cap)
-        local = []
-        for r in range(d):
-            if recv[0][r] is None:
-                local.append((None, None, None))
-                continue
-            # the true prefix of each source's piece; the JAX body sorts the
-            # whole d·cap buffer, pad rows last, and cuts it to w_c
-            real = [torch.cat([piece[s, : sent[s][r]] for s in range(d)]) for piece in
-                    (recv[0][r], recv[1][r], recv[2][r])]
-            local.append(_route_local(*real, n, m, rows, r, w_c))
-        sh = ShardedCSR(
-            tuple(loc[0] for loc in local),
-            tuple(loc[1] for loc in local),
-            tuple(loc[2] for loc in local) if has_vals else None,
-            tuple(None if loc[0] is None else torch.full((), c, dtype=torch.int64, device=dev)
-                  for c, dev, loc in zip(counts, devices, local)),
-            (n, m),
-            axis,
-            _mesh=span,
-        )
+        span_mesh = mesh if mesh.spans_processes else None
+        owners = mesh.axis_owners(axis)
+        local = [k for k in range(d) if owners[k] == mesh.rank]
+        with span("sbtorch:shard:ingest"):
+            with span("sbtorch:shard:route"):
+                # each shard's entries in owner order, pads last in their
+                # owner's bucket, and the buckets' bounds
+                routed = [None if rowl[k] is None else _route_sort(rowl[k], n, rows, d) for k in range(d)]
+                reads = 0
+                if route_capacity:
+                    cap = int(route_capacity)
+                else:
+                    cap = _pow2_at_least_64(max(host_fetch(
+                        [None if r is None else torch.diff(r[1][::2]).max() for r in routed], owners)))
+                    reads += 1
+                # bounds[s][2r : 2r+2]: shard s's true entries for owner r
+                # (then its pads up to bounds[s][2r+2])
+                bounds = host_fetch([None if r is None else r[1] for r in routed], owners)
+                reads += 1
+            loads = [[b[2 * r + 2] - b[2 * r] for r in range(d)] for b in bounds]
+            if max(map(max, loads)) > cap:
+                raise ValueError(f"from_coo_sharded: routing bucket overflow — raise route_capacity (cap={cap})")
+            sent = [[b[2 * r + 1] - b[2 * r] for r in range(d)] for b in bounds]
+            counts = tuple(sum(sent[s][r] for s in range(d)) for r in range(d))
+            w_c = min(_pow2_at_least_64(max(counts)), d * cap)
+            with span("sbtorch:shard:exchange"):
+                # one field at a time, so that a shard holds one field's
+                # gathered pieces beside what it has received
+                recv = [None if field is None else list(_route_exchange(field, routed, bounds, owners))
+                        for field in (rowl, coll, vall)]
+            del routed
+            count("shard.routed_entries", sum(sum(sent[s]) for s in local))
+            count("shard.crossed_entries", sum(sent[s][r] for s in local for r in range(d) if r != s))
+            with span("sbtorch:shard:local"):
+                built = [None if k not in local else _route_local(recv, k, rows, m, w_c) for k in range(d)]
+            sh = ShardedCSR(
+                tuple(None if b is None else b[0] for b in built),
+                tuple(None if b is None else b[1] for b in built),
+                None if vall is None else tuple(None if b is None else b[2] for b in built),
+                tuple(None if b is None else torch.full((), c, dtype=torch.int64, device=dev)
+                      for c, dev, b in zip(counts, devices, built)),
+                (n, m),
+                axis,
+                _mesh=span_mesh,
+            )
         sh.__dict__["nnz_counts"] = counts
         if stats is not None:
             stats.update(route_capacity=cap, compacted_width=w_c, host_reads=reads)
@@ -503,83 +514,108 @@ def balanced_row_order(csr: CSR, d: int) -> torch.Tensor:
 
 
 # -- the per-shard passes (each JAX shard_map body, for one shard) -----------
-def _route_sort(rowl, coll, vall, n: int, rows: int, d: int):
-    """Sort this shard's entries by (owner, row) (K5): ``(owners, rows,
-    cols, vals, bounds, pads)``, ``bounds`` the (d+1,) start of each owner's
-    run (K3), ``pads`` each run's pad rows. A row of n or more is owned by
-    its row block, as JAX's, and becomes the pad row n, which sorts last in
-    its owner's run and counts toward its load, so a capacity sized from
-    the loads fits it too."""
-    owner = torch.clamp(rowl // max(rows, 1), max=d - 1).to(torch.int32)
-    rowl = torch.clamp(rowl, max=n)
-    owner_s, row_s, col_s, val_s = sort_by_pairs(owner, rowl, coll, vall, major_bound=d, minor_bound=n + 1)
-    bounds = indptr_from_sorted_rows(owner_s, d)
-    seen = torch.cumsum(F.pad(row_s == n, (1, 0)), 0)
-    return owner_s, row_s, col_s, val_s, bounds, seen[bounds[1:]] - seen[bounds[:-1]]
+def _route_sort(rowl, n: int, rows: int, d: int):
+    """This shard's entries in owner order: ``(perm, bounds)``, ``perm`` the
+    stable order (K5) of the key ``2 * owner + pad`` and ``bounds`` the
+    (2d+1,) starts of the keys' runs (K3). A row of n or more is owned by
+    its row block, as JAX's, and is a pad: it sorts last in its owner's
+    bucket and counts toward its load, so a capacity sized from the loads
+    fits it too."""
+    key = torch.div(rowl, max(rows, 1), rounding_mode="floor").to(torch.int32).clamp_(max=d - 1)
+    key.mul_(2).add_(rowl >= n)
+    perm, skey = radix_argsort(key, key_bits=bits_below(2 * d), return_keys=True)
+    return perm, indptr_from_sorted_rows(skey, 2 * d)
 
 
-def _route_send(owner_s, row_s, col_s, val_s, bounds, n: int, d: int, cap: int):
-    """Lay the sorted entries out in d buckets of ``cap``: ``(rows, cols,
-    vals)`` each ``(d, cap)``, unfilled slots a pad row (n) of column and
-    value 0; entries past a bucket's capacity are not sent (the caller
-    raises)."""
-    dev = row_s.device
-    slot = torch.arange(row_s.shape[0], dtype=torch.int64, device=dev) - bounds[owner_s.long()]
-    dst = torch.where(slot < cap, owner_s.long() * cap + slot, d * cap)  # d * cap: the discard slot
-    send_r = torch.full((d * cap + 1,), n, dtype=torch.int32, device=dev).scatter_(0, dst, row_s)
-    send_c = torch.zeros((d * cap + 1,), dtype=torch.int32, device=dev).scatter_(0, dst, col_s)
-    send_v = torch.zeros((d * cap + 1,), dtype=val_s.dtype, device=dev).scatter_(0, dst, val_s)
-    return tuple(t[: d * cap].view(d, cap) for t in (send_r, send_c, send_v))
+def _route_exchange(field, routed, bounds, owners) -> tuple:
+    """One field's true entries on their owners: shard r receives, in shard
+    order, each shard's entries for it, in their order in its block."""
+    d = len(field)
+    pieces = [None if routed[s] is None else
+              [field[s].index_select(0, routed[s][0][bounds[s][2 * r] : bounds[s][2 * r + 1]]) for r in range(d)]
+              for s in range(d)]
+    return all_to_all(pieces, owners=owners)
 
 
-def _route_local(recv_r, recv_c, recv_v, n: int, m: int, rows: int, my: int, width: int):
-    """Sort the routed true entries by (row, col) and build the local
-    ``indptr``: ``(indptr, cols, vals)``, the columns and values padded
-    with 0 to ``width``."""
-    rr, cc, vv = sort_by_pairs(recv_r, recv_c, recv_v, major_bound=n + 1, minor_bound=max(m, 1))
-    ip = indptr_from_sorted_rows(rr - my * rows, rows)
-    pad = (0, width - rr.shape[0])
-    return ip, F.pad(cc, pad), F.pad(vv, pad)
+def _route_local(recv: list, my: int, rows: int, m: int, width: int):
+    """Sort shard ``my``'s received entries by (row, col), stably, and build
+    its ``indptr``: ``(indptr, cols, vals)``, the columns and values padded
+    with 0 to ``width``. ``recv`` holds the received rows, columns and
+    values (None for a pattern), a list a field; shard ``my``'s are taken
+    out of it, so that each is freed once used. Two sorts of 32-bit keys
+    (K5), by column and then by row, give the order that one sort of the
+    packed pair would, with half its scratch."""
+    recv_r, recv_c, recv_v = (None if f is None else f[my] for f in recv)
+    for f in recv:
+        if f is not None:
+            f[my] = None
+    cnt = recv_r.shape[0]
+    by_col = radix_argsort(recv_c, key_bits=bits_below(max(m, 1)))
+    lrow = recv_r.index_select(0, by_col).sub_(my * rows)
+    del recv_r
+    by_row, srow = radix_argsort(lrow, key_bits=bits_below(rows), return_keys=True)
+    del lrow
+    ip = indptr_from_sorted_rows(srow, rows)
+    del srow
+    order = by_col.index_select(0, by_row)
+    del by_col, by_row
+    out = []
+    for t in (recv_c, recv_v):
+        if t is None:
+            out.append(None)
+            continue
+        padded = t.new_zeros((width,))
+        torch.index_select(t, 0, order, out=padded[:cnt])
+        out.append(padded)
+    return ip, out[0], out[1]
 
 
 def _halo_locals(indices_l, rows: int, d: int, my: int):
     """Sort the shard's true column ids (K5; the JAX body sorts the padded
     slots too, as the largest key), mark unique-remote run heads, bucket by
     owner. Returns (sorted cols, sorted original positions, owner,
-    unique-remote mask, per-lane remote rank, per-owner unique counts)."""
-    dev = indices_l.device
+    unique-remote mask, running count of unique-remote lanes with a leading
+    0, per-owner unique counts); every per-lane array but the mask is
+    int32."""
     ps, cs = radix_argsort(indices_l, key_bits=31, return_keys=True)
-    cs = cs.long()
-    head = torch.ones_like(cs, dtype=torch.bool)
-    head[1:] = cs[1:] != cs[:-1]
-    owner = torch.clamp(cs // max(rows, 1), max=d - 1)
-    uniq_remote = head & (owner != my)
-    # rank among unique-remote lanes; constant across a duplicate run
-    seen = torch.cumsum(uniq_remote, 0)
-    rank = seen - 1
+    uniq_remote = torch.ones(cs.shape, dtype=torch.bool, device=cs.device)
+    torch.ne(cs[1:], cs[:-1], out=uniq_remote[1:])  # run heads
+    owner = torch.div(cs, max(rows, 1), rounding_mode="floor").clamp_(max=d - 1)
+    uniq_remote &= owner != my
+    # a lane's rank among the unique-remote lanes is seen[lane + 1] - 1,
+    # the same along a run of duplicates
+    seen = torch.cumsum(F.pad(uniq_remote, (1, 0)), 0, dtype=torch.int32)
     # per-owner counts: the owners are sorted, so each is a run (K3 gives
     # the runs' starts) and its count a difference of the running count
-    bounds = indptr_from_sorted_rows(owner.to(torch.int32), d)
-    seen = torch.cat([torch.zeros((1,), dtype=seen.dtype, device=dev), seen])
-    c_o = seen[bounds[1:]] - seen[bounds[:-1]]
-    return cs, ps, owner, uniq_remote, rank, c_o
+    bounds = indptr_from_sorted_rows(owner, d)
+    c_o = (seen[bounds[1:]] - seen[bounds[:-1]]).long()
+    return cs, ps, owner, uniq_remote, seen, c_o
+
+
+_SCATTER = 1 << 26  # lanes a scatter's int64 positions are formed for at a time
 
 
 def _halo_build(locals_, rows: int, d: int, width: int, s: int, my: int):
     """This shard's request lists, ``(d, s)`` (row o: the owner-local ids it
     reads from owner o; pad slots 0), and its ``halo_map``, given the
     padded per-pair list length ``s``."""
-    cs, ps, owner, uniq_remote, rank, c_o = locals_
-    group_base = torch.cumsum(c_o, 0) - c_o  # exclusive scan
-    pos_in_owner = rank - group_base[owner]
-    dst = torch.where(uniq_remote, owner * s + pos_in_owner, d * s)  # d * s: the discard slot
-    req = torch.zeros((d * s + 1,), dtype=torch.int32, device=cs.device)
-    req.scatter_(0, dst, (cs - owner * rows).to(torch.int32))
+    cs, ps, owner, uniq_remote, seen, c_o = locals_
+    group_base = (torch.cumsum(c_o, 0) - c_o).to(torch.int32)  # exclusive scan
     # extended index per sorted lane: local -> cs - my*rows, remote ->
-    # rows + owner*s + pos_in_owner (duplicates inherit the run's rank)
-    ext = torch.where(owner == my, cs - my * rows, rows + owner * s + pos_in_owner).to(torch.int32)
+    # rows + owner*s + its place in the owner's list (duplicates inherit
+    # the run's rank)
+    ext = owner * s
+    ext += seen[1:]
+    ext -= torch.index_select(group_base, 0, owner)
+    ext += rows - 1
+    ext = torch.where(owner == my, cs - my * rows, ext)
+    req = torch.zeros((d * s + 1,), dtype=torch.int32, device=cs.device)
     halo_map = torch.zeros((width,), dtype=torch.int32, device=cs.device)  # padded slots: 0
-    halo_map[: ps.shape[0]].scatter_(0, ps.long(), ext)
+    for lo in range(0, cs.shape[0], _SCATTER):
+        hi = lo + _SCATTER
+        dst = torch.where(uniq_remote[lo:hi], ext[lo:hi].long() - rows, d * s)  # d * s: the discard slot
+        req.scatter_(0, dst, cs[lo:hi] - owner[lo:hi] * rows)
+        halo_map.scatter_(0, ps[lo:hi].long(), ext[lo:hi])
     return req[: d * s].view(d, s), halo_map
 
 

@@ -17,7 +17,14 @@ Every span of the port carries the prefix ``sbtorch:``:
   and inside it ``sbtorch:stage:indptr``, ``:rank``, ``:label_prop``,
   ``:rcm``, ``:spmv`` and ``:permute`` (``models/pipelines.py``);
 * ``sbtorch:relocate:long_rows``: K4's route for rows over ``BLOCK_MAX``
-  (``ops/kernels/relocate.py``).
+  (``ops/kernels/relocate.py``);
+* ``sbtorch:shard:ingest``: ``ShardedCSR.from_coo_blocks``, and inside it
+  ``sbtorch:shard:route`` (the owner sort and buckets, the loads read
+  back), ``:exchange`` (the entries' ``all_to_all``) and ``:local`` (each
+  owner's sorts and ``indptr``); ``sbtorch:shard:halo``:
+  ``ShardedCSR.with_halo`` (``parallel/sharded.py``);
+* ``sbtorch:halo:exchange``: each ``all_to_all`` of halo lists or halo
+  values (``with_halo``, ``parallel/halo.py::_exchange``).
 
 On the device the profiler gives each kernel to the innermost
 ``record_function`` open when it was launched, so a span takes the device
@@ -31,8 +38,12 @@ conversion in a span of its own keeps the conversion's device time in it.
 for each launch of a hand-written kernel (``_build.Kernel.launch``), and
 ``relocate.entries``, ``relocate.long_rows`` and
 ``relocate.long_row_entries`` for K4's CUDA route, counted from values the
-host already holds, and ``csr_to_dia.scatter`` and ``csr_to_dia.accumulate``,
-one a call of the CSR to DIA conversion on each of its routes.
+host already holds, ``csr_to_dia.scatter`` and ``csr_to_dia.accumulate``,
+one a call of the CSR to DIA conversion on each of its routes,
+``shard.routed_entries`` and ``shard.crossed_entries``, the true entries
+that ``from_coo_blocks`` routed and those of them bound for another shard,
+from the loads it reads back anyway, and ``collectives.card_bytes``, the
+bytes that ``all_to_all`` copies from one card to another inside a process.
 """
 
 from __future__ import annotations

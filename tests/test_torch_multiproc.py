@@ -38,7 +38,7 @@ import pytest
 import torch
 
 import torch_multiproc_child as child
-from sparsebase_tpu_torch.parallel import make_mesh, make_mesh_2d, multihost
+from sparsebase_tpu_torch.parallel import ShardedCSR, make_mesh, make_mesh_2d, multihost
 
 CHILD = str(Path(child.__file__).resolve())
 PER_PROCESS = (2, 4)
@@ -146,6 +146,31 @@ def test_path_equals_single_process(group, per_process, single_paths, graph):
             assert_local(got[name], want[name], local, f"{graph} {name}")
         for name in ("stats", "nnz_counts", "nnz", "width", "halo_width", "halo_bytes", "step_comm_bytes", "y",
                      "order", "levels", "degrees", "degree_order", "csr"):
+            assert_same(got[name], want[name], f"{graph} {name}")
+
+
+@pytest.mark.parametrize("graph", list(child.GRAPHS))
+def test_blocks_ingest_equals_the_joined_ingest(group, per_process, graph):
+    """``from_coo_blocks`` on consecutive blocks of unequal lengths, each
+    process holding only its own shards' blocks, equals
+    ``from_coo_sharded`` of the joined entries on the single-process mesh,
+    field for field (the route's capacity follows the blocks' loads, the
+    widths do not)."""
+    mesh = single(per_process)
+    row, col, vals, shape = child.GRAPHS[graph]()
+    sh = ShardedCSR.from_coo_sharded(torch.as_tensor(row), torch.as_tensor(col), torch.as_tensor(vals), shape,
+                                     mesh).with_halo()
+    want = child.run_blocks(mesh, graph, torch.device("cpu"))
+    for name in child.FIELDS:
+        assert_same(want[name], getattr(sh, name), f"{graph} {name}")
+    for name in ("nnz_counts", "width", "halo_width"):
+        assert want[name] == getattr(sh, name), f"{graph} {name}"
+    for res in group:
+        local = res[per_process]["mesh"][1]
+        got = res[per_process]["blocks"][graph]
+        for name in child.FIELDS:
+            assert_local(got[name], want[name], local, f"{graph} {name}")
+        for name in ("stats", "nnz_counts", "width", "halo_width"):
             assert_same(got[name], want[name], f"{graph} {name}")
 
 

@@ -156,6 +156,32 @@ def run_path(mesh, graph: str, device) -> dict:
     return out
 
 
+def block_bounds(nnz: int, d: int) -> list:
+    """Cuts of ``nnz`` entries into d consecutive blocks of unequal lengths
+    (the k-th about k + 1 parts in d (d + 1) / 2)."""
+    total = d * (d + 1) // 2
+    return [nnz * (k * (k + 1) // 2) // total for k in range(d + 1)]
+
+
+def run_blocks(mesh, graph: str, device) -> dict:
+    """``graph``'s entries cut into consecutive blocks of unequal lengths,
+    each process passing only its own shards' blocks to
+    ``from_coo_blocks``, then ``with_halo``: the container's fields (this
+    process's shards), its counts and widths, and the ingest's stats."""
+    row, col, vals, shape = GRAPHS[graph]()
+    d, local = mesh.size, mesh.local
+    cuts = block_bounds(len(row), d)
+
+    def blocks(a):
+        return [torch.as_tensor(a[cuts[k]:cuts[k + 1]]).to(device) if k in local else None for k in range(d)]
+
+    stats = {}
+    sh = ShardedCSR.from_coo_blocks(blocks(row), blocks(col), blocks(vals), shape, mesh, stats=stats).with_halo()
+    out = {name: getattr(sh, name) for name in FIELDS}
+    out.update(stats=stats, nnz_counts=sh.nnz_counts, width=sh.width, halo_width=sh.halo_width)
+    return out
+
+
 def function_inputs(shape, seed: int = 11):
     """The functions' inputs as numpy arrays: x (m,), a labelling into
     :data:`PARTS` parts (blocks, a third of the rows moved at random),
@@ -408,6 +434,7 @@ def main() -> None:
         res = {"mesh": (mesh.size, mesh.local, mesh.axis_owners("x"), str(mesh.first_device)),
                "collectives": run_collectives(mesh, device)}
         res.update({graph: run_path(mesh, graph, device) for graph in GRAPHS})
+        res["blocks"] = {graph: run_blocks(mesh, graph, device) for graph in GRAPHS}
         res["functions"] = {graph: run_functions(mesh, graph, device) for graph in GRAPHS}
         res["multilevel"] = {graph: run_multilevel(mesh, graph, device) for graph in GRAPHS}
         res["ring"] = {graph: run_ring(mesh, graph, device) for graph in GRAPHS}
