@@ -1979,18 +1979,22 @@ K7_TIER_CASES = (  # the same, drawn from a generator of their own (k7_cases)
     ("k = 255, the last 1-byte gather, stored", 20_000, 300, 255, dict(exact=True)),
     ("k = 256, stored", 20_000, 300, 256, dict(exact=True)),
     ("labels outside [0, k)", 300_000, 16, 8, dict(outside=True)),
+    ("a power-law tail of rows past SPLIT_ROWS (the span pass)", 1_000_000, 16, 8, dict(tail=(2_000, 600_000))),
 )
 
 
 def k7_case(g, dev, n, avg_deg, k, long_row=False, empty_every=0, misaligned=False, weights=None, exact=False,
-            one_part=False, outside=False):
+            one_part=False, outside=False, tail=None):
     """A CSR of ``n`` rows (degrees uniform in [0, 2 * avg_deg], or all
-    ``avg_deg`` with ``exact``; ids uniform in [0, n)) and labels in [0, k)
-    with half the vertices in part 0, so that the penalty bites, or all in
-    part k - 1 with ``one_part``, some outside [0, k) with ``outside``;
-    weights None, "integer" (1..5) or "real". K7 keeps the cells between
-    its launches where n * k <= nnz, counts in registers up to k = 8 and
-    gathers 1-byte labels up to k = 255."""
+    ``avg_deg`` with ``exact``; ids uniform in [0, n)), with ``tail =
+    (count, top)`` ``count`` rows spread evenly whose lengths fall as ``top
+    / i^0.8``, and labels in [0, k) with half the vertices in part 0, so
+    that the penalty bites, or all in part k - 1 with ``one_part``, some
+    outside [0, k) with ``outside``; weights None, "integer" (1..5) or
+    "real". K7 keeps the cells between its launches where n * k <= nnz,
+    counts in registers up to k = 8 (there, unweighted, rows over
+    SPLIT_ROWS go to its span pass) and gathers 1-byte labels up to k =
+    255."""
     from sparsebase_tpu_torch import CSR
     from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
 
@@ -2001,6 +2005,10 @@ def k7_case(g, dev, n, avg_deg, k, long_row=False, empty_every=0, misaligned=Fal
         deg[::empty_every] = 0
     if long_row:
         deg[n // 3] = 262_144
+    if tail is not None:
+        count, top = tail
+        rows = torch.linspace(0, n - 1, count, device=dev).long()
+        deg[rows] = (top / torch.arange(1, count + 1, device=dev, dtype=torch.float64) ** 0.8).long()
     indptr = indptr_from_counts(deg)
     nnz = int(indptr[-1])
     ids = torch.randint(0, n, (nnz,), generator=g, device=dev, dtype=torch.int32)
@@ -2237,6 +2245,7 @@ def phase_path_h_times(label, coo, x, permuted, labels, profile: bool):
     from sparsebase_tpu_torch import CSR
     from sparsebase_tpu_torch.ops.kernels import csr_spmv, label_prop_round, label_prop_round_plain, radix_rank_plain
     from sparsebase_tpu_torch.ops.kernels.indptr import indptr_from_sorted_rows
+    from sparsebase_tpu_torch.ops.kernels.label_prop import SPLIT_ROWS, split_rows
     from sparsebase_tpu_torch.ops.partition.labelprop import _chunks
 
     k = PARTITION_K
@@ -2252,6 +2261,9 @@ def phase_path_h_times(label, coo, x, permuted, labels, profile: bool):
     csr = CSR(indptr_from_sorted_rows(coo.row, n), coo.col, coo.vals, coo.shape)
     cap = 1.1 * n / k
     k7_bound, by = bound("label_prop", n=n, nnz=nnz)
+    rows, entries = split_rows(csr)
+    print(f"phase 5 path H K7 span pass ({label}): {rows} rows over SPLIT_ROWS = {SPLIT_ROWS} hold {entries} of "
+          f"{nnz} entries ({entries / max(nnz, 1):.4%}), which the span pass counts")
     first = _chunks(n, k, csr.indptr.device)
     times = {}
     for which, lab, alpha in (("first round", first, 1 / PARTITION_ROUNDS), ("last round", labels, 1.0)):

@@ -27,9 +27,10 @@
 // one coalesced pass over n).
 //
 // The argmax needs gmax, a grid-wide maximum, before any row can choose, so
-// one C call is a memset of the part sizes and gmax, lp_bytes (the 1-byte
-// copy, k <= 255), then two launches on the caller's stream, with no host
-// read. Which two is chosen on the host from (n, k, nnz), in make_plan:
+// one C call is a memset of the part sizes, gmax and the split key, lp_bytes
+// (the 1-byte copy, k <= 255), then two launches on the caller's stream (three
+// with the span pass, below), with no host read. Which is chosen on the host
+// from (n, k, nnz), in make_plan:
 //  - stored (n * k <= nnz and k <= 6,140): lp_count counts each row once,
 //    takes the part sizes and gmax, and writes each row's k cells to a
 //    scratch of n * k words, no larger than the ids it read; then lp_pick
@@ -62,7 +63,31 @@
 // With weights every lane of the group walks the row in entry order and adds
 // the weights of the parts it owns (p = lane mod G), in a register or in its
 // group's histogram, so each cell is a sum in entry order, as np.add.at
-// takes it. The part sizes come from one coalesced read of the labels, a
+// takes it.
+//
+// The span pass (unweighted, stored, k <= 8). A skewed graph's hubs would
+// each hold one group of 8 lanes for their whole length (kron at scale 25:
+// a row of 639,917 entries, 23.4% of the entries in rows past 4,096; one
+// round 27.4 ms, 11.7 ms with every row cut to 4,096). So lp_count's row
+// pass hands each row of more than kSplitRows = 1,024 entries over: the
+// group's first lane takes the row's slot and its first entry among the
+// handed rows' entries in one 64-bit atomicAdd on the split key (rows << 36
+// | entries), writes (first, row) to the slot, and the group counts nothing,
+// so the row's stored cells are written 0. A second lp_count instance,
+// lp_count<C, true>, on a resident grid, reads the key and cuts the handed
+// entries into equal spans, one a warp (at least kSpanMin = 2,048 entries,
+// so a few short rows are not spread over many warps), finds its first row
+// by a binary search of the slots, counts each row's part of its span in 8
+// registers a lane (4 gathers in flight), folds them over the warp and adds
+// them to the row's cells with k integer atomicAdds. Integer sums do not
+// depend on their order, so the cells are those of one walk. gmax stays
+// exact: each warp then adds the entries it counted to the row's ticket
+// after a fence; the warp that brings it to the row's length reads the
+// finished cells (from L2) and takes their largest into gmax, which the row
+// pass left at the other rows' largest (the handed rows' 0s count no
+// higher). Weighted rows keep their walk: a split would sum each cell in
+// another order than np.add.at's. The other tiers and the two-pass route do
+// not split. The part sizes come from one coalesced read of the labels, a
 // warp adding each distinct label once (__match_any_sync). Warps loop over
 // the rows with a trip count that is the same for all their lanes, so the
 // group shuffles run converged. Grids are the rows' count capped at what the
@@ -70,21 +95,33 @@
 // occupancy, asked once per shape: a query takes about 10 us of host time; a
 // failed query is returned).
 //
-// Scratch (sb_label_prop_scratch_bytes): the sizes (k ints), gmax's key, the
-// penalties (k floats), the 1-byte labels (n bytes, k <= 255), then the
-// stored cells (4 n k bytes <= 4 nnz) or the global tier's histograms.
+// Scratch (sb_label_prop_scratch_bytes): the sizes (k ints), gmax's key and
+// the split key, the penalties (k floats), the 1-byte labels (n bytes, k <=
+// 255), then the stored cells (4 n k bytes <= 4 nnz) or the global tier's
+// histograms; on the stored register tier, after the cells, the slots of the
+// handed rows (24 bytes each, at most nnz / (kSplitRows + 1)).
 //
 // Tried and dropped (tools/torch_k7_ab.py on the H100): counts in registers
 // up to k = 16 (16 compares an entry and a spill: no faster than the
 // shared-memory tier at k = 16); lp_pick with a group of 8 lanes a row at k
 // = 8 (128 bytes in flight a warp: 0.25 ms for path H's 200 MB of cells,
-// against 0.09-0.10 ms with a thread a row).
+// against 0.09-0.10 ms with a thread a row). For the span pass, on kron at
+// scale 25 (one round): kSplitRows of 4,096 (14.56 ms: 11.1 ms left in the
+// row pass), 2,048 (13.86), 512 (13.79, level with 1,024's 13.80) and 256
+// (14.33: the per-row fold, atomics and ticket of many short handed rows);
+// 8 gathers in flight a lane (13.84 at 1,024: L2's gather rate, not the
+// loads a lane keeps in flight, sets the pace). Path A's and the planted
+// graph's rounds, which hand nothing over, stayed level with the design
+// before the split (0.96-1.11 ms).
 //
-// Known costs, left for later work: a group of 8 lanes walks a row of
-// 262,144 entries alone; with weights each lane of a group reads every entry
-// of the row; every row scans all k cells, which is n * k work at large k;
-// on small graphs (a few million entries) the extra launch of lp_bytes and
-// the stored cells' write and read cost about what they save.
+// Known costs, left for later work: the row pass now takes half of kron's
+// round (6.4 of 13.7 ms at scale 25, 6.6e10 entries/s, against the span
+// pass's 9.5e10), its 8-lane groups holding one gather in flight a lane;
+// with weights each lane of a group reads every entry of the row, and a hub
+// is still walked by one group; every row scans all k cells, which is n * k
+// work at large k; on small graphs (a few million entries) the extra launch
+// of lp_bytes and the stored cells' write and read cost about what they
+// save.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -98,6 +135,11 @@ constexpr int kNarrowK = 64;                // k up to this: groups of 8 lanes
 constexpr int kRegK = 8;                    // k up to this: counts in registers, one a lane
 constexpr int kByteK = 255;                 // k up to this: gathers from a 1-byte copy of the labels
 constexpr int64_t kGlobalWords = 1 << 24;   // the global tier's histograms: 64 MB
+constexpr int64_t kSplitRows = 1024;        // longer rows go to the span pass (ops/kernels/label_prop.py::SPLIT_ROWS)
+constexpr int64_t kSpanMin = 2048;          // the least entries a warp of the span pass takes
+constexpr int kSpanUnroll = 4;              // gathers in flight a lane in the span pass
+constexpr int kEntryBits = 36;              // the split key: rows handed over << kEntryBits | their entries
+constexpr unsigned long long kEntryMask = (1ull << kEntryBits) - 1;
 
 // the current device's SM count into *sms
 cudaError_t sm_count(int* sms) {
@@ -141,6 +183,7 @@ struct Plan {
   int groups;      // rows a block takes at once
   bool stored;     // the cells kept between the launches: one read of the entries
   bool bytes;      // the gathers read a 1-byte copy of the labels
+  bool split;      // unweighted, rows over kSplitRows go to the span pass (stored register tier)
   int64_t blocks;  // before the cap by the card (global tier: exact)
 };
 
@@ -170,8 +213,19 @@ Plan make_plan(int64_t n, int64_t k, int64_t nnz) {
   if (p.blocks < 1) p.blocks = 1;
   p.stored = p.tier != Tier::kGlobal && n * k <= nnz;  // n, k < 2^31: no overflow
   p.bytes = k <= kByteK;
+  p.split = p.stored && p.tier == Tier::kRegisters;
   return p;
 }
+
+// a row handed to the span pass
+struct Split {
+  int64_t first;            // its first entry among the handed rows' entries, in the order handed
+  int64_t row;
+  unsigned long long done;  // its entries counted so far (the last span to count finds all)
+};
+
+// the most rows longer than kSplitRows that nnz entries hold
+int64_t split_capacity(int64_t nnz) { return nnz / (kSplitRows + 1); }
 
 struct Args {
   const int64_t* indptr;
@@ -188,6 +242,8 @@ struct Args {
   unsigned* gmax_key;
   float* pen;
   int* out;
+  unsigned long long* split_key;  // rows handed to the span pass << kEntryBits | their entries
+  Split* split;                   // the rows handed over, else null (no span pass)
 };
 
 // an unsigned key that orders as the float does
@@ -258,7 +314,7 @@ struct RegCounter {
   using Label = L;
   static constexpr int kGroup = 8;
   static_assert(kRegK == kGroup, "one cell a lane");
-  static constexpr bool kWeighted = W, kGlobal = false;
+  static constexpr bool kWeighted = W, kGlobal = false, kSplits = !W;
   static __host__ __device__ int64_t hist_words(int, int) { return 0; }
   uint32_t c[kRegK] = {};  // weighted: only c[0], the lane's own cell
 
@@ -299,6 +355,33 @@ struct RegCounter {
     if constexpr (!W) fold<1, kRegK>(gl);
   }
 
+  // the span pass (unweighted): entries [s, e) counted by a whole warp, kSpanUnroll gathers in flight a lane,
+  // then folded so that lanes l, l + 8, l + 16 and l + 24 hold in c[0] the warp's total of cell l
+  __device__ __forceinline__ void count_span(const Args& a, int64_t s, int64_t e, int lane) {
+#pragma unroll
+    for (int q = 0; q < kRegK; ++q) c[q] = 0;
+    int64_t j = s + lane;
+    for (; j + 32 * (kSpanUnroll - 1) < e; j += 32 * kSpanUnroll) {
+      int p[kSpanUnroll];
+#pragma unroll
+      for (int u = 0; u < kSpanUnroll; ++u) p[u] = __ldg(a.ids + j + 32 * u);
+#pragma unroll
+      for (int u = 0; u < kSpanUnroll; ++u) p[u] = label_of<L>(a, p[u]);
+#pragma unroll
+      for (int u = 0; u < kSpanUnroll; ++u)
+#pragma unroll
+        for (int q = 0; q < kRegK; ++q) c[q] += p[u] == q;
+    }
+    for (; j < e; j += 32) {
+      const int p = label_of<L>(a, __ldg(a.ids + j));
+#pragma unroll
+      for (int q = 0; q < kRegK; ++q) c[q] += p == q;
+    }
+    fold<1, kRegK>(lane & (kGroup - 1));
+    c[0] += __shfl_xor_sync(0xffffffffu, c[0], 8);
+    c[0] += __shfl_xor_sync(0xffffffffu, c[0], 16);
+  }
+
   template <class F>
   __device__ __forceinline__ void each(int gl, int k, F&& f) {
     if (gl < k) f(gl, c[0]);
@@ -312,7 +395,7 @@ template <int G_, bool W, bool GLOBAL, class L>
 struct HistCounter {
   using Label = L;
   static constexpr int kGroup = G_;
-  static constexpr bool kWeighted = W, kGlobal = GLOBAL;
+  static constexpr bool kWeighted = W, kGlobal = GLOBAL, kSplits = false;
   static __host__ __device__ int64_t hist_words(int groups, int k) { return GLOBAL ? 0 : (int64_t)groups * k; }
   uint32_t* hist;
   const int k;
@@ -356,9 +439,62 @@ struct HistCounter {
   __device__ __forceinline__ void done() { __syncwarp(); }
 };
 
-// pass 1: the part sizes, the histograms' largest cell and, stored, the cells
+// hands a row over kSplitRows entries to the span pass: its slot and its first entry in one atomic
+__device__ __forceinline__ void hand_over(const Args& a, int64_t row, int64_t len) {
+  const unsigned long long key = atomicAdd(a.split_key, (1ull << kEntryBits) | (unsigned long long)len);
+  a.split[key >> kEntryBits] = Split{(int64_t)(key & kEntryMask), row, 0ull};
+}
+
+// The span pass: the handed rows' entries, in the order handed, cut into equal spans of at least kSpanMin, one a
+// warp. A warp adds its counts of each row it meets to the row's stored cells (zeroed by lp_count's row pass), and
+// the warp whose span completes a row (its `done` reaches the row's length) takes the row's largest cell into gmax.
 template <class C>
+__device__ __forceinline__ void span_pass(const Args& a) {
+  const unsigned long long key = *a.split_key;
+  const int64_t rows = (int64_t)(key >> kEntryBits), total = (int64_t)(key & kEntryMask);
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31, k = a.k;
+  int64_t span = (total + warps - 1) / warps;
+  if (span < kSpanMin) span = kSpanMin;
+  int64_t lo = warp * span;
+  const int64_t hi = lo + span < total ? lo + span : total;
+  int64_t i = 0;
+  for (int64_t r = rows - 1; lo < hi && i < r;) {  // the last handed row that starts at or before lo
+    const int64_t m = (i + r + 1) / 2;
+    if (a.split[m].first <= lo) i = m;
+    else r = m - 1;
+  }
+  C counter(a, nullptr, 0, 0, 0);
+  for (; lo < hi; ++i) {
+    const int64_t first = a.split[i].first, row = a.split[i].row;
+    const int64_t s = __ldg(a.indptr + row), len = __ldg(a.indptr + row + 1) - s;
+    const int64_t from = lo - first, to = hi - first < len ? hi - first : len;
+    counter.count_span(a, s + from, s + to, lane);
+    uint32_t* cells = a.cells + row * k;
+    if (lane < k && counter.c[0]) atomicAdd(cells + lane, counter.c[0]);
+    __threadfence();
+    __syncwarp();
+    unsigned long long before = 0;
+    if (lane == 0) before = atomicAdd(&a.split[i].done, (unsigned long long)(to - from));
+    before = __shfl_sync(0xffffffffu, before, 0);
+    if ((int64_t)before + (to - from) == len) {  // the row's last span: its cells are complete
+      __threadfence();
+      float m = lane < k ? __int2float_rn((int)__ldcg(cells + lane)) : 0.0f;
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == 0) atomicMax(a.gmax_key, order_key(m));
+    }
+    lo = first + to;
+  }
+}
+
+// pass 1: the part sizes, the histograms' largest cell and, stored, the cells; SPANS: the span pass
+template <class C, bool SPANS = false>
 __global__ void __launch_bounds__(kThreads) lp_count(const Args a) {
+  if constexpr (SPANS) {
+    span_pass<C>(a);
+    return;
+  }
   extern __shared__ uint32_t smem[];
   __shared__ float warp_max[kThreads / 32];
   constexpr int G = C::kGroup;
@@ -383,7 +519,17 @@ __global__ void __launch_bounds__(kThreads) lp_count(const Args a) {
   for (int64_t blk = (int64_t)blockIdx.x * groups; blk + warp_first < a.n; blk += step) {
     const int64_t row = blk + group;
     const bool valid = row < a.n;
-    if (valid) counter.count(a, __ldg(a.indptr + row), __ldg(a.indptr + row + 1), gl);
+    if (valid) {
+      const int64_t s = __ldg(a.indptr + row);
+      int64_t e = __ldg(a.indptr + row + 1);
+      if constexpr (C::kSplits) {
+        if (a.split && e - s > kSplitRows) {  // counted by the span pass, into cells written 0 here
+          if (gl == 0) hand_over(a, row, e - s);
+          e = s;
+        }
+      }
+      counter.count(a, s, e, gl);
+    }
     counter.finish(gl);
     if (valid) {
       uint32_t* cells = a.cells ? a.cells + row * k : nullptr;
@@ -537,6 +683,14 @@ cudaError_t run(const Plan& p, const Args& a, cudaStream_t s) {
   if (!C::kGlobal) err = resident_grid<lp_count<C>>(threads, smem, p.blocks, &blocks);
   if (err != cudaSuccess) return err;
   lp_count<C><<<blocks, threads, smem, s>>>(a);
+  if constexpr (C::kSplits) {
+    if (a.split) {  // a resident grid: only the card knows the entries handed over
+      unsigned spans = 1;
+      err = resident_grid<lp_count<C, true>>(kThreads, 0, p.blocks, &spans);
+      if (err != cudaSuccess) return err;
+      lp_count<C, true><<<spans, kThreads, 0, s>>>(a);
+    }
+  }
   if (p.stored && p.tier == Tier::kRegisters) {
     unsigned pick = 1;
     err = resident_grid<lp_pick_rows<C::kWeighted>>(kThreads, 0, (a.n + kThreads - 1) / kThreads, &pick);
@@ -581,8 +735,15 @@ extern "C" int64_t sb_label_prop_scratch_bytes(int64_t n, int64_t k, int64_t nnz
   const Plan p = make_plan(n, k, nnz);
   int64_t bytes = 2 * align256(4 * k) + 256 + (p.bytes ? align256(n) : 0);
   if (p.tier == Tier::kGlobal) bytes += p.blocks * p.groups * k * (int64_t)sizeof(uint32_t);
-  if (p.stored) bytes += n * k * (int64_t)sizeof(uint32_t);
+  if (p.split) bytes += align256(n * k * (int64_t)sizeof(uint32_t)) + split_capacity(nnz) * (int64_t)sizeof(Split);
+  else if (p.stored) bytes += n * k * (int64_t)sizeof(uint32_t);
   return bytes;
+}
+
+// 1 where a round of n rows, k parts and nnz entries, weighted or not, hands its rows of more than kSplitRows
+// entries to the span pass (whether it has any is read on the card alone), else 0.
+extern "C" int sb_label_prop_splits(int64_t n, int64_t k, int64_t nnz, int weighted) {
+  return make_plan(n, k, nnz).split && !weighted;
 }
 
 // indptr: (n+1,) int64 with indptr[n] = nnz; ids: (nnz,) int32 in [0, n);
@@ -599,11 +760,16 @@ extern "C" int sb_label_prop_round(const int64_t* indptr, const int* ids, const 
   char* base = static_cast<char*>(scratch);
   const int64_t table = align256(4 * k);
   uint8_t* labels8 = p.bytes ? reinterpret_cast<uint8_t*>(base + 2 * table + 256) : nullptr;
-  uint32_t* tail = reinterpret_cast<uint32_t*>(base + 2 * table + 256 + (p.bytes ? align256(n) : 0));
-  const Args a{indptr, ids, weights, labels, labels8, n, (int)k, alpha, cap, cap_div, tail, p.stored ? tail : nullptr,
-               reinterpret_cast<int*>(base), reinterpret_cast<unsigned*>(base + table),
-               reinterpret_cast<float*>(base + table + 256), out};
-  const cudaError_t err = cudaMemsetAsync(base, 0, (size_t)(table + 256), s);  // sizes and the largest count
+  char* tail = base + 2 * table + 256 + (p.bytes ? align256(n) : 0);
+  Split* split = p.split && !weights ? reinterpret_cast<Split*>(tail + align256(n * k * (int64_t)sizeof(uint32_t)))
+                                     : nullptr;
+  uint32_t* cells = p.stored ? reinterpret_cast<uint32_t*>(tail) : nullptr;
+  const Args a{indptr, ids, weights, labels, labels8, n, (int)k, alpha, cap, cap_div, reinterpret_cast<uint32_t*>(tail),
+               cells, reinterpret_cast<int*>(base), reinterpret_cast<unsigned*>(base + table),
+               reinterpret_cast<float*>(base + table + 256), out,
+               reinterpret_cast<unsigned long long*>(base + table + 8), split};
+  // the sizes, the largest count and the split key
+  const cudaError_t err = cudaMemsetAsync(base, 0, (size_t)(table + 256), s);
   if (err != cudaSuccess) return (int)err;
   return (int)(weights ? dispatch<true>(p, a, s) : dispatch<false>(p, a, s));
 }

@@ -33,20 +33,26 @@ and keeps each row's k cells in the scratch between its launches, so the
 scratch the wrapper allocates (``_scratch_bytes``, the kernel's own plan)
 holds ``4 * n * k`` bytes more; otherwise it counts each row twice. Where
 ``k <= 255`` the scratch also holds a 1-byte copy of the labels (n bytes),
-which the kernel gathers from.
+which the kernel gathers from. Unweighted with the cells stored and ``k <=
+8``, the rows of more than ``SPLIT_ROWS`` entries (a skewed graph's hubs)
+are counted by a span pass that cuts their entries into equal spans, one a
+warp: the scratch holds room for the rows it may take (24 bytes a row, at
+most ``nnz / (SPLIT_ROWS + 1)`` rows), and each such round adds one to the
+counter ``label_prop.split_rounds``. ``split_rows`` reports what takes it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..._build import Kernel, library
 from ...formats.csr import CSR
 from ...utils.exceptions import TypeMismatchError
+from ...utils.tracing import count
 from ._args import kernel_ids, kernel_offsets
 
 _K7 = Kernel(
@@ -54,6 +60,9 @@ _K7 = Kernel(
     "sb_label_prop_round",
     [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3,
 )
+
+
+SPLIT_ROWS = 1024  # longer rows go to K7's span pass (csrc/label_prop.cu: kSplitRows)
 
 
 @functools.cache
@@ -65,6 +74,27 @@ def _scratch_bytes():
     fn = library().sb_label_prop_scratch_bytes
     fn.argtypes, fn.restype = [ctypes.c_int64] * 3, ctypes.c_int64
     return fn
+
+
+@functools.cache
+def _splits():
+    """K7's ``sb_label_prop_splits(n, k, nnz, weighted)``: 1 where a round's
+    plan includes the span pass (whether any row takes it is read on the
+    card alone), else 0."""
+    fn = library().sb_label_prop_splits
+    fn.argtypes, fn.restype = [ctypes.c_int64] * 3 + [ctypes.c_int], ctypes.c_int
+    return fn
+
+
+def split_rows(csr: CSR) -> Tuple[int, int]:
+    """``(rows, entries)``: the rows of ``csr`` longer than ``SPLIT_ROWS``
+    entries and the entries they hold, which K7's span pass counts where a
+    round's plan includes it. Torch ops and one host read, for tests and
+    reports; no pipeline calls it."""
+    deg = csr.indptr[1:] - csr.indptr[:-1]
+    long = deg > SPLIT_ROWS
+    rows, entries = torch.stack([long.sum(), torch.where(long, deg, 0).sum()]).tolist()
+    return rows, entries
 
 
 def _scalar(value: float, device) -> torch.Tensor:
@@ -122,7 +152,8 @@ def label_prop_round(csr: CSR, labels: torch.Tensor, k: int, alpha: float, cap: 
     int32 labels, on ``csr``'s device. ``labels`` has one entry per row and
     names the part of each vertex (every column id must name a row);
     ``weights``, one per entry, weigh the counts. A call reads nothing back
-    to the host."""
+    to the host; on the card, one whose plan includes the span pass counts
+    ``label_prop.split_rounds``."""
     if csr.ncols > csr.nrows:
         raise ValueError(f"label_prop: shape {csr.shape} has more columns than rows; every id must name a row")
     if csr.indptr.device.type == "cpu" and labels.device.type == "cpu":
@@ -150,4 +181,6 @@ def label_prop_round(csr: CSR, labels: torch.Tensor, k: int, alpha: float, cap: 
         stream = torch.cuda.current_stream(dev).cuda_stream
         _K7.launch(indptr.data_ptr(), ids.data_ptr(), None if w is None else w.data_ptr(), lab.data_ptr(), n, csr.nnz,
                    k, alpha, cap, max(cap, 1.0), scratch.data_ptr(), out.data_ptr(), stream)
+    if _splits()(n, k, csr.nnz, w is not None):
+        count("label_prop.split_rounds")
     return out

@@ -38,7 +38,9 @@ conversion in a span of its own keeps the conversion's device time in it.
 for each launch of a hand-written kernel (``_build.Kernel.launch``), and
 ``relocate.entries``, ``relocate.long_rows`` and
 ``relocate.long_row_entries`` for K4's CUDA route, counted from values the
-host already holds, ``csr_to_dia.scatter`` and ``csr_to_dia.accumulate``,
+host already holds, ``label_prop.split_rounds``, one a K7 round whose plan
+includes its span pass for rows over ``SPLIT_ROWS`` (``ops/kernels/label_prop.py``),
+``csr_to_dia.scatter`` and ``csr_to_dia.accumulate``,
 one a call of the CSR to DIA conversion on each of its routes,
 ``shard.routed_entries`` and ``shard.crossed_entries``, the true entries
 that ``from_coo_blocks`` routed and those of them bound for another shard,

@@ -34,6 +34,7 @@ from sparsebase_tpu_torch.ops.kernels import (
     relocate_csr_plain,
 )
 from sparsebase_tpu_torch.ops.kernels.csr_spmv import TILE
+from sparsebase_tpu_torch.ops.kernels.label_prop import SPLIT_ROWS, split_rows
 from sparsebase_tpu_torch.ops.permute import permute_2d
 from sparsebase_tpu_torch.ops.reorder import DegreeReorder
 from sparsebase_tpu_torch.parallel import halo, ring
@@ -1204,21 +1205,27 @@ def test_host_reorderers_return_to_the_card(dev, gen, name):
 
 
 # -- K7: a label-propagation round ----------------------------------------------------
-def lp_case(gen, dev, n, avg_deg, k, *, long_row=None, empty_every=0, misaligned=False, weights=None, skew=True,
-            exact=False, one_part=False, outside=False):
+def lp_case(gen, dev, n, avg_deg, k, *, long_rows=(), tail=None, empty_every=0, misaligned=False, weights=None,
+            skew=True, exact=False, one_part=False, outside=False):
     """A CSR of ``n`` rows (Poisson-like degrees around ``avg_deg``, or
-    exactly ``avg_deg`` with ``exact``; ids uniform in [0, n)), labels in
-    [0, k) with half the vertices in part 0 when ``skew`` (so that the
-    penalty bites), or all in part k - 1 with ``one_part``, some outside
-    [0, k) with ``outside`` (they count nowhere), and weights: None,
-    "integer" (1..5) or "real"."""
+    exactly ``avg_deg`` with ``exact``; ids uniform in [0, n)), with the
+    ``(row, length)`` pairs of ``long_rows`` and, with ``tail = (count,
+    top)``, ``count`` rows spread evenly over the rows whose lengths fall as
+    ``top / i^0.8`` (a power-law tail); labels in [0, k) with half the
+    vertices in part 0 when ``skew`` (so that the penalty bites), or all in
+    part k - 1 with ``one_part``, some outside [0, k) with ``outside``
+    (they count nowhere), and weights: None, "integer" (1..5) or "real"."""
     deg = torch.randint(0, 2 * avg_deg + 1, (n,), generator=gen, device=dev)
     if exact:
         deg.fill_(avg_deg)
     if empty_every:
         deg[::empty_every] = 0
-    if long_row is not None:
-        deg[long_row[0]] = long_row[1]
+    if tail is not None:
+        count, top = tail
+        rows = torch.linspace(0, n - 1, count, device=dev).long()
+        deg[rows] = (top / torch.arange(1, count + 1, device=dev, dtype=torch.float64) ** 0.8).long()
+    for row, length in long_rows:
+        deg[row] = length
     indptr = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), deg.cumsum(0)])
     nnz = int(indptr[-1])
     ids = torch.randint(0, n, (nnz,), generator=gen, device=dev, dtype=torch.int32)
@@ -1243,7 +1250,9 @@ def lp_case(gen, dev, n, avg_deg, k, *, long_row=None, empty_every=0, misaligned
 # name -> (n, average degree, k, options). K7 keeps each row's k cells
 # between its launches where n * k <= nnz ("stored"), counts in registers up
 # to k = 8 and in shared memory up to k = 6,140, and gathers from a 1-byte
-# copy of the labels up to k = 255.
+# copy of the labels up to k = 255. Unweighted on the stored register tier,
+# rows over SPLIT_ROWS entries go to the span pass.
+T = SPLIT_ROWS
 LP_CASES = {
     "k2": (200_000, 16, 2, {}),
     "k8": (500_000, 16, 8, {}),
@@ -1254,8 +1263,8 @@ LP_CASES = {
     "k6140-last-shared": (4_000, 30, 6_140, {}),
     "k6141-first-global": (4_000, 30, 6_141, {}),
     "k8192-global-tier": (5_000, 30, 8_192, {}),
-    "long-row": (50_000, 16, 8, dict(long_row=(7, 262_144))),
-    "long-row-k128": (20_000, 16, 128, dict(long_row=(19_999, 262_144))),
+    "long-row": (50_000, 16, 8, dict(long_rows=((7, 262_144),))),
+    "long-row-k128": (20_000, 16, 128, dict(long_rows=((19_999, 262_144),))),
     "empty-rows": (100_000, 16, 8, dict(empty_every=3)),
     "no-entries": (1_000, 0, 8, {}),
     "one-row": (1, 5, 8, {}),
@@ -1280,6 +1289,17 @@ LP_CASES = {
     "k256-first-int-gather-stored": (20_000, 300, 256, dict(exact=True)),
     "labels-outside-k8": (100_000, 16, 8, dict(outside=True)),
     "labels-outside-k255": (20_000, 16, 255, dict(outside=True)),
+    "split-power-law-tail": (200_000, 16, 8, dict(tail=(400, 300 * T))),
+    "split-power-law-tail-k3": (200_000, 16, 3, dict(tail=(400, 300 * T))),
+    "split-rows-of-t-and-t-plus-1": (100_000, 16, 8, dict(long_rows=((5, T), (6, T + 1), (50_000, T + 1),
+                                                                      (50_001, T), (99_998, T - 1)))),
+    "split-star-row": (100_000, 4, 8, dict(long_rows=((40_000, 4_000_000),))),
+    "split-long-row-one-part": (100_000, 16, 8, dict(long_rows=((3, 50 * T),), one_part=True)),
+    "split-long-row-labels-outside": (100_000, 16, 8, dict(long_rows=((3, 50 * T),), outside=True)),
+    "split-long-rows-first-and-last": (100_000, 16, 8, dict(long_rows=((0, 30 * T + 7), (99_999, 20 * T + 3)))),
+    "split-two-pass-long-row": (100_000, 2, 8, dict(long_rows=((77, 100 * T),))),
+    "split-long-row-integer-weights": (100_000, 16, 8, dict(long_rows=((3, 50 * T),), weights="integer")),
+    "split-long-row-real-weights": (100_000, 16, 8, dict(long_rows=((3, 50 * T),), weights="real")),
 }
 
 
@@ -1319,29 +1339,42 @@ def test_label_prop_kernel_matches_plain(dev, gen, case, alpha):
         assert bool(((a - b).abs() <= 8 * ulp).all()), (diff.numel(), (a - b).abs().max())
 
 
-def test_label_prop_makes_no_host_sync(dev, gen):
+@pytest.mark.parametrize("tail", [None, (300, 200 * SPLIT_ROWS)], ids=["no-long-rows", "split"])
+def test_label_prop_makes_no_host_sync(dev, gen, tail):
     """Ten rounds of ``_propagate`` on the card, run to the end, read nothing
-    back; they equal the same rounds through the plain version."""
+    back; they equal the same rounds through the plain version. Each round
+    counts ``label_prop.split_rounds`` once (its plan hands the rows over
+    SPLIT_ROWS to the span pass, on this graph or not); ``split_rows``
+    reports the rows and entries that take it."""
     from sparsebase_tpu_torch.ops.kernels import label_prop_round_plain
     from sparsebase_tpu_torch.ops.partition.labelprop import _propagate
+    from sparsebase_tpu_torch.utils import tracing
 
-    csr, labels = lp_case(gen, dev, 300_000, 16, 8, skew=False)
+    csr, labels = lp_case(gen, dev, 300_000, 16, 8, skew=False, tail=tail)
     cap = 1.1 * csr.nrows / 8
     _propagate(csr, labels, 8, cap, None, 1, stop_when_stable=False)  # builds and loads the kernels
+    before = tracing.counters().get("label_prop.split_rounds", 0)
     syncs, got = count_syncs(lambda: _propagate(csr, labels, 8, cap, None, 10, stop_when_stable=False))
     assert not syncs, [str(w.message) for w in syncs]
+    assert tracing.counters().get("label_prop.split_rounds", 0) == before + 10
     want = labels
     for it in range(10):
         want = label_prop_round_plain(csr, want, 8, (it + 1) / 10, cap)
     assert torch.equal(got, want)
+    rows, entries = split_rows(csr)
+    deg = (csr.indptr[1:] - csr.indptr[:-1]).cpu()
+    assert (rows, entries) == (int((deg > SPLIT_ROWS).sum()), int(deg[deg > SPLIT_ROWS].sum()))
+    assert (rows > 0) == (tail is not None) and entries / csr.nnz < (0.5 if tail else 1e-9)
 
 
 @pytest.mark.parametrize("case", ["stored-n-k-equal-nnz", "two-pass-n-k-one-over-nnz", "k8-last-register-two-pass",
                                   "k9-first-shared-stored", "k8192-global-tier"])
 def test_label_prop_scratch_holds_the_cells_where_n_k_fits_in_nnz(dev, gen, case):
     """The scratch holds the n * k stored cells exactly where n * k <= nnz
-    and k <= 6,140 (at most 4 * nnz bytes more); without them it is the
-    same for any nnz (O(k) bytes and, k <= 255, the n 1-byte labels; or the
+    and k <= 6,140 (at most 4 * nnz bytes more) and, on the register tier
+    (k <= 8), room after them for the rows the span pass may take (24 bytes
+    each, at most nnz / (SPLIT_ROWS + 1) rows); without them it is the same
+    for any nnz (O(k) bytes and, k <= 255, the n 1-byte labels; or the
     global tier's histograms)."""
     from sparsebase_tpu_torch.ops.kernels.label_prop import _scratch_bytes
 
@@ -1349,7 +1382,10 @@ def test_label_prop_scratch_holds_the_cells_where_n_k_fits_in_nnz(dev, gen, case
     csr, _ = lp_case(gen, dev, n, avg_deg, k, **opts)
     small = _scratch_bytes()(n, k, 0)  # no entries: never stored
     got = _scratch_bytes()(n, k, csr.nnz)
-    if n * k <= csr.nnz and k <= 6_140:
+    if n * k <= csr.nnz and k <= 8:
+        cells = -(-4 * n * k // 256) * 256
+        assert got == small + cells + 24 * (csr.nnz // (SPLIT_ROWS + 1))
+    elif n * k <= csr.nnz and k <= 6_140:
         assert got == small + 4 * n * k and got - small <= 4 * csr.nnz
     else:
         assert got == small

@@ -14,6 +14,9 @@ to the JAX package's cumsum bound (ROADMAP §3). Inputs are numpy arrays
 from a seed; every JAX call runs on the CPU.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -374,6 +377,29 @@ def test_label_prop_round_edge_cases():
     wide = CSR(indptr, ids, None, (4, 6))
     with pytest.raises(ValueError, match="name a row"):
         label_prop_round(wide, labels, 3, 0.5, 10.0)
+
+
+def test_split_rows_counts_the_rows_over_split_rows():
+    """``split_rows`` reports the rows longer than ``SPLIT_ROWS`` (a row of
+    exactly ``SPLIT_ROWS`` stays out) and the entries they hold; K7's source
+    names the same threshold; the plain round on the CPU counts no split
+    round."""
+    from sparsebase_tpu_torch.ops.kernels import label_prop
+    from sparsebase_tpu_torch.utils import tracing
+
+    t = label_prop.SPLIT_ROWS
+    deg = torch.tensor([0, 5, t, t + 1, 3 * t, 7, t - 1])
+    indptr = torch.cat([torch.zeros(1, dtype=torch.int64), deg.cumsum(0)])
+    nnz = int(indptr[-1])
+    csr = CSR(indptr, torch.zeros(nnz, dtype=torch.int32), None, (7, 7))
+    assert label_prop.split_rows(csr) == (2, 4 * t + 1)
+    empty = CSR(torch.zeros(1, dtype=torch.int64), torch.zeros(0, dtype=torch.int32), None, (0, 0))
+    assert label_prop.split_rows(empty) == (0, 0)
+    src = (Path(label_prop.__file__).resolve().parents[2] / "csrc" / "label_prop.cu").read_text()
+    assert re.search(r"constexpr int64_t kSplitRows = (\d+);", src).group(1) == str(t)
+    before = tracing.counters().get("label_prop.split_rounds", 0)
+    label_prop_round(csr, torch.zeros(7, dtype=torch.int32), 2, 0.5, 4.0)
+    assert tracing.counters().get("label_prop.split_rounds", 0) == before
 
 
 def test_label_prop_never_falls_back_off_cpu():

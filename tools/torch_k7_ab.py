@@ -2,7 +2,7 @@
 port's own K7 in turns on one H100; every build's labels held equal to the
 port's.
 
-    python3 tools/torch_k7_ab.py [--nnz 100e6] [--seed 0] [--rounds 3] SOURCE.cu ...
+    python3 tools/torch_k7_ab.py [--nnz 100e6] [--seed 0] [--rounds 3] [--kron SCALE] [--cut T,...] SOURCE.cu ...
 
 Each SOURCE.cu is built and timed in turns as ``tools/torch_ab.py`` says. A
 source whose ``sb_label_prop_round`` takes ``nnz`` takes the port's C interface;
@@ -11,9 +11,15 @@ any other takes the interface of K7's first design
 inputs are ``chip_smoke.py``'s: path H's graph (path A's generator at
 ``--nnz`` entries, n = nnz / 16) at its first round (contiguous chunks,
 alpha 0.1) and its last (the labels of ``partition_pipeline``, alpha 1),
-the planted graph of the same size at the same two rounds, and the K7
-phase-2 edge cases (``chip_smoke.k7_cases``), all made from ``--seed``. On
-the two large graphs every build is also timed ten calls back to back, with
+the planted graph of the same size at the same two rounds (``--nnz 0``
+leaves both out), and the K7 phase-2 edge cases (``chip_smoke.k7_cases``),
+all made from ``--seed``. With ``--kron SCALE``, GAP's kron graph of the
+benchmark's configuration (``benchmark/gen/kronecker.py``, its fixed graph
+seed) at that scale, at the same two rounds: its hub rows hold up to
+~10^5 entries at scale 22 and ~6 x 10^5 at 25. With ``--cut``, the same
+graph at its first round with every row cut to its first T entries, for
+each T given: what a round costs once no row is longer than T. On the
+large graphs every build is also timed ten calls back to back, with
 the device time per call and per kernel under ``torch.profiler``. Beside
 them, the gather probe: ``torch.index_select`` of the graph's column ids
 from an n-entry float32 vector, the random-gather floor a round sits on
@@ -61,6 +67,33 @@ def launcher(lib: str, with_nnz: bool):
     return run
 
 
+def kron_csr(scale: int, seed: int, dev):
+    """GAP's kron graph of the benchmark's configuration at ``scale``, as an
+    unweighted CSR on ``dev`` (its row-major COO's columns, and K3's offsets)."""
+    import json
+
+    from benchmark.gen import kronecker
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.ops.kernels.indptr import indptr_from_sorted_rows
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = dict(json.loads((root / "benchmark/configs/gap-kron-s25.json").read_text()), scale=scale)
+    data = kronecker.make(cfg, seed, dev)
+    n = data["n"]
+    indptr = indptr_from_sorted_rows(data.pop("row"), n)
+    return CSR(indptr, data.pop("col"), None, (n, n))
+
+
+def cut_rows(csr, cut: int):
+    """``csr`` with every row cut to its first ``cut`` entries."""
+    from sparsebase_tpu_torch import CSR
+    from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
+
+    deg = csr.indptr[1:] - csr.indptr[:-1]
+    keep = torch.arange(csr.nnz, device=deg.device) - torch.repeat_interleave(csr.indptr[:-1], deg) < cut
+    return CSR(indptr_from_counts(deg.clamp_max(cut)), csr.indices[keep], None, csr.shape)
+
+
 def main() -> None:
     import chip_smoke as cs
     from sparsebase_tpu_torch import CSR
@@ -69,10 +102,12 @@ def main() -> None:
     from sparsebase_tpu_torch.ops.partition.labelprop import _chunks, _propagate
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("sources", nargs="+")
+    ap.add_argument("sources", nargs="*")
     ap.add_argument("--nnz", type=float, default=100e6)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--kron", type=int, default=0, help="scale of GAP's kron graph (0: none)")
+    ap.add_argument("--cut", default="", help="comma-separated row lengths T: kron with its rows cut to T")
     args = ap.parse_args()
     libs = torch_ab.start(args.sources)
     kernels = [(Path(src).stem, launcher(lib, takes_nnz(src))) for src, lib in zip(args.sources, libs)]
@@ -85,21 +120,36 @@ def main() -> None:
     n = nnz // 16
     k = cs.PARTITION_K
     inputs = []  # (label, csr, labels, k, alpha, cap, large)
-    coo_a = cs.power_law_coo(g, dev, n, nnz)
-    coo_p, _ = cs.planted_coo(g, dev, n - n % k, nnz)
-    for name, coo in (("path H's graph", coo_a), ("the planted graph", coo_p)):
-        csr = CSR(indptr_from_sorted_rows(coo.row, coo.nrows), coo.col, None, coo.shape)
+
+    def both_rounds(name, csr):
         cap = 1.1 * csr.nrows / k
         first = _chunks(csr.nrows, k, dev)
         last = _propagate(csr, first, k, cap, None, cs.PARTITION_ROUNDS, stop_when_stable=False)
-        inputs += [(f"{name}, first round", csr, first, k, 1 / cs.PARTITION_ROUNDS, cap, True),
-                   (f"{name}, last round", csr, last, k, 1.0, cap, True)]
-    del coo_a, coo_p
+        return [(f"{name}, first round", csr, first, k, 1 / cs.PARTITION_ROUNDS, cap, True),
+                (f"{name}, last round", csr, last, k, 1.0, cap, True)]
+
+    if nnz:
+        coo_a = cs.power_law_coo(g, dev, n, nnz)
+        coo_p, _ = cs.planted_coo(g, dev, n - n % k, nnz)
+        for name, coo in (("path H's graph", coo_a), ("the planted graph", coo_p)):
+            inputs += both_rounds(name, CSR(indptr_from_sorted_rows(coo.row, coo.nrows), coo.col, None, coo.shape))
+        del coo_a, coo_p
+    if args.kron:
+        csr = kron_csr(args.kron, args.seed, dev)
+        inputs += both_rounds(f"kron s{args.kron}", csr)
+        for cut in (int(t) for t in args.cut.split(",") if t):
+            short = cut_rows(csr, cut)
+            inputs.append((f"kron s{args.kron} cut to {cut}, first round", short, _chunks(short.nrows, k, dev), k,
+                           1 / cs.PARTITION_ROUNDS, 1.1 * short.nrows / k, True))
     for label, csr, labels, kk in cs.k7_cases(g, dev, args.seed):
         inputs.append((f"edge: {label}", csr, labels, kk, 1.0, 1.1 * csr.nrows / kk, False))
 
     for label, csr, labels, kk, alpha, cap, large in inputs:
-        print(f"== {label}: n={csr.nrows}, {csr.nnz} entries, k={kk}, alpha={alpha}")
+        deg = csr.indptr[1:] - csr.indptr[:-1]
+        print(f"== {label}: n={csr.nrows}, {csr.nnz} entries, k={kk}, alpha={alpha}; longest row {int(deg.max())}, "
+              f"entries in rows over 1024 / 4096: {int(deg[deg > 1024].sum()) / max(csr.nnz, 1):.2%} / "
+              f"{int(deg[deg > 4096].sum()) / max(csr.nnz, 1):.2%}")
+        del deg
         want = label_prop_round(csr, labels, kk, alpha, cap, csr.vals)
         if not large:
             plain = label_prop_round_plain(csr, labels, kk, alpha, cap, csr.vals)
