@@ -14,35 +14,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. builds the kernels from ``sparsebase_tpu_torch/csrc`` (nvcc, sm_90a)
    and, at the same time, the fastio and graphkit host libraries (g++);
    either host library failing to build stops the run here;
-2. kernel vs plain version on the card, at edge shapes: K1 (DIA SpMV; f32
-   and bf16 band, strided and tiled layout, a rectangular band), K2 (CSR
-   SpMV; empty rows, a pattern matrix, one row of 262,144 entries, rows of
-   exactly one tile, one tile and one entry and three tiles, rows starting
-   on tile edges, no entries, one row, id and value arrays one element off
-   16-byte alignment; two runs must agree bit for bit), K3 (indptr;
-   leading, interior and trailing empty rows, no entries, a gap of 1M rows,
-   a row array one element off alignment, 1, 3, 15 and 17 entries, run
-   heads on every chunk seam), K5 (radix rank and argsort; ties,
-   descending, all equal, three passes, 64-bit keys; stated key bits wider
-   than the data, so that passes are skipped on the device, no statement
-   with int64 keys, a single 0 among negatives, 1, 4,096 and 4,097 keys
-   (the tile's edges), 3,000 tiles (the chain of look-backs), keys off
-   16-byte alignment, packed 64-bit pair keys with the sorted keys
-   returned) and K4 (relocation;
-   rows, columns, both, neither, a pattern matrix, float64 values, 20
-   duplicates, rows of 5,000 and 262,144 entries; at the edges of its
-   groups of 32 rows: rows of exactly 32 and 33 entries, a group of empty
-   rows, a group of block-tier rows, one row, n not a multiple of 32, id
-   and value arrays one element off 16-byte alignment, a column table of
-   2^24 entries) and K7 (a label-propagation round; k = 2, 8, 64, 4,096 and
-   8,192, past its shared-memory tier, a row of 262,144 entries, every third
-   row empty, no entries, integer-valued and real weights, ids one element
-   off 16-byte alignment; both sides of its tier edges: n * k = nnz (the
-   cells stored) and one part more (two passes), k = 8 (registers) and 9,
-   k = 255 (1-byte gathers) and 256; every vertex in one part at k = 8 and
-   64; labels outside [0, k); the penalty's weight at 0.1 and 1; these
-   tier cases draw from a generator of their own, so that a case added
-   there leaves every path's graph as it was);
+2. K7 (a label-propagation round) against its plain version on the card, at
+   edge shapes: k = 2, 8, 64, 4,096 and 8,192, past its shared-memory
+   tier, a row of 262,144 entries, every third row empty, no entries,
+   integer-valued and real weights, ids one element off 16-byte alignment;
+   both sides of its tier edges: n * k = nnz (the cells stored) and one
+   part more (two passes), k = 8 (registers) and 9, k = 255 (1-byte
+   gathers) and 256; every vertex in one part at k = 8 and 64; labels
+   outside [0, k); the penalty's weight at 0.1 and 1; these tier cases
+   draw from a generator of their own, so that a case added there leaves
+   every path's graph as it was. The edge cases of K1–K6 are cases of
+   ``tests/test_torch_cuda.py``;
 3. the slice's paths, each once, with every launch count set to 0 just
    before it and read just after: path A, ``preprocess_pipeline`` on a
    ``--nnz`` COO made on the device (uniform rows, columns 20% from
@@ -180,16 +162,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    group only) and an experiment of ``load_sharded_csr``,
    ``distributed_reorder("rcm")`` and ``distributed_spmv_kernel`` (K2) on
    rand-20k, written by the parent as an MTX file into the group's
-   directory, first in the one process, then in both; then
-   ``scaling.run_weak_scaling`` on the card at 1, 2 and 4 shards, the
-   random kind at 2^19 vertices a shard and the stencil at 2^12, each row
-   in a process of its own. Every kernel of each path must have launched,
-   in each process of paths M, N, O and P too;
+   directory, first in the one process, then in both. Every kernel of each
+   path must have launched, in each process of paths M, N, O and P too;
 4. checks of path A (indptr, per-row column order, degree order, the
    permuted CSR equal bit for bit to the plain relocation, ``y`` against
    the plain SpMV of the permuted matrix), of path B (K1 against K2 and
    against its plain version) and of path C (``ro`` and both permuted CSRs
-   equal to their plain versions, ``y`` against the plain SpMV) and of path
+   equal to their plain versions, ``y`` against the plain SpMV); K5 with no
+   host sync; the (row, column) sort of path A's entries, shuffled, by K5 on
+   the packed 64-bit keys equal to a stable ``torch.sort``; K4's route for
+   rows over 4,096 entries (one K5 launch) equal to the plain relocation on
+   a graph with power-law row degrees; of path
    D, every reference built from the plain ``indptr`` of path D's COO (the
    CSR's K3 ``indptr`` equal to it; ``_symmetrized_square``, K5 and K3,
    equal to the CPU route's at full size; the order is a permutation; at
@@ -199,10 +182,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    mapped back, against K2 on the scrambled CSR; K2 against the plain
    SpMV; ``rcm_pipeline`` against the plain relocation and SpMV; CSR → CSC
    → CSR equal to the source; ELL SpMV against the plain SpMV;
-   ``permute_2d`` of the ELL equal to the plain relocation); of path E (the
-   COO read back equal, in canonical order, to the source's lower triangle
-   mirrored by plain torch ops, values exactly; K5's sort in ``COO.new``
-   equal to the plain sort; the pipeline's outputs passing path A's checks;
+   ``permute_2d`` of the ELL equal to the plain relocation; a second call of
+   what ``RCMReorder`` runs giving the same order, with at most one host
+   sync per BFS level step); of path E (the COO read back equal, in
+   canonical order, to the source's lower triangle mirrored by plain torch
+   ops, values exactly; K5's sort in ``COO.new`` equal to the plain sort;
+   the read staged (the host parse, the copy to the card, the device steps)
+   equal to the read; the pipeline's outputs passing path A's checks;
    the donating variant's equal to the plain pipeline's; the SBFF round trip
    ``torch.equal`` on every array; at about 100,000 lines the numpy reader,
    the Pigo reader and ``Graph.read_connectivity_from_mtx_to_coo`` agreeing
@@ -265,7 +251,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    order a (level, degree, id) rank by stable argsorts, the edge cut a
    count of the labels, the bandwidth and profile the features'
    ``Bandwidth`` and ``Profile``, the heatmap ``ReorderHeatmap``'s at rtol
-   1e-6; the refined cut no higher than the labels'; ``halo.spmv`` within
+   1e-6; the refined cut no higher than the labels'; with four or more
+   cards, the ingest's shards and ``dist.spmv`` on ``make_mesh(4)`` equal
+   to one card's; ``halo.spmv`` within
    the per-row bound of K2 on the whole CSR, at d = 4 and d = 1; every
    integer ``halo`` result the same at d = 4 and d = 1, ``halo.bfs_levels``
    equal to ``dist.bfs_levels`` and the plain level BFS, ``halo.edge_cut``
@@ -327,107 +315,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    shards and tiles, by the SHA-256 of their bytes, equal to the one
    process's, and its ``run_distributed`` table, but for its times, equal
    to path L's);
-5. times: paths A and C end to end (median of 5 after one warm-up), and
-   each kernel beside its plain version, its bound and, where one PyTorch
-   call computes the same function, that call (``library_ms``), at the
-   main path's shapes. The library calls (cuSPARSE through ``torch.mv`` on
-   a ``sparse_csr_tensor`` for K2, ``torch.searchsorted`` for K3, a stable
-   ``torch.argsort`` for K5) are made here only, never by the package;
-   K2's is first held to the same per-row bound as the kernel; K4 is
-   timed in path A's form ``(ro, ro)`` and, one call and back to back, in
-   path C's two, ``(ro, co)`` and ``(ro, None)``, each beside its bound;
-   K2, K3 and K5 and their library calls are timed twice: one call per
-   event pair (the record's ``ms``, the wrapper's host time included), and
-   ten calls back to back per event pair (the host's time hidden); the
-   host syncs of one K5 call are counted; the (row, column) sort of path
-   A's entries, shuffled, is timed as K5 on the packed 64-bit keys, sorted
-   keys returned, beside ``torch.sort(stable=True)`` of the same keys, and
-   as ``sort_by_pairs`` beside its plain version; K4's route for rows over
-   4,096 entries (through K5) is timed on a graph with power-law row
-   degrees; path D: the main path's one ``RCMReorder`` call and its one
-   ``rcm_pipeline`` call, timed as they run in phase 3; the count of BFS
-   level steps and the host syncs (at most one per level step) of one more
-   call of what ``RCMReorder`` runs on a square CUDA CSR, whose order must
-   equal the main path's; K1 on the recovered band beside K2 on the
-   scrambled CSR, and ELL SpMV beside K2; path E: the MTX write, the read
-   end to end and staged (the host parse, the host-to-device copy, the
-   device steps), the pipeline with and without donation (time and peak
-   memory above what was held before), the SBFF write and read and bytes;
-   path F: K6 in its three modes, one call and back to back, beside its
-   plain version, its bound and, as a diagnostic, the bytes its stream
-   direction reads (the N(v) and indptr pair of every entry the mode
-   counts), and on the power-law graphs; the directed
-   ``TriangleCount`` end to end; graphkit's Jaccard and triangles on the
-   cut power-law graph (host times); the whole ``extract``; the dense tier
-   at 16,384 vertices beside K6, undirected and directed; path G: Gray,
-   BOBA, ``DegreeReorder`` and the heatmap, one call and three back to
-   back, with their host syncs per call, Gray's histogram and key and
-   BOBA's pair sort alone, a profiled run of three calls of Gray, BOBA and
-   the heatmap (device busy, wall, the top device operations), and the host
-   reorderers' wall times; path H, on both graphs: ``partition_pipeline``
-   end to end (median of 5 after a warm-up) and its peak device memory, K7
-   one call and back to back at the first and the last round beside its
-   plain version and its bound, K7's device time per kernel, and K2 on the
-   partitioned CSR beside K2 on the source; a profile of the pipeline on
-   path A's graph; path I: the MTX write, the experiment's ``run``, per
-   (preprocess, kernel) the median recorded run time beside ``cuda_ms`` of
-   the same call, and the harness's own cost: the median, quartiles and
-   extremes of the differences of paired runs, the same call bare and
-   through a one-run ``ConcreteExperiment`` in turns; each
-   dashboard's ``to_html`` and its heatmaps' share, the CLI's wall,
-   ``run_matrix`` with its table, each ``reorder_csr`` and K2 on the loaded
-   CSR alone, and path I's wall; path J: each step's wall (median of 3
-   after a warm-up) and its host syncs, at d = 4 and d = 1; the ingest's
-   peak memory above what was held, its route capacity and ``w_c``, the
-   padded width ratio, ``halo_width`` and the halo's bytes beside the dense
-   ``psum``'s ``4·n·d``; ``dist.spmv`` at d = 4 and d = 1 and the 2-D SpMV
-   beside K2 on the whole CSR (what sharding costs on one card); a
-   profile of one ingest and one ``with_halo``, each held open 5 s either
-   side (device busy, idle share, the top device operations); with four
-   or more cards, the ingest and ``dist.spmv`` on ``make_mesh(4)`` too;
-   each ``halo`` function's wall and host syncs at d = 4 and d = 1, the BFS
-   levels and host reads, the components' rounds, jumps and reads, RCM's
-   passes, buckets and ``all_gather`` bytes, the bytes of one exchange
-   (padded ``D·D·S·4`` beside ``step_comm_bytes`` and the dense
-   ``psum``'s) and its time, ``halo.spmv`` by CUDA events, and a profile
-   of one ``halo.label_prop_partition``; path K: each function's one call
-   at d = 4 and d = 1, the host reads its ``stats=`` counts, the ladder's
-   levels and sizes, the partition's peak memory, the
-   multilevel BFS's steps, SlashBurn's rounds, phases, compactions, host
-   tail and host reads; path L: each ring call's wall (one run after a
-   warm-up) beside the main run's and its peak memory, each dense call's
-   flop and rate, one step's product on one shard's block alone, the
-   sparse ring's ``_sparse_sizes`` and candidate slots; path M: each
-   phase's wall on the one process and on each of the two, with the bytes
-   each sent to the other process, the bytes staged between the card and
-   host memory and the exchanges; one ``halo._exchange`` across processes
-   beside the one process's, and a (D, 1) ``all_to_all`` (the latency),
-   from which the link figures of the weak-scaling projection come; the
-   group's wall and peak memory; each weak-scaling row; path N: each
-   function's wall on the one process and on each of the two, with the
-   bytes sent, staged and the exchanges, and its ``stats``; paths O and
-   P: the same for each of their calls; K1's tiled layout alone;
-6. ``torch.profiler`` over 3 runs of path A (device
-   time per kernel, the device's idle share, the largest idle gaps), the
-   device time of K5 on path A's degrees, of K2 and of cuSPARSE on path A's
-   source CSR and of K1 on
-   path B's band in both layouts (the tiled one's ``tile_band`` copy shows
-   as its own kernels), and a gather probe: ``torch.index_select`` of path
-   A's column ids from x cut to 16 KiB, 1 MiB and in full, which shows
-   where random gathers are served; and one run of the RCM device route on
-   path D's band at 16,384 rows (device time and operations per level step,
-   the device's idle share).
+5. the kernel table (PERF.md §6), on the inputs the checks built: each
+   kernel's one call between two CUDA events (the wrapper's host time
+   included), its device time per call under ``torch.profiler`` (three
+   calls, the profiler held open 5 s either side; K2–K5 from a profile of path A's call, K1 from path B's and from
+   the tiled layout's own, K6 in Jaccard mode on path F's graph, K7's first
+   round on path A's graph), its plain version, its bound and, where one
+   PyTorch call computes the same function, that call (``library_ms``:
+   cuSPARSE through ``torch.mv`` on a ``sparse_csr_tensor`` for K2, first
+   held to K2's per-row bound; ``torch.searchsorted`` for K3; a stable
+   ``torch.argsort`` for K5), which the package never makes. K1 and K2
+   run on path B's band and path A's CSR, K3 on path A's row ids, K4 on
+   path A's CSR under its degree rank (rows and columns), K5 on path A's
+   degrees.
 
-Path D runs its phases 3, 4 and 5 (and its profile) after phase 6 of the
-other paths, path E its phases 3, 4 and 5 after path D, path F its
-phases 3, 4 and 5 after path E, path G its phases 3, 4 and 5 after
-path F, path H its phases 3, 4 and 5 after path G, path I its phases
-3, 4 and 5 after path H, path J its phases 3, 4 and 5 and its
-profile after path I, path K its phases 3, 4 and 5 after path J, and
-path L its phases 3, 4 and 5 after path K, and path M its phases 3, 4
-and 5 after path L, those of paths N, O and P inside path M's (each
-process runs path N after path M's phases, then path O, then path P,
-before the weak-scaling rows).
+Paths D to M run their phases 3 and 4 in turn after those of paths A–C,
+path N, O and P inside path M's (each process runs path N after path M,
+then path O, then path P); phase 5 runs last. Whole paths are timed by
+``benchmark/run.py``, not here.
 
 The agreement of an SpMV kernel with its plain version is held per row to
 ``|y_k - y_p| <= 4 * deg_i * eps_f32 * (|A| |x|)_i``, which bounds two f32
@@ -437,11 +342,12 @@ Jaccard weights are one rounding of an exact quotient). K7's labels equal
 its plain version's where the counts are integers; with real weights a row
 may differ only where its two best scores lie within 8 ulp.
 
-A kernel's bound (``bound_ms``) is the larger of two times: the bytes its
-function must move (each input read once, each output written once) over
-the H100's 3.35 TB/s, and its floating-point operations over the 67 TFLOP/s
-f32 rate outside the tensor cores (data sheet, SXM, 700 W). K6's compares
-are integer operations: the bytes bound it, and no single PyTorch call
+A kernel's bound (``bound_ms``) is ``benchmark/core/bounds.py``'s: the
+larger of the bytes its function must move (each input read once, each
+output written once) over the H100's 3.35 TB/s and its floating-point
+operations over the 67 TFLOP/s f32 rate outside the tensor cores (data
+sheet, SXM, 700 W). K6's compares are integer operations: its bytes
+(:func:`common_neighbors_bytes`) bound it, and no single PyTorch call
 computes its function (``library_ms`` null); nor K7's.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -464,79 +370,21 @@ from typing import Optional
 
 import torch
 
+from benchmark.core.bounds import HBM_BYTES_PER_S, bound
+from benchmark.core.trace import count_host_syncs, kernel_table, profile_calls
+
 EPS_F32 = torch.finfo(torch.float32).eps
-WIDE_OFFSETS = (-150, -7, 0, 2, 133)
 BAND_HALF_WIDTH = 16  # 33 diagonals
 REPO = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, data sheet
-F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, data sheet
 
 
 class SmokeFailure(RuntimeError):
     pass
 
 
-def bound_bytes(kernel: str, **s) -> int:
-    """Bytes the kernel's function must move at the given shapes: each input
-    read once, each output written once (f32 values and vectors, int32 ids,
-    int64 offsets).
-
-    banded_spmv: ndiag, n, m, band_bytes; csr_spmv: n, ncols, nnz, pattern;
-    indptr: nnz, nrows; relocate_csr: n, nnz, order_entries (entries of the
-    distinct order tensors), value_bytes; radix_rank: n, key_bytes, sorted_keys
-    (the sorted keys are written as well); common_neighbors: n, nnz, mode
-    ("jaccard", the default, "triangles" or "directed"); label_prop: n, nnz."""
-    if kernel == "banded_spmv":  # band, offsets, x in; y out
-        return s["ndiag"] * s["n"] * s["band_bytes"] + 4 * s["ndiag"] + 4 * s["m"] + 4 * s["n"]
-    if kernel == "csr_spmv":  # indptr, ids, values, x in; y out
-        values = 0 if s.get("pattern") else 4 * s["nnz"]
-        return 8 * (s["n"] + 1) + 4 * s["nnz"] + values + 4 * s["ncols"] + 4 * s["n"]
-    if kernel == "indptr":  # row ids in; indptr out
-        return 4 * s["nnz"] + 8 * (s["nrows"] + 1)
-    if kernel == "relocate_csr":  # indptr, ids, values, orders in; indptr, ids, values out
-        csr = 8 * (s["n"] + 1) + (4 + s["value_bytes"]) * s["nnz"]
-        return 2 * csr + 4 * s["order_entries"]
-    if kernel == "radix_rank":  # keys in; int32 ranks (or permutation) out, and the sorted keys on request
-        return s["n"] * (s["key_bytes"] + 4 + (s["key_bytes"] if s.get("sorted_keys") else 0))
-    if kernel == "common_neighbors":  # indptr, ids in (directed: the CSC's too); f32 weights or one int64 sum out
-        lists = 8 * (s["n"] + 1) + 4 * s["nnz"]
-        mode = s.get("mode", "jaccard")
-        return (2 * lists if mode == "directed" else lists) + (4 * s["nnz"] if mode == "jaccard" else 8)
-    if kernel == "label_prop":  # indptr, ids, labels in; labels out
-        return 8 * (s["n"] + 1) + 4 * s["nnz"] + 4 * s["n"] + 4 * s["n"]
-    raise KeyError(kernel)
-
-
-def bound_ops(kernel: str, **s) -> int:
-    """Floating-point operations of the kernel's function (a multiply and an
-    add per stored entry of the SpMVs; label_prop: an add per entry into the
-    float32 counts, a subtraction per cell for the scores, k = 8); the integer
-    kernels do none."""
-    if kernel == "banded_spmv":
-        return 2 * s["ndiag"] * s["n"]
-    if kernel == "csr_spmv":
-        return 2 * s["nnz"]
-    if kernel == "label_prop":
-        return s["nnz"] + s["n"] * s.get("k", 8)
-    return 0
-
-
-def bound(kernel: str, **s):
-    """``(bound_ms, bound_by)``: the least time the card could take."""
-    by_bytes = bound_bytes(kernel, **s) / HBM_BYTES_PER_S * 1e3
-    by_ops = bound_ops(kernel, **s) / F32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def sync(dev: torch.device) -> None:
-    """Wait for ``dev``'s queued work (nothing to wait for on the CPU)."""
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def check_rows(name: str, y, y_ref, deg, absdot) -> float:
@@ -573,48 +421,12 @@ def cuda_ms(fn, batch: int = 1, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, reps: int = 5) -> float:
-    """Median wall time of ``fn`` in ms, synchronised, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 # -- inputs, made on the device from a seed ----------------------------------
-def dia_case(g, dev, n, m, offsets, dtype):
-    from sparsebase_tpu_torch import DIA
-
-    offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
-    data = torch.randn((len(offsets), n), generator=g, device=dev).to(dtype)
-    x = torch.randn((m,), generator=g, device=dev)
-    return DIA(offs, data, (n, m)), x
-
-
 def dia_row_degrees(dia):
     n, m = dia.shape
     i = torch.arange(n, device=dia.data.device)
     j = i[None, :] + dia.offsets.to(torch.int64)[:, None]
     return ((j >= 0) & (j < m)).sum(dim=0)
-
-
-def csr_case(g, dev, degrees, ncols, pattern=False):
-    from sparsebase_tpu_torch import CSR
-    from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
-
-    degrees = degrees.to(dev)
-    indptr = indptr_from_counts(degrees)
-    nnz = int(indptr[-1])
-    cols = torch.randint(0, ncols, (nnz,), generator=g, device=dev, dtype=torch.int32)
-    vals = None if pattern else torch.randn((nnz,), generator=g, device=dev)
-    csr = CSR(indptr, cols, vals, (degrees.numel(), ncols)).sort_rows()
-    x = torch.randn((ncols,), generator=g, device=dev)
-    return csr, x
 
 
 def power_law_coo(g, dev, n, nnz):
@@ -654,22 +466,6 @@ def power_law_degrees(g, dev, n, nnz):
     return deg[torch.randperm(n, generator=g, device=dev)]
 
 
-def count_host_syncs(fn) -> int:
-    """Synchronising CUDA operations that one call of ``fn`` makes, as
-    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
-    import warnings
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
-
-
 def banded_coo(g, dev, band_nnz):
     """A square matrix with every entry of diagonals -16..16 stored."""
     from sparsebase_tpu_torch import COO
@@ -706,18 +502,6 @@ def abs_csr(csr):
     return CSR(csr.indptr, csr.indices, None if csr.vals is None else csr.vals.abs(), csr.shape)
 
 
-def off_alignment(t):
-    """A contiguous copy of ``t`` (a tensor or a CSR's ids and values) that
-    starts one element past a 16-byte boundary."""
-    from sparsebase_tpu_torch import CSR
-
-    if isinstance(t, CSR):
-        return CSR(t.indptr, off_alignment(t.indices), None if t.vals is None else off_alignment(t.vals), t.shape)
-    buf = torch.empty((t.numel() + 1,), dtype=t.dtype, device=t.device)
-    buf[1:] = t
-    return buf[1:]
-
-
 # -- phases ------------------------------------------------------------------
 def phase_device() -> torch.device:
     if not torch.cuda.is_available():
@@ -733,9 +517,8 @@ def phase_device() -> torch.device:
 
 
 def phase_build() -> None:
-    """The kernels (nvcc) and the two host libraries (g++) built at once, so
-    that path E's timed steps run with every library loaded; a host library
-    that does not build stops the run before any work."""
+    """The kernels (nvcc) and the two host libraries (g++) built at once; a
+    host library that does not build stops the run before any work."""
     from concurrent.futures import ThreadPoolExecutor
 
     from sparsebase_tpu_torch import _build, native
@@ -755,61 +538,6 @@ def phase_build() -> None:
         print(f"phase 1 host library {name} (g++) build and load: {s:.2f} s")
 
 
-def phase_kernels_vs_plain(g, dev) -> None:
-    from sparsebase_tpu_torch.ops.kernels import banded_spmv, csr_spmv, csr_spmv_plain, dia_spmv_plain
-
-    print("phase 2 kernels vs plain")
-    n = 1_000_003
-    for dtype in (torch.float32, torch.bfloat16):
-        for layout in ("strided", "tiled"):
-            dia, x = dia_case(g, dev, n, n, WIDE_OFFSETS, dtype)
-            y = banded_spmv(dia, x, layout=layout)
-            torch.cuda.synchronize()
-            y_p = dia_spmv_plain(dia.offsets, dia.data, x, dia.shape)
-            absdot = dia_spmv_plain(dia.offsets, dia.data.abs(), x.abs(), dia.shape)
-            check_rows(f"K1 {str(dtype)[6:]} {layout} n={n}", y, y_p, dia_row_degrees(dia), absdot)
-    dia, x = dia_case(g, dev, n, n - 997, WIDE_OFFSETS, torch.float32)
-    y = banded_spmv(dia, x)
-    torch.cuda.synchronize()
-    absdot = dia_spmv_plain(dia.offsets, dia.data.abs(), x.abs(), dia.shape)
-    check_rows(f"K1 f32 rectangular {dia.shape}", y, dia_spmv_plain(dia.offsets, dia.data, x, dia.shape),
-               dia_row_degrees(dia), absdot)
-
-    from sparsebase_tpu_torch.ops.kernels.csr_spmv import TILE
-
-    rows = 100_000
-    deg = torch.randint(0, 40, (rows,), generator=g, device=dev)
-    deg[::7] = 0  # empty rows
-    long_row = deg.clone()
-    long_row[rows // 2] = 262_144
-    # rows of exactly one tile, one tile and one entry, and over three
-    # tiles; rows 2, 3, 4 and 8 start on tile edges, row 2 empty
-    t = TILE
-    edges = torch.cat([torch.tensor([5, t - 5, 0, t, t + 1, 0, 0, t - 1, 3 * t + 7, 0, t, 1], device=dev), deg])
-    for name, degrees, pattern, offset in (
-        ("empty rows", deg, False, False),
-        ("pattern", deg, True, False),
-        ("one row of 262144", long_row, False, False),
-        ("tile edges", edges, False, False),
-        ("tile edges, pattern", edges, True, False),
-        ("rows of 0-3 entries", torch.randint(0, 4, (300_000,), generator=g, device=dev), False, False),
-        ("no entries", torch.zeros((1_000,), dtype=torch.int64, device=dev), False, False),
-        ("one row over five tiles", torch.tensor([5 * t + 3], device=dev), False, False),
-        ("one row of 7", torch.tensor([7], device=dev), False, False),
-        ("ids and values off alignment", edges, False, True),
-        ("ids off alignment, pattern", edges, True, True),
-    ):
-        csr, x = csr_case(g, dev, degrees, 50_000, pattern)
-        if offset:
-            csr = off_alignment(csr)
-        y = csr_spmv(csr, x)
-        again = csr_spmv(csr, x)
-        torch.cuda.synchronize()
-        absdot = csr_spmv_plain(abs_csr(csr), x.abs())
-        check_rows(f"K2 {name}", y, csr_spmv_plain(csr, x), csr.degrees(), absdot)
-        check(torch.equal(y, again), f"K2 {name}: two runs differ")
-
-
 def check_equal(name: str, got, want) -> None:
     """Exact agreement of an integer-result kernel with its plain version."""
     same = got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)
@@ -826,140 +554,6 @@ def check_csr_equal(name: str, got, want) -> None:
             check_equal(f"{name} {field}", a, b)
 
 
-def sorted_rows(g, dev, nrows, nnz, lo=0, hi=None):
-    row = torch.randint(lo, nrows if hi is None else hi, (nnz,), generator=g, device=dev, dtype=torch.int32)
-    return torch.sort(row).values
-
-
-def phase_exact_kernels_vs_plain(g, dev) -> None:
-    """K3, K5 and K4 against their plain versions at edge shapes."""
-    from sparsebase_tpu_torch.ops.kernels import (
-        indptr_from_sorted_rows, indptr_plain, radix_argsort, radix_argsort_plain, radix_rank,
-        radix_rank_plain, relocate_csr, relocate_csr_plain,
-    )
-
-    gap = torch.cat([sorted_rows(g, dev, 3, 100), torch.full((50,), 1_000_003, dtype=torch.int32, device=dev)])
-    seams = torch.arange(1_000_000, dtype=torch.int32, device=dev) // 512  # a run head on every chunk seam
-    cases = [
-        ("leading empty rows", sorted_rows(g, dev, 50_000, 400_000, lo=1_000), 50_000),
-        ("trailing empty rows", sorted_rows(g, dev, 50_000, 400_000, hi=40_000), 50_000),
-        ("interior empty rows", sorted_rows(g, dev, 300_000, 200_000), 300_000),
-        ("no entries", torch.zeros((0,), dtype=torch.int32, device=dev), 1_000),
-        ("gap of 1M rows", gap, 1_000_010),
-        ("row[1:], off alignment", sorted_rows(g, dev, 50_000, 400_001)[1:], 50_000),
-        ("heads on chunk seams", seams, 1_960),
-        ("heads on chunk seams, empty rows between", seams * 3, 5_870),
-        ("heads on chunk seams, off alignment", off_alignment(seams), 1_960),
-    ]
-    cases += [(f"{k} entries", sorted_rows(g, dev, 10, k), 10) for k in (1, 3, 15, 17)]
-    for name, row, nrows in cases:
-        check_equal(f"K3 {name}", indptr_from_sorted_rows(row, nrows), indptr_plain(row, nrows))
-
-    negatives = -torch.randint(1, 40, (100_000,), generator=g, device=dev)
-    negatives[77_777] = 0
-    pairs = (torch.randint(0, 5_000, (3_000_000,), generator=g, device=dev) << 32) | torch.randint(
-        0, 70_000, (3_000_000,), generator=g, device=dev)
-    pair_bits = [(0, 17), (32, 45)]
-    # name -> (keys, what the caller states of their bits)
-    for name, keys, key_bits in (
-        ("ties 0..39", torch.randint(0, 40, (1_000_003,), generator=g, device=dev), None),
-        ("descending", -torch.randint(0, 40, (1_000_003,), generator=g, device=dev), None),
-        ("all equal", torch.full((70_001,), 9, dtype=torch.int64, device=dev), None),
-        ("three passes", torch.randint(0, 1 << 20, (2_000_000,), generator=g, device=dev, dtype=torch.int32) * 11,
-         None),
-        ("64-bit keys", torch.randint(-(1 << 40), 1 << 40, (300_000,), generator=g, device=dev) // 1000, None),
-        ("27 bits stated, 6 used (passes skipped on the device)",
-         torch.randint(0, 40, (1_000_003,), generator=g, device=dev), 27),
-        ("all equal, 27 bits stated", torch.full((70_001,), 9, dtype=torch.int64, device=dev), 27),
-        ("nothing stated, int64", torch.randint(0, 1 << 20, (500_000,), generator=g, device=dev), None),
-        ("a single 0 among negatives", negatives, None),
-        ("a single 0 among negatives, int32", negatives.to(torch.int32), None),
-        ("int16 keys", torch.randint(-300, 300, (100_000,), generator=g, device=dev).to(torch.int16), None),
-        ("n = 1", torch.tensor([5], device=dev), None),
-        ("n = 4096", torch.randint(0, 1 << 12, (4_096,), generator=g, device=dev), 12),
-        ("n = 4097", torch.randint(0, 1 << 12, (4_097,), generator=g, device=dev), 12),
-        ("3,000 tiles and 5 keys", torch.randint(0, 1 << 24, (3_000 * 4_096 + 5,), generator=g, device=dev,
-                                                 dtype=torch.int32), 24),
-        ("off 16-byte alignment", off_alignment(torch.randint(0, 1 << 16, (100_001,), generator=g, device=dev,
-                                                              dtype=torch.int32)), 16),
-        ("packed pairs, 17 + 13 bits", pairs, pair_bits),
-    ):
-        check_equal(f"K5 rank {name}", radix_rank(keys, key_bits), radix_rank_plain(keys))
-        check_equal(f"K5 argsort {name}", radix_argsort(keys, key_bits), radix_argsort_plain(keys))
-    perm, sorted_keys = radix_argsort(pairs, pair_bits, return_keys=True)
-    want_keys, want_perm = torch.sort(pairs, stable=True)
-    check_equal("K5 argsort packed pairs, with the sorted keys: permutation", perm, want_perm.to(torch.int32))
-    check_equal("K5 argsort packed pairs, with the sorted keys: keys", sorted_keys, want_keys)
-    del negatives, pairs, perm, sorted_keys, want_keys, want_perm
-
-    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs, sort_by_pairs_plain
-
-    major = torch.randint(0, 3_000, (1_000_000,), generator=g, device=dev, dtype=torch.int32)
-    minor = torch.randint(0, 500, (1_000_000,), generator=g, device=dev, dtype=torch.int32)  # duplicates likely
-    payload = torch.randn((1_000_000,), generator=g, device=dev)
-    for name, bounds in (("bounds stated", dict(major_bound=3_000, minor_bound=500)), ("no bounds", {})):
-        got = sort_by_pairs(major, minor, payload, None, **bounds)
-        want = sort_by_pairs_plain(major, minor, payload, None)
-        check(got[3] is None and want[3] is None, "sort_by_pairs: a None payload did not pass through")
-        for what, a, b in zip(("major", "minor", "payload"), got, want):
-            check_equal(f"sort_by_pairs, {name}: {what} vs torch.sort", a, b)
-
-    from sparsebase_tpu_torch import CSR
-    from sparsebase_tpu_torch.convert.kernels import indptr_from_counts
-
-    def mix(n, long_row=None):
-        # degrees over the warp tier (<= 32), the block tier (<= 4096) and
-        # empty rows
-        deg = torch.randint(0, 40, (n,), generator=g, device=dev)
-        deg[::7] = 0
-        deg[5::97] = torch.randint(33, 4097, (deg[5::97].numel(),), generator=g, device=dev)
-        if long_row is not None:
-            deg[n // 2] = long_row
-        return deg
-
-    def mix_with(at, lo, hi=None):
-        deg = mix(50_000)
-        deg[at] = lo if hi is None else torch.randint(lo, hi + 1, (deg[at].numel(),), generator=g, device=dev)
-        return deg
-
-    def poisson16(n):  # path A's degrees
-        return torch.poisson(torch.full((n,), 16.0, device=dev), generator=g).to(torch.int64)
-
-    for name, deg, ncols, rows, cols, pattern, dtype, offset in (
-        ("rows only", mix(50_000), 30_000, True, False, False, torch.float32, False),
-        ("columns only", mix(50_000), 30_000, False, True, False, torch.float32, False),
-        ("both", mix(50_000), 30_000, True, True, False, torch.float32, False),
-        ("neither (sort_rows)", mix(50_000), 30_000, False, False, False, torch.float32, False),
-        ("pattern", mix(50_000), 30_000, True, True, True, torch.float32, False),
-        ("float64 values", mix(50_000), 30_000, True, True, False, torch.float64, False),
-        ("one row of 5000", mix(50_000, 5_000), 30_000, True, True, False, torch.float32, False),
-        ("one row of 262144", mix(50_000, 262_144), 30_000, True, True, False, torch.float32, False),
-        ("rows of 32 and 33", mix_with(slice(0, None, 2), 32, 33), 30_000, True, True, False, torch.float32, False),
-        ("a group of empty rows", mix_with(slice(64, 96), 0), 30_000, True, True, False, torch.float32, False),
-        ("a group of block-tier rows", mix_with(slice(96, 128), 33, 4_096), 30_000, True, True, False,
-         torch.float32, False),
-        ("n = 1", torch.tensor([25], device=dev), 30_000, True, True, False, torch.float32, False),
-        ("n = 1,000,003 (not a multiple of 32)", poisson16(1_000_003), 1_000_003, True, True, False,
-         torch.float32, False),
-        ("ids and values off alignment", poisson16(200_000), 200_000, True, True, False, torch.float32, True),
-        ("ids off alignment, pattern", mix(50_000), 30_000, True, True, True, torch.float32, True),
-        ("a column table of 2^24", poisson16(200_000), 1 << 24, True, True, False, torch.float32, False),
-    ):
-        indptr = indptr_from_counts(deg)
-        cols_ = torch.randint(0, ncols, (int(indptr[-1]),), generator=g, device=dev, dtype=torch.int32)
-        big = torch.nonzero(deg >= 20)
-        if big.numel():
-            first = int(indptr[int(big[0])])
-            cols_[first:first + 20] = cols_[first]  # 20 copies of one coordinate
-        vals = None if pattern else torch.randn((cols_.numel(),), generator=g, device=dev).to(dtype)
-        csr = CSR(indptr, cols_, vals, (deg.numel(), ncols))
-        if offset:
-            csr = off_alignment(csr)
-        ro = torch.randperm(csr.nrows, generator=g, device=dev).to(torch.int32) if rows else None
-        co = torch.randperm(ncols, generator=g, device=dev).to(torch.int32) if cols else None
-        check_csr_equal(f"K4 {name}", relocate_csr(csr, ro, co), relocate_csr_plain(csr, ro, co))
-
-
 def library_spmv(csr, x):
     """``(name, fn)``: cuSPARSE's CSR SpMV through one PyTorch call on the
     same matrix (int32 offsets and ids), built here, outside any timing."""
@@ -973,134 +567,37 @@ def library_spmv(csr, x):
         return "sparse_csr_tensor @ x[:, None]", lambda: (a @ x[:, None]).squeeze(1)
 
 
-def device_profile(fn, runs: int = 3, margin_s: float = 0.0):
-    """``(per_kernel, spans, wall_ms)`` over ``runs`` calls of ``fn`` under
-    torch.profiler: device ms per kernel name per run, the device intervals
-    (µs, sorted) and the profiled wall time per run. ``margin_s`` holds the
-    profiler open that long before and after the calls: in an old process
-    it drops a short window's kernels (``experiment.TRACE_MARGIN_S``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(margin_s)
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / runs
-        time.sleep(margin_s)
-    per_kernel, spans = {}, []
-    for ev in prof.events():
-        # the package's ``sbtorch:`` labels come back as device ranges too:
-        # they span the work of an op, idle time included, and are no work
-        if ev.device_type == DeviceType.CUDA and not ev.name.startswith("sbtorch:"):
-            per_kernel[ev.name] = per_kernel.get(ev.name, 0.0) + ev.device_time_total / 1e3 / runs
-            spans.append((ev.time_range.start, ev.time_range.end, ev.name))
-    return per_kernel, sorted(spans), wall_ms
-
-
-def device_busy(spans):
-    """The union of the device intervals (µs), and the holes in it as
-    ``(µs, kernel before, kernel after)``."""
-    busy_us, gaps = 0.0, []
-    reach, last = spans[0][0], spans[0][2]
-    for start, end, name in spans:
-        if start > reach:
-            gaps.append((start - reach, last, name))
-        busy_us += max(0.0, end - max(start, reach))
-        if end > reach:
-            reach, last = end, name
-    return busy_us, gaps
-
-
-def phase_profile(path_a, wall_a_ms: float, spmv_calls, gather_probe) -> None:
-    """Path A's device time per kernel and idle gaps; the device time per
-    kernel of each of ``spmv_calls``; random gathers of x from ranges of
-    growing size, which shows where SpMV's gathers are served."""
-    runs = 3
-    per_kernel, spans, wall_ms = device_profile(path_a, runs)
-    check(bool(spans), "the profiler recorded no device activity")
-    busy_us, gaps = device_busy(spans)
-    busy_ms = busy_us / 1e3 / runs
-    print(f"phase 6 profile of path A, {runs} runs: device busy {busy_ms:.4f} ms per run; wall under the "
-          f"profiler {wall_ms:.4f} ms, idle {1 - busy_ms / wall_ms:.1%}; against the unprofiled median "
-          f"{wall_a_ms:.4f} ms, idle {1 - busy_ms / wall_a_ms:.1%}")
-    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
-        print(f"  {ms:9.4f} ms {ms / busy_ms:6.1%}  {name[:110]}")
-    print("  largest device idle gaps under the profiler (µs, kernel before -> after):")
-    for gap, before, after in sorted(gaps, reverse=True)[:6]:
-        print(f"    {gap:8.1f}  {before[:55]} -> {after[:55]}")
-    for label, fn in spmv_calls:
-        per_kernel, _, _ = device_profile(fn, runs)
-        names = ", ".join(f"{name[:60]} {ms:.4f}" for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1]))
-        print(f"phase 6 {label}: device {sum(per_kernel.values()):.4f} ms per call ({names})")
-    for entries, fn in gather_probe:
-        print(f"phase 6 gather probe: torch.index_select of path A's column ids from the first {entries} "
-              f"entries of x ({entries * 4 / 2**20:.3g} MiB): {cuda_ms(fn, batch=10):.4f} ms")
-
-
 def phase_pair_sort(g, coo) -> None:
     """The (row, column) sort of a COO's entries, shuffled: K5 on the packed
-    64-bit keys with the sorted keys returned, beside the library call it
-    stands in for, and ``sort_by_pairs`` (packing, sort, unpacking and the
-    gather of the values) beside its plain version."""
-    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs, sort_by_pairs_plain
-    from sparsebase_tpu_torch.ops.kernels import plan_passes, radix_argsort
+    64-bit keys with the sorted keys returned, against the stable
+    ``torch.sort`` it stands in for."""
+    from sparsebase_tpu_torch.ops.kernels import radix_argsort
     from sparsebase_tpu_torch.ops.kernels.radix import bits_below
 
-    nnz = coo.nnz
-    shuffle = torch.randperm(nnz, generator=g, device=coo.row.device)
-    row, col, vals = coo.row[shuffle], coo.col[shuffle], coo.vals[shuffle]
+    shuffle = torch.randperm(coo.nnz, generator=g, device=coo.row.device)
+    key = (coo.row[shuffle].to(torch.int64) << 32) | coo.col[shuffle].to(torch.int64)
     del shuffle
-    key = (row.to(torch.int64) << 32) | col.to(torch.int64)
     key_bits = [(0, bits_below(coo.ncols)), (32, 32 + bits_below(coo.nrows))]
-    passes = len(plan_passes(64, key_bits))
     perm, sorted_keys = radix_argsort(key, key_bits, return_keys=True)
     want_keys, want_perm = torch.sort(key, stable=True)
     check_equal("pair sort K5 vs torch.sort: permutation", perm, want_perm.to(torch.int32))
     check_equal("pair sort K5 vs torch.sort: keys", sorted_keys, want_keys)
-    del perm, sorted_keys, want_keys, want_perm
-    k5 = cuda_ms(lambda: radix_argsort(key, key_bits, return_keys=True), reps=3)
-    lib = cuda_ms(lambda: torch.sort(key, stable=True), reps=3)
-    k5_again = cuda_ms(lambda: radix_argsort(key, key_bits, return_keys=True), reps=3)
-    lib_again = cuda_ms(lambda: torch.sort(key, stable=True), reps=3)
-    unstated = cuda_ms(lambda: radix_argsort(key, return_keys=True), reps=3)
-    del key
-    whole = cuda_ms(lambda: sort_by_pairs(row, col, vals, major_bound=coo.nrows, minor_bound=coo.ncols), reps=3)
-    whole_plain = cuda_ms(lambda: sort_by_pairs_plain(row, col, vals), reps=3)
-    bound_ms, _ = bound("radix_rank", n=nnz, key_bytes=8, sorted_keys=True)
-    print(f"phase 5 pair sort of {nnz} shuffled (row, column) pairs, 64-bit keys, {passes} passes planned: K5 "
-          f"radix_argsort with the sorted keys {k5:.4f} / {k5_again:.4f} ms, torch.sort(stable=True) {lib:.4f} / "
-          f"{lib_again:.4f} ms; K5 with nothing stated {unstated:.4f} ms; bound {bound_ms:.4f} ms (bytes), "
-          f"{bound_ms / k5:.1%} of it; sort_by_pairs {whole:.4f} ms, its plain version {whole_plain:.4f} ms")
 
 
 def phase_long_rows(g, dev, n: int = 1_000_000, nnz: int = 16_000_000) -> None:
     """K4's route for rows of more than 4,096 entries, which sorts them with
-    K5 on a (row, new column) key: checked and timed on a graph whose row
-    degrees follow a power law."""
+    K5 on a (row, new column) key, on a graph whose row degrees follow a
+    power law."""
     from sparsebase_tpu_torch import _build
     from sparsebase_tpu_torch.ops.kernels import relocate_csr, relocate_csr_plain
 
     csr = power_law_csr(g, dev, n, nnz)
-    deg, total = csr.degrees(), csr.nnz
     ro = torch.randperm(n, generator=g, device=dev).to(torch.int32)
-    over = deg > 4_096
     before = _build.launch_counts()["radix_rank"]
     got = relocate_csr(csr, ro, ro)
     k5_launches = _build.launch_counts()["radix_rank"] - before
     check(k5_launches == 1, f"rows over 4,096 entries launched K5 {k5_launches} times, expected once")
     check_csr_equal("K4 power-law rows (ro, ro)", got, relocate_csr_plain(csr, ro, ro))
-    del got
-    ms = cuda_ms(lambda: relocate_csr(csr, ro, ro))
-    plain_ms = cuda_ms(lambda: relocate_csr_plain(csr, ro, ro))
-    syncs = count_host_syncs(lambda: relocate_csr(csr, ro, ro))
-    print(f"phase 5 K4 on power-law rows (n={n}, {total} entries, {int(over.sum())} rows over 4,096 holding "
-          f"{int(deg[over].sum())} entries, through K5): one call {ms:.4f} ms, plain {plain_ms:.4f} ms; host syncs "
-          f"in one call {syncs}")
 
 
 class PathD:
@@ -1118,37 +615,20 @@ class PathD:
         self.x = torch.randn((n,), generator=g, device=dev)
         self.co = torch.randperm(n, generator=g, device=dev).to(torch.int32)
         self.small = scrambled_band(torch.Generator(device=dev).manual_seed(seed), dev, self.SMALL_N).convert(CSR)
-        self.small_order = RCMReorder().get_reorder(self.small)  # also warms the route's operations up
-        self.rcm_ms = self.pipeline_ms = None
+        self.small_order = RCMReorder().get_reorder(self.small)
 
     def run(self):
-        """The main path; ``RCMReorder``'s one call is timed on its own."""
         from sparsebase_tpu_torch import CSR, DIA, spmv
         from sparsebase_tpu_torch.ops.permute import permute_2d
         from sparsebase_tpu_torch.ops.reorder import RCMReorder
 
         csr = self.coo.convert(CSR)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         order = RCMReorder().get_reorder(csr)
-        torch.cuda.synchronize()
-        self.rcm_ms = (time.perf_counter() - t0) * 1e3
         banded = permute_2d(csr, order, order)
         dia = banded.convert(DIA)
         x_band = torch.empty_like(self.x)
         x_band[order] = self.x  # x in the reordered space
         return csr, order, banded, dia, x_band, spmv(dia, x_band)
-
-    def pipeline(self):
-        """``rcm_pipeline``, one call, timed."""
-        from sparsebase_tpu_torch import rcm_pipeline
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = rcm_pipeline(self.coo, self.x)
-        torch.cuda.synchronize()
-        self.pipeline_ms = (time.perf_counter() - t0) * 1e3
-        return out
 
 
 def phase_path_d_checks(d: PathD, csr, order, banded, dia, x_band, y_band, pipe) -> float:
@@ -1204,53 +684,25 @@ def phase_path_d_checks(d: PathD, csr, order, banded, dia, x_band, y_band, pipe)
     check_rows("path D spmv(ELL) vs plain", spmv(ell, d.x), y_src, src.degrees(), absdot)
     check_csr_equal("path D permute_2d(ell, ro, co) -> CSR vs plain relocation",
                     permute_2d(ell, order, d.co).convert(CSR), relocate_csr_plain(src, order, d.co))
-    return err_k1
-
-
-def phase_path_d_times(d: PathD, csr, order, dia, x_band) -> None:
-    from sparsebase_tpu_torch import ELL
-    from sparsebase_tpu_torch.models.pipelines import spmv_ell
-    from sparsebase_tpu_torch.ops.kernels import banded_spmv, csr_spmv
-    from sparsebase_tpu_torch.ops.reorder.rcm import _rcm_device, _symmetrized_square
-
     # the level steps and host syncs of what RCMReorder runs on a square
     # CUDA CSR, in one call whose order must be the main path's
     stats, out = {}, []
     syncs = count_host_syncs(lambda: out.append(_rcm_device(_symmetrized_square(csr), stats=stats)))
     check_equal("path D RCM order, a second call vs the main path's", out[0], order)
     steps = stats["level_steps"]
-    print(f"phase 5 path D RCMReorder (n={csr.nrows}, {csr.nnz} entries, {2 * csr.nnz} symmetrized): one call "
-          f"{d.rcm_ms:.4f} ms over {steps} BFS level steps, {d.rcm_ms / steps:.4f} ms per level step; host syncs in "
-          f"one call of _symmetrized_square and _rcm_device {syncs} ({syncs / steps:.4f} per level step)")
+    print(f"  path D RCM device route: {steps} BFS level steps, {syncs} host syncs in one call of "
+          "_symmetrized_square and _rcm_device")
     check(syncs <= steps, f"path D: the RCM device route synced the host {syncs} times in {steps} level steps")
-    print(f"phase 5 path D rcm_pipeline end to end: one call {d.pipeline_ms:.4f} ms")
-    k1_ms = cuda_ms(lambda: banded_spmv(dia, x_band))
-    k2_ms = cuda_ms(lambda: csr_spmv(csr, d.x))
-    print(f"phase 5 path D payoff: K1 on the recovered band ({dia.num_diagonals} diagonals) {k1_ms:.4f} ms, "
-          f"K2 on the scrambled CSR {k2_ms:.4f} ms, {k2_ms / k1_ms:.2f}x")
-    ell = csr.convert(ELL)
-    ell_ms = cuda_ms(lambda: spmv_ell(ell, d.x))
-    k2_again = cuda_ms(lambda: csr_spmv(csr, d.x))
-    print(f"phase 5 path D ELL SpMV (width {ell.width}): {ell_ms:.4f} ms, K2 on the same matrix {k2_again:.4f} ms")
-    # where a level step's time goes: the device route under the profiler
-    sym_small = _symmetrized_square(d.small)
-    stats = {}
-    _, spans, wall_ms = device_profile(lambda: _rcm_device(sym_small, stats=stats), runs=1)
-    check(bool(spans), "the profiler recorded no device activity in the RCM device route")
-    busy_us, _ = device_busy(spans)
-    steps = stats["level_steps"]
-    print(f"phase 6 profile of the RCM device route at {d.SMALL_N} rows, {steps} level steps: device busy "
-          f"{busy_us / 1e3:.4f} ms, wall under the profiler {wall_ms:.4f} ms, idle {1 - busy_us / 1e3 / wall_ms:.1%}; "
-          f"a level step {busy_us / steps:.2f} µs of device time in {len(spans) / steps:.1f} device operations, "
-          f"{wall_ms * 1e3 / steps:.1f} µs of wall")
+    return err_k1
 
 
 def path_d(g, dev, n: int, seed: int):
-    """Path D's phases 3, 4 and 5, run after every other phase, so that
-    paths A–C run and are timed as they were before path D. Returns its two
-    runs' launch counts, summed, and K1's largest difference from its plain
+    """Path D's phases 3 and 4, run after paths A–C. Returns its two runs'
+    launch counts, summed, and K1's largest difference from its plain
     version on the recovered band."""
     from sparsebase_tpu_torch import _build
+
+    from sparsebase_tpu_torch import rcm_pipeline
 
     d = PathD(g, dev, n, seed)
     torch.cuda.synchronize()
@@ -1258,11 +710,9 @@ def path_d(g, dev, n: int, seed: int):
     csr, order, banded, dia, x_band, y_band = d.run()
     launches = read_launches("D", ("indptr", "radix_rank", "relocate_csr", "banded_spmv"))
     _build.reset_launch_counts()
-    pipe = d.pipeline()
+    pipe = rcm_pipeline(d.coo, d.x)
     launches_pipe = read_launches("D rcm_pipeline", ("indptr", "relocate_csr", "csr_spmv"))
     err_k1 = phase_path_d_checks(d, csr, order, banded, dia, x_band, y_band, pipe)
-    del pipe, y_band, banded
-    phase_path_d_times(d, csr, order, dia, x_band)
     return {k: launches[k] + launches_pipe[k] for k in launches}, err_k1
 
 
@@ -1315,15 +765,6 @@ def check_pipeline_outputs(label: str, coo, x, permuted, y) -> None:
                permuted.degrees(), csr_spmv_plain(abs_csr(permuted), x_new.abs()))
 
 
-def timed(fn):
-    """``(result, ms)`` of one call of ``fn``, synchronised."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
-
-
 class PathE:
     """Path E: a COO written as a symmetric MTX file, read back onto the card
     by the Pigo reader, taken through ``preprocess_pipeline`` (and its
@@ -1339,41 +780,32 @@ class PathE:
         self.mtx = f"{workdir}/path_e.mtx"
         self.sbff = f"{workdir}/path_e.sbff"
         self.small_mtx = f"{workdir}/small.mtx"
-        self.times = {}
 
     def run(self):
-        """The main path, each step timed once."""
         from sparsebase_tpu_torch import COO, IOBase, preprocess_pipeline, preprocess_pipeline_donating
 
-        _, self.times["write"] = timed(lambda: IOBase.write_coo_to_mtx(self.src, self.mtx, symmetry="symmetric"))
-        coo, self.times["read"] = timed(lambda: IOBase.read_pigo_mtx_to_coo(self.mtx))
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        (permuted, y), self.times["pipeline"] = timed(lambda: preprocess_pipeline(coo, self.x))
-        self.peak = torch.cuda.max_memory_allocated() - base
-        del permuted, y
+        IOBase.write_coo_to_mtx(self.src, self.mtx, symmetry="symmetric")
+        coo = IOBase.read_pigo_mtx_to_coo(self.mtx)
+        pipe = preprocess_pipeline(coo, self.x)
         clone = COO(coo.row.clone(), coo.col.clone(), coo.vals.clone(), coo.shape)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        donated, self.times["donating"] = timed(lambda: preprocess_pipeline_donating(clone, self.x))
-        self.peak_donating = torch.cuda.max_memory_allocated() - base
+        donated = preprocess_pipeline_donating(clone, self.x)
         del clone  # consumed
-        _, self.times["sbff_write"] = timed(lambda: IOBase.write_csr_to_binary(donated[0], self.sbff))
-        back, self.times["sbff_read"] = timed(lambda: IOBase.read_binary_to_csr(self.sbff))
-        return coo, donated, back
+        IOBase.write_csr_to_binary(donated[0], self.sbff)
+        return coo, pipe, donated, IOBase.read_binary_to_csr(self.sbff)
 
 
-def phase_path_e_checks(e: PathE, coo, donated, back) -> None:
+def phase_path_e_checks(e: PathE, coo, pipe, donated, back) -> None:
     """Path E's checks: the read-back COO against the source's lower triangle
     mirrored by plain torch ops; K5's sort in ``COO.new`` against the plain
-    sort; both pipelines against path A's checks and each other; the SBFF
-    round trip; three readers at 100,000 lines; ``ReorderBase`` against the
-    direct calls."""
+    sort; the read staged (the host parse, the host-to-device copy, the
+    device steps) against the read; both pipelines against path A's checks
+    and each other; the SBFF round trip; three readers at 100,000 lines;
+    ``ReorderBase`` against the direct calls."""
     import os
 
-    from sparsebase_tpu_torch import CSR, Graph, IOBase, ReorderBase, preprocess_pipeline
+    from sparsebase_tpu_torch import CSR, Graph, IOBase, ReorderBase
     from sparsebase_tpu_torch.convert.kernels import sort_by_pairs, sort_by_pairs_plain
+    from sparsebase_tpu_torch.io import PigoMTXReader
     from sparsebase_tpu_torch.ops.reorder import DegreeReorder
     from sparsebase_tpu_torch.ops.reorder.rcm import _rcm_host, _symmetrized_square
 
@@ -1387,7 +819,15 @@ def phase_path_e_checks(e: PathE, coo, donated, back) -> None:
     for name, a, b in zip(("row", "col", "vals"), k5, plain):
         check_equal(f"path E COO.new's sort (K5) vs the plain sort: {name}", a, b)
     del k5, plain, mr, mc, mv
-    permuted, y = preprocess_pipeline(coo, e.x)
+    reader = PigoMTXReader(e.mtx)
+    row, col, vals, shape = reader.parse()
+    row, col, vals = (t.to(coo.row.device) for t in (row, col, vals))
+    again = reader._assemble(row, col, vals, shape, stable_payload=False)
+    for name in ("row", "col", "vals"):
+        check_equal(f"path E staged read vs IOBase.read_pigo_mtx_to_coo: {name}", getattr(again, name),
+                    getattr(coo, name))
+    del reader, row, col, vals, again
+    permuted, y = pipe
     check_pipeline_outputs("path E pipeline", coo, e.x, permuted, y)
     d_perm, d_y = donated
     for name in ("indptr", "indices", "vals"):
@@ -1419,43 +859,8 @@ def phase_path_e_checks(e: PathE, coo, donated, back) -> None:
           f"SBFF {os.path.getsize(e.sbff)} bytes")
 
 
-def phase_path_e_times(e: PathE, coo) -> None:
-    """Path E's times: the main path's steps as run in phase 3, and the read
-    staged: the host parse, the host-to-device copy and the device steps,
-    each timed alone."""
-    import os
-
-    from sparsebase_tpu_torch.io import PigoMTXReader
-
-    reader = PigoMTXReader(e.mtx)
-    (row, col, vals, shape), parse_ms = timed(reader.parse)
-    lines = row.numel()
-    (row, col, vals), copy_ms = timed(lambda: [t.to(coo.row.device) for t in (row, col, vals)])
-    # the copy already made, the reader's steps on the card alone
-    again, device_ms = timed(lambda: reader._assemble(row, col, vals, shape, stable_payload=False))
-    _, to_host_ms = timed(e.src.to_host)
-    for name in ("row", "col", "vals"):
-        check_equal(f"path E staged read vs IOBase.read_pigo_mtx_to_coo: {name}", getattr(again, name),
-                    getattr(coo, name))
-    t = e.times
-    mtx_bytes, sbff_bytes = os.path.getsize(e.mtx), os.path.getsize(e.sbff)
-    print(f"phase 5 path E write_coo_to_mtx (symmetric, {lines} lines, {mtx_bytes} bytes): {t['write']:.1f} ms, "
-          f"{lines / t['write'] * 1e3:.4g} lines/s; of it the source's copy to the host about {to_host_ms:.1f} ms "
-          f"(timed alone)")
-    print(f"phase 5 path E read_pigo_mtx_to_coo: {t['read']:.1f} ms end to end ({coo.nnz} entries on the card, "
-          f"{coo.nnz / t['read'] * 1e3:.4g} entries/s); staged: host parse (fastio, ids narrowed) {parse_ms:.1f} ms, "
-          f"host-to-device copy {copy_ms:.1f} ms, device steps (shift, mirror, range check, COO.new's check and "
-          f"K5 sort) {device_ms:.1f} ms")
-    print(f"phase 5 path E preprocess_pipeline on the read matrix: {t['pipeline']:.3f} ms, peak "
-          f"{e.peak / 2**30:.3f} GiB above the memory held before; preprocess_pipeline_donating on a clone: "
-          f"{t['donating']:.3f} ms, peak {e.peak_donating / 2**30:.3f} GiB (lower by "
-          f"{(e.peak - e.peak_donating) / 2**20:.1f} MiB; coo.row is {4 * coo.nnz / 2**20:.1f} MiB)")
-    print(f"phase 5 path E SBFF: write_csr_to_binary {t['sbff_write']:.1f} ms, read_binary_to_csr onto the card "
-          f"{t['sbff_read']:.1f} ms, {sbff_bytes} bytes ({sbff_bytes / t['sbff_read'] / 1e6:.4g} GB/s read)")
-
-
 def path_e(g, dev, nnz: int):
-    """Path E's phases 3, 4 and 5, run last. Returns its launch counts."""
+    """Path E's phases 3 and 4, after path D. Returns its launch counts."""
     import tempfile
 
     from sparsebase_tpu_torch import _build
@@ -1464,11 +869,9 @@ def path_e(g, dev, nnz: int):
         e = PathE(g, dev, nnz, workdir)
         torch.cuda.synchronize()
         _build.reset_launch_counts()
-        coo, donated, back = e.run()
+        coo, pipe, donated, back = e.run()
         launches = read_launches("E", ("indptr", "radix_rank", "relocate_csr", "csr_spmv"))
-        phase_path_e_checks(e, coo, donated, back)
-        del donated, back
-        phase_path_e_times(e, coo)
+        phase_path_e_checks(e, coo, pipe, donated, back)
     return launches
 
 
@@ -1678,6 +1081,16 @@ def phase_path_f_checks(f: PathF, csr, out) -> float:
     return err
 
 
+def common_neighbors_bytes(n: int, nnz: int, mode: str = "jaccard") -> int:
+    """Bytes K6's function must move on a CSR of ``n`` rows and ``nnz``
+    entries: its indptr (int64) and ids (int32) read once, the CSC's too in
+    directed mode, and the float32 weights (jaccard) or one int64 sum
+    (triangles, directed) written once. Its compares are integer
+    operations: the bytes bound it."""
+    lists = 8 * (n + 1) + 4 * nnz
+    return (2 * lists if mode == "directed" else lists) + (4 * nnz if mode == "jaccard" else 8)
+
+
 def streamed_bytes(csr, mode: str) -> int:
     """What K6's stream direction reads on a CSR in a mode: the N(v) (4
     bytes an id) and indptr pair (16 bytes) of every entry (u, v) the mode
@@ -1694,78 +1107,10 @@ def streamed_bytes(csr, mode: str) -> int:
     return int(((4 * deg[v] + 16) * counted).sum())
 
 
-def phase_path_f_times(f: PathF, csr) -> dict:
-    """K6 in its three modes beside its plain version and its bound; the
-    directed TriangleCount; the whole extract; the dense tier at 16,384
-    vertices; graphkit on the host."""
-    from sparsebase_tpu_torch import CSC, GraphFeatureBase, native
-    from sparsebase_tpu_torch.ops import feature
-    from sparsebase_tpu_torch.ops.feature.triangles import _device_dense_count
-    from sparsebase_tpu_torch.ops.kernels import common_neighbors, common_neighbors_plain
-
-    n, nnz = csr.nrows, csr.nnz
-    csc = csr.convert(CSC)
-    times = {}
-    for mode in ("jaccard", "triangles", "directed"):
-        one = cuda_ms(lambda: common_neighbors(csr, mode, csc))
-        back = cuda_ms(lambda: common_neighbors(csr, mode, csc), batch=10, reps=3)
-        plain = cuda_ms(lambda: common_neighbors_plain(csr, mode, csc), reps=3)
-        bound_ms, bound_by = bound("common_neighbors", n=n, nnz=nnz, mode=mode)
-        streamed = streamed_bytes(csr, mode)
-        streamed_ms = streamed / HBM_BYTES_PER_S * 1e3
-        times[mode] = (one, plain)
-        print(f"phase 5 path F K6 {mode} (n={n}, {nnz} entries): one call {one:.4f} ms, back to back {back:.4f} ms, "
-              f"plain {plain:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / one:.1%} of it; diagnostic, "
-              f"not the bound: the stream direction's {streamed} bytes (N(v) and the indptr pair of each entry the "
-              f"mode counts) take {streamed_ms:.4f} ms at 3.35 TB/s, {streamed_ms / one:.1%} of it")
-    del csc
-    directed_ms = host_ms(lambda: feature.TriangleCount(True).get_triangle_count(csr), reps=3)
-    print(f"phase 5 path F TriangleCount(count_directed=True) end to end (convert to CSC, K6): {directed_ms:.3f} ms")
-    for graph in (csr, *f.power_law):
-        deg = graph.degrees()
-        searched = int(torch.minimum(deg[graph.row_of_nnz().long()], deg[graph.indices.long()]).sum())
-        ms = {mode: cuda_ms(lambda: common_neighbors(graph, mode), reps=3) for mode in ("jaccard", "triangles")}
-        print(f"phase 5 path F K6 on n={graph.nrows}, {graph.nnz} entries (largest row {int(deg.max())}): {searched} "
-              f"candidates searched (sum of min(deg u, deg v)), {searched / ms['jaccard'] / 1e6:.4g} per ns in "
-              f"Jaccard mode ({ms['jaccard']:.4f} ms), triangles {ms['triangles']:.4f} ms")
-    for pd in f.power_law_directed:
-        pd_csc = pd.convert(CSC)
-        print(f"phase 5 path F K6 directed on the unmirrored power-law graph (n={pd.nrows}, {pd.nnz} entries, largest "
-              f"row {int(pd.degrees().max())}): one call {cuda_ms(lambda: common_neighbors(pd, 'directed', pd_csc), reps=3):.4f} "
-              f"ms, plain {cuda_ms(lambda: common_neighbors_plain(pd, 'directed', pd_csc), reps=3):.4f} ms")
-    pl = f.power_law[-1]
-    for mode in ("jaccard", "triangles"):
-        print(f"phase 5 path F K6 {mode} on the power-law graph (n={pl.nrows}, {pl.nnz} entries): one call "
-              f"{cuda_ms(lambda: common_neighbors(pl, mode), reps=3):.4f} ms, plain "
-              f"{cuda_ms(lambda: common_neighbors_plain(pl, mode), reps=3):.4f} ms")
-    h = pl.to_host()
-    jac_host = host_ms(lambda: native.jaccard(h.nrows, h.indptr, h.indices, h.nnz), reps=2)
-    tri_host = host_ms(lambda: native.triangles(h.nrows, h.indptr, h.indices, False), reps=2)
-    print(f"phase 5 path F graphkit on the host, the same power-law graph: jaccard {jac_host:.1f} ms, "
-          f"triangles {tri_host:.1f} ms (host times, not the card's)")
-    whole = host_ms(lambda: GraphFeatureBase.extract(f.features, csr), reps=3)
-    print(f"phase 5 path F GraphFeatureBase.extract of {len(f.features)} features: {whole:.3f} ms")
-    per_kernel, spans, wall_ms = device_profile(lambda: GraphFeatureBase.extract(f.features, csr), runs=1)
-    check(bool(spans), "the profiler recorded no device activity in path F")
-    busy_ms = device_busy(spans)[0] / 1e3
-    print(f"phase 6 profile of path F's extract, 1 run: device busy {busy_ms:.4f} ms, wall under the profiler "
-          f"{wall_ms:.4f} ms, idle {1 - busy_ms / wall_ms:.1%}")
-    for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  {ms:9.4f} ms {ms / busy_ms:6.1%}  {name[:110]}")
-    for label, graph in (("symmetric", f.dense_sym), ("directed", f.dense_directed)):
-        graph_csc = graph.convert(CSC)
-        dense_ms = {d: host_ms(lambda: _device_dense_count(graph, d), reps=3) for d in (False, True)}
-        k6_ms = {m: cuda_ms(lambda: common_neighbors(graph, m, graph_csc)) for m in ("triangles", "directed")}
-        print(f"phase 5 path F triangles at {PathF.DENSE_N} vertices, {label} graph ({graph.nnz} entries): dense tier "
-              f"(torch.matmul, float32) undirected {dense_ms[False]:.3f} ms, directed {dense_ms[True]:.3f} ms; K6 "
-              f"triangles {k6_ms['triangles']:.4f} ms, directed {k6_ms['directed']:.4f} ms")
-    return times
-
-
 def path_f(g, dev, n: int):
-    """Path F's phases 3, 4 and 5, run after path E. Returns its launch
-    counts, K6's largest difference from its plain version, its times and
-    the shapes of its bound."""
+    """Path F's phases 3 and 4, after path E. Returns its launch counts,
+    K6's largest difference from its plain version and its graph's CSR
+    (the kernel table's K6 input)."""
     from sparsebase_tpu_torch import _build
 
     f = PathF(g, dev, n)
@@ -1774,9 +1119,7 @@ def path_f(g, dev, n: int):
     csr, out = f.run()
     launches = read_launches("F", ("indptr", "radix_rank", "common_neighbors"))
     err = phase_path_f_checks(f, csr, out)
-    del out
-    times = phase_path_f_times(f, csr)
-    return launches, err, times, dict(n=csr.nrows, nnz=csr.nnz)
+    return launches, err, csr
 
 
 HOST_REORDER_GRAPH = (32_768, 262_144)  # vertices, entries before mirroring: the host reorderers' power-law graph
@@ -1807,8 +1150,7 @@ class PathG:
                   "boba": BOBAReorder().get_reorder(self.coo)}
         heat = {label: ReorderHeatmap(HEATMAP_PARTS).get_heatmap_with_stats(csr, DenseArray(o), DenseArray(o))
                 for label, o in orders.items()}
-        host = {name: timed(lambda: ReorderBase.reorder(name, self.host_graph, params=params))
-                for name, params in HOST_REORDERERS}
+        host = [ReorderBase.reorder(name, self.host_graph, params=params) for name, params in HOST_REORDERERS]
         return csr, orders, heat, host
 
 
@@ -1845,27 +1187,19 @@ def phase_path_g_checks(p: PathG, csr, orders, heat, host) -> None:
     for label, order in orders.items():
         check(order.device == csr.indptr.device and order.dtype == torch.int32, f"path G {label} order placement")
         check(bool((torch.bincount(order.long(), minlength=n) == 1).all()), f"path G {label} order: no permutation")
-    cpu_orders, seconds = {}, {}
     for label, fn in (("gray", lambda: GrayReorder().get_reorder(host_csr)),
                       ("boba", lambda: BOBAReorder().get_reorder(host_coo))):
-        t0 = time.perf_counter()
-        cpu_orders[label] = fn()
-        seconds[label] = time.perf_counter() - t0
-        check_equal(f"path G {label} order, card vs the CPU route", orders[label].cpu(), cpu_orders[label])
+        check_equal(f"path G {label} order, card vs the CPU route", orders[label].cpu(), fn())
     for label, order in orders.items():
         grid, stats = heat[label]
         check_heatmap(label, csr, order, grid, stats)
-        t0 = time.perf_counter()
         cpu_grid, cpu_stats = ReorderHeatmap(HEATMAP_PARTS).get_heatmap_with_stats(
             host_csr, DenseArray(order.cpu()), DenseArray(order.cpu()))
-        seconds[f"heatmap {label}"] = time.perf_counter() - t0
         check_equal(f"path G heatmap grid ({label}), card vs the CPU route", grid.vals.cpu(), cpu_grid.vals)
         check(stats == cpu_stats, f"path G heatmap stats ({label}): card {stats}, CPU {cpu_stats}")
         print(f"  path G heatmap stats under the {label} order: mean_bw {stats['mean_bw']!r}, max_bw "
               f"{stats['max_bw']}, num_full_blocks {stats['num_full_blocks']} of {HEATMAP_PARTS ** 2}, "
               f"block_mean_bw {stats['block_mean_bw']!r}")
-    print("  path G CPU routes (host seconds, not the card's): " + ", ".join(f"{k} {v:.2f}" for k, v in
-                                                                            seconds.items()))
     for label, op, fmt in (("GrayReorder", GrayReorder(), csr), ("BOBAReorder", BOBAReorder(), p.coo)):
         syncs = count_host_syncs(lambda: op.get_reorder(fmt))
         check(syncs == 0, f"path G {label} synced the host {syncs} times: something left the card")
@@ -1875,7 +1209,7 @@ def phase_path_g_checks(p: PathG, csr, orders, heat, host) -> None:
     check(syncs <= 3, f"path G heatmap synced the host {syncs} times, more than bincount's and the stats' reads")
     graph = p.host_graph
     host_graph = graph.to_host()
-    for (name, params), (order, _) in zip(HOST_REORDERERS, host.values()):
+    for (name, params), order in zip(HOST_REORDERERS, host):
         check(order.device == graph.indptr.device and order.dtype == torch.int32,
               f"path G {name}: the order is not int32 on the card")
         check(bool((torch.bincount(order.long(), minlength=graph.nrows) == 1).all()), f"path G {name}: no permutation")
@@ -1885,59 +1219,9 @@ def phase_path_g_checks(p: PathG, csr, orders, heat, host) -> None:
           f"to the call on a CPU copy")
 
 
-def phase_path_g_times(p: PathG, csr, host) -> None:
-    """Gray, BOBA, DegreeReorder and the heatmap: one call (median of 5 after
-    a warm-up), three back to back, the host syncs of one call; their main
-    steps alone; one profiled run of three calls of Gray, BOBA and the
-    heatmap (K5 on path A's degrees is profiled in phase 6); the host
-    reorderers' wall times."""
-    from sparsebase_tpu_torch import DenseArray
-    from sparsebase_tpu_torch.convert.kernels import sort_by_pairs
-    from sparsebase_tpu_torch.ops.reorder import BOBAReorder, DegreeReorder, GrayReorder, ReorderHeatmap
-    from sparsebase_tpu_torch.ops.reorder.gray import _gray_keys
-
-    gray = GrayReorder().get_reorder(csr)
-    coo = p.coo
-    zero = torch.zeros((csr.nrows,), dtype=torch.int64, device=csr.indptr.device)
-    calls = [("GrayReorder", lambda: GrayReorder().get_reorder(csr), True),
-             ("BOBAReorder", lambda: BOBAReorder().get_reorder(coo), True),
-             ("DegreeReorder", lambda: DegreeReorder().get_reorder(csr), False),
-             ("heatmap_with_stats (Gray order)",
-              lambda: ReorderHeatmap(HEATMAP_PARTS).get_heatmap_with_stats(csr, DenseArray(gray), DenseArray(gray)),
-              True)]
-    row = csr.row_of_nnz().to(torch.int64)
-    steps = [("Gray's histogram and key (_gray_keys, sparse thresholds)", lambda: _gray_keys(csr, row, 32, zero)),
-             ("BOBA's (col, row) pair sort (sort_by_pairs, K5)",
-              lambda: sort_by_pairs(coo.col, coo.row, major_bound=coo.ncols, minor_bound=coo.nrows))]
-    for label, fn, profiled in calls:
-        ms, back = cuda_ms(fn), cuda_ms(fn, batch=3, reps=3)
-        syncs = count_host_syncs(fn)
-        print(f"phase 5 path G {label} (n={csr.nrows}, {csr.nnz} entries): one call {ms:.4f} ms, back to back "
-              f"{back:.4f} ms, host syncs {syncs}")
-        if not profiled:
-            continue
-        runs = 3
-        per_kernel, spans, wall_ms = device_profile(fn, runs=runs)
-        if not spans:
-            print(f"phase 6 profile of path G {label}: the profiler recorded no device operation (not measured)")
-            continue
-        busy_ms = device_busy(spans)[0] / 1e3 / runs
-        print(f"phase 6 profile of path G {label}, {runs} runs: device busy {busy_ms:.4f} ms per run as recorded, "
-              f"wall under the profiler {wall_ms:.4f} ms, idle {1 - busy_ms / wall_ms:.1%}, "
-              f"{len(spans) / runs:.0f} device operations recorded per run")
-        for name, k_ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
-            print(f"  {k_ms:9.4f} ms {k_ms / busy_ms:6.1%}  {name[:110]}")
-    for label, fn in steps:
-        print(f"phase 5 path G step {label}: one call {cuda_ms(fn):.4f} ms")
-    graph = p.host_graph
-    print(f"phase 5 path G host reorderers on n={graph.nrows}, {graph.nnz} entries (one call each through "
-          f"ReorderBase.reorder, host and copies included): " + ", ".join(
-              f"{name} {ms:.1f} ms" for name, (_, ms) in host.items()))
-
-
 def path_g(g, dev, coo):
-    """Path G's phases 3, 4 and 5, run after path F on path A's COO. Returns
-    its launch counts and its host reorderers' graph."""
+    """Path G's phases 3 and 4, after path F, on path A's COO. Returns its
+    launch counts and its host reorderers' graph."""
     from sparsebase_tpu_torch import _build
 
     p = PathG(g, dev, coo)
@@ -1946,7 +1230,6 @@ def path_g(g, dev, coo):
     csr, orders, heat, host = p.run()
     launches = read_launches("G", ("indptr", "radix_rank"))
     phase_path_g_checks(p, csr, orders, heat, host)
-    phase_path_g_times(p, csr, host)
     return launches, p.host_graph
 
 
@@ -2135,7 +1418,7 @@ class PathH:
                 ("the planted graph", self.planted_coo, self.planted_x, self.planted))
 
     def partitioners(self):
-        """``{label: (labels, ms, K7 launches)}``, one call each."""
+        """``{label: (labels, K7 launches)}``, one call each."""
         from sparsebase_tpu_torch import _build, get_config, set_config
         from sparsebase_tpu_torch.ops import partition
 
@@ -2145,9 +1428,8 @@ class PathH:
             for label, cls, params, graphkit in PARTITIONERS:
                 set_config(use_graphkit=graphkit)
                 before = _build.launch_counts()["label_prop"]
-                labels, ms = timed(lambda: getattr(partition, cls)(num_partitions=PARTITION_K, **params)
-                                   .partition(self.graph))
-                out[label] = (labels, ms, _build.launch_counts()["label_prop"] - before)
+                labels = getattr(partition, cls)(num_partitions=PARTITION_K, **params).partition(self.graph)
+                out[label] = (labels, _build.launch_counts()["label_prop"] - before)
         finally:
             set_config(use_graphkit=saved)
         return out
@@ -2221,7 +1503,7 @@ def phase_path_h_partitioner_checks(h: PathH, parts) -> None:
     nets, pins, _ = partition.column_net_hypergraph(graph)
     saved = get_config().use_graphkit
     try:
-        for (label, cls, params, graphkit), (got, ms, k7) in zip(PARTITIONERS, parts.values()):
+        for (label, cls, params, graphkit), (got, k7) in zip(PARTITIONERS, parts.values()):
             check(got.device == graph.indptr.device and got.dtype == torch.int32, f"path H {label}: placement")
             check(bool(((got >= 0) & (got < k)).all()), f"path H {label}: labels outside [0, k)")
             set_config(use_graphkit=graphkit)
@@ -2230,85 +1512,16 @@ def phase_path_h_partitioner_checks(h: PathH, parts) -> None:
             check((k7 > 0) == (not graphkit and cls == "PulpPartition"), f"path H {label}: K7 launched {k7} times")
             print(f"  path H {label} on n={graph.nrows}, {graph.nnz} entries: edge cut {partition.edge_cut(graph, got)}"
                   f", connectivity-1 {partition.cutsize_connectivity(nets, pins, got, k)}, balance "
-                  f"{partition.balance_ratio(got, k):.6f}, wall {ms:.1f} ms, K7 launches {k7}")
+                  f"{partition.balance_ratio(got, k):.6f}, K7 launches {k7}")
     finally:
         set_config(use_graphkit=saved)
 
 
-def phase_path_h_times(label, coo, x, permuted, labels, profile: bool):
-    """One graph's pipeline end to end (median of 5, and its peak device
-    memory above what was held before); K7 one call and back to back beside
-    its plain version and its bound, at the first round and the last; K7's
-    device time per kernel in one round; with ``profile``, a profile of the
-    pipeline; K2 on the permuted CSR beside K2 on the source. Returns
-    ``(k7_ms, k7_plain_ms)`` of the first round."""
-    from sparsebase_tpu_torch import CSR
-    from sparsebase_tpu_torch.ops.kernels import csr_spmv, label_prop_round, label_prop_round_plain, radix_rank_plain
-    from sparsebase_tpu_torch.ops.kernels.indptr import indptr_from_sorted_rows
-    from sparsebase_tpu_torch.ops.kernels.label_prop import SPLIT_ROWS, split_rows
-    from sparsebase_tpu_torch.ops.partition.labelprop import _chunks
-
-    k = PARTITION_K
-    n, nnz = coo.nrows, coo.nnz
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    ms = host_ms(lambda: pipeline_h(coo, x))
-    peak = torch.cuda.max_memory_allocated()
-    print(f"phase 5 path H partition_pipeline, {label} (k={k}, {PARTITION_ROUNDS} rounds): median {ms:.3f} ms, "
-          f"{nnz / (ms / 1e3):.4g} nnz/s, peak device memory {(peak - base) / 2**30:.3f} GiB above the "
-          f"{base / 2**30:.3f} GiB held before")
-    csr = CSR(indptr_from_sorted_rows(coo.row, n), coo.col, coo.vals, coo.shape)
-    cap = 1.1 * n / k
-    k7_bound, by = bound("label_prop", n=n, nnz=nnz)
-    rows, entries = split_rows(csr)
-    print(f"phase 5 path H K7 span pass ({label}): {rows} rows over SPLIT_ROWS = {SPLIT_ROWS} hold {entries} of "
-          f"{nnz} entries ({entries / max(nnz, 1):.4%}), which the span pass counts")
-    first = _chunks(n, k, csr.indptr.device)
-    times = {}
-    for which, lab, alpha in (("first round", first, 1 / PARTITION_ROUNDS), ("last round", labels, 1.0)):
-        one = cuda_ms(lambda: label_prop_round(csr, lab, k, alpha, cap))
-        back = cuda_ms(lambda: label_prop_round(csr, lab, k, alpha, cap), batch=10)
-        plain = cuda_ms(lambda: label_prop_round_plain(csr, lab, k, alpha, cap))
-        times[which] = (one, plain)
-        print(f"phase 5 path H K7 label_prop ({label}, {which}): one call {one:.4f} ms, back to back {back:.4f} ms, "
-              f"plain {plain:.4f} ms; bound {k7_bound:.4f} ms ({by}), {k7_bound / one:.1%} / {k7_bound / back:.1%} "
-              "of it")
-    _, spans, _ = device_profile(lambda: label_prop_round(csr, first, k, 0.1, cap), runs=10)
-    if spans:  # the profiler drops some operations in short windows: each kernel's mean over the spans it kept
-        durations = {}
-        for start, end, name in spans:
-            durations.setdefault(name, []).append((end - start) / 1e3)
-        print(f"phase 6 path H K7 one round ({label}): device {sum(map(statistics.mean, durations.values())):.4f} ms "
-              "per call (" + ", ".join(f"{name[:50]} {statistics.mean(d):.4f} over {len(d)} of 10 calls"
-                                       for name, d in sorted(durations.items(), key=lambda kv: -sum(kv[1]))) + ")")
-    else:
-        print(f"phase 6 path H K7 one round ({label}): the profiler recorded no device operation (not measured)")
-    if profile:
-        per_kernel, spans, wall_ms = device_profile(lambda: pipeline_h(coo, x), runs=3)
-        if spans:
-            busy_ms = device_busy(spans)[0] / 1e3 / 3
-            print(f"phase 6 profile of path H partition_pipeline ({label}), 3 runs: device busy {busy_ms:.4f} ms per "
-                  f"run, wall under the profiler {wall_ms:.4f} ms, idle {1 - busy_ms / wall_ms:.1%}")
-            for name, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]:
-                print(f"  {v:9.4f} ms {v / busy_ms:6.1%}  {name[:110]}")
-        else:
-            print("phase 6 profile of path H: the profiler recorded no device operation (not measured)")
-    ro = radix_rank_plain(labels.long())
-    x_new = torch.empty_like(x)
-    x_new[ro] = x
-    src_ms, perm_ms = cuda_ms(lambda: csr_spmv(csr, x)), cuda_ms(lambda: csr_spmv(permuted, x_new))
-    print(f"phase 5 path H what partitioning buys, {label}: K2 on the source CSR {src_ms:.4f} ms, on the "
-          f"partitioned CSR {perm_ms:.4f} ms ({src_ms / perm_ms:.3f}x)")
-    return times["first round"]
-
-
 def path_h(coo, x, graph, planted):
-    """Path H's phases 3, 4 and 5, run after path G on path A's COO, the
-    planted graph ``(coo, x, planted labels)`` and path G's host graph.
-    Returns the launch counts of the pipeline on path A's graph, K7's
-    largest difference from its plain version, and K7's times on path A's
-    graph and its shape."""
+    """Path H's phases 3 and 4, after path G, on path A's COO, the planted
+    graph ``(coo, x, planted labels)`` and path G's host graph. Returns the
+    launch counts of the pipeline on path A's graph and K7's largest
+    difference from its plain version."""
     from sparsebase_tpu_torch import _build
 
     h = PathH(coo, x, graph, planted)
@@ -2325,11 +1538,7 @@ def path_h(coo, x, graph, planted):
     for (label, g_coo, g_x, g_planted), (g_perm, g_y, g_labels) in zip(h.graphs(), outs):
         err = max(err, phase_path_h_pipeline_checks(label, g_coo, g_x, g_perm, g_y, g_labels, g_planted))
     phase_path_h_partitioner_checks(h, parts)
-    k7_times = None
-    for (label, g_coo, g_x, _), (g_perm, _, g_labels) in zip(h.graphs(), outs):
-        times = phase_path_h_times(label, g_coo, g_x, g_perm, g_labels, profile=k7_times is None)
-        k7_times = k7_times or times
-    return launches, err, k7_times, dict(n=coo.nrows, nnz=coo.nnz)
+    return launches, err
 
 
 EXPERIMENT_REPS = 3
@@ -2337,7 +1546,6 @@ EXPERIMENT_PREPROCESSES = ("pass", "degree", "gray", "boba")  # reorder_csr of D
 DASHBOARD_PARTS = 64
 DASHBOARD_ORDERINGS = ("degree", "gray", "boba")
 SLEEP_MS = 50.0  # the enqueued work that the harness's sync must wait for
-HARNESS_REPS = {"spmv": 101, "jaccard": 31}  # paired runs per cell for the harness's own cost
 K2_KERNELS = ("csr_spmv_tiles", "csr_spmv_fixup")  # csrc/csr_spmv.cu's kernels, as a trace names them
 SUITE_MATRIX = "rand-20k"  # the suite's other matrix, mesh-90k, runs apart (the module docstring)
 
@@ -2394,7 +1602,6 @@ class PathI:
         self.workdir = workdir
         self.mtx = f"{workdir}/path_i.mtx"
         self.cli_html = f"{workdir}/cli.html"
-        self.times = {}
 
     def experiment(self, preprocesses, kernels, warmup=1, trace_dir=None, times=EXPERIMENT_REPS, loader=None):
         from sparsebase_tpu_torch.experiment import ConcreteExperiment, load_csr, pass_preprocess, reorder_csr
@@ -2411,24 +1618,20 @@ class PathI:
         from sparsebase_tpu_torch.utils.visualizer import _report
 
         viz = _report(csr, "path_i.mtx", DASHBOARD_ORDERINGS, DASHBOARD_PARTS, plot_edges_by_weights=weights)
-        html, ms = timed(viz.to_html)
-        return viz, html, ms
+        return viz, viz.to_html()
 
     def run(self):
-        """The main path, each step timed once."""
         from sparsebase_tpu_torch import IOBase, bench_suite
 
-        _, self.times["write"] = timed(lambda: IOBase.write_coo_to_mtx(self.src, self.mtx, symmetry="symmetric"))
-        exp, self.times["experiment"] = timed(lambda: self.experiment(EXPERIMENT_PREPROCESSES, EXPERIMENT_KERNELS))
+        IOBase.write_coo_to_mtx(self.src, self.mtx, symmetry="symmetric")
+        exp = self.experiment(EXPERIMENT_PREPROCESSES, EXPERIMENT_KERNELS)
         csr = exp.get_auxiliary()[f"data,{self.mtx}"]
         dash = {w: self.dashboard(csr, w) for w in (False, True)}
         cmd = [sys.executable, "-m", "sparsebase_tpu_torch.utils.visualizer", self.mtx, self.cli_html,
                "--orderings", ",".join(DASHBOARD_ORDERINGS), "--parts", str(DASHBOARD_PARTS)]
-        cli, self.times["cli"] = timed(lambda: subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                                                              cwd=REPO))
+        cli = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=REPO)
         graph = bench_suite.MATRICES[SUITE_MATRIX]("cuda")
-        entry, self.times["suite"] = timed(lambda: bench_suite.run_matrix(SUITE_MATRIX, graph)[SUITE_MATRIX])
-        return exp, csr, dash, cli, (graph, entry)
+        return exp, csr, dash, cli, (graph, bench_suite.run_matrix(SUITE_MATRIX, graph)[SUITE_MATRIX])
 
 
 def check_experiment_read(i: PathI, csr) -> None:
@@ -2538,8 +1741,7 @@ def phase_path_i_trace(i: PathI, csr) -> None:
     import os
 
     trace_dir = f"{i.workdir}/traces"
-    _, ms = timed(lambda: i.experiment(("pass",), EXPERIMENT_KERNELS[:1], warmup=0, trace_dir=trace_dir, times=1,
-                                       loader=lambda files: csr))
+    i.experiment(("pass",), EXPERIMENT_KERNELS[:1], warmup=0, trace_dir=trace_dir, times=1, loader=lambda files: csr)
     path = f"{trace_dir}/pass-spmv-0/trace.json"
     check(os.path.exists(path), f"path I: no trace at {path}")
     with open(path) as f:
@@ -2549,7 +1751,7 @@ def phase_path_i_trace(i: PathI, csr) -> None:
     check("pass-spmv-0" in names and ops, f"path I trace: scope or sbtorch:op: spans missing ({len(names)} names)")
     kernels = sorted({str(ev.get("name"))[:60] for ev in events if ev.get("cat") == "kernel"})
     print(f"  path I trace: {os.path.getsize(path)} bytes, the scope 'pass-spmv-0', {ops}, device kernels "
-          f"{kernels or 'none recorded'}; the traced experiment {ms:.1f} ms")
+          f"{kernels or 'none recorded'}")
     check(all(any(k in name for name in kernels) for k in K2_KERNELS),
           f"path I trace: K2's device kernels {K2_KERNELS} missing from the trace's kernels {kernels}")
 
@@ -2558,7 +1760,7 @@ def phase_path_i_dashboard_checks(i: PathI, csr, dash, cli) -> None:
     """Every grid and its stats equal ``ReorderHeatmap`` on host copies; the
     ``|values|`` grids of the natural and Gray orders equal a float64
     ``np.add.at`` on the host (rtol 1e-12); four sections; the CLI's file is
-    the in-process HTML. Prints ``to_html()`` and its heatmaps' share."""
+    the in-process HTML."""
     import numpy as np
 
     from sparsebase_tpu_torch import DenseArray
@@ -2569,13 +1771,11 @@ def phase_path_i_dashboard_checks(i: PathI, csr, dash, cli) -> None:
     b = DASHBOARD_PARTS
     ident = torch.arange(csr.nrows, dtype=csr.indices.dtype, device=csr.indptr.device)
     cpu_stats = {}  # the counts pass's, for both passes
-    for weights, (viz, html, ms) in dash.items():
+    for weights, (viz, html) in dash.items():
         check(html.count('class="section"') == 1 + len(DASHBOARD_ORDERINGS), "path I dashboard: sections")
         orders = {"natural": ident, **{k: v[0] for k, v in viz._orderings.items()}}
-        heat_ms = 0.0
         for label, order in orders.items():
-            (grid, stats), one = timed(lambda: viz._density(order, order))
-            heat_ms += one
+            grid, stats = viz._density(order, order)
             if not weights:
                 cpu_heat, cpu_stats[label] = ReorderHeatmap(b).get_heatmap_with_stats(
                     host, DenseArray(order.cpu()), DenseArray(order.cpu()))
@@ -2592,13 +1792,10 @@ def phase_path_i_dashboard_checks(i: PathI, csr, dash, cli) -> None:
                 print(f"  path I dashboard |values| grid ({label}) vs np.add.at in float64: max relative "
                       f"difference {rel:.3g}")
                 check(np.allclose(grid, want, rtol=1e-12, atol=0), f"path I |values| grid ({label}) off rtol 1e-12")
-        print(f"phase 5 path I dashboard ({'|values|' if weights else 'counts'}, {b}x{b}, natural + "
-              f"{len(DASHBOARD_ORDERINGS)} orderings): to_html {ms:.1f} ms; its four heatmaps alone "
-              f"{heat_ms:.1f} ms ({heat_ms / ms:.1%}), {len(html)} characters")
     with open(i.cli_html) as f:
         check(f.read() == dash[False][1], "path I: the CLI's HTML differs from the in-process dashboard's")
-    print(f"  path I visualizer CLI on the MTX file, on the card: {i.times['cli'] / 1e3:.1f} s in a subprocess, "
-          f"its HTML equal to the in-process dashboard's")
+    print("  path I visualizer CLI on the MTX file, on the card, in a subprocess: its HTML equal to the in-process "
+          "dashboard's")
 
 
 SUITE_TIME_FIELDS = ("convert_roundtrip_nnz_per_s", "seconds")
@@ -2611,101 +1808,23 @@ def without_times(entry):
     return entry
 
 
-def phase_path_i_suite_checks(suite, ms: float) -> None:
+def phase_path_i_suite_checks(suite) -> None:
     """rand-20k on the card: every field that is not a time equal to
-    ``run_matrix`` on a CPU copy. Prints its table."""
+    ``run_matrix`` on a CPU copy."""
     from sparsebase_tpu_torch import bench_suite
 
     graph, entry = suite
-    print(f"phase 5 path I bench_suite.run_matrix({SUITE_MATRIX}) on the card: {ms / 1e3:.2f} s")
-    print(bench_suite.to_markdown({SUITE_MATRIX: entry}))
-    cpu, cpu_ms = timed(lambda: bench_suite.run_matrix(SUITE_MATRIX, graph.to_host())[SUITE_MATRIX])
+    cpu = bench_suite.run_matrix(SUITE_MATRIX, graph.to_host())[SUITE_MATRIX]
     check(without_times(entry) == without_times(cpu),
           f"path I suite {SUITE_MATRIX}: the card's entry differs from the CPU's")
-    print(f"  path I suite {SUITE_MATRIX}: the card's non-time fields equal run_matrix on a CPU copy "
-          f"({cpu_ms / 1e3:.2f} s on the host)")
-
-
-def harness_cost(fn, data, reps: int):
-    """The harness's own cost of one run of ``fn`` on ``data``, paired:
-    ``reps`` times, in turns (bare first on even reps, the harness first on
-    odd), the call timed bare (host clock over the call and
-    ``torch.cuda.synchronize()``) and through a one-run
-    ``ConcreteExperiment`` (its recorded time). Returns ``(bare_ms,
-    recorded_ms)`` lists."""
-    from sparsebase_tpu_torch.experiment import ConcreteExperiment, pass_preprocess
-
-    def bare():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(data, None, None, None)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    def recorded():
-        e = ConcreteExperiment(warmup=0)
-        e.add_data_loader(lambda files: data, [(["data"], None)])
-        e.add_preprocess("pass", pass_preprocess)
-        e.add_kernel("kernel", fn)
-        torch.cuda.synchronize()
-        return e.run().get_run_times()["data,pass,kernel,0"] * 1e3
-
-    bare_ms, recorded_ms = [], []
-    for r in range(reps):
-        if r % 2:
-            recorded_ms.append(recorded())
-            bare_ms.append(bare())
-        else:
-            bare_ms.append(bare())
-            recorded_ms.append(recorded())
-    return bare_ms, recorded_ms
-
-
-def phase_path_i_times(i: PathI, exp, csr) -> None:
-    """Per (preprocess, kernel): the median of the recorded run times beside
-    ``cuda_ms`` of the same call (their difference is the spread of
-    three-run medians, not a cost), and the harness's own cost per run from
-    :func:`harness_cost`: the median of the paired differences, with their
-    quartiles and extremes. Each ``reorder_csr`` preprocess and K2 alone on
-    the loaded CSR, one call each."""
-    from sparsebase_tpu_torch.experiment import reorder_csr
-    from sparsebase_tpu_torch.ops.kernels import csr_spmv
-
-    aux = exp.get_auxiliary()
-    t = i.times
-    print(f"phase 5 path I write_coo_to_mtx: {t['write']:.1f} ms; ConcreteExperiment.run (load_csr, 4 preprocesses, "
-          f"2 kernels, 1 warm-up + {EXPERIMENT_REPS} reps): {t['experiment']:.1f} ms")
-    ones = torch.ones((csr.ncols,), device=csr.indptr.device)
-    print(f"phase 5 path I K2 csr_spmv on the loaded CSR ({csr.nnz} entries): one call {cuda_ms(lambda: csr_spmv(csr, ones)):.4f} "
-          f"ms; reorder_csr, one call: " + ", ".join(
-              f"{pid} {cuda_ms(lambda: reorder_csr(reorderer(pid))(csr, None, None), reps=3):.4f} ms"
-              for pid in EXPERIMENT_PREPROCESSES[1:]))
-    for pid in EXPERIMENT_PREPROCESSES:
-        data = aux[f"preprocess,{pid},{i.mtx}"]
-        for kid, fn in EXPERIMENT_KERNELS:
-            runs = [exp.get_run_times()[f"{i.mtx},{pid},{kid},{r}"] * 1e3 for r in range(EXPERIMENT_REPS)]
-            median = statistics.median(runs)
-            one = cuda_ms(lambda: fn(data, None, None, None))
-            print(f"phase 5 path I {pid} / {kid}: recorded median {median:.4f} ms (runs "
-                  + ", ".join(f"{r:.4f}" for r in runs) + f"), cuda_ms of the same call {one:.4f} ms, "
-                  f"difference {median - one:.4f} ms")
-            bare_ms, rec_ms = harness_cost(fn, data, HARNESS_REPS[kid])
-            diffs = [b - a for a, b in zip(bare_ms, rec_ms)]
-            q1, _, q3 = statistics.quantiles(diffs, n=4)
-            print(f"phase 5 path I {pid} / {kid}: the harness's own cost, {len(diffs)} paired runs: median "
-                  f"{statistics.median(diffs):.4f} ms (quartiles {q1:.4f}, {q3:.4f}; min {min(diffs):.4f}, max "
-                  f"{max(diffs):.4f}); bare median {statistics.median(bare_ms):.4f} ms, through the harness "
-                  f"{statistics.median(rec_ms):.4f} ms")
+    print(f"  path I suite {SUITE_MATRIX}: the card's non-time fields equal run_matrix on a CPU copy")
 
 
 def path_i(g, dev, nnz: int):
-    """Path I's phases 3, 4 and 5, run after path H. Returns its launch
-    counts and K2's largest difference from the plain SpMV."""
-    import tempfile
-
+    """Path I's phases 3 and 4, after path H. Returns its launch counts and
+    K2's largest difference from the plain SpMV."""
     from sparsebase_tpu_torch import _build
 
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_path_i_") as workdir:
         i = PathI(g, dev, nnz, workdir)
         torch.cuda.synchronize()
@@ -2716,16 +1835,13 @@ def path_i(g, dev, nnz: int):
         phase_path_i_sync_checks(i)
         phase_path_i_trace(i, csr)
         phase_path_i_dashboard_checks(i, csr, dash, cli)
-        phase_path_i_suite_checks(suite, i.times["suite"])
-        phase_path_i_times(i, exp, csr)
-    print(f"phase 5 path I wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
+        phase_path_i_suite_checks(suite)
     return launches, err
 
 
 MESH_SHARDS = 4  # path J: four shards on the one card
 HALO_CHECK_SHARDS = (4, 8)
 REFINE_ROUNDS = 4
-PATH_J_REPS = 3
 CC_HUB_SHARE = 0.01  # the components check's alive mask leaves out this share of vertices, the highest degrees first
 
 
@@ -2808,7 +1924,7 @@ class PathJ:
         hal4, hal1 = self.halo_results(halo, self.mesh), self.halo_results(sh1, self.mesh1)
         tiles = Sharded2DCSR.from_csr(self.src, self.mesh2d)
         y2, deg2 = sharded2d.spmv(tiles, self.x, self.mesh2d), sharded2d.degrees(tiles, self.mesh2d)
-        return sh, halo, sh4, sh1, y, rep4, rep1, hal4, hal1, tiles, y2, deg2
+        return sh, halo, sh4, y, rep4, rep1, hal4, hal1, tiles, y2, deg2
 
 
 def shard_entries(sh, k):
@@ -2930,11 +2046,10 @@ def phase_path_j_components(j: PathJ) -> None:
         check(bool((planted[live] == planted[got[live].long()]).all()),
               f"path J halo.connected_components ({label}): a component crosses the planted blocks")
         sizes = torch.bincount(got[live].long(), minlength=n)
-        ms = host_ms(lambda: halo.connected_components(shards[MESH_SHARDS], j.mesh, alive=mask), reps=PATH_J_REPS)
         print(f"  path J halo.connected_components on the mirrored {PARTITION_K}-block graph ({csr.nnz} entries, "
               f"{label}): equal to the plain fixpoint at d={MESH_SHARDS} and d=1; {int((sizes > 0).sum())} components,"
               f" the largest {sorted(sizes.tolist(), reverse=True)[:PARTITION_K]}; {stats['rounds']} rounds, "
-              f"{stats['jumps']} jumps, {stats['host_reads']} host reads; {ms:.3f} ms at d={MESH_SHARDS}")
+              f"{stats['jumps']} jumps, {stats['host_reads']} host reads")
 
 
 def phase_path_j_halo_checks(j: PathJ, halo_sh, hal4, hal1, rep4) -> float:
@@ -2987,7 +2102,7 @@ def phase_path_j_checks(j: PathJ, sh, halo, sh4, y, rep4, rep1, tiles, y2, deg2)
     """Returns K2's largest difference from the plain SpMV on path J."""
     from sparsebase_tpu_torch.ops.feature.structure import Bandwidth, Profile
     from sparsebase_tpu_torch.ops.kernels import csr_spmv, csr_spmv_plain, radix_rank_plain
-    from sparsebase_tpu_torch.parallel import ShardedCSR, make_mesh
+    from sparsebase_tpu_torch.parallel import ShardedCSR, dist, make_mesh
     from sparsebase_tpu_torch.parallel.sharded import _build_halo, _pow2_at_least_64
 
     src, n, d = j.src, j.src.nrows, MESH_SHARDS
@@ -3055,136 +2170,29 @@ def phase_path_j_checks(j: PathJ, sh, halo, sh4, y, rep4, rep1, tiles, y2, deg2)
     host_grid = ReorderBase.heatmap(src, ident, ident, num_parts=HEATMAP_PARTS).vals.reshape(HEATMAP_PARTS, -1)
     check(torch.allclose(rep4["reorder_heatmap"], host_grid.to(torch.float32), rtol=1e-6, atol=0),
           "path J reorder_heatmap vs ReorderHeatmap")
-    return err
-
-
-def phase_path_j_halo_times(j: PathJ, halo_sh, sh1) -> None:
-    from sparsebase_tpu_torch.parallel import halo
-
-    n, d = j.src.nrows, MESH_SHARDS
-    for mesh, shc in ((j.mesh, halo_sh), (j.mesh1, sh1)):
-        dd = shc.n_shards
-        lp = halo.label_prop_partition(shc, PARTITION_K, mesh, num_iters=PARTITION_ROUNDS)
-        fns = [("spmv", lambda: halo.spmv(shc, j.x, mesh)), ("bfs_levels", lambda: halo.bfs_levels(shc, 0, mesh)),
-               ("rcm_reorder", lambda: halo.rcm_reorder(shc, mesh)),
-               ("label_prop_partition", lambda: halo.label_prop_partition(shc, PARTITION_K, mesh,
-                                                                           num_iters=PARTITION_ROUNDS)),
-               ("edge_cut", lambda: halo.edge_cut(shc, lp, mesh)),
-               ("refine_partition", lambda: halo.refine_partition(shc, lp, PARTITION_K, mesh, rounds=REFINE_ROUNDS)),
-               ("connected_components", lambda: halo.connected_components(shc, mesh))]
-        for label, fn in fns:
-            print(f"phase 5 path J d={dd} halo.{label}: {host_ms(fn, reps=PATH_J_REPS):.3f} ms, "
-                  f"host syncs {count_host_syncs(fn)}")
-        bfs, cc, rcm = {}, {}, {}
-        halo.bfs_levels(shc, 0, mesh, stats=bfs)
-        halo.connected_components(shc, mesh, stats=cc)
-        halo.rcm_reorder(shc, mesh, stats=rcm)
-        print(f"phase 5 path J d={dd} halo.bfs_levels: {bfs['levels']} levels, {bfs['host_reads']} host reads; "
-              f"halo.connected_components: {cc['rounds']} rounds, {cc['jumps']} jumps, {cc['host_reads']} host reads; "
-              f"halo.rcm_reorder: {rcm['levels']} BFS levels in its three passes, {rcm['host_reads']} host reads, "
-              f"{rcm['refine_iters']} refinement passes over {rcm['rank_buckets']} buckets, each all_gather a "
-              f"(D, buckets) stack of {4 * dd * rcm['rank_buckets']} bytes on every shard")
-    s = halo_sh.halo_width
-    ext = [torch.zeros((halo_sh.rows_per_shard,), dtype=torch.float32, device=dev) for dev in halo_sh.devices]
-    one = cuda_ms(lambda: halo._exchange(ext, halo_sh.halo_send, halo_sh.axis))
-    print(f"phase 5 path J halo exchange at d={d}: {4 * d * d * s} bytes padded (D·D·S·4, S={s}) beside "
-          f"step_comm_bytes {halo.step_comm_bytes(halo_sh)} and the dense psum's 4·n·d = {4 * n * d}; one "
-          f"_exchange of float32 {one:.4f} ms")
-    print(f"phase 5 path J SpMV: halo.spmv d={d} {cuda_ms(lambda: halo.spmv(halo_sh, j.x, j.mesh)):.4f} ms, d=1 "
-          f"{cuda_ms(lambda: halo.spmv(sh1, j.x, j.mesh1)):.4f} ms")
-    fn = lambda: halo.label_prop_partition(halo_sh, PARTITION_K, j.mesh, num_iters=PARTITION_ROUNDS)  # noqa: E731
-    per_kernel, spans, wall = device_profile(fn, runs=1, margin_s=5.0)
-    check(bool(spans), "path J: the profiler recorded no device activity in halo.label_prop_partition")
-    busy = device_busy(spans)[0] / 1e3
-    top = ", ".join(f"{name[:50]} {ms:.3f}" for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
-    print(f"phase 6 profile of path J halo.label_prop_partition d={d}: device busy {busy:.3f} ms of {wall:.3f} ms, "
-          f"idle {1 - busy / wall:.1%}; top device operations (ms): {top}")
-
-
-def phase_path_j_times(j: PathJ, sh, halo, sh1) -> None:
-    from sparsebase_tpu_torch.ops.kernels import csr_spmv
-    from sparsebase_tpu_torch.parallel import Sharded2DCSR, dist, make_mesh, sharded2d
-
-    n, d = j.src.nrows, MESH_SHARDS
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    j.ingest(j.mesh)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - held
-    steps = [("from_coo_sharded", lambda: j.ingest(j.mesh)), ("with_halo", sh.with_halo),
-             ("from_csr d=4", lambda: j.from_csr(j.mesh)), ("from_csr d=1", lambda: j.from_csr(j.mesh1)),
-             ("dist.spmv d=4", lambda: dist.spmv(halo, j.x, j.mesh))]
-    for label, fn in steps:
-        print(f"phase 5 path J {label}: {host_ms(fn, reps=PATH_J_REPS):.3f} ms, host syncs {count_host_syncs(fn)}")
-    print(f"phase 5 path J ingest peak device memory {peak / 2**30:.3f} GiB above the {held / 2**30:.3f} GiB held; "
-          f"route capacity {j.ingest_stats['route_capacity']}, w_c {j.ingest_stats['compacted_width']}, "
-          f"padded_width_ratio {sh.padded_width_ratio():.4f}, halo_width {halo.halo_width}, "
-          f"halo_bytes_per_exchange {halo.halo_bytes_per_exchange} beside the dense psum's 4*n*d = {4 * n * d}")
-    for label, fn in (("from_coo_sharded", lambda: j.ingest(j.mesh)), ("with_halo", sh.with_halo)):
-        per_kernel, spans, wall = device_profile(fn, runs=1, margin_s=5.0)
-        check(bool(spans), f"path J: the profiler recorded no device activity in {label}")
-        busy = device_busy(spans)[0] / 1e3
-        top = ", ".join(f"{name[:50]} {ms:.3f}" for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
-        print(f"phase 6 profile of path J {label}: device busy {busy:.3f} ms of {wall:.3f} ms, idle "
-              f"{1 - busy / wall:.1%}; top device operations (ms): {top}")
-    for mesh, shc in ((j.mesh, halo), (j.mesh1, sh1)):
-        dd = len(shc.devices)
-        fns = [("degrees", lambda: dist.degrees(shc, mesh)), ("degree_reorder", lambda: dist.degree_reorder(shc, mesh)),
-               ("bfs_levels", lambda: dist.bfs_levels(shc, 0, mesh)), ("rcm_reorder", lambda: dist.rcm_reorder(shc, mesh)),
-               ("label_prop_partition", lambda: dist.label_prop_partition(shc, PARTITION_K, mesh,
-                                                                           num_iters=PARTITION_ROUNDS)),
-               ("structure_features", lambda: dist.structure_features(shc, mesh))]
-        lp = dist.label_prop_partition(shc, PARTITION_K, mesh, num_iters=PARTITION_ROUNDS)
-        ident = torch.arange(n, dtype=torch.int32, device=j.dev)
-        fns += [("edge_cut", lambda: dist.edge_cut(shc, lp, mesh)),
-                ("refine_partition", lambda: dist.refine_partition(shc, lp, PARTITION_K, mesh, rounds=REFINE_ROUNDS)),
-                ("reorder_heatmap", lambda: dist.reorder_heatmap(shc, ident, ident, mesh, num_parts=HEATMAP_PARTS))]
-        for label, fn in fns:
-            print(f"phase 5 path J d={dd} {label}: {host_ms(fn, reps=PATH_J_REPS):.3f} ms, "
-                  f"host syncs {count_host_syncs(fn)}")
-        bfs = {}
-        dist.bfs_levels(shc, 0, mesh, stats=bfs)
-        print(f"phase 5 path J d={dd} bfs_levels: {bfs['levels']} levels, {bfs['host_reads']} host reads")
-    k2 = cuda_ms(lambda: csr_spmv(j.src, j.x))
-    sharded = [cuda_ms(lambda: dist.spmv(s, j.x, m)) for s, m in ((halo, j.mesh), (sh1, j.mesh1))]
-    tiles = Sharded2DCSR.from_csr(j.src, j.mesh2d)
-    print(f"phase 5 path J SpMV: K2 on the whole CSR {k2:.4f} ms; dist.spmv d={d} {sharded[0]:.4f} ms, d=1 "
-          f"{sharded[1]:.4f} ms; Sharded2DCSR 2x2 {cuda_ms(lambda: sharded2d.spmv(tiles, j.x, j.mesh2d)):.4f} ms "
-          f"(the price of sharding on one card)")
-    for label, fn in (("Sharded2DCSR.from_csr 2x2", lambda: Sharded2DCSR.from_csr(j.src, j.mesh2d)),
-                      ("sharded2d.spmv", lambda: sharded2d.spmv(tiles, j.x, j.mesh2d)),
-                      ("sharded2d.degrees", lambda: sharded2d.degrees(tiles, j.mesh2d))):
-        print(f"phase 5 path J {label}: {host_ms(fn, reps=PATH_J_REPS):.3f} ms, host syncs {count_host_syncs(fn)}")
     if torch.cuda.device_count() >= MESH_SHARDS:  # one shard per card
         cards = make_mesh(MESH_SHARDS)
         spread = j.ingest(cards)
         for k in range(MESH_SHARDS):
             check_equal(f"path J shard {k} indptr, {MESH_SHARDS} cards vs one", spread.indptr[k].to(j.dev), sh.indptr[k])
-        y = dist.spmv(spread, j.x, cards)
-        check(torch.equal(y, dist.spmv(sh, j.x, j.mesh)), "path J dist.spmv on four cards differs from one card")
-        print(f"phase 5 path J on {MESH_SHARDS} cards: from_coo_sharded {host_ms(lambda: j.ingest(cards), reps=PATH_J_REPS):.3f}"
-              f" ms, dist.spmv {host_ms(lambda: dist.spmv(spread, j.x, cards), reps=PATH_J_REPS):.3f} ms")
+        check(torch.equal(dist.spmv(spread, j.x, cards), dist.spmv(sh, j.x, j.mesh)),
+              "path J dist.spmv on four cards differs from one card")
+    return err
 
 
 def path_j(g, dev, coo, src, x, host_graph):
-    """Path J's phases 3, 4 and 5, run after path I (the components check
-    draws its graph from ``g``). Returns its launch counts and K2's largest
-    difference from the plain SpMV."""
+    """Path J's phases 3 and 4, after path I (the components check draws
+    its graph from ``g``). Returns its launch counts, K2's largest
+    difference from the plain SpMV and the path (path K takes its meshes)."""
     from sparsebase_tpu_torch import _build
 
-    t0 = time.perf_counter()
     j = PathJ(g, dev, coo, src, x, host_graph)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    sh, halo, sh4, sh1, y, rep4, rep1, hal4, hal1, tiles, y2, deg2 = j.run()
+    sh, halo, sh4, y, rep4, rep1, hal4, hal1, tiles, y2, deg2 = j.run()
     launches = read_launches("J", ("indptr", "radix_rank", "csr_spmv"))
     err = phase_path_j_checks(j, sh, halo, sh4, y, rep4, rep1, tiles, y2, deg2)
     err = max(err, phase_path_j_halo_checks(j, halo, hal4, hal1, rep4))
-    del hal4, hal1, sh4
-    phase_path_j_times(j, sh, halo, sh1)
-    phase_path_j_halo_times(j, halo, sh1)
-    print(f"phase 5 path J wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
     return launches, err, j
 
 
@@ -3238,12 +2246,6 @@ class PathK:
         self.band, self.band_perm = scrambled_band(g, dev, band_n, with_perm=True)
         self.sb_card = unique_pattern(power_law_pattern(g, dev, *POWER_LAW_CARD))
         self.sb_host = unique_pattern(power_law_pattern(g, dev, *POWER_LAW_HOST))
-        self.times = {}  # (function, d) -> ms of its one call
-
-    def call(self, label: str, d: int, fn):
-        """``fn()``, its wall time (one call, synchronised) kept as phase 5's."""
-        out, self.times[(label, d)] = timed(fn)
-        return out
 
     def run(self):
         """Every function once at d = 4 and at d = 1: ``{d: {name: result}}``."""
@@ -3255,39 +2257,27 @@ class PathK:
         for d, mesh in self.meshes:
             r = out[d] = {}
             sh = ShardedCSR.from_csr(self.blocks, mesh)
-            r["match"] = self.call("heavy_edge_matching", d, lambda: halo.heavy_edge_matching(sh, mesh))
-            r["match pattern"] = self.call("heavy_edge_matching weighted=False", d,
-                                           lambda: halo.heavy_edge_matching(sh, mesh, weighted=False))
-            r["coarse"], r["map"] = self.call("coarsen", d, lambda: halo.coarsen(sh, r["match"], mesh,
-                                                                                 return_mapping=True))
+            r["match"] = halo.heavy_edge_matching(sh, mesh)
+            r["match pattern"] = halo.heavy_edge_matching(sh, mesh, weighted=False)
+            r["coarse"], r["map"] = halo.coarsen(sh, r["match"], mesh, return_mapping=True)
             r["coarse"] = r["coarse"].to_csr()
             r["ml stats"] = {}
-            torch.cuda.synchronize()
-            held = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            r["labels"] = self.call("multilevel_partition", d, lambda: halo.multilevel_partition(
-                sh, PARTITION_K, mesh, stats=r["ml stats"]))
-            torch.cuda.synchronize()
-            r["ml peak"] = torch.cuda.max_memory_allocated() - held
+            r["labels"] = halo.multilevel_partition(sh, PARTITION_K, mesh, stats=r["ml stats"])
             r["flat"] = halo.refine_partition(sh, halo.label_prop_partition(sh, PARTITION_K, mesh, num_iters=20),
                                               PARTITION_K, mesh, rounds=6)
             sh = ShardedCSR.from_csr(band_csr, mesh)
             r["bfs stats"] = {}
-            r["levels"], r["steps"] = self.call("bfs_levels_multilevel", d, lambda: halo.bfs_levels_multilevel(
-                sh, 0, mesh, stats=r["bfs stats"]))
-            r["rcm"], r["rcm steps"] = self.call("rcm_reorder_ml", d, lambda: halo.rcm_reorder_ml(sh, mesh))
+            r["levels"], r["steps"] = halo.bfs_levels_multilevel(sh, 0, mesh, stats=r["bfs stats"])
+            r["rcm"], r["rcm steps"] = halo.rcm_reorder_ml(sh, mesh)
             sh = ShardedCSR.from_csr(self.sb_card, mesh)
             for hub_order in (False, True):
                 st = r[f"sb card {hub_order}"] = {}
-                r[f"slashburn card {hub_order}"] = self.call(
-                    f"slashburn_reorder hub_order={hub_order}", d, lambda: halo.slashburn_reorder(
-                        sh, mesh, k_size=SLASHBURN_CARD_K, hub_order=hub_order, stats=st))
+                r[f"slashburn card {hub_order}"] = halo.slashburn_reorder(
+                    sh, mesh, k_size=SLASHBURN_CARD_K, hub_order=hub_order, stats=st)
             sh = ShardedCSR.from_csr(self.sb_host, mesh)
             for tier, kw in (("defaults", {}), ("on the mesh", dict(host_tail=0, host_tail_nnz=0, compact_ratio=0))):
                 st = r[f"sb host {tier}"] = {}
-                r[f"slashburn host {tier}"] = self.call(
-                    f"slashburn_reorder on POWER_LAW_HOST, {tier}", d, lambda: halo.slashburn_reorder(
-                        sh, mesh, stats=st, **kw))
+                r[f"slashburn host {tier}"] = halo.slashburn_reorder(sh, mesh, stats=st, **kw)
         return out
 
 
@@ -3345,8 +2335,7 @@ def phase_path_k_checks(k: PathK, out) -> None:
           f"{coarse.nrows} coarse vertices, {coarse.nnz} entries, equal to the plain contraction; "
           f"multilevel_partition: {st['levels']} levels, sizes {st['sizes']}, parts {sizes.tolist()} (cap "
           f"{cap:.1f}), edge cut {cut(lab)} beside the planted 0 ({cut(k.planted)}) and label propagation with "
-          f"refinement's {cut(flat)}; peak device memory {r['ml peak'] / 2**30:.3f} GiB above what was held; "
-          f"{st['host_reads']} host reads, {st['host_writes']} writes")
+          f"refinement's {cut(flat)}; {st['host_reads']} host reads, {st['host_writes']} writes")
     # (b) the scrambled band
     levels, order = r["levels"], r["rcm"]
     nb = k.band.nrows
@@ -3393,29 +2382,17 @@ def phase_path_k_checks(k: PathK, out) -> None:
               f"{tier}: equal to native.slashburn(greedy=False); {r[f'sb host {tier}']}")
 
 
-def phase_path_k_times(k: PathK) -> None:
-    """Each function's one call of the main run, at d = 4 and d = 1 (a
-    second call, after it as a warm-up, gave the same times within their
-    spread and doubled path K's wall; PERF.md §6). The host reads are
-    phase 4's ``stats=`` counts (the card tests hold them to the syncs)."""
-    for (label, d), ms in k.times.items():
-        print(f"phase 5 path K d={d} {label}: {ms:.3f} ms (one call)")
-
-
 def path_k(g, dev, j: PathJ, n_blocks: int, nnz_blocks: int, band_n: int):
-    """Path K's phases 3, 4 and 5, run after path J on its meshes (the
-    graphs draw from ``g``). Returns its launch counts."""
+    """Path K's phases 3 and 4, after path J, on its meshes (the graphs draw
+    from ``g``). Returns its launch counts."""
     from sparsebase_tpu_torch import _build
 
-    t0 = time.perf_counter()
     k = PathK(g, dev, j, n_blocks, nnz_blocks, band_n)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     out = k.run()
     launches = read_launches("K", ("indptr", "radix_rank"))
     phase_path_k_checks(k, out)
-    phase_path_k_times(k)
-    print(f"phase 5 path K wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3493,25 +2470,12 @@ class PathL:
             "power law": ((card.row_of_nnz(), card.indices), card.nrows),
         }
         del card
-        self.calls = {}  # (graph, d, function) -> the call, for phase 5
-        self.times = {}  # (graph, d, function) -> ms of the main run's call
-        self.peaks = {}  # (graph, d, function) -> device bytes above what was held
 
     def sharded(self, name: str, d: int):
         from sparsebase_tpu_torch.parallel import ShardedCSR
 
         (row, col), n = self.graphs[name]
         return ShardedCSR.from_coo_sharded(row, col, None, (n, n), self.meshes[d])
-
-    def call(self, key, fn):
-        """``fn()`` once, its wall time and its peak memory kept."""
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out, self.times[key] = timed(fn)
-        self.peaks[key] = torch.cuda.max_memory_allocated() - held
-        self.calls[key] = fn
-        return out
 
     def run(self):
         """Every ring call once and the oracles: ``{graph: {key: result}}``."""
@@ -3548,8 +2512,7 @@ class PathL:
             shards = {d: self.sharded(name, d) for d in sorted({d for d, _ in calls} | ({1} if directed else set()))}
             r["shards"] = shards
             for d, f in calls:
-                sh, mesh = shards[d], self.meshes[d]
-                r[(d, f)] = self.call((name, d, f), lambda sh=sh, mesh=mesh, f=f: functions[f](sh, mesh))
+                r[(d, f)] = functions[f](shards[d], self.meshes[d])
             if directed:
                 try:
                     ring.triangle_count(shards[1], self.meshes[1], directed=True)
@@ -3557,8 +2520,7 @@ class PathL:
                 except ValueError as err:
                     r["d=1 raised"] = str(err)
             r["sizes"] = {d: ring._sparse_sizes(sh, self.meshes[d]) for d, sh in shards.items()}
-        out["suite"] = self.call(("rand-20k", MESH_SHARDS, "run_distributed"),
-                                 lambda: bench_suite.run_distributed(shards=MESH_SHARDS))
+        out["suite"] = bench_suite.run_distributed(shards=MESH_SHARDS)
         return out
 
 
@@ -3567,7 +2529,7 @@ def flat_of(padded, sh):
     return torch.cat([padded[k][: sh.nnz_counts[k]] for k in range(len(padded))])
 
 
-def phase_path_l_checks(p: PathL, out) -> None:
+def phase_path_l_checks(out) -> None:
     """Every count equal to K6's, every weight to K6's bit for bit, d = 4
     equal to d = 1, and the closed forms."""
     from sparsebase_tpu_torch import bench_suite
@@ -3610,9 +2572,7 @@ def phase_path_l_checks(p: PathL, out) -> None:
                         c["K6 jaccard"])
         print(f"phase 4 path L (c) {name} (n={c['csr'].nrows}, {c['csr'].nnz} entries): {tri[0]} triangles at d=4 "
               f"and d=1, equal to K6, the weights equal to K6's bit for bit; _sparse_sizes {c['sizes']}; "
-              f"{candidate_slots(c['csr'])} candidate slots; peak device memory "
-              + ", ".join(f"d={d} {f} {p.peaks[(name, d, f)] / 2**30:.3f} GiB" for d in (d4, 1)
-                          for f in ("triangle_count", "jaccard_flat")))
+              f"{candidate_slots(c['csr'])} candidate slots")
     card = out["suite"]
     host = bench_suite.run_distributed(device="cpu", shards=MESH_SHARDS)
     check(without_times(card) == without_times(host), f"path L (d) run_distributed on the card {card} vs the CPU {host}")
@@ -3620,58 +2580,19 @@ def phase_path_l_checks(p: PathL, out) -> None:
           f"call: {json.dumps(card)}")
 
 
-def phase_path_l_times(p: PathL) -> None:
-    """Each ring call's wall (``host_ms``, one run after a warm-up) beside
-    the main run's; each dense call's flop, rate and peak memory, and one
-    step's product on one shard's block alone."""
-    from sparsebase_tpu_torch.parallel import ring
-
-    for key, fn in p.calls.items():
-        name, d, f = key
-        if f == "run_distributed":
-            print(f"phase 5 path L {name} {f}(shards={d}) on the card: {p.times[key]:.3f} ms (one call)")
-            continue
-        ms = host_ms(fn, reps=1)
-        line = f"phase 5 path L {name} d={d} {f}: {ms:.3f} ms (main run {p.times[key]:.3f} ms)"
-        rows = -(-p.graphs[name][1] // d)
-        if f in ("triangle_count", "triangle_count directed", "jaccard_weights", "jaccard_flat") and \
-                rows * d * rows <= ring.MAX_DENSE_ELEMS:
-            flop = 2 * rows * rows * d * rows * d * d  # d steps on d shards
-            line += (f", dense: {flop:.4g} flop, {flop / (ms / 1e3) / 1e12:.1f} TFLOP/s, peak "
-                     f"{p.peaks[key] / 2**30:.3f} GiB above what was held")
-        else:
-            line += f", sparse: peak {p.peaks[key] / 2**30:.3f} GiB above what was held"
-        print(line)
-    # one step's product on one shard's block alone, at (a)'s shapes
-    sh = p.sharded("cliques", MESH_SHARDS)
-    rows = sh.rows_per_shard
-    tile = ring._densify(sh, 0, MESH_SHARDS * rows, True)
-    acc = torch.zeros((rows, MESH_SHARDS * rows), dtype=torch.float32, device=p.dev)
-    one = cuda_ms(lambda: ring._product(tile[:, :rows], tile, acc, add=True))
-    flop = 2 * rows * rows * MESH_SHARDS * rows
-    print(f"phase 5 path L one step's product (({rows}, {rows}) @ ({rows}, {MESH_SHARDS * rows}), {tile.dtype} into "
-          f"float32): {one:.4f} ms, {flop / (one / 1e3) / 1e12:.1f} TFLOP/s")
-    del tile, acc, sh
-
-
 def path_l(g, dev):
-    """Path L's phases 3, 4 and 5, after path K (the graphs draw from
-    ``g``). Returns its launch counts and (d)'s table, which path P holds
-    the processes' tables to."""
+    """Path L's phases 3 and 4, after path K (the graphs draw from ``g``).
+    Returns its launch counts and (d)'s table, which path P holds the
+    processes' tables to."""
     from sparsebase_tpu_torch import _build
 
-    t0 = time.perf_counter()
     p = PathL(g, dev)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     out = p.run()
     launches = read_launches("L", ("indptr", "radix_rank", "common_neighbors"))
-    phase_path_l_checks(p, out)
-    suite = out["suite"]
-    del out
-    phase_path_l_times(p)
-    print(f"phase 5 path L wall (phases 3, 4 and 5): {time.perf_counter() - t0:.1f} s")
-    return launches, suite
+    phase_path_l_checks(out)
+    return launches, out["suite"]
 
 
 # -- path M: the distributed ingest's path across processes --------------------
@@ -3680,20 +2601,7 @@ PATH_M_AVG_DEG = 8
 PATH_M_SHARDS = 4  # the single-process reference: four shards of the card
 PATH_M_PROCESSES = 2  # the group: two gloo processes sharing the card, two shards each
 PATH_M_TIME_LIMIT = 300  # seconds for the group, start-up included
-PATH_M_EXCHANGE_REPS = 5
 PATH_M_FIELDS = ("indptr", "indices", "vals", "nnz_local", "halo_send", "halo_counts", "halo_map")
-SCALING_COUNTS = [1, 2, 4]
-SCALING_AVG_DEG = 8
-# 2M vertices and about 16.8M entries at d = 4; 2^20 a shard until path P
-# ran inside path M's group and the script passed its 700 s budget
-SCALING_RANDOM_BASE_N = 1 << 19
-# the stencil's exact BFS takes about n / 8 levels, one host read each
-# (2,049 at d = 4); cut from 2^13 a shard to keep the script within its
-# 700 s budget once path N ran inside path M's group
-SCALING_STENCIL_BASE_N = 1 << 12
-SCALING_ROW_TIME_LIMIT = 180  # seconds for each row's process
-
-
 def tool_graph(dev, n: int, avg_deg: int, seed: int):
     """``tools/multiproc_dcn.py``'s graph made on ``dev`` from a generator of
     its own (every process of path M makes the same): ``n * avg_deg / 2``
@@ -3714,90 +2622,38 @@ def tool_graph(dev, n: int, avg_deg: int, seed: int):
     return (keys // n).to(torch.int32), (keys % n).to(torch.int32), vals, x
 
 
-def path_m_run(mesh, row, col, vals, x, barrier=lambda: None):
+def path_m_run(mesh, row, col, vals, x):
     """The tool's path on ``mesh``: ``from_coo_sharded`` → ``with_halo`` →
-    ``halo.spmv`` → ``dist.rcm_reorder``, each phase's wall and what crossed
-    a process boundary in it (every process starts a phase after
-    ``barrier``). Returns ``(sharded, y, order, the ingest's stats, phases)``."""
-    from sparsebase_tpu_torch.parallel import ShardedCSR, collectives, dist, halo
+    ``halo.spmv`` → ``dist.rcm_reorder``. Returns ``(sharded, y, order, the
+    ingest's stats)``."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR, dist, halo
 
     n = x.numel()
-    phases = {}
-
-    def phase(name, fn):
-        barrier()
-        sync(mesh.first_device)
-        collectives.reset_traffic()
-        t0 = time.perf_counter()
-        out = fn()
-        sync(mesh.first_device)
-        phases[name] = {"ms": (time.perf_counter() - t0) * 1e3, **collectives.traffic()}
-        return out
-
     stats = {}
-    sh = phase("from_coo_sharded", lambda: ShardedCSR.from_coo_sharded(row, col, vals, (n, n), mesh, stats=stats))
-    sh = phase("with_halo", sh.with_halo)
-    y = phase("halo.spmv", lambda: halo.spmv(sh, x, mesh))
-    order = phase("dist.rcm_reorder", lambda: dist.rcm_reorder(sh, mesh))
-    return sh, y, order, stats, phases
-
-
-def path_m_exchange(sh, x, barrier=lambda: None) -> dict:
-    """One ``halo._exchange`` of x's pieces and one ``all_to_all`` of a
-    (D, 1) int32 piece a shard (the latency), each the median wall of
-    ``PATH_M_EXCHANGE_REPS`` after a warm-up, with the bytes it sent to the
-    other process."""
-    from sparsebase_tpu_torch.parallel import collectives, halo
-
-    xs, sends, owners = halo._put(sh, x), halo._sends(sh), sh.owners
-    tiny = [None if s is None else s[:, :1].contiguous() for s in sends]
-
-    def timed(fn):
-        fn()
-        times = []
-        for _ in range(PATH_M_EXCHANGE_REPS):
-            barrier()
-            sync(x.device)
-            collectives.reset_traffic()
-            t0 = time.perf_counter()
-            fn()
-            sync(x.device)
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times), collectives.traffic()
-
-    ms, sent = timed(lambda: halo._exchange(xs, sends, sh.axis, owners))
-    tiny_ms, tiny_sent = timed(lambda: collectives.all_to_all(tiny, owners=owners))
-    return {"ms": ms, "crossed_bytes": sent["crossed_bytes"], "staged_bytes": sent["staged_bytes"],
-            "tiny_ms": tiny_ms, "tiny_bytes": tiny_sent["crossed_bytes"]}
+    sh = ShardedCSR.from_coo_sharded(row, col, vals, (n, n), mesh, stats=stats).with_halo()
+    y = halo.spmv(sh, x, mesh)
+    return sh, y, dist.rcm_reorder(sh, mesh), stats
 
 
 # -- path N: the rest of dist and halo's flat half across processes ----------
 PATH_N_KERNELS = ("indptr", "radix_rank", "csr_spmv")  # K3, K5, K2
 
 
-def path_n_run(sh, mesh, x, barrier=lambda: None) -> tuple:
+def path_n_run(sh, mesh, x) -> tuple:
     """Path N: the twelve functions of ``dist`` and ``halo`` that path M's
     processes did not run yet, with path J's arguments, on path M's
     container ``sh`` (``halo.refine_partition`` also refines the contiguous
-    chunks, as path J does). Each starts after ``barrier`` and keeps its
-    wall, what crossed a process boundary and its ``stats``. Returns
-    ``(results, phases)``."""
-    from sparsebase_tpu_torch.parallel import collectives, dist, halo
+    chunks, as path J does). Returns ``(results, stats)`` by function."""
+    from sparsebase_tpu_torch.parallel import dist, halo
 
     n, dev = sh.shape[0], mesh.first_device
     ident = torch.arange(n, dtype=torch.int32, device=dev)
     chunks = (torch.arange(n, device=dev) * PARTITION_K // n).to(torch.int32)  # within the cap
-    results, phases = {}, {}
+    results, stats = {}, {}
 
     def phase(name, fn):
-        stats = {}
-        barrier()
-        sync(dev)
-        collectives.reset_traffic()
-        t0 = time.perf_counter()
-        results[name] = out = fn(stats)
-        sync(dev)
-        phases[name] = {"ms": (time.perf_counter() - t0) * 1e3, **collectives.traffic(), "stats": stats}
+        stats[name] = {}
+        results[name] = out = fn(stats[name])
         return out
 
     phase("dist.spmv", lambda st: dist.spmv(sh, x, mesh))
@@ -3816,7 +2672,7 @@ def path_n_run(sh, mesh, x, barrier=lambda: None) -> tuple:
     phase("halo.refine_partition", lambda st: halo.refine_partition(sh, hlp, PARTITION_K, mesh, rounds=REFINE_ROUNDS))
     phase("halo.refine_partition of chunks",
           lambda st: halo.refine_partition(sh, chunks, PARTITION_K, mesh, rounds=REFINE_ROUNDS))
-    return results, phases
+    return results, stats
 
 
 def on_host(result):
@@ -3924,30 +2780,22 @@ def path_o_inputs(dev, mesh, seed: int, sizes: tuple) -> dict:
             "slashburn k": k}
 
 
-def path_o_run(sh, src, inputs, mesh, barrier=lambda: None) -> tuple:
+def path_o_run(sh, src, inputs, mesh) -> tuple:
     """Path O: on path M's container ``sh`` and its CSR ``src``,
     ``heavy_edge_matching`` (weighted), ``coarsen`` of that matching with
     its map, ``ShardedCSR.from_csr`` and ``from_csr_balanced``; on the
     ladders' graph (:func:`path_o_inputs`), ``bfs_levels_multilevel`` from 0
     and ``rcm_reorder_ml`` down to its ``coarsen_until`` and
     ``multilevel_partition`` (k = ``PARTITION_K``, its defaults); SlashBurn
-    (its k, ``host_tail_nnz=0``) with ``hub_order`` off and on. Each starts
-    after ``barrier`` and keeps its wall, what crossed a process boundary
-    and its ``stats``. Returns ``(results, phases)``."""
-    from sparsebase_tpu_torch.parallel import ShardedCSR, collectives, halo
+    (its k, ``host_tail_nnz=0``) with ``hub_order`` off and on. Returns
+    ``(results, stats)`` by function."""
+    from sparsebase_tpu_torch.parallel import ShardedCSR, halo
 
-    dev = mesh.first_device
-    results, phases = {}, {}
+    results, stats = {}, {}
 
     def phase(name, fn):
-        stats = {}
-        barrier()
-        sync(dev)
-        collectives.reset_traffic()
-        t0 = time.perf_counter()
-        results[name] = fn(stats)
-        sync(dev)
-        phases[name] = {"ms": (time.perf_counter() - t0) * 1e3, **collectives.traffic(), "stats": stats}
+        stats[name] = {}
+        results[name] = fn(stats[name])
 
     phase("halo.heavy_edge_matching", lambda st: halo.heavy_edge_matching(sh, mesh))
     phase("halo.coarsen", lambda st: halo.coarsen(sh, results["halo.heavy_edge_matching"], mesh, return_mapping=True,
@@ -3962,7 +2810,7 @@ def path_o_run(sh, src, inputs, mesh, barrier=lambda: None) -> tuple:
     for hub_order in (False, True):
         phase(f"halo.slashburn_reorder hub_order={hub_order}", lambda st, h=hub_order: halo.slashburn_reorder(
             sb, mesh, k_size=k_size, hub_order=h, host_tail_nnz=0, stats=st))
-    return results, phases
+    return results, stats
 
 
 def sharded_record(sh) -> dict:
@@ -4098,7 +2946,7 @@ def write_path_p_mtx(dev, directory) -> None:
     IOBase.write_csr_to_mtx(bench_suite.MATRICES["rand-20k"](dev), str(Path(directory) / PATH_P_MTX))
 
 
-def path_p_run(sh, src, x, inputs, mesh, mesh_2d, suite_shards: Optional[int], barrier=lambda: None) -> tuple:
+def path_p_run(sh, src, x, inputs, mesh, mesh_2d, suite_shards: Optional[int]) -> dict:
     """Path P: (a) the dense ring on the cliques (``ring.triangle_count``,
     ``jaccard_flat``, and ``triangle_count(directed=True)`` on the oriented
     ones), each ingested by ``from_coo_sharded``; (b) the sparse ring on
@@ -4110,57 +2958,40 @@ def path_p_run(sh, src, x, inputs, mesh, mesh_2d, suite_shards: Optional[int], b
     where ``suite_shards`` is given, ``bench_suite.run_distributed`` on
     that many shards (a process, in a group), and an experiment of
     ``load_sharded_csr(mesh)``, ``distributed_reorder("rcm")`` and
-    ``distributed_spmv_kernel`` on the MTX file. Each starts after
-    ``barrier`` and keeps its wall and what crossed a process boundary.
-    Returns ``(results, phases)``."""
+    ``distributed_spmv_kernel`` on the MTX file. Returns the results by
+    call."""
     from sparsebase_tpu_torch import bench_suite, experiment
     from sparsebase_tpu_torch.context import MeshContext, context_for
-    from sparsebase_tpu_torch.parallel import ShardedCSR, collectives, ring, sharded2d
+    from sparsebase_tpu_torch.parallel import ShardedCSR, ring, sharded2d
 
     dev = mesh.first_device
-    results, phases = {}, {}
-
-    def phase(name, fn):
-        barrier()
-        sync(dev)
-        collectives.reset_traffic()
-        t0 = time.perf_counter()
-        results[name] = fn()
-        sync(dev)
-        phases[name] = {"ms": (time.perf_counter() - t0) * 1e3, **collectives.traffic(), "stats": {}}
-
     n_c = inputs["n"]
     cliques, directed = (ShardedCSR.from_coo_sharded(*inputs[name], None, (n_c, n_c), mesh)
                          for name in ("cliques", "cliques directed"))
-    phase("(a) ring.triangle_count", lambda: ring.triangle_count(cliques, mesh))
-    phase("(a) ring.jaccard_flat", lambda: ring.jaccard_flat(cliques, mesh))
-    phase("(a) ring.triangle_count directed", lambda: ring.triangle_count(directed, mesh, directed=True))
+    results = {"(a) ring.triangle_count": ring.triangle_count(cliques, mesh),
+               "(a) ring.jaccard_flat": ring.jaccard_flat(cliques, mesh),
+               "(a) ring.triangle_count directed": ring.triangle_count(directed, mesh, directed=True)}
     del cliques, directed
-    phase("(b) ring.triangle_count", lambda: ring.triangle_count(sh, mesh))
-    phase("(b) ring.jaccard_flat", lambda: ring.jaccard_flat(sh, mesh))
+    results["(b) ring.triangle_count"] = ring.triangle_count(sh, mesh)
+    results["(b) ring.jaccard_flat"] = ring.jaccard_flat(sh, mesh)
     for o, axes in PATH_P_ORIENTATIONS.items():
-        phase(f"(c) Sharded2DCSR.from_csr {o}", lambda axes=axes: sharded2d.Sharded2DCSR.from_csr(src, mesh_2d, axes))
-        tiles = results[f"(c) Sharded2DCSR.from_csr {o}"]
-        phase(f"(c) sharded2d.spmv {o}", lambda tiles=tiles: sharded2d.spmv(tiles, x, mesh_2d))
-        phase(f"(c) sharded2d.degrees {o}", lambda tiles=tiles: sharded2d.degrees(tiles, mesh_2d))
+        tiles = results[f"(c) Sharded2DCSR.from_csr {o}"] = sharded2d.Sharded2DCSR.from_csr(src, mesh_2d, axes)
+        results[f"(c) sharded2d.spmv {o}"] = sharded2d.spmv(tiles, x, mesh_2d)
+        results[f"(c) sharded2d.degrees {o}"] = sharded2d.degrees(tiles, mesh_2d)
     for name in ("indptr", "nnz_local"):
-        phase(f"(d) ShardedCSR.stacked {name}", lambda name=name: sh.stacked(name))
-    phase("(d) ShardedCSR.to mesh", lambda: sh.to(MeshContext(mesh)))
-    phase("(d) ShardedCSR.to device", lambda: sh.to(context_for(dev)))
+        results[f"(d) ShardedCSR.stacked {name}"] = sh.stacked(name)
+    results["(d) ShardedCSR.to mesh"] = sh.to(MeshContext(mesh))
+    results["(d) ShardedCSR.to device"] = sh.to(context_for(dev))
     if suite_shards is not None:
-        phase("(e) run_distributed", lambda: bench_suite.run_distributed(device=dev.type, shards=suite_shards))
-
-    def run_experiment():
-        exp = experiment.ConcreteExperiment()
-        exp.add_data_loader(experiment.load_sharded_csr(mesh), [([inputs["mtx"]], None)])
-        exp.add_preprocess("rcm", experiment.distributed_reorder("rcm"))
-        exp.add_kernel("spmv", experiment.distributed_spmv_kernel)
-        exp.run(times=1, store_auxiliary=True)
-        data = exp.get_auxiliary()[f"preprocess,rcm,{inputs['mtx']}"]
-        return {"order": data[2], "y": exp.get_results(), "n": data[0].shape[0]}
-
-    phase("(e) experiment", run_experiment)
-    return results, phases
+        results["(e) run_distributed"] = bench_suite.run_distributed(device=dev.type, shards=suite_shards)
+    exp = experiment.ConcreteExperiment()
+    exp.add_data_loader(experiment.load_sharded_csr(mesh), [([inputs["mtx"]], None)])
+    exp.add_preprocess("rcm", experiment.distributed_reorder("rcm"))
+    exp.add_kernel("spmv", experiment.distributed_spmv_kernel)
+    exp.run(times=1, store_auxiliary=True)
+    data = exp.get_auxiliary()[f"preprocess,rcm,{inputs['mtx']}"]
+    results["(e) experiment"] = {"order": data[2], "y": exp.get_results(), "n": data[0].shape[0]}
+    return results
 
 
 def fingerprint(x):
@@ -4288,7 +3119,7 @@ def path_p_group_checks(label: str, results, kids, suite) -> None:
           "process's")
 
 
-def phase_group_checks(path: str, label: str, results, phases, kids) -> None:
+def phase_group_checks(path: str, label: str, results, stats, kids) -> None:
     """Every process's results of path ``path`` (N or O: tensors with their
     dtypes, containers shard by shard, its own shards exactly) and ``stats``
     equal to the one process's bit for bit."""
@@ -4297,42 +3128,20 @@ def phase_group_checks(path: str, label: str, results, phases, kids) -> None:
         for name, want in results.items():
             check(same(got["results"][name], want, kid["local"]),
                   f"path {path} {label} rank {kid['rank']}: {name} differs from the single-process mesh")
-            check(got["phases"][name]["stats"] == phases[name]["stats"],
-                  f"path {path} {label} rank {kid['rank']}: {name} stats {got['phases'][name]['stats']} against "
-                  f"{phases[name]['stats']}")
+            check(got["stats"][name] == stats[name],
+                  f"path {path} {label} rank {kid['rank']}: {name} stats {got['stats'][name]} against {stats[name]}")
     print(f"phase 4 path {path} {label}: {len(kids)} processes equal to the single-process mesh of {PATH_M_SHARDS} "
           f"shards bit for bit in every result and stats: {', '.join(results)}")
-
-
-def print_phases(path: str, phases, kids) -> None:
-    """Phase 5 of path ``path`` (N, O or P): each function's wall on the one
-    process and on each process of the group, with the bytes sent, staged
-    and the exchanges, and its ``stats``; a call that only the group makes
-    (path P's ``run_distributed``) shows the one process as not run."""
-    key = f"path_{path.lower()}"
-    names = list(phases) + [name for name in kids[0][key]["phases"] if name not in phases]
-    for name in names:
-        one = phases.get(name)
-        line = [f"phase 5 path {path} {name}: " + ("one process (not run)" if one is None else
-                                                   f"one process {one['ms']:.3f} ms")]
-        for kid in kids:
-            p = kid[key]["phases"][name]
-            line.append(f"rank {kid['rank']} {p['ms']:.3f} ms, {p['crossed_bytes']} bytes to the other process, "
-                        f"{p['staged_bytes']} staged, {p['exchanges']} exchanges")
-        print("; ".join(line) + (f"; stats {one['stats']}" if one and one["stats"] else ""))
-    print(f"phase 5 path {path} in all: one process {sum(p['ms'] for p in phases.values()):.1f} ms; "
-          + "; ".join(f"rank {k['rank']} {sum(p['ms'] for p in k[key]['phases'].values()):.1f} ms" for k in kids))
 
 
 def path_m_child(out: str, n: int, seed: int, backend: str, device: str, o_sizes: tuple, p_sizes: tuple) -> None:
     """One process of path M's group (``chip_smoke.py --path-m-child DIR``,
     started by ``multihost.launch``): joins the group, runs the tool's path
-    on its two shards of ``global_mesh``, one exchange, path N, path O and
-    path P (on ``global_mesh_2d`` too, and the experiment's file in
-    ``DIR``), and saves its shards' fields, y, the order, the phases, the
-    results and phases of paths N, O and P, and the launches of paths M, N,
-    O and P to ``DIR``. It loads the kernels that the parent built and
-    builds nothing."""
+    on its two shards of ``global_mesh``, path N, path O and path P (on
+    ``global_mesh_2d`` too, and the experiment's file in ``DIR``), and saves
+    its shards' fields, y, the order, the results and stats of paths N, O
+    and P, and the launches of paths M, N, O and P to ``DIR``. It loads the
+    kernels that the parent built and builds nothing."""
     import torch.distributed as tdist
 
     from sparsebase_tpu_torch import CSR, _build
@@ -4342,48 +3151,37 @@ def path_m_child(out: str, n: int, seed: int, backend: str, device: str, o_sizes
     if device == "cuda":
         check((_build.BUILD_ROOT / _build.source_hash() / _build.LIB_NAME).exists(),
               "path M: the kernels are not built; the parent builds them before the group starts")
-    t0 = time.perf_counter()
     check(multihost.initialize(backend=backend, timeout=PATH_M_TIME_LIMIT), "path M: no process group")
     rank = tdist.get_rank()
     dev = torch.device("cpu") if device == "cpu" else torch.device("cuda", rank if backend == "nccl" else 0)
     mesh = multihost.global_mesh(devices=[dev] * (PATH_M_SHARDS // PATH_M_PROCESSES))
     row, col, vals, x = tool_graph(dev, n, PATH_M_AVG_DEG, seed)
-    start_s = time.perf_counter() - t0
-    sync(dev)
     _build.reset_launch_counts()
-    sh, y, order, stats, phases = path_m_run(mesh, row, col, vals, x, tdist.barrier)
-    sync(dev)
+    sh, y, order, stats = path_m_run(mesh, row, col, vals, x)
     launches = _build.launch_counts()
-    exchange = path_m_exchange(sh, x, tdist.barrier)
     _build.reset_launch_counts()
-    results_n, phases_n = path_n_run(sh, mesh, x, tdist.barrier)
-    sync(dev)
-    path_n = {"results": on_host(results_n), "phases": phases_n, "launches": _build.launch_counts()}
+    results_n, stats_n = path_n_run(sh, mesh, x)
+    path_n = {"results": on_host(results_n), "stats": stats_n, "launches": _build.launch_counts()}
     del results_n
     src = CSR(indptr_plain(row, n), col, vals, (n, n))
     inputs_o = path_o_inputs(dev, mesh, seed, o_sizes)
-    sync(dev)
     _build.reset_launch_counts()
-    results_o, phases_o = path_o_run(sh, src, inputs_o, mesh, tdist.barrier)
-    sync(dev)
-    path_o = {"results": on_host(path_o_record(results_o)), "phases": phases_o, "launches": _build.launch_counts()}
+    results_o, stats_o = path_o_run(sh, src, inputs_o, mesh)
+    path_o = {"results": on_host(path_o_record(results_o)), "stats": stats_o, "launches": _build.launch_counts()}
     del results_o, inputs_o
     inputs_p = path_p_inputs(dev, seed, p_sizes, out)
     per = PATH_M_SHARDS // PATH_M_PROCESSES
     mesh_2d = multihost.global_mesh_2d((PATH_M_PROCESSES, per), devices=[dev] * per)
-    sync(dev)
     _build.reset_launch_counts()
-    results_p, phases_p = path_p_run(sh, src, x, inputs_p, mesh, mesh_2d, per, tdist.barrier)
-    sync(dev)
-    path_p = {"results": path_p_record(results_p), "phases": phases_p, "launches": _build.launch_counts()}
+    results_p = path_p_run(sh, src, x, inputs_p, mesh, mesh_2d, per)
+    path_p = {"results": path_p_record(results_p), "launches": _build.launch_counts()}
     del results_p, inputs_p, src
     torch.save({
-        "rank": rank, "backend": tdist.get_backend(), "mesh": repr(mesh), "local": sh.local, "start_s": start_s,
+        "rank": rank, "backend": tdist.get_backend(), "mesh": repr(mesh), "local": sh.local,
         "fields": {name: {k: getattr(sh, name)[k].cpu() for k in sh.local} for name in PATH_M_FIELDS},
         "nnz_counts": sh.nnz_counts, "stats": stats, "width": sh.width, "halo_width": sh.halo_width,
-        "halo_bytes": sh.halo_bytes_per_exchange, "y": y.cpu(), "order": order.cpu(), "phases": phases,
-        "exchange": exchange, "launches": launches, "path_n": path_n, "path_o": path_o, "path_p": path_p,
-        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0,
+        "halo_bytes": sh.halo_bytes_per_exchange, "y": y.cpu(), "order": order.cpu(), "launches": launches,
+        "path_n": path_n, "path_o": path_o, "path_p": path_p,
     }, Path(out) / f"rank{rank}.pt")
     tdist.barrier()
     tdist.destroy_process_group()
@@ -4392,19 +3190,17 @@ def path_m_child(out: str, n: int, seed: int, backend: str, device: str, o_sizes
 def path_m_group(dev, n: int, seed: int, backend: str, out: str) -> list:
     """Path M's two processes (``multihost.launch``, ``PATH_M_TIME_LIMIT``)
     in the directory ``out`` (which holds path P's MTX file): each rank's
-    saved results, and the group's wall."""
+    saved results."""
     from sparsebase_tpu_torch.parallel import multihost
 
     files = [Path(out) / f"rank{r}.pt" for r in range(PATH_M_PROCESSES)]
     try:
-        t0 = time.perf_counter()
         multihost.launch([sys.executable, str(REPO / "chip_smoke.py"), "--path-m-child", out, "--path-m-n", str(n),
                           "--seed", str(seed), "--path-m-backend", backend, "--path-m-device", dev.type,
                           "--path-o-sizes", ",".join(map(str, path_o_sizes())),
                           "--path-p-sizes", ",".join(map(str, path_p_sizes()))],
                          PATH_M_PROCESSES, timeout=PATH_M_TIME_LIMIT, cwd=str(REPO))
-        wall = time.perf_counter() - t0
-        return [torch.load(f, weights_only=False) for f in files], wall
+        return [torch.load(f, weights_only=False) for f in files]
     finally:
         for f in files:
             f.unlink(missing_ok=True)
@@ -4436,25 +3232,8 @@ def phase_path_m_checks(label: str, sh, y, order, stats, kids) -> None:
           f"w_c {stats['compacted_width']}, every shard's {', '.join(PATH_M_FIELDS)}, y and the RCM order")
 
 
-def path_m_scaling(link: Optional[dict], device: str) -> None:
-    """``scaling.run_weak_scaling`` on the card at ``SCALING_COUNTS`` shards,
-    the random kind and the stencil, projected with this machine's
-    cross-process exchange figures (``link``)."""
-    from sparsebase_tpu_torch.parallel import scaling
-
-    extra = {} if link is None else {"link_gb_s": link["gb_s"], "link_alpha_s": link["alpha_s"]}
-    for kind, base_n in (("random", SCALING_RANDOM_BASE_N), ("stencil", SCALING_STENCIL_BASE_N)):
-        t0 = time.perf_counter()
-        rows = scaling.run_weak_scaling(base_n, SCALING_AVG_DEG, SCALING_COUNTS, reps=3, kind=kind, device=device,
-                                        timeout=SCALING_ROW_TIME_LIMIT, **extra)
-        for d, r in rows.items():
-            print(f"phase 5 path M weak scaling {kind} base_n={base_n} d={d}: {json.dumps(r)}")
-        print(f"phase 5 path M weak scaling {kind}: {time.perf_counter() - t0:.1f} s for {len(rows)} rows, each in "
-              "a process of its own (shards that share the card share its silicon)")
-
-
 def path_m(dev, seed: int, n: int = PATH_M_N, suite: Optional[dict] = None) -> tuple:
-    """Path M's phases 3, 4 and 5, after path L, with paths N, O and P
+    """Path M's phases 3 and 4, after path L, with paths N, O and P
     inside: the tool's graph on a single-process mesh of ``PATH_M_SHARDS``
     shards of the card, then on two gloo processes that share the card with
     two shards each, every field held bit for bit; after path M's phases
@@ -4464,8 +3243,7 @@ def path_m(dev, seed: int, n: int = PATH_M_N, suite: Optional[dict] = None) -> t
     CSR, the suite and the experiment, every result held bit for bit (the
     processes' ``run_distributed`` tables to ``suite``, path L's, or where
     path L did not run to the one process's made here); with two or more
-    cards, on two NCCL processes with a card each; then the weak-scaling
-    harness on the card. Returns the launch counts of paths M, N, O and P
+    cards, on two NCCL processes with a card each. Returns the launch counts of paths M, N, O and P
     (each the single-process run's and the processes') and K2's largest
     difference from the plain SpMV."""
     group_dir = tempfile.mkdtemp(prefix="path_m_")  # the group's results and path P's MTX file
@@ -4481,7 +3259,6 @@ def _path_m(dev, seed: int, n: int, suite: Optional[dict], group_dir: str) -> tu
     from sparsebase_tpu_torch.ops.kernels import csr_spmv_plain, indptr_plain
     from sparsebase_tpu_torch.parallel import make_mesh, make_mesh_2d
 
-    t0 = time.perf_counter()
     row, col, vals, x = tool_graph(dev, n, PATH_M_AVG_DEG, seed)
     nnz = row.numel()
     print(f"phase 3 path M graph: tools/multiproc_dcn.py's at n={n}, average degree {PATH_M_AVG_DEG}: {nnz} entries, "
@@ -4489,24 +3266,23 @@ def _path_m(dev, seed: int, n: int, suite: Optional[dict], group_dir: str) -> tu
     mesh = make_mesh(devices=[dev] * PATH_M_SHARDS)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    sh, y, order, stats, phases = path_m_run(mesh, row, col, vals, x)
+    sh, y, order, stats = path_m_run(mesh, row, col, vals, x)
     launches = read_launches(f"M, one process of {PATH_M_SHARDS} shards", ("indptr", "radix_rank", "csr_spmv"))
-    exchange = path_m_exchange(sh, x)
     _build.reset_launch_counts()
-    results_n, phases_n = path_n_run(sh, mesh, x)
+    results_n, stats_n = path_n_run(sh, mesh, x)
     launches_n = read_launches(f"N, one process of {PATH_M_SHARDS} shards", PATH_N_KERNELS)
     src = CSR(indptr_plain(row, n), col, vals, (n, n))
     inputs_o = path_o_inputs(dev, mesh, seed, path_o_sizes())
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    results_o, phases_o = path_o_run(sh, src, inputs_o, mesh)
+    results_o, stats_o = path_o_run(sh, src, inputs_o, mesh)
     launches_o = read_launches(f"O, one process of {PATH_M_SHARDS} shards", PATH_O_KERNELS)
     write_path_p_mtx(dev, group_dir)
     inputs_p = path_p_inputs(dev, seed, path_p_sizes(), group_dir)
     mesh_2d = make_mesh_2d((PATH_M_PROCESSES, PATH_M_SHARDS // PATH_M_PROCESSES), devices=[dev] * PATH_M_SHARDS)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    results_p, phases_p = path_p_run(sh, src, x, inputs_p, mesh, mesh_2d, None)
+    results_p = path_p_run(sh, src, x, inputs_p, mesh, mesh_2d, None)
     launches_p = read_launches(f"P, one process of {PATH_M_SHARDS} shards", PATH_P_KERNELS)
 
     err = check_rows("path M halo.spmv, one process, vs plain SpMV of the whole CSR", y, csr_spmv_plain(src, x),
@@ -4523,23 +3299,23 @@ def _path_m(dev, seed: int, n: int, suite: Optional[dict], group_dir: str) -> tu
     if suite is None:  # path L did not run: the one process's table, made here
         suite = bench_suite.run_distributed(device=dev.type, shards=PATH_M_SHARDS)
     del src, inputs_o, inputs_p
-    # the group's processes and the rows' share the card: give back what the
-    # earlier paths left in this process's allocator cache
+    # the group's processes share the card: give back what the earlier paths
+    # left in this process's allocator cache
     torch.cuda.empty_cache()
 
-    kids, wall = path_m_group(dev, n, seed, "gloo", group_dir)
+    kids = path_m_group(dev, n, seed, "gloo", group_dir)
     phase_path_m_checks("gloo", sh, y, order, stats, kids)
     for kid in kids:
         check(kid["backend"] == "gloo", f"path M: backend {kid['backend']}")
         print(f"phase 3 path M rank {kid['rank']} ({kid['mesh']}): launches {kid['launches']}")
         require_launches(f"M, rank {kid['rank']}", kid["launches"], ("indptr", "radix_rank", "csr_spmv"))
         launches = {k: launches[k] + kid["launches"][k] for k in launches}
-    phase_group_checks("N", "gloo", results_n, phases_n, kids)
+    phase_group_checks("N", "gloo", results_n, stats_n, kids)
     for kid in kids:
         print(f"phase 3 path N rank {kid['rank']}: launches {kid['path_n']['launches']}")
         require_launches(f"N, rank {kid['rank']}", kid["path_n"]["launches"], PATH_N_KERNELS)
         launches_n = {k: launches_n[k] + kid["path_n"]["launches"][k] for k in launches_n}
-    phase_group_checks("O", "gloo", results_o, phases_o, kids)
+    phase_group_checks("O", "gloo", results_o, stats_o, kids)
     for kid in kids:
         print(f"phase 3 path O rank {kid['rank']}: launches {kid['path_o']['launches']}")
         require_launches(f"O, rank {kid['rank']}", kid["path_o"]["launches"], PATH_O_KERNELS)
@@ -4550,48 +3326,15 @@ def _path_m(dev, seed: int, n: int, suite: Optional[dict], group_dir: str) -> tu
         require_launches(f"P, rank {kid['rank']}", kid["path_p"]["launches"], PATH_P_KERNELS)
         launches_p = {k: launches_p[k] + kid["path_p"]["launches"][k] for k in launches_p}
 
-    # phase 5: each phase for both runs, the exchange, the link figures
-    starts = ", ".join("rank %d reached its path after %.1f s" % (k["rank"], k["start_s"]) for k in kids)
-    print(f"phase 5 path M group of {PATH_M_PROCESSES} gloo processes on the card: {wall:.1f} s from start to exit, "
-          f"{starts}, peak {max(k['peak_gib'] for k in kids):.3f} GiB a process")
-    for name, one in phases.items():
-        line = [f"phase 5 path M {name}: one process {one['ms']:.3f} ms"]
-        for kid in kids:
-            p = kid["phases"][name]
-            line.append(f"rank {kid['rank']} {p['ms']:.3f} ms, {p['crossed_bytes']} bytes to the other process, "
-                        f"{p['staged_bytes']} staged, {p['exchanges']} exchanges")
-        print("; ".join(line))
-    ex = [kid["exchange"] for kid in kids]
-    across = "; ".join(f"rank {k['rank']} {e['ms']:.4f} ms, {e['crossed_bytes']} bytes sent, {e['staged_bytes']} "
-                       f"staged, a (D, 1) all_to_all {e['tiny_ms']:.4f} ms ({e['tiny_bytes']} bytes)"
-                       for k, e in zip(kids, ex))
-    print(f"phase 5 path M one halo._exchange (median of {PATH_M_EXCHANGE_REPS}): one process {exchange['ms']:.4f} ms "
-          f"(copies, no bytes cross); across processes {across}")
-    alpha = statistics.median(e["tiny_ms"] for e in ex) / 1e3
-    per_s = [e["crossed_bytes"] / max(e["ms"] / 1e3 - alpha, 1e-9) for e in ex]
-    link = {"gb_s": min(per_s) / 1e9, "alpha_s": alpha}
-    print(f"phase 5 path M link figures for the projection: {link['gb_s']:.4f} GB/s and {alpha * 1e6:.1f} us a step, "
-          "from this machine's gloo path between two processes on one card (not a link between cards)")
-    print_phases("N", phases_n, kids)
-    print_phases("O", phases_o, kids)
-    print_phases("P", phases_p, kids)
-
     if torch.cuda.device_count() >= PATH_M_PROCESSES:
-        kids_nccl, wall = path_m_group(dev, n, seed, "nccl", group_dir)
+        kids_nccl = path_m_group(dev, n, seed, "nccl", group_dir)
         phase_path_m_checks("nccl", sh, y, order, stats, kids_nccl)
-        phase_group_checks("N", "nccl", results_n, phases_n, kids_nccl)
-        phase_group_checks("O", "nccl", results_o, phases_o, kids_nccl)
+        phase_group_checks("N", "nccl", results_n, stats_n, kids_nccl)
+        phase_group_checks("O", "nccl", results_o, stats_o, kids_nccl)
         path_p_group_checks("nccl", results_p, kids_nccl, suite)
-        times = "; ".join(f"rank {k['rank']} {name} {k['phases'][name]['ms']:.3f} ms" for k in kids_nccl for name in phases)
-        print(f"phase 5 path M group of {PATH_M_PROCESSES} NCCL processes, a card each: {wall:.1f} s; {times}")
     else:
         print(f"phase 3 path M NCCL route: skipped, {torch.cuda.device_count()} card visible; it needs one card "
               f"a process ({PATH_M_PROCESSES}), and NCCL refuses two ranks on one card")
-    del sh, y, order, row, col, vals, x, kids, results_n, results_o, results_p
-    torch.cuda.empty_cache()
-    path_m_scaling(link, dev.type)
-    print(f"phase 5 path M wall (phases 3, 4 and 5, those of paths N, O and P included): "
-          f"{time.perf_counter() - t0:.1f} s")
     return launches, launches_n, launches_o, launches_p, err
 
 
@@ -4608,6 +3351,97 @@ def read_launches(path: str, required) -> dict:
 def require_launches(path: str, counts: dict, required) -> None:
     for name in required:
         check(counts[name] > 0, f"path {path} did not launch {name}")
+
+
+PROFILE_CALLS = 3  # calls of each profiled call under torch.profiler
+
+
+def phase_kernel_table(coo_a, x_a, src, ro, dia_b, x_b, csr_f) -> dict:
+    """Phase 5, PERF.md's kernel table, on the inputs the checks built: each
+    kernel's one call between two CUDA events (``cuda_ms``, the wrapper's
+    host time included), its device time per call under ``torch.profiler``,
+    its plain version, the one PyTorch call that computes the same function
+    where there is one (the package never makes it) and its bound. K2–K5 at
+    path A's shapes, their device times from a profile of path A's call;
+    K1 on path B's band, from path B's call (its tiled layout from its own);
+    K6 in Jaccard mode on path F's graph; K7's first round on path A's
+    graph. Returns each row's ``ms``, ``device_ms``, ``plain_ms``,
+    ``library_ms``, ``bound_ms`` and ``bound_by`` by its label (K1–K7)."""
+    import sparsebase_tpu_torch as sbt
+    from sparsebase_tpu_torch.ops.kernels import (
+        banded_spmv, common_neighbors, common_neighbors_plain, csr_spmv, csr_spmv_plain, dia_spmv_plain,
+        indptr_from_sorted_rows, indptr_plain, label_prop_round, label_prop_round_plain, radix_rank,
+        radix_rank_plain, relocate_csr, relocate_csr_plain,
+    )
+    from sparsebase_tpu_torch.experiment import TRACE_MARGIN_S
+    from sparsebase_tpu_torch.ops.partition.labelprop import _chunks
+
+    n, nnz, dev = src.nrows, src.nnz, x_a.device
+    degrees = src.degrees()
+    degree_bits = nnz.bit_length()  # what path A states of its keys: a degree is at most nnz
+    starts = torch.arange(n + 1, dtype=torch.int32, device=dev)  # the rows' starts, for searchsorted
+    lib_name, lib_spmv = library_spmv(src, x_a)
+    check_rows(f"path A {lib_name} vs plain", lib_spmv(), csr_spmv_plain(src, x_a), degrees,
+               csr_spmv_plain(abs_csr(src), x_a.abs()))
+    first, alpha, cap = _chunks(n, PARTITION_K, dev), 1 / PARTITION_ROUNDS, 1.1 * n / PARTITION_K
+    classes = {spec["bound"]: name for name, spec in kernel_table().items()}  # kernel -> K1..K7
+
+    def device_ms(fn):
+        fn()
+        # the profiler held open long enough that, in a process this old,
+        # it keeps a short window's kernels (experiment.TRACE_MARGIN_S)
+        trace, _ = profile_calls(fn, PROFILE_CALLS, torch.cuda.synchronize, TRACE_MARGIN_S)
+        return {c: trace.kernel_s(c) / trace.calls * 1e3 for c in classes.values()}
+
+    device = {label: device_ms(fn) for label, fn in (
+        ("path A", lambda: sbt.preprocess_pipeline(coo_a, x_a)),
+        ("path B", lambda: sbt.spmv(dia_b, x_b)),
+        ("K1 tiled", lambda: banded_spmv(dia_b, x_b, layout="tiled")),
+        ("K6", lambda: common_neighbors(csr_f, "jaccard")),
+        ("K7", lambda: label_prop_round(src, first, PARTITION_K, alpha, cap)))}
+    band = dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1], band_bytes=dia_b.data.element_size())
+    rows = (  # (label, kernel, call, plain version, (library call's name, call), profile, the bound's shapes)
+        ("K1", "banded_spmv", lambda: banded_spmv(dia_b, x_b),
+         lambda: dia_spmv_plain(dia_b.offsets, dia_b.data, x_b, dia_b.shape), None, "path B", band),
+        ("K1 tiled", "banded_spmv", lambda: banded_spmv(dia_b, x_b, layout="tiled"), None, None, "K1 tiled", band),
+        ("K2", "csr_spmv", lambda: csr_spmv(src, x_a), lambda: csr_spmv_plain(src, x_a), (lib_name, lib_spmv),
+         "path A", dict(n=n, ncols=n, nnz=nnz)),
+        ("K3", "indptr", lambda: indptr_from_sorted_rows(coo_a.row, n), lambda: indptr_plain(coo_a.row, n),
+         ("torch.searchsorted", lambda: torch.searchsorted(coo_a.row, starts)), "path A", dict(nnz=nnz, nrows=n)),
+        ("K4", "relocate_csr", lambda: relocate_csr(src, ro, ro), lambda: relocate_csr_plain(src, ro, ro), None,
+         "path A", dict(n=n, nnz=nnz, order_entries=n, value_bytes=4)),  # ro is both orders
+        ("K5", "radix_rank", lambda: radix_rank(degrees, degree_bits), lambda: radix_rank_plain(degrees),
+         ("torch.argsort(stable=True)", lambda: torch.argsort(degrees, stable=True)), "path A",
+         dict(n=n, key_bytes=degrees.element_size())),
+        ("K6", "common_neighbors", lambda: common_neighbors(csr_f, "jaccard"),
+         lambda: common_neighbors_plain(csr_f, "jaccard"), None, "K6", dict(n=csr_f.nrows, nnz=csr_f.nnz)),
+        ("K7", "label_prop", lambda: label_prop_round(src, first, PARTITION_K, alpha, cap),
+         lambda: label_prop_round_plain(src, first, PARTITION_K, alpha, cap), None, "K7", dict(n=n, nnz=nnz)),
+    )
+    table = {}
+    for label, kernel, call, plain, library, profile, shapes in rows:
+        ms = cuda_ms(call)
+        device_ms = device[profile][classes[kernel]] or None  # None: the profiler kept none of its kernels
+        plain_ms = None if plain is None else cuda_ms(plain, reps=3)
+        library_ms = None if library is None else cuda_ms(library[1])
+        if kernel == "common_neighbors":  # integer compares: the bytes bound it
+            bound_ms, bound_by = common_neighbors_bytes(**shapes) / HBM_BYTES_PER_S * 1e3, "bytes"
+        else:
+            bound_s, bound_by = bound(kernel, **shapes)
+            bound_ms = bound_s * 1e3
+        print(f"phase 5 {label} {kernel}: one call {ms:.4f} ms, device "
+              + ("not measured" if device_ms is None else f"{device_ms:.4f} ms")
+              + ("" if plain_ms is None else f", plain {plain_ms:.4f} ms")
+              + ("" if library is None else f", {library[0]} {library_ms:.4f} ms")
+              + f"; bound {bound_ms:.4f} ms ({bound_by}): "
+              + ("" if device_ms is None else f"{bound_ms / device_ms:.1%} of the device time, ")
+              + f"{bound_ms / ms:.1%} of the call")
+        table[label] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+    streamed = streamed_bytes(csr_f, "jaccard")
+    print(f"  K6, a diagnostic beside the bound: its stream direction reads {streamed} bytes in Jaccard mode (N(v) "
+          f"and the indptr pair of every entry), {streamed / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
+    return table
 
 
 def main() -> None:
@@ -4639,8 +3473,8 @@ def main() -> None:
     import sparsebase_tpu_torch as sbt
     from sparsebase_tpu_torch import CSR, DIA, _build
     from sparsebase_tpu_torch.ops.kernels import (
-        banded_spmv, csr_spmv, csr_spmv_plain, dia_spmv_plain, indptr_from_sorted_rows, indptr_plain,
-        radix_argsort, radix_rank, radix_rank_plain, relocate_csr, relocate_csr_plain,
+        csr_spmv, csr_spmv_plain, dia_spmv_plain, indptr_from_sorted_rows, indptr_plain, radix_argsort, radix_rank,
+        radix_rank_plain, relocate_csr_plain,
     )
     from sparsebase_tpu_torch.ops.permute import permute_2d
     from sparsebase_tpu_torch.ops.reorder import DegreeReorder
@@ -4648,8 +3482,6 @@ def main() -> None:
     phase_build()
     g = torch.Generator(device=dev)
     g.manual_seed(args.seed)
-    phase_kernels_vs_plain(g, dev)
-    phase_exact_kernels_vs_plain(g, dev)
     phase_k7_vs_plain(g, dev, args.seed)
 
     # -- the slice's paths, each once -------------------------------------------
@@ -4664,13 +3496,6 @@ def main() -> None:
     x_c[co_c] = x_a  # x in the permuted column space
     torch.cuda.synchronize()
 
-    def path_c():
-        csr = coo_a.convert(CSR)
-        ro = DegreeReorder(ascending=False).get_reorder(csr)
-        both = permute_2d(csr, ro, co_c)
-        rows = permute_2d(csr, ro, None)
-        return csr, ro, both, rows, sbt.spmv(both, x_c)
-
     a_needs = ("indptr", "radix_rank", "relocate_csr", "csr_spmv")
     _build.reset_launch_counts()
     permuted, y_a = sbt.preprocess_pipeline(coo_a, x_a)
@@ -4681,7 +3506,10 @@ def main() -> None:
     y_b = sbt.spmv(dia_b, x_b)
     launches_b = read_launches("B", ("indptr", "banded_spmv"))
     _build.reset_launch_counts()
-    csr_c, ro_c, both_c, rows_c, y_c = path_c()
+    csr_c = coo_a.convert(CSR)
+    ro_c = DegreeReorder(ascending=False).get_reorder(csr_c)
+    both_c, rows_c = permute_2d(csr_c, ro_c, co_c), permute_2d(csr_c, ro_c, None)
+    y_c = sbt.spmv(both_c, x_c)
     launches_c = read_launches("C", a_needs)
 
     # -- checks ---------------------------------------------------------------------
@@ -4697,6 +3525,11 @@ def main() -> None:
     check(bool((permuted.degrees()[1:] >= permuted.degrees()[:-1]).all()), "rows are not in ascending degree order")
     ro = radix_rank_plain(src.degrees())
     check_equal("path A K5 degree rank vs plain", DegreeReorder().get_reorder(src), ro)
+    degree_bits = nnz.bit_length()  # what path A states of its keys: a degree is at most nnz
+    k5_syncs = count_host_syncs(lambda: radix_rank(src.degrees(), degree_bits))
+    k5_argsort_syncs = count_host_syncs(lambda: radix_argsort(src.degrees(), return_keys=True))
+    check(k5_syncs == 0 and k5_argsort_syncs == 0,
+          f"K5 synced the host: radix_rank {k5_syncs} times, radix_argsort {k5_argsort_syncs} times")
     check(bool((torch.bincount(ro.long(), minlength=n) == 1).all()), "ro is not a permutation")
     plain_perm = relocate_csr_plain(src, ro, ro)
     check_csr_equal("path A permuted CSR vs plain _permute_csr", permuted, plain_perm)
@@ -4740,90 +3573,19 @@ def main() -> None:
     err_k3 = max_diff(k3_out, src_indptr)
     err_k4 = max(max_diff(permuted.indices, plain_perm.indices), max_diff(permuted.vals, plain_perm.vals))
     err_k5 = max_diff(ro_c, ro_c_plain)
-    del k3_out, plain_perm, csr_c, both_c, rows_c, y_c, y_ref, absdot_c, y_b_csr, absdot_b, y_k2
+    del k3_out, plain_perm, csr_c, both_c, rows_c, y_c, y_ref, absdot_c, y_b_csr, absdot_b, y_k2, y_src, absdot_src
     torch.cuda.synchronize()
 
-    # -- times ----------------------------------------------------------------------
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    ms_a = host_ms(lambda: sbt.preprocess_pipeline(coo_a, x_a))
-    peak = torch.cuda.max_memory_allocated()
-    print(f"phase 5 path A preprocess_pipeline: median {ms_a:.3f} ms, {nnz / (ms_a / 1e3):.4g} nnz/s, "
-          f"peak device memory {peak / 2**30:.3f} GiB (all live tensors), "
-          f"{(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before")
-    ms_c = host_ms(path_c)
-    print(f"phase 5 path C convert/reorder/permute x2/spmv: median {ms_c:.3f} ms, {nnz / (ms_c / 1e3):.4g} nnz/s")
-    degrees = src.degrees()
-    # the library calls' inputs, made outside the timed region
-    bounds = torch.arange(n + 1, dtype=torch.int32, device=dev)
-    lib_name, lib_spmv = library_spmv(src, x_a)
-    check_rows(f"path A {lib_name} vs plain", lib_spmv(), y_src, src.degrees(), absdot_src)
-    del y_src, absdot_src
-    k3_ms = cuda_ms(lambda: indptr_from_sorted_rows(coo_a.row, n))
-    k3_plain_ms = cuda_ms(lambda: indptr_plain(coo_a.row, n))
-    k3_lib_ms = cuda_ms(lambda: torch.searchsorted(coo_a.row, bounds))
-    degree_bits = nnz.bit_length()  # what path A states of its keys: a degree is at most nnz
-    k5_ms = cuda_ms(lambda: radix_rank(degrees, degree_bits))
-    k5_back_ms = cuda_ms(lambda: radix_rank(degrees, degree_bits), batch=10)
-    k5_plain_ms = cuda_ms(lambda: radix_rank_plain(degrees))
-    k5_argsort_ms = cuda_ms(lambda: radix_argsort(degrees, degree_bits))
-    k5_unstated_ms = cuda_ms(lambda: radix_rank(degrees))
-    k5_lib_ms = cuda_ms(lambda: torch.argsort(degrees, stable=True))
-    k5_lib_back_ms = cuda_ms(lambda: torch.argsort(degrees, stable=True), batch=10)
-    k5_syncs = count_host_syncs(lambda: radix_rank(degrees, degree_bits))
-    k5_argsort_syncs = count_host_syncs(lambda: radix_argsort(degrees, return_keys=True))
-    check(k5_syncs == 0 and k5_argsort_syncs == 0,
-          f"K5 synced the host: radix_rank {k5_syncs} times, radix_argsort {k5_argsort_syncs} times")
-    k4_ms = cuda_ms(lambda: relocate_csr(src, ro, ro))
-    k4_plain_ms = cuda_ms(lambda: relocate_csr_plain(src, ro, ro))
-    k4_forms = [("path C (ro, co)", lambda: relocate_csr(src, ro_c, co_c), 2 * n),  # (label, call, order entries)
-                ("path C (ro, None)", lambda: relocate_csr(src, ro_c, None), n)]
-    print(f"phase 5 path A K3 indptr: {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms, "
-          f"torch.searchsorted {k3_lib_ms:.4f} ms")
-    print(f"phase 5 path A K5 radix_rank (degrees, n={n}, {degree_bits} bits stated): one call {k5_ms:.4f} ms, "
-          f"back to back {k5_back_ms:.4f} ms, plain {k5_plain_ms:.4f} ms; radix_argsort {k5_argsort_ms:.4f} ms; "
-          f"nothing stated {k5_unstated_ms:.4f} ms; torch.argsort(stable=True) {k5_lib_ms:.4f} ms, back to back "
-          f"{k5_lib_back_ms:.4f} ms; host syncs in one call: radix_rank {k5_syncs}, radix_argsort {k5_argsort_syncs}")
-    print(f"phase 5 path A K4 relocate_csr (ro, ro): {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms")
-    for label, fn, order_entries in k4_forms:
-        k4_bound, _ = bound("relocate_csr", n=n, nnz=nnz, order_entries=order_entries, value_bytes=4)
-        one, back = cuda_ms(fn), cuda_ms(fn, batch=10)
-        print(f"phase 5 K4 relocate_csr {label}: one call {one:.4f} ms, back to back {back:.4f} ms; bound "
-              f"{k4_bound:.4f} ms (bytes), {k4_bound / one:.1%} / {k4_bound / back:.1%} of it")
-    k2_ms = cuda_ms(lambda: csr_spmv(src, x_a))
-    k2_plain_ms = cuda_ms(lambda: csr_spmv_plain(src, x_a))
-    k2_lib_ms = cuda_ms(lib_spmv)
-    print(f"phase 5 path A K2 csr_spmv: {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms, {lib_name} {k2_lib_ms:.4f} ms")
-    print(f"phase 5 path A back to back, 10 calls per event pair: K2 {cuda_ms(lambda: csr_spmv(src, x_a), batch=10):.4f} ms, "
-          f"{lib_name} {cuda_ms(lib_spmv, batch=10):.4f} ms; K3 {cuda_ms(lambda: indptr_from_sorted_rows(coo_a.row, n), batch=10):.4f} "
-          f"ms, torch.searchsorted {cuda_ms(lambda: torch.searchsorted(coo_a.row, bounds), batch=10):.4f} ms")
     phase_pair_sort(g, coo_a)
     phase_long_rows(g, dev)
-    probe = [(k, coo_a.col.remainder(k)) for k in (4_096, 262_144)] + [(n, coo_a.col)]
-    phase_profile(
-        lambda: sbt.preprocess_pipeline(coo_a, x_a), ms_a,
-        [("K5 radix_rank on path A's degrees", lambda: radix_rank(degrees, degree_bits)),
-         ("K2 csr_spmv on path A's source CSR", lambda: csr_spmv(src, x_a)), (lib_name, lib_spmv),
-         ("K1 banded_spmv on path B's band, strided", lambda: banded_spmv(dia_b, x_b)),
-         ("K1 banded_spmv on path B's band, tiled", lambda: banded_spmv(dia_b, x_b, layout="tiled"))],
-        [(k, lambda k=k, ids=ids: torch.index_select(x_a[:k], 0, ids)) for k, ids in probe],
-    )
-    del probe
-    del lib_spmv, bounds
-    k1_ms = cuda_ms(lambda: banded_spmv(dia_b, x_b))
-    k1_tiled_ms = cuda_ms(lambda: banded_spmv(dia_b, x_b, layout="tiled"))
-    k1_plain_ms = cuda_ms(lambda: dia_spmv_plain(dia_b.offsets, dia_b.data, x_b, dia_b.shape))
-    b_csr_ms = cuda_ms(lambda: csr_spmv(csr_b, x_b))
-    print(f"phase 5 path B spmv: DIA (K1) {k1_ms:.4f} ms, tiled layout {k1_tiled_ms:.4f} ms (its tile_band copy "
-          f"included), CSR (K2) {b_csr_ms:.4f} ms, K1 plain {k1_plain_ms:.4f} ms")
     launches_d, err_k1_d = path_d(g, dev, args.rcm_n, args.seed)
     launches_e = path_e(g, dev, int(args.ingest_nnz))
-    launches_f, err_k6, k6_times, k6_shape = path_f(g, dev, args.feature_n)
+    launches_f, err_k6, csr_f = path_f(g, dev, args.feature_n)
     launches_g, host_graph = path_g(g, dev, coo_a)
     n_p = n - n % PARTITION_K  # equal blocks
     coo_p, planted = planted_coo(g, dev, n_p, nnz)
     x_p = torch.randn((n_p,), generator=g, device=dev)
-    launches_h, err_k7, k7_times, k7_shape = path_h(coo_a, x_a, host_graph, (coo_p, x_p, planted))
+    launches_h, err_k7 = path_h(coo_a, x_a, host_graph, (coo_p, x_p, planted))
     del coo_p, x_p, planted
     launches_i, err_k2_i = path_i(g, dev, int(args.ingest_nnz))
     launches_j, err_k2_j, path_j_state = path_j(g, dev, coo_a, src, x_a, host_graph)
@@ -4839,43 +3601,22 @@ def main() -> None:
                "M": launches_m, "N": launches_n, "O": launches_o, "P": launches_p}
     launches = {k: sum(counts[k] for counts in by_path.values()) for k in launches_a}
 
-    shapes = {
-        "banded_spmv": dict(ndiag=dia_b.num_diagonals, n=dia_b.shape[0], m=dia_b.shape[1],
-                            band_bytes=dia_b.data.element_size()),
-        "csr_spmv": dict(n=n, ncols=n, nnz=nnz),
-        "indptr": dict(nnz=nnz, nrows=n),
-        "relocate_csr": dict(n=n, nnz=nnz, order_entries=n, value_bytes=4),  # ro is both orders
-        "radix_rank": dict(n=n, key_bytes=degrees.element_size()),
-        "common_neighbors": k6_shape,  # path F's graph, Jaccard weights
-        "label_prop": k7_shape,  # path H: path A's graph, one round
-    }
-
-    def entry(name, source, replaces, err, ms, plain_ms, library_ms):
-        bound_ms, bound_by = bound(name, **shapes[name])
-        print(f"phase 5 {name}: {ms:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}), "
-              f"{bound_ms / ms:.1%} of it")
-        return {"name": name, "route": "cuda", "source": f"sparsebase_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches[name],
-                "launches_by_path": {p: counts[name] for p, counts in by_path.items()}, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-
-    k1_bound, k1_by = bound("banded_spmv", **shapes["banded_spmv"])
-    print(f"phase 5 banded_spmv layout=\"tiled\": {k1_tiled_ms:.4f} ms against a bound of {k1_bound:.4f} ms ({k1_by}), "
-          f"{k1_bound / k1_tiled_ms:.1%} of it")
+    table = phase_kernel_table(coo_a, x_a, src, ro, dia_b, x_b, csr_f)
+    kernels = (  # (name, table row, source, the TPU kernel or XLA code it replaces, largest difference)
+        ("banded_spmv", "K1", "banded_spmv.cu", "sparsebase_tpu/ops/kernels/banded_spmv.py:67", max(err_k1, err_k1_d)),
+        ("csr_spmv", "K2", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189",
+         max(err_k2, err_k2_i, err_k2_j, err_k2_m)),
+        ("indptr", "K3", "indptr.cu", "tools/pallas_attempts.py:218", err_k3),
+        ("relocate_csr", "K4", "relocate.cu", "tools/pallas_attempts.py:83", err_k4),
+        ("radix_rank", "K5", "radix_sort.cu", "tools/pallas_attempts.py:109", err_k5),
+        ("common_neighbors", "K6", "common_neighbors.cu", "sparsebase_tpu/ops/feature/sparse_common.py:53", err_k6),
+        ("label_prop", "K7", "label_prop.cu", "sparsebase_tpu/ops/partition/labelprop.py:160", err_k7),
+    )
     record = {"kernels": [
-        entry("banded_spmv", "banded_spmv.cu", "sparsebase_tpu/ops/kernels/banded_spmv.py:67",
-              max(err_k1, err_k1_d), k1_ms, k1_plain_ms, None),
-        entry("csr_spmv", "csr_spmv.cu", "sparsebase_tpu/models/pipelines.py:189", max(err_k2, err_k2_i, err_k2_j, err_k2_m), k2_ms,
-              k2_plain_ms, k2_lib_ms),
-        entry("indptr", "indptr.cu", "tools/pallas_attempts.py:218", err_k3, k3_ms, k3_plain_ms, k3_lib_ms),
-        entry("relocate_csr", "relocate.cu", "tools/pallas_attempts.py:83", err_k4, k4_ms, k4_plain_ms, None),
-        entry("radix_rank", "radix_sort.cu", "tools/pallas_attempts.py:109", err_k5, k5_ms, k5_plain_ms,
-              k5_lib_ms),
-        entry("common_neighbors", "common_neighbors.cu", "sparsebase_tpu/ops/feature/sparse_common.py:53", err_k6,
-              *k6_times["jaccard"], None),
-        entry("label_prop", "label_prop.cu", "sparsebase_tpu/ops/partition/labelprop.py:160", err_k7, *k7_times,
-              None),
-    ]}
+        {"name": name, "route": "cuda", "source": f"sparsebase_tpu_torch/csrc/{source}", "replaces": replaces,
+         "launches": launches[name], "launches_by_path": {p: counts[name] for p, counts in by_path.items()},
+         "max_abs_err": err, **table[row]}
+        for name, row, source, replaces, err in kernels]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

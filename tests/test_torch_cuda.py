@@ -66,7 +66,8 @@ def assert_rows_within(y, y_ref, deg, absdot):
 
 @pytest.mark.parametrize("layout", ["strided", "tiled"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("shape", [(100_003, 100_003), (70_001, 90_000)], ids=["square", "rectangular"])
+@pytest.mark.parametrize("shape", [(100_003, 100_003), (70_001, 90_000), (90_000, 70_001)],
+                         ids=["square", "rectangular", "tall"])
 def test_banded_kernel_matches_plain(dev, gen, shape, dtype, layout):
     n, m = shape
     offsets = torch.tensor([-150, -7, 0, 2, 133], dtype=torch.int32, device=dev)
@@ -105,8 +106,15 @@ def off_alignment(t):
     return buf[1:]
 
 
+def every_seventh_row_empty(g, d):
+    deg = torch.randint(0, 40, (20_000,), generator=g, device=d)
+    deg[::7] = 0
+    return deg
+
+
 # name -> row degrees (K2 splits the entries into tiles of TILE)
 CSR_EDGE_CASES = {
+    "every-seventh-row-empty": every_seventh_row_empty,
     # rows of exactly one tile, one tile and one entry, over three tiles;
     # rows 2, 3, 4 and 8 start on tile edges, row 2 empty
     "tile-edges": lambda g, d: torch.cat([
@@ -203,6 +211,8 @@ INDPTR_CASES = {
     "heads-on-chunk-seams": lambda g, d: (torch.arange(1_000_000, dtype=torch.int32, device=d) // 512, 1_960),
     "heads-on-seams-off-alignment": lambda g, d: (
         off_alignment(torch.arange(1_000_000, dtype=torch.int32, device=d) // 512), 1_960),
+    "heads-on-seams-empty-rows-between": lambda g, d: (torch.arange(1_000_000, dtype=torch.int32, device=d) // 512 * 3,
+                                                       5_870),
 }
 
 
@@ -406,13 +416,15 @@ RELOCATE_CASES = {
     "n-not-multiple-of-32": (lambda g, d: path_a_degrees(g, d, 100_003), True, True, False, torch.float32, False),
     "ids-off-alignment": (lambda g, d: path_a_degrees(g, d, 50_000), True, True, False, torch.float32, True),
     "ids-off-alignment-pattern": (lambda g, d: degrees_mix(g, d, 50_000), True, True, True, torch.float32, True),
+    "column-table-of-2^24": (lambda g, d: path_a_degrees(g, d, 200_000), True, True, False, torch.float32, False),
 }
+RELOCATE_NCOLS = {"column-table-of-2^24": 1 << 24}  # columns of the cases that are not 30,000 wide
 
 
 @pytest.mark.parametrize("case", sorted(RELOCATE_CASES))
 def test_relocate_kernel_matches_plain(dev, gen, case):
     degrees, rows, cols, pattern, dtype, misaligned = RELOCATE_CASES[case]
-    ncols = 30_000
+    ncols = RELOCATE_NCOLS.get(case, 30_000)
     csr = device_csr(gen, dev, degrees(gen, dev), ncols, pattern, dtype, misaligned)
     n = csr.nrows
     ro = torch.randperm(n, generator=gen, device=dev).to(torch.int32) if rows else None

@@ -376,7 +376,7 @@ def test_wrappers_never_fall_back_off_cpu():
 
 def _chip_smoke():
     """The repository's ``chip_smoke.py`` as a module (it imports only the
-    standard library and torch at the top)."""
+    standard library, torch and ``benchmark/core`` at the top)."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     module = importlib.util.module_from_spec(spec)
@@ -422,12 +422,19 @@ BOUND_CASES = {
 
 @pytest.mark.parametrize("case", sorted(BOUND_CASES))
 def test_chip_smoke_bound_bytes(case):
+    """The kernel table's bounds: ``benchmark/core/bounds.py`` for K1–K5
+    and K7, ``chip_smoke.common_neighbors_bytes`` for K6, whose integer
+    compares leave the bytes to bound it."""
+    from benchmark.core import bounds
+
     kernel, shapes, want = BOUND_CASES[case]
-    smoke = _chip_smoke()
-    assert smoke.bound_bytes(kernel, **shapes) == want
-    bound_ms, bound_by = smoke.bound(kernel, **shapes)
+    if kernel == "common_neighbors":
+        assert _chip_smoke().common_neighbors_bytes(**shapes) == want
+        return
+    assert bounds.bound_bytes(kernel, **shapes) == want
+    bound_s, bound_by = bounds.bound(kernel, **shapes)
     assert bound_by == "bytes"  # at most 2 flops per 8 bytes: far under the f32 rate
-    assert bound_ms == pytest.approx(want / 3.35e12 * 1e3)
+    assert bound_s == pytest.approx(want / 3.35e12)
 
 
 @pytest.mark.parametrize("n,k", [(4_000, 8), (3_000, 4)])
@@ -484,11 +491,10 @@ def test_chip_smoke_k7_tier_cases_leave_the_path_draws(monkeypatch):
     assert not torch.equal(cases[0][2], other[0][2])
 
 
-def test_chip_smoke_path_k_on_the_cpu(monkeypatch, capsys):
+def test_chip_smoke_path_k_on_the_cpu(monkeypatch, capsys, one_thread):
     """``chip_smoke.path_k`` rehearsed on the CPU at a small size, with the
-    card's clocks, memory counters and launch counts stubbed:
-    every check of phase 4 holds, at d = 4 and d = 1 alike, and phase 5
-    times each function."""
+    card's clocks, memory counters and launch counts stubbed: every check of
+    phase 4 holds, at d = 4 and d = 1 alike."""
     smoke = _chip_smoke()
     from sparsebase_tpu_torch.parallel import make_mesh
 
@@ -507,7 +513,8 @@ def test_chip_smoke_path_k_on_the_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "equal to the plain contraction" in out and "every vertex reached" in out
     assert out.count("equal to native.slashburn(greedy=False)") == 2 and out.count("the hubs first") == 2
-    assert out.count("phase 5 path K d=") == 20
+    # ten results and the coarse CSR's three fields, each the same at d = 4 and d = 1
+    assert out.count(": d=4 vs d=1: n=") == 13 and out.count("equal=False") == 0
 
 
 # rows [1, 1, 2], [0, 1, 3], [0], [1, 2] (degrees 3, 3, 1, 2): 4 deg v and a
@@ -1139,8 +1146,7 @@ def test_chip_smoke_path_l_on_the_cpu(monkeypatch, capsys, one_thread):
     """``chip_smoke.path_l`` rehearsed on the CPU at a small size (8 cliques
     K_16, a uniform graph of 128 vertices, a power-law graph of 2,000; ``MAX_DENSE_ELEMS`` cut so that the cliques' tile at d = 4 sits on
     it), with the card's clocks, memory counters and launch counts stubbed
-    and the suite's table run on the CPU: every check of phase 4 holds and
-    phase 5 times each ring call."""
+    and the suite's table run on the CPU: every check of phase 4 holds."""
     smoke = _chip_smoke()
     from sparsebase_tpu_torch import bench_suite
     from sparsebase_tpu_torch.parallel import ring
@@ -1150,7 +1156,6 @@ def test_chip_smoke_path_l_on_the_cpu(monkeypatch, capsys, one_thread):
     for name in ("memory_allocated", "max_memory_allocated"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
     monkeypatch.setattr(smoke, "read_launches", lambda path, required: {})
-    monkeypatch.setattr(smoke, "cuda_ms", lambda fn, batch=1, reps=5: smoke.host_ms(fn, reps))
     monkeypatch.setattr(smoke, "PATH_L_CLIQUES", (8, 16))
     monkeypatch.setattr(smoke, "PATH_L_N", 128)
     monkeypatch.setattr(smoke, "POWER_LAW_CARD", (2_000, 16_000))
@@ -1164,27 +1169,23 @@ def test_chip_smoke_path_l_on_the_cpu(monkeypatch, capsys, one_thread):
     out = capsys.readouterr().out
     assert "4480 triangles, every weight 14/16" in out and "d=1 raised: 'ring.triangle_count" in out
     assert out.count("equal to K6, the weights equal to K6's bit for bit") == 1
-    assert out.count("phase 5 path L ") == 16 and out.count(", dense: ") == 5
+    # jaccard_flat of (a), the three weights of (b) and jaccard_flat of (c) at d = 4 and d = 1, each K6's
+    assert out.count("vs K6 JaccardWeights: n=") == 6 and out.count("equal=False") == 0
 
 
 def test_chip_smoke_path_m_on_the_cpu(monkeypatch, capsys, one_thread):
     """``chip_smoke.path_m`` rehearsed on the CPU at a small size (the tool's
     graph at 4,096 vertices; two gloo processes of the script on the CPU,
     under its time limit; path O's ladders on 2,048 vertices down to 1,024,
-    SlashBurn on a power-law graph of 2,000; path P's cliques 4 K_16; weak-
-    scaling rows at d = 1 and 2 of 1,024 and 256 vertices a shard), with
+    SlashBurn on a power-law graph of 2,000; path P's cliques 4 K_16), with
     the card's clocks and launch counts stubbed: every field of the two
     processes equals the single-process mesh's, so do the results and stats
-    of paths N, O and P and the processes' suite tables, and phase 5 prints
-    each phase of the four paths, the exchange, the link figures and the
-    rows."""
+    of paths N, O and P and the processes' suite tables, and every check of
+    the four paths holds on the one process."""
     smoke = _chip_smoke()
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(smoke, "read_launches", lambda path, required: {})
     monkeypatch.setattr(smoke, "require_launches", lambda path, counts, required: None)  # nothing launches here
-    monkeypatch.setattr(smoke, "SCALING_RANDOM_BASE_N", 1 << 10)
-    monkeypatch.setattr(smoke, "SCALING_STENCIL_BASE_N", 1 << 8)
-    monkeypatch.setattr(smoke, "SCALING_COUNTS", [1, 2])
     monkeypatch.setattr(smoke, "PATH_O_N", 1 << 11)
     monkeypatch.setattr(smoke, "PATH_O_COARSEN_UNTIL", 1 << 10)
     monkeypatch.setattr(smoke, "POWER_LAW_HOST", (2_000, 16_000))
@@ -1195,18 +1196,16 @@ def test_chip_smoke_path_m_on_the_cpu(monkeypatch, capsys, one_thread):
     out = capsys.readouterr().out
     assert "phase 4 path M gloo: 2 processes x 2 shards equal to the single-process mesh of 4 shards bit for bit" in out
     assert "path M dist.rcm_reorder vs the plain (level, degree, id) rank: n=4096 equal=True" in out
-    for name in ("from_coo_sharded", "with_halo", "halo.spmv", "dist.rcm_reorder"):
-        assert f"phase 5 path M {name}: one process " in out and "bytes to the other process" in out
-    assert "phase 3 path M NCCL route: skipped" in out and "phase 5 path M link figures for the projection" in out
+    assert "path M halo.spmv, one process, vs plain SpMV of the whole CSR: rows=4096" in out
+    assert "phase 3 path M NCCL route: skipped" in out and out.count("phase 3 path M rank ") == 2
     assert "phase 4 path N gloo: 2 processes equal to the single-process mesh of 4 shards bit for bit" in out
     assert "path N halo.bfs_levels vs dist.bfs_levels: n=4096 equal=True" in out
-    assert out.count("phase 5 path N ") == 14 and out.count("bytes to the other process") == 2 * (4 + 13 + 9 + 17)
+    assert out.count("  path N ") == 9  # dist.spmv's rows, four equal results, three refinements, the features
     assert "phase 4 path O gloo: 2 processes equal to the single-process mesh of 4 shards bit for bit" in out
-    assert "path O coarsen values vs a plain contraction by the map: n=" in out and out.count("phase 5 path O ") == 10
+    assert "path O coarsen values vs a plain contraction by the map: n=" in out and out.count("  path O ") == 14
     assert "path O slashburn_reorder (hub_order=True) vs native.slashburn(greedy=False): n=2000 equal=True" in out
     assert "phase 4 path P (a) the cliques (n=64, 960 entries): 2240 triangles" in out
     assert "phase 4 path P gloo: 2 processes equal to the single-process mesh of 4 shards bit for bit" in out
     assert "path P (c) sharded2d.spmv y,x (K2 per tile) vs plain SpMV of the whole CSR: rows=4096" in out
-    assert out.count("phase 5 path P ") == 18 and "phase 5 path P (e) run_distributed: one process (not run)" in out
-    assert out.count("phase 5 path M weak scaling random base_n=1024 d=") == 2
-    assert out.count("phase 5 path M weak scaling stencil base_n=256 d=") == 2
+    assert out.count("  path P ") == 9  # (a), (b), both orientations' y and degrees, two stacked fields, (e)
+    assert "run_distributed equal but for its times to one process's" in out

@@ -21,6 +21,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
+from benchmark.core.trace import profile_calls  # noqa: E402
 
 
 def nvcc(src: str) -> str:
@@ -78,8 +79,12 @@ def short(kernel: str) -> str:
 def device_summary(fn, runs: int) -> str:
     """The device's busy time and operations per call of ``fn`` under
     ``torch.profiler``, and each kernel's device time per call."""
-    per_kernel, spans, _ = cs.device_profile(fn, runs=runs)
-    busy = cs.device_busy(spans)[0] / 1e3 / runs if spans else float("nan")
+    fn()
+    trace, _ = profile_calls(fn, runs, torch.cuda.synchronize, 0.0)
+    per_kernel = {}
+    for start, end, name in trace.kernels:
+        per_kernel[name] = per_kernel.get(name, 0.0) + (end - start) / 1e3 / runs
+    busy = trace.busy_s() * 1e3 / runs if trace.kernels else float("nan")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
-    return (f"device busy {busy:.4f} ms per call; {len(spans) / runs:g} device operations per call: "
+    return (f"device busy {busy:.4f} ms per call; {len(trace.kernels) / runs:g} device operations per call: "
             + "; ".join(f"{ms * 1e3:.1f} us {short(k)}" for k, ms in top))

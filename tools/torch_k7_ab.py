@@ -96,6 +96,7 @@ def cut_rows(csr, cut: int):
 
 def main() -> None:
     import chip_smoke as cs
+    from benchmark.core.bounds import bound
     from sparsebase_tpu_torch import CSR
     from sparsebase_tpu_torch.ops.kernels import label_prop_round, label_prop_round_plain
     from sparsebase_tpu_torch.ops.kernels.indptr import indptr_from_sorted_rows
@@ -160,7 +161,8 @@ def main() -> None:
         torch_ab.in_turns(kernels, lambda fn: fn(csr, labels, kk, alpha, cap), args.rounds)
         if not large:
             continue
-        bound_ms, by = cs.bound("label_prop", n=csr.nrows, nnz=csr.nnz)
+        bound_s, by = bound("label_prop", n=csr.nrows, nnz=csr.nnz)
+        bound_ms = bound_s * 1e3
         probe_x = torch.randn((csr.nrows,), generator=g, device=dev)
         probe = cs.cuda_ms(lambda: torch.index_select(probe_x, 0, csr.indices))
         print(f"  bound {bound_ms:.4f} ms ({by}); gather probe (index_select of the ids from an n-entry float32 "

@@ -1,15 +1,14 @@
 """Paths J, K, L and M of ``chip_smoke.py`` alone, at their full size, on one
 card: the kernels' build, path A's COO and source CSR (``--nnz`` entries,
 ``--seed``), path G's 32,768-vertex power-law graph (the halo check's), then
-``chip_smoke.path_j`` (its phases 3, 4 and 5 and its profiles; the
-components check's 8-block graph drawn last) and ``chip_smoke.path_k`` on
+``chip_smoke.path_j`` (its phases 3 and 4; the components check's 8-block
+graph drawn last) and ``chip_smoke.path_k`` on
 path J's meshes (its graphs drawn after path J's; path B's band of
 ``--band-nnz`` entries), then ``chip_smoke.path_l`` (its own meshes and
 graphs), then ``chip_smoke.path_m`` (its own graph from ``--seed``, its two
 processes, path N's twelve functions, path O's multilevel calls, SlashBurn
 and containers, and path P's rings, ``sharded2d``, containers, suite and
-experiment in one process and in both, and the weak-scaling rows; path P's
-processes hold their ``run_distributed`` tables to path L's where ``l`` runs
+experiment in one process and in both; path P's processes hold their ``run_distributed`` tables to path L's where ``l`` runs
 too, else to one made in the parent). ``--paths`` picks some of ``j``,
 ``k``, ``l`` and ``m``; ``--paths l`` or ``m`` makes none of path A's
 graphs. The draws differ from the whole script's, which makes other graphs
